@@ -1,0 +1,123 @@
+"""Asynchronous federated optimization (paper Algorithm 1).
+
+Port of ``repro/core/fedasync.py``, the per-iteration loop kept as the
+port's own oracle.
+
+Server: on receiving (w_new, τ) from any client at global epoch t,
+    β_t = β · s(t - τ),   s(x) = (1 + x)^{-a}        (paper §V-C)
+    w_t = (1 - β_t) · w_{t-1} + β_t · w_new
+
+Client k: from the received global (w_t, t), runs H ∈ [H_min, H_max] local
+SGD iterations on g_{w_t}(w; d) = l(w; d) + (θ/2)||w - w_t||².
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import batch_to, params_device
+from repro_torch.models import registry
+from repro_torch.optim import (apply_mask, proximal_grad, sgd,
+                               trainable_mask, value_and_grad)
+from repro_torch.types import FedConfig, ModelConfig
+
+
+@dataclass
+class ServerState:
+    params: Any
+    t: int = 0                 # global epoch counter
+    total_updates: int = 0
+
+
+@torch.no_grad()
+def _mix(params: dict, w_new: dict, beta_t: float) -> dict:
+    """One receive: ((1-β)·w + β·w_new) accumulated in f32, cast back.
+    β and 1-β are rounded to f32 first, as the reference computes them."""
+    b = np.float32(beta_t)
+    one_minus = float(np.float32(1.0) - b)
+    b = float(b)
+    return {k: (one_minus * a.float() + b * w_new[k].float()).to(a.dtype)
+            for k, a in params.items()}
+
+
+def group_mixing_weights(fed: FedConfig, t: int, taus):
+    """(staleness, β_t) for each of a group of receives applied in order:
+    the i-th lands at global epoch t + i, so its staleness is
+    clamp(t + i - τ_i, 0, K) — what chained ``server_receive`` computes."""
+    stals, betas = [], []
+    for i, tau in enumerate(taus):
+        s = min(max(t + i - int(tau), 0), fed.max_staleness)
+        stals.append(s)
+        betas.append(float(fed.mixing_beta
+                           * (1.0 + s) ** (-fed.staleness_a)))
+    return stals, betas
+
+
+def server_receive(state: ServerState, w_new, tau: int,
+                   fed: FedConfig) -> ServerState:
+    """One server step of Algorithm 1."""
+    _, (beta_t,) = group_mixing_weights(fed, state.t, [tau])
+    return ServerState(params=_mix(state.params, w_new, beta_t),
+                       t=state.t + 1, total_updates=state.total_updates + 1)
+
+
+def server_receive_many(state: ServerState, updates, fed: FedConfig):
+    """Apply a group of receives ``[(w_new, τ), ...]`` in order: exactly m
+    chained ``server_receive`` calls. Returns ``(new_state, stalenesses,
+    betas)``."""
+    stals, betas = group_mixing_weights(fed, state.t,
+                                        [tau for _, tau in updates])
+    params = state.params
+    for (w_new, _), beta in zip(updates, betas):
+        params = _mix(params, w_new, beta)
+    return (ServerState(params=params, t=state.t + len(updates),
+                        total_updates=state.total_updates + len(updates)),
+            stals, betas)
+
+
+# ---------------------------------------------------------------------------
+# Client
+# ---------------------------------------------------------------------------
+
+def make_client_step(cfg: ModelConfig, fed: FedConfig):
+    """One proximal local SGD iteration:
+    (params, opt_state, anchor, batch, mask) -> (params, opt_state, loss).
+    Gradients -> proximal term -> trainable mask -> SGD, as the reference."""
+    opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
+
+    def step(params, opt_state, anchor, batch, mask):
+        batch = batch_to(batch, params_device(params))
+        loss, grads = value_and_grad(
+            lambda p: registry.loss_fn(p, cfg, batch)[0], params)
+        grads = proximal_grad(grads, params, anchor, fed.prox_theta)
+        grads = apply_mask(grads, mask)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step, opt
+
+
+def client_update(params_global, t: int, batches, cfg: ModelConfig,
+                  fed: FedConfig, step=None, opt=None, mask=None,
+                  num_iters: int | None = None):
+    """Run H local iterations from the received global model.
+
+    ``batches`` is an iterable of local data batches (length >= H).
+    Returns (w_new, tau=t, losses); one host read of the loss per step.
+    """
+    if step is None:
+        step, opt = make_client_step(cfg, fed)
+    if mask is None:
+        mask = trainable_mask(params_global, fed.trainable)
+    params = params_global
+    opt_state = opt.init(params)
+    losses = []
+    H = num_iters if num_iters is not None else fed.local_iters_max
+    for _, batch in zip(range(H), batches):
+        params, opt_state, loss = step(params, opt_state, params_global,
+                                       batch, mask)
+        losses.append(float(loss))
+    return params, t, losses

@@ -1,0 +1,233 @@
+"""Event-driven simulator of the heterogeneous embedded-device fleet.
+
+Port of ``repro/core/simulator.py``, asynchronous mode (paper Algorithm 1)
+through the per-iteration client loop. The paper's testbed is four Jetson
+types whose per-epoch times differ by up to 4.7×; the simulator advances a
+virtual clock from those measured times while running real updates. The
+clock is host-side numpy drawn in the reference's order, so
+``wall_clock_s``, the staleness and group histograms and the trace equal
+the reference's exactly.
+
+Still to be ported: the batched scan/vmap engine (``engine="scan"``,
+ROADMAP Queue 1 item 7), ``algorithm=`` (item 8), compressed updates
+(item 6), ``run_sync`` and streaming fleets (item 9).
+"""
+from __future__ import annotations
+
+import heapq
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.core import fedasync
+from repro_torch.core.fedasync import ServerState
+from repro_torch.core.fleet import DeviceProfile, Fleet
+from repro_torch.device import resolve_device
+from repro_torch.optim import trainable_mask
+from repro_torch.types import FedConfig, ModelConfig
+
+
+@dataclass
+class TraceEvent:
+    time: float
+    kind: str            # "dispatch" | "receive"
+    client: int
+    global_epoch: int
+    staleness: int = 0
+    beta_t: float = 0.0
+    loss: float = math.nan
+
+
+@dataclass
+class SimResult:
+    wall_clock_s: float
+    history: list            # (virtual_time, global_epoch, loss)
+    trace: list = field(default_factory=list)
+    params: object = None
+    staleness_hist: dict = field(default_factory=dict)
+    group_hist: dict = field(default_factory=dict)   # {group size: count}
+    max_inflight: int = 0
+
+    @property
+    def final_loss(self) -> float:
+        return self.history[-1][2] if self.history else math.nan
+
+
+def _client_time(profile: DeviceProfile, local_iters: int,
+                 iters_per_epoch: int, rng: np.random.Generator,
+                 jitter: float) -> float:
+    epochs = local_iters / max(iters_per_epoch, 1)
+    t = profile.epoch_seconds * epochs + profile.upload_seconds
+    if jitter:
+        # mean-one lognormal multiplier: μ = -σ²/2
+        t *= float(rng.lognormal(mean=-0.5 * jitter * jitter, sigma=jitter))
+    return t
+
+
+class Scheduler:
+    """Virtual-clock event queue with the staleness-bounded micro-batching
+    window (the reference's ``Scheduler``).
+
+    ``pop_window`` returns the earliest pending receive plus every later
+    receive that (a) finishes within ``window`` virtual seconds of it,
+    (b) would apply at staleness ≤ ``max_staleness`` at its position in
+    the group, and (c) fits the remaining global-epoch ``budget``.
+    ``policy="skip"`` leaves a too-stale event queued and keeps scanning;
+    ``"stop"`` ends the group at the first one. ``window <= 0`` pops one
+    event at a time: the exact event-by-event loop.
+    """
+
+    def __init__(self, window: float = 0.0, policy: str = "skip"):
+        if policy not in ("skip", "stop"):
+            raise ValueError(
+                f"policy must be 'skip' or 'stop', got {policy!r}")
+        self.window = float(window)
+        self.policy = policy
+        self._events: list = []
+        self._seq = 0
+        self.max_inflight = 0
+
+    def push(self, finish_time: float, client: int, w_new, tau: int,
+             loss: float) -> None:
+        heapq.heappush(self._events,
+                       (finish_time, self._seq, client, w_new, tau, loss))
+        self._seq += 1
+        self.max_inflight = max(self.max_inflight, len(self._events))
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+    def pop_window(self, t: int, max_staleness: int, budget: int) -> list:
+        """Drain one receive group: ``[(finish_time, client, w_new, τ,
+        loss), ...]`` in virtual-time order, never empty, at most
+        ``budget`` long."""
+        ft, _, k, w_new, tau, loss = heapq.heappop(self._events)
+        group = [(ft, k, w_new, tau, loss)]
+        if self.window > 0:
+            deadline = ft + self.window
+            skipped = []
+            while self._events and len(group) < budget:
+                if self._events[0][0] > deadline:
+                    break
+                ev = heapq.heappop(self._events)
+                if (t + len(group)) - ev[4] > max_staleness:
+                    skipped.append(ev)
+                    if self.policy == "stop":
+                        break
+                    continue
+                ft, _, k, w_new, tau, loss = ev
+                group.append((ft, k, w_new, tau, loss))
+            for ev in skipped:
+                heapq.heappush(self._events, ev)
+        return group
+
+
+def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
+              iters_per_epoch: int = 1, jitter: float = 0.0,
+              eval_fn: Optional[Callable] = None, eval_every: int = 10,
+              engine: str = "loop", window: float = 0.0,
+              window_policy: str = "skip", algorithm=None,
+              device=None) -> SimResult:
+    """Virtual-clock run of asynchronous federated learning.
+
+    Each dispatch runs the client's H^k local iterations now
+    (``fedasync.client_update``) and queues its receive at the virtual
+    finish time; receives drain in ``Scheduler.pop_window`` groups and
+    mix into the server in order (``fedasync.server_receive_many``).
+    ``fed.clients_per_round`` > 0 keeps that many clients in flight,
+    sampling replacements from the rest of the population.
+    """
+    if engine != "loop":
+        raise NotImplementedError(
+            f"engine={engine!r}: the port has the per-iteration loop only; "
+            "the batched scan/vmap engine is ROADMAP Queue 1 item 7")
+    if algorithm is not None:
+        raise NotImplementedError(
+            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    if fed.compress_bits:
+        raise NotImplementedError(
+            "fed.compress_bits: compressed updates are ROADMAP Queue 1 "
+            "item 6")
+    if not isinstance(fleet, Fleet):
+        raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
+                        "FleetSpec populations are ROADMAP Queue 1 item 9")
+    fleet.check(fed)
+    device = resolve_device(device)
+    params0 = {k: v.to(device) for k, v in params0.items()}
+    rng = np.random.default_rng(fed.seed)
+    sample_rng = np.random.default_rng((fed.seed, 0xA51C))
+    step, opt = fedasync.make_client_step(cfg, fed)
+    mask = trainable_mask(params0, fed.trainable)
+    server = ServerState(params=params0, t=0)
+
+    H: dict = {}
+    inflight: set = set()
+    m_inflight = fed.clients_per_round or fleet.population
+
+    sched = Scheduler(window, policy=window_policy)
+    trace, history = [], []
+    staleness_hist: dict = {}
+    group_hist: dict = {}
+
+    def dispatch(ks, now: float):
+        tau = server.t
+        for k in ks:
+            if k not in H:
+                H[k] = fleet.iters(k, fed)
+            inflight.add(k)
+        for k in ks:
+            # the local training runs NOW (numerically); its finish time
+            # is virtual
+            w_new, _, losses = fedasync.client_update(
+                server.params, server.t, fleet.data(k)(), cfg, fed,
+                step=step, opt=opt, mask=mask, num_iters=H[k])
+            dt = _client_time(fleet.profile(k), H[k], iters_per_epoch, rng,
+                              jitter)
+            sched.push(now + dt, k, w_new, tau,
+                       losses[-1] if losses else math.nan)
+            trace.append(TraceEvent(now, "dispatch", k, tau))
+
+    if m_inflight < fleet.population:
+        kickoff = [int(k) for k in fleet.sample(sample_rng, m_inflight)]
+    else:
+        kickoff = list(range(fleet.population))
+    dispatch(kickoff, 0.0)
+
+    now = 0.0
+    while server.t < fed.global_epochs and len(sched):
+        group = sched.pop_window(server.t, fed.max_staleness,
+                                 fed.global_epochs - server.t)
+        t0 = server.t
+        server, stals, betas = fedasync.server_receive_many(
+            server, [(w_new, tau) for _, _, w_new, tau, _ in group], fed)
+        for i, ((ft, k, _, _, loss), st, bt) in enumerate(
+                zip(group, stals, betas)):
+            now = ft
+            staleness_hist[st] = staleness_hist.get(st, 0) + 1
+            trace.append(TraceEvent(ft, "receive", k, t0 + i + 1, st, bt,
+                                    loss))
+            history.append((ft, t0 + i + 1, loss))
+        group_hist[len(group)] = group_hist.get(len(group), 0) + 1
+        if eval_fn is not None and any(
+                t % eval_every == 0 for t in range(t0 + 1, server.t + 1)):
+            eval_fn(server.t, now, server.params)
+        finished = [k for _, k, _, _, _ in group]
+        if server.t < fed.global_epochs:
+            if m_inflight < fleet.population:
+                inflight.difference_update(finished)
+                for k in finished:
+                    H.pop(k, None)
+                fleet.release(finished)
+                replacements = [int(k) for k in fleet.sample(
+                    sample_rng, len(finished), exclude=inflight)]
+                dispatch(replacements, now)
+            else:
+                dispatch(finished, now)
+        else:
+            inflight.difference_update(finished)
+
+    return SimResult(wall_clock_s=now, history=history, trace=trace,
+                     params=server.params, staleness_hist=staleness_hist,
+                     group_hist=group_hist, max_inflight=sched.max_inflight)

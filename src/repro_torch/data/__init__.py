@@ -1,0 +1,7 @@
+from repro_torch.data.loader import BatchLoader
+from repro_torch.data.partition import iid_partition
+from repro_torch.data.synthetic import (SyntheticActionDataset,
+                                        make_dataset_for, stack_batches)
+
+__all__ = ["SyntheticActionDataset", "make_dataset_for", "stack_batches",
+           "iid_partition", "BatchLoader"]

@@ -1,0 +1,166 @@
+"""Two-stage pipeline: KD compression -> federated fine-tuning.
+
+Port of ``repro/launch/pipeline.py``, asynchronous mode. Stage 1 distils
+a server-side teacher into the deployable student over the full synthetic
+dataset (``core/distill.py``); stage 2 fine-tunes the distilled student
+across the heterogeneous Jetson fleet on each client's reduced local
+shard by Algorithm 1 (``core/simulator.py::run_async``, per-iteration
+client loop). Runs on the card unless ``--device cpu`` is given.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke
+    PYTHONPATH=src python -m repro_torch.launch.pipeline --arch resnet3d-18 \
+        --teacher resnet3d-34 --kd-steps 8 --teacher-steps 2
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import distill, simulator
+from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
+from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
+from repro_torch.device import resolve_device
+from repro_torch.types import DistillConfig, FedConfig, ModelConfig
+
+
+def build_fleet(n: int):
+    """n Jetson profiles, cycling through the paper's four device types."""
+    base = list(JETSON_FLEET_HMDB51)
+    return tuple(base[i % len(base)] for i in range(n))
+
+
+def params_digest(params: dict) -> str:
+    """sha256 over keys, shapes, dtypes and raw bytes: two runs agree iff
+    their digests agree."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        v = params[k].detach().cpu().contiguous()
+        h.update(f"{k}:{tuple(v.shape)}:{v.dtype}".encode())
+        h.update(v.view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
+              seed: int, device):
+    """Stage 2: async fine-tune from ``params`` over an iid partition of
+    the clients' reduced local dataset."""
+    parts = iid_partition(max(len(ds), fed.num_clients * 8),
+                          fed.num_clients, seed=seed)
+    data = [BatchLoader(ds, batch, steps=fed.local_iters_max,
+                        seed=k, indices=parts[k])
+            for k in range(fed.num_clients)]
+    fleet = Fleet.from_lists(build_fleet(fed.num_clients), data)
+    return simulator.run_async(params, cfg, fed, fleet, engine="loop",
+                               device=device)
+
+
+def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
+                 reduced: bool = True, mode: str = "async",
+                 clients: int = 4, epochs: int = 4, batch: int = 4,
+                 kd_steps: int = 8, teacher_steps: int = 8,
+                 kd_lr: float = 0.01, kd_epoch_len: int | None = None,
+                 kd_kernel: str = "cuda", engine: str = "loop",
+                 codistill: bool = False, compare_scratch: bool = False,
+                 eval_steps: int = 4, seed: int = 0, device=None):
+    """Run KD compression then asynchronous federated fine-tuning.
+
+    Returns ``(report, params)``: a JSON-serialisable dict and the
+    fine-tuned student's params.
+    """
+    if mode != "async":
+        raise NotImplementedError(
+            f"mode={mode!r}: sync FedAvg is ROADMAP Queue 1 item 7")
+    if engine != "loop":
+        raise NotImplementedError(
+            f"engine={engine!r}: the batched engine is ROADMAP Queue 1 item 7")
+    if codistill:
+        raise NotImplementedError(
+            "codistill: CodistillFleet is ROADMAP Queue 1 item 4")
+    if compare_scratch:
+        raise NotImplementedError(
+            "compare_scratch: the scratch baseline run is ROADMAP Queue 1 "
+            "item 10")
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    tcfg = get_config(teacher)
+    if reduced:
+        cfg, tcfg = cfg.reduced(), tcfg.reduced()
+    t0 = time.time()
+    report = {"arch": cfg.name, "teacher": tcfg.name, "mode": mode,
+              "kd_kernel": kd_kernel, "seed": seed, "device": str(device)}
+
+    # ---- stage 1: server-side KD over the full dataset ----------------
+    big = make_dataset_for(cfg, small=False, seed=seed)
+    loader = BatchLoader(big, batch, steps=kd_steps, seed=seed)
+    kd_eval = list(big.batches(batch, eval_steps, seed=999))
+    dcfg = DistillConfig(lr=kd_lr, chain=(tcfg.name, cfg.name))
+    params, stages = distill.run_chain(
+        [tcfg, cfg], dcfg, loader, kd_eval, steps_per_stage=kd_steps,
+        seed=seed, kd_kernel=kd_kernel, trained_teacher_steps=teacher_steps,
+        epoch_len=kd_epoch_len, device=device)
+    report["stage1"] = {"stages": [
+        {"teacher": s.teacher, "student": s.student, "losses": s.losses,
+         "accuracy": s.accuracy, "steps": len(s.losses),
+         "wall_s": s.wall_time_s} for s in stages]}
+    report["stage1"]["digest"] = params_digest(params)
+
+    # ---- stage 2: federated fine-tune on the clients' reduced data ----
+    # same seed as stage 1: the clients' dataset draws the same class
+    # programs as the server's, so KD transfer is real
+    fed = FedConfig(num_clients=clients, global_epochs=epochs, seed=seed)
+    ds = make_dataset_for(cfg, small=True, seed=seed)
+    res = _finetune(params, cfg, fed, ds, batch, seed, device)
+    params = res.params
+    held_out = list(ds.batches(batch, eval_steps, seed=777))
+    report["stage2"] = {"final_loss": res.final_loss,
+                        "losses": [h[2] for h in res.history],
+                        "virtual_wall_s": res.wall_clock_s,
+                        "accuracy": distill.evaluate(params, cfg, held_out)}
+    report["params_digest"] = params_digest(params)
+    report["real_wall_s"] = time.time() - t0
+    return report, params
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="resnet3d-18")
+    ap.add_argument("--teacher", default="resnet3d-34")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--kd-steps", type=int, default=8)
+    ap.add_argument("--teacher-steps", type=int, default=8)
+    ap.add_argument("--kd-lr", type=float, default=0.01)
+    ap.add_argument("--kd-epoch-len", type=int, default=None,
+                    help="KD steps per loss read-back (default: whole stage)")
+    ap.add_argument("--kd-kernel", choices=list(distill.KD_KERNELS),
+                    default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny preset (reduced, 2 clients, 2 epochs)")
+    args = ap.parse_args(argv)
+
+    kw = dict(arch=args.arch, teacher=args.teacher, reduced=args.reduced,
+              clients=args.clients, epochs=args.epochs, batch=args.batch,
+              kd_steps=args.kd_steps, teacher_steps=args.teacher_steps,
+              kd_lr=args.kd_lr, kd_epoch_len=args.kd_epoch_len,
+              kd_kernel=args.kd_kernel, seed=args.seed, device=args.device)
+    if args.smoke:
+        kw.update(reduced=True, clients=2, epochs=2, batch=2,
+                  kd_steps=4, teacher_steps=2, eval_steps=2)
+    report, _ = run_pipeline(**kw)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

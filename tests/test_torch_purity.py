@@ -1,0 +1,63 @@
+"""The port stands alone: it imports neither JAX nor anything of the
+reference package, and ``chip_smoke.py`` refuses to run without a card."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
+    out = subprocess.run([sys.executable, "-c", _PROBE],
+                         env={**os.environ, "PYTHONPATH": str(SRC)},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 25          # every module was imported
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax|from\s+jax|import\s+repro(\.|\s|$)|from\s+repro[.\s])",
+    re.M)
+
+
+def test_no_jax_or_reference_import_in_port_sources():
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in _FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_the_repo(alone, tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal")
+    script = ROOT / "chip_smoke.py"
+    if alone:                      # a directory holding only the script
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
