@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. card check: a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them;
-2. build: compiles the port's CUDA source for sm_90a and prints the build
-   seconds and ptxas report;
+2. build: compiles the port's CUDA sources for sm_90a, one nvcc each, all
+   at once, and prints the build seconds and ptxas reports;
 3. each kernel against its plain PyTorch version on the card, forward and
    backward, masked rows exactly 0;
 4. the reduced pipeline on the card against the same pipeline on the CPU
@@ -19,7 +19,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
 6. one KD step and one client step at the main path's clip shape and at
    the paper's (8x112x112, batch 8), TF32 at PyTorch's default, each
    timed and traced by torch.profiler, with the KD step's launches
-   counted.
+   counted;
+7. the serving decode kernels (ring attend, extent attend, SSD step)
+   against their plain versions on the card, f32 and bf16 caches, then
+   timed at Hymba-1.5B's full-width decode shape beside their bound and
+   ``scaled_dot_product_attention``;
+8. the reduced Hymba serving path on the card against the CPU (TF32 off):
+   identical tokens, prefill and decode logits to rtol 1e-3;
+9. the serving path at full width: Hymba-1.5B, f32, four slots, eight
+   requests of 1 to 1500 prompt tokens through the continuous batcher in
+   ring mode on the CUDA kernels, every kernel's launches counted, 16
+   decode ticks teacher-forced against the uniform eager decode, and one
+   decode tick traced by torch.profiler.
 
 Prints the card's line first, and at the end one ``{"kernels": [...]}``
 line, the card's line again, and last ``{"ok": true, "device": {...}}``.
@@ -27,12 +38,14 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -42,6 +55,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TOL = 1e-4          # |kernel - plain| <= TOL * (1 + |plain|)
+KERNEL_SOURCES = ("kd_loss", "decode_attend", "ssd_decode")
 
 
 def _card_line() -> str:
@@ -334,25 +348,515 @@ def phase_step_times():
         print(json.dumps(out))
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Serving: the decode kernels, the reduced path card vs CPU, full width
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {"f32": 2e-5, "bf16": 1e-2}   # |err| <= tol * (1 + |plain|)
+DECODE_COMBOS = (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))
+_TDT = {"f32": "float32", "bf16": "bfloat16"}
+# Hymba-1.5B's decode shapes at four slots (configs/hymba_1_5b.py):
+# 5 kv heads of 5 query heads, head dim 64; ring W = 1024; the extent's
+# deepest rung at max_len 2048; 50 SSD heads of P 64, N 16
+HYMBA_ATTEND = (4, 5, 5, 64)
+HYMBA_SSD = (4, 50, 64, 16)
+
+
+def _dt(name):
+    import torch
+    return getattr(torch, _TDT[name])
+
+
+def _check_close(what: str, got, want, tol: float) -> float:
+    diff = (got.float() - want.float()).abs()
+    bad = diff > tol * (1.0 + want.float().abs())
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} "
+                             f"over tol {tol} x (1 + |plain|)")
+    return float(diff.max())
+
+
+def _attend_inputs(B, KV, G, D, L, q_dt, kv_dt, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q = (0.4 * torch.randn(B, KV, G, D, generator=g)).to("cuda", q_dt)
+    k = (0.4 * torch.randn(B, L, KV, D, generator=g)).to("cuda", kv_dt)
+    v = torch.randn(B, L, KV, D, generator=g).to("cuda", kv_dt)
+    return q, k, v
+
+
+def _ring_visible(pos, W: int, window: int):
+    """(B, W) bool: the slots each row attends to (the plain version's
+    mask)."""
+    import torch
+    from repro_torch.kernels import ref
+    p = pos.long()[:, None]
+    k_pos = p - (p - torch.arange(W, device=pos.device)) % W
+    return ref._window_bias(pos, window, k_pos) == 0
+
+
+def _extent_visible(pos, k_ext: int, window: int):
+    import torch
+    from repro_torch.kernels import ref
+    k_pos = torch.arange(k_ext, device=pos.device)[None, :]
+    return (ref._window_bias(pos, window, k_pos) == 0) \
+        & (k_pos <= pos.long()[:, None])
+
+
+def _attend_bound(q, k, visible) -> tuple:
+    """Least time for one attend: the visible keys' K and V read once, q
+    read and the output written once; ~4 f32 operations per (head, key,
+    dim) (score and p.V multiply-adds) against 67 TFLOP/s."""
+    B, KV, G, D = q.shape
+    n_vis = int(visible.sum())
+    nbytes = (2 * n_vis * KV * D * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+    ops = 4 * n_vis * KV * G * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _sdpa_ms(q, k, visible) -> float:
+    """One ``scaled_dot_product_attention`` call computing the same attend
+    (keys in (B, H, L, D), the equivalent boolean mask): a yardstick,
+    used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+    B, KV, G, D = q.shape
+    qh = q.reshape(B, KV * G, 1, D)
+    kh = k.permute(0, 2, 1, 3).contiguous()
+    vh = torch.randn_like(kh)
+    mask = visible[:, None, None, :]
+    return _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True), iters=100)
+
+
+def _time_kernel(fn, plain) -> dict:
+    """Device ms of the kernel and of its plain version (profiler), and
+    the per-call cost with the host launch (CUDA events)."""
+    dev, pdev = _profile(fn, 50), _profile(plain, 50)
+    call_ms, plain_call_ms = _cuda_ms(fn), _cuda_ms(plain, iters=50)
+    traced = "device_ms_per_step" in dev and "device_ms_per_step" in pdev
+    return {"ms": dev["device_ms_per_step"] if traced else call_ms,
+            "plain_ms": (pdev["device_ms_per_step"] if traced
+                         else plain_call_ms),
+            "ms_source": ("profiler device time" if traced
+                          else "cuda events, host launch included"),
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "plain_kernels": pdev.get("kernels_per_step")}
+
+
+def phase_decode_kernels() -> list:
+    """The three decode kernels against their plain versions on the card,
+    then timed at Hymba's full-width decode shape."""
+    import torch
+    from repro_torch.kernels import decode_attend as da
+    from repro_torch.kernels import ref, ssd_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"ring": 0.0, "extent": 0.0, "ssd": 0.0}
+    cases = 0
+    for qn, kvn in DECODE_COMBOS:
+        tol = SERVE_TOL["bf16" if "bf16" in (qn, kvn) else "f32"]
+        for si, (B, KV, G, D) in enumerate(((4, 5, 5, 64), (4, 8, 2, 240),
+                                            (3, 2, 3, 16))):
+            for W in (1, 17, 1024):
+                q, k, v = _attend_inputs(B, KV, G, D, W, _dt(qn), _dt(kvn),
+                                         seed=si * 10 + W)
+                # per-row positions: rings not yet full and wrapped ones
+                rows = [W // 2, 3 * W + 5, W - 1, 7 * W + 2][:B]
+                pos = torch.tensor(rows, dtype=torch.int32, device="cuda")
+                for window in (0, W if W % 2 else W - 1):
+                    got = da.ring_decode_attend(q, k, v, pos, window)
+                    torch.cuda.synchronize()
+                    want = ref.ring_decode_attend_ref(q, k, v, pos, window)
+                    worst["ring"] = max(worst["ring"], _check_close(
+                        f"ring {qn}/{kvn} {(B, KV, G, D)} W={W} pos={rows} "
+                        f"window={window}", got, want, tol))
+                    cases += 1
+            S_max = 2048
+            q, k, v = _attend_inputs(B, KV, G, D, S_max, _dt(qn), _dt(kvn),
+                                     seed=si + 100)
+            for k_ext in (8, 16, 32, 64, 128, 256, 512, 1024, 2048):
+                rows = [0, k_ext - 1, k_ext // 2, k_ext - 1][:B]
+                pos = torch.tensor(rows, dtype=torch.int32, device="cuda")
+                for window in (0, 5):
+                    got = da.extent_decode_attend(q, k, v, pos, window, k_ext)
+                    torch.cuda.synchronize()
+                    want = ref.extent_decode_attend_ref(q, k, v, pos, window,
+                                                        k_ext)
+                    worst["extent"] = max(worst["extent"], _check_close(
+                        f"extent {qn}/{kvn} {(B, KV, G, D)} k_ext={k_ext} "
+                        f"pos={rows} window={window}", got, want, tol))
+                    cases += 1
+    for xn, sn in DECODE_COMBOS:
+        tol = SERVE_TOL["bf16" if "bf16" in (xn, sn) else "f32"]
+        for B, H, P, N in (HYMBA_SSD, (4, 24, 64, 128)):
+            args = _ssd_inputs(B, H, P, N, _dt(xn), _dt(sn), seed=N)
+            y, st = ssd_decode.ssd_decode_step(*args)
+            torch.cuda.synchronize()
+            y_ref, st_ref = ref.ssd_decode_step_ref(*args)
+            what = f"ssd {xn}/{sn} {(B, H, P, N)}"
+            worst["ssd"] = max(worst["ssd"],
+                               _check_close(what + " y", y, y_ref, tol),
+                               _check_close(what + " state", st, st_ref, tol))
+            if y.dtype != y_ref.dtype or st.dtype != args[-1].dtype:
+                raise AssertionError(f"{what}: dtypes {y.dtype} {st.dtype}")
+            if not torch.equal(st[1], args[-1][1]):     # the dt = 0 row
+                raise AssertionError(f"{what}: dt = 0 row's state moved")
+            cases += 1
+    print(json.dumps({"phase": "decode_kernels", "cases": cases,
+                      "max_abs_err": worst}))
+    return _time_decode_kernels(worst)
+
+
+def _ssd_inputs(B, H, P, N, x_dt, s_dt, seed):
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    xh = torch.randn(B, H, P, generator=g)
+    dt = F.softplus(torch.randn(B, H, generator=g))
+    dt[1] = 0.0                       # a pad row: its state must not move
+    A = -torch.exp(0.3 * torch.randn(H, generator=g))
+    Bm = 0.5 * torch.randn(B, N, generator=g)
+    Cm = 0.5 * torch.randn(B, N, generator=g)
+    st = torch.randn(B, H, P, N, generator=g)
+    return (xh.to("cuda", x_dt), dt.cuda(), A.cuda(), Bm.to("cuda", x_dt),
+            Cm.to("cuda", x_dt), st.to("cuda", s_dt))
+
+
+def _time_decode_kernels(worst: dict) -> list:
+    import torch
+    from repro_torch.kernels import decode_attend as da
+    from repro_torch.kernels import ref, ssd_decode
+    out = []
+    B, KV, G, D = HYMBA_ATTEND
+    # ring: every row wrapped past W = 1024, window 1024 (all slots live)
+    q, k, v = _attend_inputs(B, KV, G, D, 1024, torch.float32,
+                             torch.float32, seed=1)
+    pos = torch.tensor([1100, 1500, 1030, 2000], dtype=torch.int32,
+                       device="cuda")
+    vis = _ring_visible(pos, 1024, 1024)
+    row = _time_kernel(lambda: da.ring_decode_attend(q, k, v, pos, 1024),
+                       lambda: ref.ring_decode_attend_ref(q, k, v, pos, 1024))
+    bound, by = _attend_bound(q, k, vis)
+    out.append({"name": "ring_decode_attend", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
+                "replaces": "src/repro/kernels/swa_attention.py:173",
+                "shape": {"B_KV_G_D": HYMBA_ATTEND, "W": 1024,
+                          "pos": pos.tolist(), "dtype": "float32"},
+                "max_abs_err": worst["ring"], **row, "bound_ms": bound,
+                "bound_by": by, "library_ms": _sdpa_ms(q, k, vis),
+                "library": "F.scaled_dot_product_attention, boolean mask"})
+    # extent: the deepest rung of max_len 2048, rows at the positions
+    # the full-width run reaches there
+    q, k, v = _attend_inputs(B, KV, G, D, 2048, torch.float32,
+                             torch.float32, seed=2)
+    pos = torch.tensor([2047, 1500, 1100, 1024], dtype=torch.int32,
+                       device="cuda")
+    vis = _extent_visible(pos, 2048, 0)
+    row = _time_kernel(
+        lambda: da.extent_decode_attend(q, k, v, pos, 0, 2048),
+        lambda: ref.extent_decode_attend_ref(q, k, v, pos, 0, 2048))
+    bound, by = _attend_bound(q, k, vis)
+    out.append({"name": "extent_decode_attend", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
+                "replaces": "src/repro/kernels/swa_attention.py:221",
+                "shape": {"B_KV_G_D": HYMBA_ATTEND, "S_max": 2048,
+                          "k_ext": 2048, "pos": pos.tolist(),
+                          "dtype": "float32"},
+                "max_abs_err": worst["extent"], **row, "bound_ms": bound,
+                "bound_by": by, "library_ms": _sdpa_ms(q, k[:, :2048], vis),
+                "library": "F.scaled_dot_product_attention, boolean mask"})
+    # SSD step: the state read and written once, x, dt, A, B, C read,
+    # y written; ~6 f32 operations per state element
+    B_, H, P, N = HYMBA_SSD
+    args = _ssd_inputs(B_, H, P, N, torch.float32, torch.float32, seed=3)
+    row = _time_kernel(lambda: ssd_decode.ssd_decode_step(*args),
+                       lambda: ref.ssd_decode_step_ref(*args))
+    nbytes = 4 * (2 * B_ * H * P * N + 2 * B_ * H * P + B_ * H + H
+                  + 2 * B_ * N)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 6 * B_ * H * P * N / F32_FLOPS * 1e3
+    out.append({"name": "ssd_decode_step", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd_decode.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:167",
+                "shape": {"B_H_P_N": HYMBA_SSD, "dtype": "float32"},
+                "max_abs_err": worst["ssd"], **row,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None})
+    for k_ in out:
+        print(json.dumps({"phase": "decode_kernel_time", **k_}))
+    return out
+
+
+def _decode_launches() -> dict:
+    from repro_torch.kernels import decode_attend, ssd_decode
+    return {"ring_decode_attend": decode_attend.ring_decode_attend.launches,
+            "extent_decode_attend":
+                decode_attend.extent_decode_attend.launches,
+            "ssd_decode_step": ssd_decode.ssd_decode_step.launches}
+
+
+def _zero_decode_launches() -> None:
+    from repro_torch.kernels import decode_attend, ssd_decode
+    decode_attend.ring_decode_attend.launches = 0
+    decode_attend.extent_decode_attend.launches = 0
+    ssd_decode.ssd_decode_step.launches = 0
+
+
+def _serve(params, cfg, prompts, max_new, **kw):
+    from repro_torch.core.serving import ContinuousBatcher
+    srv = ContinuousBatcher(params, cfg, **kw)
+    for p in prompts:
+        srv.submit(p, max_new=max_new)
+    return srv, {r.rid: r.out for r in srv.run()}
+
+
+def _logits_close(what, a, b, rtol=1e-3) -> float:
+    b = b.to(a.device)
+    err = float(((a - b).abs() / (1.0 + b.abs())).max())
+    if err > rtol:
+        raise AssertionError(f"{what}: logits differ by {err} > {rtol}")
+    return err
+
+
+def _admitted(params, cfg, prompts, **kw):
+    """A batcher that has admitted ``prompts`` (one admit: prefill and
+    install) and decoded nothing yet."""
+    from repro_torch.core.serving import ContinuousBatcher
+    srv = ContinuousBatcher(params, cfg, **kw)
+    for p in prompts:
+        srv.submit(p, max_new=srv.max_len - len(p))
+    srv._admit()
+    return srv
+
+
+def _forced_ticks(srv, tokens, mode: str) -> list:
+    """Decode ticks on ``srv``'s admitted caches, fed ``tokens[t]`` (one
+    per slot) at tick t whatever they predict: ring mode through
+    ``decode_step_grouped`` with ``srv``'s kernel and K-extent ladder,
+    uniform mode through the eager ``decode_step``. Returns the logits."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    pos = srv.pos.copy()
+    mask = np.array([r is not None for r in srv.active])
+    out = []
+    for t in range(len(tokens)):
+        tok = torch.from_numpy(np.asarray(tokens[t], np.int32)).to(
+            srv.device)
+        p = torch.from_numpy(pos).to(srv.device)
+        if mode == "ring":
+            srv.pos = pos
+            logits, _ = registry.decode_step_grouped(
+                srv.params, srv.cfg, tok, srv.cache, p,
+                k_ext=srv._decode_k_ext(mask),
+                decode_kernel=srv.decode_kernel)
+        else:
+            logits, _ = registry.decode_step(srv.params, srv.cfg, tok,
+                                             srv.cache, p)
+        out.append(logits)
+        pos = pos + 1
+    return out
+
+
+def phase_serve_card_vs_cpu():
+    """Reduced Hymba: one request stream served on the card (CUDA
+    kernels) and on the CPU (their plain versions), TF32 off."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = registry.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = {k: v.cuda() for k, v in cpu.items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 9, 13, 3, 40, 1)]
+    kw = dict(max_slots=2, max_len=96, min_bucket=4, decode_mode="ring",
+              decode_kernel="cuda")
+    _zero_decode_launches()
+    srv, toks_card = _serve(card, cfg, prompts, 12, **kw)
+    n_card = _decode_launches()
+    _zero_decode_launches()
+    _, toks_cpu = _serve(cpu, cfg, prompts, 12, **kw)
+    if any(_decode_launches().values()):
+        raise AssertionError(f"CPU serve launched kernels: "
+                             f"{_decode_launches()}")
+    if toks_card != toks_cpu:
+        raise AssertionError(f"card vs CPU tokens differ:\n{toks_card}\n"
+                             f"{toks_cpu}")
+    ticks = srv._steps
+    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
+            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
+            "ssd_decode_step": ticks * cfg.num_layers}
+    if n_card != want:
+        raise AssertionError(f"reduced serve launches {n_card}, want {want}")
+    # logits: a bucketed prefill, then 6 teacher-forced ring decode ticks
+    # from the batcher's own install of one admitted group
+    B, S = 3, 16
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lengths = np.asarray([16, 5, 11], np.int32)
+    prefill_logits, ticks_logits = {}, {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        cache = registry.init_cache(cfg, B, S, torch.float32, dev)
+        prefill_logits[dev], _ = registry.prefill(
+            params, cfg, {"tokens": torch.from_numpy(toks).to(dev)}, cache,
+            lengths=torch.from_numpy(lengths).to(dev), q_chunk=S)
+        adm = _admitted(params, cfg, [toks[j, :n] for j, n in
+                                      enumerate(lengths)],
+                        **{**kw, "max_slots": B})
+        ticks_logits[dev] = _forced_ticks(adm, toks[:, :6].T, "ring")
+    errs = [_logits_close("reduced prefill", prefill_logits["cuda"],
+                          prefill_logits["cpu"])]
+    for t, (a, b) in enumerate(zip(ticks_logits["cuda"], ticks_logits["cpu"])):
+        errs.append(_logits_close(f"reduced decode tick {t}", a, b))
+    print(json.dumps({"phase": "serve_card_vs_cpu", "tokens_equal": True,
+                      "requests": len(toks_card), "decode_ticks": ticks,
+                      "launches": n_card, "logits_rel_err": max(errs)}))
+
+
+FULL_PROMPTS = (1, 7, 33, 100, 513, 1024, 1100, 1500)
+
+
+def phase_serve_full_width(kernels: list, seed: int) -> None:
+    """Hymba-1.5B at full width, f32, through the continuous batcher:
+    4 slots, max_len 2048, prefill buckets from 8, ring decode on the CUDA
+    kernels. Eight requests of FULL_PROMPTS tokens, 32 new tokens each:
+    they cross several prefill buckets, install prompts longer than the
+    1024-slot ring, wrap it in decode and climb the K-extent ladder."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.serving import generate_single
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = registry.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in FULL_PROMPTS]
+    max_new = 32
+    kw = dict(max_slots=4, max_len=2048, min_bucket=8, decode_mode="ring",
+              decode_kernel="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_decode_launches()
+    t0 = time.perf_counter()
+    srv, toks = _serve(params, cfg, prompts, max_new, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _decode_launches()
+    ticks = srv._steps
+    if len(toks) != len(prompts) or any(len(t) != max_new
+                                        for t in toks.values()):
+        raise AssertionError(f"not every request completed: "
+                             f"{ {k: len(v) for k, v in toks.items()} }")
+    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
+            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
+            "ssd_decode_step": ticks * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want} "
+                             f"({ticks} decode ticks)")
+    if srv.prefill_compiles > len(srv.buckets) \
+            or srv.decode_compiles > len(srv.decode_buckets):
+        raise AssertionError(
+            f"shapes: prefill {srv.prefill_compiles} > "
+            f"{len(srv.buckets)} or decode {srv.decode_compiles} > "
+            f"{len(srv.decode_buckets)}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # generate_single launches no kernel; share of requests it agrees with
+    _zero_decode_launches()
+    same = sum(generate_single(params, cfg, p, max_new, max_len=2048)
+               == toks[rid] for rid, p in enumerate(prompts))
+    if any(_decode_launches().values()):
+        raise AssertionError(f"generate_single launched kernels: "
+                             f"{_decode_launches()}")
+
+    # teacher-forced: the first admitted group's own tokens through 16
+    # ring/cuda ticks and 16 uniform eager ticks, logits compared
+    group = prompts[:4]
+    forced = np.asarray([toks[j][:16] for j in range(4)]).T   # (16, 4)
+    ring = _forced_ticks(_admitted(params, cfg, group, **kw), forced,
+                         "ring")
+    uni = _forced_ticks(_admitted(params, cfg, group,
+                                  **{**kw, "decode_mode": "uniform",
+                                     "decode_kernel": "eager"}),
+                        forced, "uniform")
+    errs = [_logits_close(f"full-width forced tick {t}", a, b)
+            for t, (a, b) in enumerate(zip(ring, uni))]
+    for lg in ring:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("non-finite full-width logits")
+
+    # where the time goes: one decode tick at the run's last state
+    tok = torch.from_numpy(srv.last_tok).cuda()
+    pos = torch.from_numpy(np.minimum(srv.pos, 2047)).cuda()
+    tick = _profile(lambda: registry.decode_step_grouped(
+        params, cfg, tok, srv.cache, pos, k_ext=2048,
+        decode_kernel="cuda"), 3)
+    n_tok = sum(len(t) for t in toks.values())
+    print(json.dumps({
+        "phase": "serve_full_width", "arch": cfg.name,
+        "params": sum(v.numel() for v in params.values()),
+        "init_s": init_s, "real_wall_s": wall, "decode_ticks": ticks,
+        "generated_tokens": n_tok, "gen_tok_per_s": n_tok / wall,
+        "prefill_compiles": srv.prefill_compiles,
+        "buckets": list(srv.buckets),
+        "decode_compiles": srv.decode_compiles,
+        "decode_buckets": list(srv.decode_buckets),
+        "bucket_hist": {str(k): v for k, v in srv.bucket_hist.items()},
+        "group_admits": {str(k): v for k, v in srv.group_admits.items()},
+        "launches": launches, "peak_mem_gib": peak_gib,
+        "generate_single_share": same / len(prompts),
+        "forced_logits_rel_err": max(errs), "tick_profile": tick}))
+
+
+def build_all() -> None:
+    """One nvcc per kernel source, all started together."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        logs = dict(zip(KERNEL_SOURCES, pool.map(build.build,
+                                                 KERNEL_SOURCES)))
+    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
+                      "compiled": [k for k, v in logs.items() if v]}))
+    for name, log in logs.items():
+        print(f"[ptxas {name}]\n{log.strip()}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the full-width serving run's weights and "
+                         "requests")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
     card = _card_line()
     print(card)
-
-    t0 = time.perf_counter()
-    log = build.build("kd_loss")
-    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
-                      "compiled": bool(log)}))
-    print(f"[ptxas kd_loss]\n{log.strip()}")
+    build_all()
 
     kernels = [phase_kernels()]
     phase_cpu_vs_card()
     phase_full_width(kernels)
     phase_step_times()
+    serve_kernels = phase_decode_kernels()
+    phase_serve_card_vs_cpu()
+    phase_serve_full_width(serve_kernels, args.seed)
+    kernels += serve_kernels
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,9 +2,11 @@
 
 Both sides key parameters by the '/'-joined paths that
 ``repro/checkpoint/ckpt.py::_flatten`` writes (``stem/w``,
-``stages/2/0/w1``, ``fc/b`` ...). Conv weights are DHWIO in the reference
-and OIDHW here; ``fc/w`` keeps its (C, classes) meaning; 1-D leaves are
-unchanged. This is how the parity tests hand the port JAX-initialised
+``stages/2/0/w1``, ``fc/b``, ``layers/attn/wq``, ``layers/ssm/in_proj``
+...). Conv weights are DHWIO in the reference and OIDHW here; ``fc/w``
+keeps its (C, classes) meaning; 1-D leaves are unchanged. The LM's einsum
+weights keep their (d_in, d_out) layout, so an LM conversion is a
+shape-checked copy. This is how the parity tests hand the port JAX-initialised
 weights, and how the port reads an npz checkpoint saved by the reference.
 """
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import resnet3d
+from repro_torch.models import lm, resnet3d
 from repro_torch.types import ModelConfig
 
 _DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
@@ -20,11 +22,9 @@ _OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
 
 
 def _shapes(cfg: ModelConfig) -> dict:
-    if cfg.family != "resnet3d":
-        raise NotImplementedError(
-            f"{cfg.family}: conversion of the LM families comes with the LM "
-            "stack (ROADMAP Queue 1 item 11)")
-    return resnet3d.param_shapes(cfg)
+    if cfg.family == "resnet3d":
+        return resnet3d.param_shapes(cfg)
+    return lm.param_shapes(cfg)
 
 
 def params_from_jax(flat_numpy: dict, cfg: ModelConfig,
@@ -39,7 +39,7 @@ def params_from_jax(flat_numpy: dict, cfg: ModelConfig,
     out = {}
     for k, shape in shapes.items():
         a = np.asarray(flat_numpy[k])
-        if a.ndim == 5:
+        if a.ndim == 5 and cfg.family == "resnet3d":
             a = a.transpose(_DHWIO_TO_OIDHW)
         if a.shape != shape:
             raise ValueError(f"{k}: got {a.shape} after conversion, "

@@ -23,3 +23,72 @@ def kd_loss_ref(student_logits, teacher_logits, labels, alpha: float,
     if valid is None:
         return out
     return torch.where(valid.float() > 0.0, out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# Decode kernels (serving): the one-token attends and the SSD step
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _window_bias(pos, window: int, k_pos):
+    """(B, L) additive mask for one query per row at ``pos`` (B,): causal,
+    in-window (window == 0 -> full) and unwritten (k_pos < 0) slots."""
+    p = pos.long()[:, None]
+    w_eff = window if window else 2 ** 30
+    ok = (p >= k_pos) & (p - k_pos < w_eff) & (k_pos >= 0)
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _decode_attend(q, k, v, bias):
+    """Shared one-token attend body (the reference's ``_decode_attend``):
+    f32 scores, additive bias, max-subtract / divide-after-sum softmax,
+    p cast to q's dtype, f32 p·V. q (B, KV, G, D); k, v (B, L, KV, D);
+    bias (B, L). Returns q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k.float()) * scale
+    s = s + bias[:, None, None, :]
+    m = torch.amax(s, dim=-1, keepdim=True)
+    un = torch.exp(s - m)
+    p = (un / torch.sum(un, dim=-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", p.float(), v.float()).to(q.dtype)
+
+
+def ring_decode_attend_ref(q, k, v, pos, window: int):
+    """One-token attend over a W-slot ring. q (B, KV, G, D); k, v
+    (B, W, KV, D), slot s holding the latest position ≡ s (mod W); pos
+    (B,) int; window int (0 = full). Returns (B, KV, G, D)."""
+    W = k.shape[1]
+    p = pos.long()[:, None]
+    k_pos = p - (p - torch.arange(W, device=pos.device)) % W   # floor mod
+    return _decode_attend(q, k, v, _window_bias(pos, window, k_pos))
+
+
+def extent_decode_attend_ref(q, k, v, pos, window: int, k_ext: int):
+    """One-token attend over the first ``k_ext`` positions of a
+    (B, S_max, KV, D) cache, with each row's ``k_pos < pos + 1`` mask added
+    to the window mask."""
+    k_pos = torch.arange(k_ext, device=pos.device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    bias = _window_bias(pos, window, k_pos) + torch.where(
+        k_pos < pos.long()[:, None] + 1, zero, NEG_INF)
+    return _decode_attend(q, k[:, :k_ext], v[:, :k_ext], bias)
+
+
+def ssd_decode_step_ref(xh, dt, A, Bm, Cm, state):
+    """One SSD token step: h' = h·exp(dt·A) + dt·x⊗B, y = h'·C.
+    xh (B, H, P); dt (B, H) f32; A (H,) f32; Bm, Cm (B, N); state
+    (B, H, P, N). Returns (y in the dtype of promote(state, C), h' in
+    state's dtype). A row with dt = 0 leaves its state exactly as it was."""
+    dA = torch.exp(dt * A[None, :])
+    # dt·x, then ·B, each rounded in x's dtype: an explicit order (a
+    # three-operand einsum leaves it to the library), the kernel's
+    upd = (dt.to(xh.dtype)[..., None] * xh)[..., None] * Bm[:, None, None, :]
+    h = state * dA[..., None, None].to(state.dtype) + upd
+    # the readout accumulates in f32 and rounds once, as XLA's dot does
+    # (cuBLAS would otherwise reduce a bf16 product in reduced precision)
+    y = torch.einsum("bhpn,bn->bhp", h.float(), Cm.float())
+    return (y.to(torch.promote_types(state.dtype, Cm.dtype)),
+            h.to(state.dtype))

@@ -1,0 +1,248 @@
+"""GQA attention with sliding windows and KV-cache decode (port of
+``repro/models/attention.py``).
+
+One code path serves full attention (window == 0) and sliding-window
+attention (window > 0). Prefill uses query chunking (exact row softmax
+against full K), bounding the score tensor at (B, q_chunk, KV, G, S_k).
+
+The reference decodes one stream at a scalar position and ``vmap``s it
+over the serving slots; the port batches the slots natively, so every
+decode position here is a per-row ``(B,)`` int tensor: the RoPE angle,
+the ring slot ``pos % W`` each row writes, the row's cache write and its
+``k_len = pos + 1``. Caches are updated in place (the reference returns
+new arrays; the port saves the copy) and returned.
+
+Decode kernels: ``"cuda"`` runs the hand-written attends
+(``kernels/ops.py``: ring and extent), ``"eager"`` the plain torch path
+below — the oracle they are held against.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, fan_in_init
+
+NEG_INF = -1e30
+DECODE_KERNELS = ("cuda", "eager")
+
+
+def check_decode_kernel(kernel: str) -> None:
+    if kernel not in DECODE_KERNELS:
+        raise ValueError(f"decode kernel must be one of {DECODE_KERNELS}, "
+                         f"got {kernel!r}")
+
+
+def _rows(x, device) -> torch.Tensor:
+    """An int or a (B,) tensor -> a (B or 1, 1) tensor of positions."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1, 1)
+    return torch.full((1, 1), int(x), dtype=torch.int32, device=device)
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window,
+               causal: bool) -> torch.Tensor:
+    """(..., S_q, S_k) additive bias. window: 0/scalar -> full when 0.
+    ``q_pos`` (..., S_q) and ``k_pos`` (..., S_k) may carry a row axis."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = (dq >= dk) if causal else torch.ones_like(dq - dk, dtype=torch.bool)
+    if isinstance(window, torch.Tensor):
+        w_eff = torch.where(window == 0, 2 ** 30, window)
+    else:
+        w_eff = window if window else 2 ** 30
+    ok = ok & (dq - dk < w_eff) & (dk >= 0)   # dk<0 = unwritten ring slot
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window=0, causal: bool = True, q_offset=0, k_offset=0,
+                  k_positions=None, k_len=None, q_chunk: int = 1024,
+                  kernel: str = "eager") -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) -> (B, Sq, H, D).
+
+    ``q_offset``/``k_offset`` are the absolute positions of q[0]/k[0], an
+    int or a per-row (B,) tensor. ``k_positions`` (Sk,) or (B, Sk)
+    overrides them with an arbitrary per-slot position vector (ring
+    caches; negative = unwritten slot, always masked). ``k_len`` (int or
+    (B,)) masks absolute cache positions >= k_len.
+
+    Only the plain path is ported: ``kernel="pallas"``/``"cuda"`` (the
+    flash SWA prefill kernel) is ROADMAP Queue 2 item 5.
+    """
+    if kernel in ("pallas", "cuda"):
+        raise NotImplementedError(
+            "the sliding-window prefill kernel is not ported yet "
+            "(ROADMAP Queue 2 item 5); use kernel='eager'")
+    if kernel != "eager":
+        raise ValueError(f"unknown attention kernel {kernel!r}")
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    dev = q.device
+    scale = D ** -0.5
+    qg = q.reshape(B, Sq, KV, G, D)
+    ar_k = torch.arange(Sk, device=dev)
+    if k_positions is not None:
+        k_pos = k_positions.reshape(-1, Sk)
+    else:
+        k_pos = _rows(k_offset, dev) + ar_k[None, :]
+    q_pos = _rows(q_offset, dev) + torch.arange(Sq, device=dev)[None, :]
+    kl = None if k_len is None else _rows(k_len, dev)
+    kf, vf = k.float(), v.float()
+
+    def attend(q_blk, qp):
+        # f32 scores and p·V, p cast to q's dtype (the reference's
+        # preferred_element_type=f32 einsums)
+        s = torch.einsum("bckgd,bskd->bckgs", q_blk.float(), kf) * scale
+        bias = _mask_bias(qp, k_pos, window, causal)          # (b, C, Sk)
+        if kl is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            bias = bias + torch.where(k_pos < kl, zero, NEG_INF)[:, None, :]
+        s = s + bias[:, :, None, None, :]
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bckgs,bskd->bckgd", p.float(), vf).to(q.dtype)
+
+    if Sq <= q_chunk:
+        out = attend(qg, q_pos)
+    else:
+        if Sq % q_chunk != 0:
+            raise ValueError(
+                f"seq len {Sq} not divisible by q_chunk {q_chunk}")
+        out = torch.cat([attend(qg[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+                         for i in range(0, Sq, q_chunk)], dim=1)
+    return out.reshape(B, Sq, H, D)
+
+
+# ---------------------------------------------------------------------------
+# Full attention layer (projections + rope + cache plumbing)
+# ---------------------------------------------------------------------------
+
+def init_attn_params(gen: torch.Generator, cfg, num_layers: int,
+                     dtype=torch.float32) -> dict:
+    init = fan_in_init()
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = num_layers
+    return {
+        "wq": init(gen, (L, d, H * hd), dtype),
+        "wk": init(gen, (L, d, KV * hd), dtype),
+        "wv": init(gen, (L, d, KV * hd), dtype),
+        "wo": init(gen, (L, H * hd, d), dtype),
+    }
+
+
+def _qkv(p, x, cfg, positions):
+    B, Sq, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = torch.matmul(x, p["wq"].to(dt)).reshape(B, Sq, H, hd)
+    k = torch.matmul(x, p["wk"].to(dt)).reshape(B, Sq, KV, hd)
+    v = torch.matmul(x, p["wv"].to(dt)).reshape(B, Sq, KV, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _out_proj(p, out, x):
+    B, Sq, _ = x.shape
+    return torch.matmul(out.reshape(B, Sq, -1), p["wo"].to(x.dtype))
+
+
+def _row_ids(pos: torch.Tensor) -> torch.Tensor:
+    return torch.arange(pos.shape[0], device=pos.device)
+
+
+def positions_like(pos: torch.Tensor) -> torch.Tensor:
+    """(B,) decode positions -> (B, 1), the RoPE positions of one token."""
+    return pos.reshape(-1, 1)
+
+
+def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
+                       window: int, kernel: str = "eager"):
+    """Decode attention against a ring-buffer cache of ``W`` slots.
+
+    x: (B, 1, d); ring_k/v: (B, W, KV, D), slot s holding the latest
+    position p ≡ s (mod W); pos: (B,) int32, each row's position. Every
+    row writes its new k/v at its own slot ``pos % W`` (in place), then
+    attends. Returns (out, (ring_k, ring_v)).
+
+    ``kernel="cuda"`` runs the attend as the ring kernel
+    (``kernels.ops.ring_decode_attend``), which maps slots to positions
+    and masks inside the kernel.
+    """
+    check_decode_kernel(kernel)
+    B, Sq, _ = x.shape
+    if Sq != 1:
+        raise ValueError(f"ring decode takes one token per row, got {Sq}")
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = ring_k.shape[1]
+    q, k, v = _qkv(p, x, cfg, positions_like(pos))
+    rows, slot = _row_ids(pos), pos % W
+    ring_k[rows, slot] = k[:, 0].to(ring_k.dtype)
+    ring_v[rows, slot] = v[:, 0].to(ring_v.dtype)
+    if kernel == "cuda":
+        o = ops.ring_decode_attend(q[:, 0].reshape(B, KV, H // KV, hd),
+                                   ring_k, ring_v, pos, window)
+        out = o.reshape(B, 1, H, hd)
+    else:
+        # absolute position per slot (negative = not yet written -> masked)
+        p_col = pos[:, None]
+        k_pos = p_col - (p_col - torch.arange(W, device=pos.device)) % W
+        out = gqa_attention(q, ring_k, ring_v, window=window, causal=True,
+                            q_offset=pos, k_positions=k_pos, q_chunk=1)
+    return _out_proj(p, out, x), (ring_k, ring_v)
+
+
+def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
+                 cache=None, cache_index=None, q_chunk: int = 1024,
+                 k_extent: int = 0, kernel: str = "eager"):
+    """One attention layer (params already per-layer, no leading L).
+
+    cache: optional {"k": (B, S_max, KV, D), "v": ...}, written in place
+    at ``cache_index``: an int (prefill from 0) or a (B,) int32 tensor
+    (decode, one token per row at its own position). Returns
+    (out, cache).
+
+    ``k_extent`` (decode only): attend against the first ``k_extent``
+    cache positions instead of all S_max. With ``k_extent >= pos + 1`` on
+    every row this equals the unsliced attend: the dropped positions are
+    the ones the ``k_len`` mask zeroes.
+
+    ``kernel="cuda"`` (decode only) runs the attend as the extent kernel
+    (``kernels.ops.extent_decode_attend``), which reads only the first
+    ``k_extent`` positions and applies the ``k_len`` mask itself.
+    """
+    check_decode_kernel(kernel)
+    B, Sq, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    if cache is None:
+        out = gqa_attention(q, k, v, window=window, causal=causal,
+                            q_chunk=q_chunk)
+        return _out_proj(p, out, x), None
+    ck, cv = cache["k"], cache["v"]
+    idx = 0 if cache_index is None else cache_index
+    if isinstance(idx, torch.Tensor):
+        if Sq != 1:
+            raise ValueError("per-row cache positions take one token a row")
+        rows = _row_ids(idx)
+        ck[rows, idx] = k[:, 0].to(ck.dtype)
+        cv[rows, idx] = v[:, 0].to(cv.dtype)
+    else:
+        ck[:, idx:idx + Sq] = k.to(ck.dtype)
+        cv[:, idx:idx + Sq] = v.to(cv.dtype)
+    S_max = ck.shape[1]
+    sliced = bool(k_extent) and k_extent < S_max
+    if kernel == "cuda":
+        if Sq != 1 or not isinstance(idx, torch.Tensor):
+            raise ValueError("kernel='cuda' is the decode attend: one token "
+                             "a row at (B,) positions")
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        o = ops.extent_decode_attend(q[:, 0].reshape(B, KV, H // KV, hd),
+                                     ck, cv, idx, window,
+                                     k_extent if sliced else S_max)
+        out = o.reshape(B, 1, H, hd)
+    else:
+        ks, vs = (ck[:, :k_extent], cv[:, :k_extent]) if sliced else (ck, cv)
+        out = gqa_attention(q, ks, vs, window=window, causal=causal,
+                            q_offset=idx, k_len=idx + Sq, q_chunk=q_chunk)
+    return _out_proj(p, out, x), {"k": ck, "v": cv}

@@ -1,9 +1,96 @@
-"""Shared losses (port of ``repro/models/common.py``; the LM building
-blocks come with the LM stack, ROADMAP Queue 1 item 11)."""
+"""Shared building blocks: norms, RoPE, activations, initializers, losses
+(port of ``repro/models/common.py``).
+
+Models are pure functions over flat param dicts. The LM's layer params
+carry a leading ``L`` axis, as in the reference; the port's layer loops
+are plain Python loops over it.
+"""
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+import torch.nn.functional as F
+
+
+def normal_init(stddev: float = 0.02):
+    """N(0, stddev²), drawn from ``gen`` on the generator's device."""
+    def init(gen: torch.Generator, shape, dtype=torch.float32):
+        return (stddev * torch.randn(shape, generator=gen,
+                                     device=gen.device)).to(dtype)
+    return init
+
+
+def fan_in_init():
+    """N(0, 1/fan_in) with fan_in = shape[-2] (shape[-1] for 1-D)."""
+    def init(gen: torch.Generator, shape, dtype=torch.float32):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = 1.0 / math.sqrt(fan_in)
+        return (std * torch.randn(shape, generator=gen,
+                                  device=gen.device)).to(dtype)
+    return init
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, scaled by ``1 + scale``; returns x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def _squared_relu(x):
+    return torch.square(F.relu(x))
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return _gelu_tanh
+    if name == "relu":
+        # squared relu (Nemotron/minitron); plain relu is never used gated
+        return _squared_relu
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies, f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate split halves (not interleaved), in f32.
+
+    x: (..., S, H, D); positions: broadcastable to (..., S) — ``(S,)`` in
+    prefill, ``(B, 1)`` in decode, where every row has its own position.
+    """
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)       # (D/2,)
+    angles = positions[..., None].float() * freqs                 # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                         # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -100) -> torch.Tensor:

@@ -1,0 +1,413 @@
+"""Decoder-only LM for the dense / ssm / hybrid families: params, bucketed
+prefill and KV/SSM-cache decode (port of ``repro/models/lm.py``).
+
+Params are a flat dict keyed by the reference checkpoint's paths
+(``embed``, ``layers/attn/wq``, ``layers/ssm/in_proj``, ``final_norm``
+...). Layer params keep the reference's leading ``L`` axis; where the
+reference ``lax.scan``s over it, the port runs a plain Python loop, each
+layer's window a Python int.
+
+Decode positions are per-row ``(B,)`` int32 tensors (the reference
+decodes at one scalar position and ``vmap``s over the serving slots).
+Caches are updated in place and returned. Not ported yet (ROADMAP Queue 1
+item 11): ``forward_hidden``, ``loss_fn``, ``logits_fn``,
+``decode_step_ring`` and ``to_ring_cache``; the moe / vlm families.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import normal_init, rms_norm
+from repro_torch.types import ModelConfig
+
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.family}: the port's LM covers {FAMILIES} so far "
+            "(moe / vlm: ROADMAP Queue 1 item 11)")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def windows(cfg: ModelConfig) -> torch.Tensor:
+    return torch.tensor([cfg.window_for_layer(i)
+                         for i in range(cfg.num_layers)], dtype=torch.int32)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Every parameter's flat key and shape (the reference's ``_flatten``
+    paths; einsum weights keep their (d_in, d_out) layout)."""
+    _check_family(cfg)
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    s = {"embed": (V, d), "final_norm": (d,), "layers/ln1": (L, d)}
+    if cfg.family != "ssm":
+        H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+        s.update({"layers/ln2": (L, d),
+                  "layers/attn/wq": (L, d, H * hd),
+                  "layers/attn/wk": (L, d, KV * hd),
+                  "layers/attn/wv": (L, d, KV * hd),
+                  "layers/attn/wo": (L, H * hd, d),
+                  "layers/mlp/wg": (L, d, f), "layers/mlp/wi": (L, d, f),
+                  "layers/mlp/wo": (L, f, d)})
+    if cfg.family in ("ssm", "hybrid"):
+        di, nh, conv_dim = ssm_mod.dims(d, cfg.ssm)
+        proj_out = 2 * di + 2 * cfg.ssm.d_state + nh
+        s.update({"layers/ssm/in_proj": (L, d, proj_out),
+                  "layers/ssm/conv_w": (L, cfg.ssm.d_conv, conv_dim),
+                  "layers/ssm/conv_b": (L, conv_dim),
+                  "layers/ssm/A_log": (L, nh), "layers/ssm/D": (L, nh),
+                  "layers/ssm/dt_bias": (L, nh), "layers/ssm/norm": (L, di),
+                  "layers/ssm/out_proj": (L, di, d)})
+    if cfg.family == "hybrid":
+        s["layers/branch_norm_attn"] = (L, d)
+        s["layers/branch_norm_ssm"] = (L, d)
+    if not cfg.tie_embeddings:
+        s["lm_head"] = (d, V)
+    return s
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None,
+                dtype=torch.float32) -> dict:
+    """The reference's initialisers, drawn from ``gen`` on the
+    generator's device (a CUDA generator draws full-width weights on the
+    card), then moved to ``device``. Not the reference's numbers: the
+    parity tests convert JAX-initialised params instead."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    L, d = cfg.num_layers, cfg.d_model
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=gen.device)
+    layers = {"ln1": zeros(L, d)}
+    if cfg.family != "ssm":
+        layers["ln2"] = zeros(L, d)
+        layers["attn"] = attn_mod.init_attn_params(gen, cfg, L, dtype)
+        layers["mlp"] = mlp_mod.init_mlp_params(gen, d, cfg.d_ff, L, dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        layers["ssm"] = ssm_mod.init_ssm_params(gen, d, cfg.ssm, L, dtype)
+    if cfg.family == "hybrid":
+        layers["branch_norm_attn"] = zeros(L, d)
+        layers["branch_norm_ssm"] = zeros(L, d)
+    flat = {"embed": normal_init(0.02)(gen, (cfg.vocab_size, d), dtype),
+            "final_norm": zeros(d)}
+    for k, v in layers.items():
+        if isinstance(v, dict):
+            flat.update({f"layers/{k}/{kk}": vv for kk, vv in v.items()})
+        else:
+            flat[f"layers/{k}"] = v
+    if not cfg.tie_embeddings:
+        flat["lm_head"] = normal_init(0.02)(gen, (d, cfg.vocab_size), dtype)
+    return {k: v.to(device) for k, v in flat.items()}
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s params as the nested dict the layer body reads
+    (``{"ln1": ..., "attn": {"wq": ...}, ...}``), views into the stacks."""
+    out: dict = {}
+    for k, v in params.items():
+        if not k.startswith("layers/"):
+            continue
+        parts = k.split("/")[1:]
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v[i]
+    return out
+
+
+def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Layer body — one code path for prefill / decode
+# ---------------------------------------------------------------------------
+
+def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
+           cache, pos=None, q_chunk: int = 1024, k_extent: int = 0,
+           seq_lens=None, decode_kernel: str = "eager"):
+    """One layer. mode: 'prefill' | 'decode'. Returns (x, new_cache).
+
+    ``seq_lens`` (B,) marks right-padded bucketed-prefill rows: attention
+    needs no mask (pad keys sit at positions the causal mask already
+    hides from real queries) but the SSM recurrence does (``ssm_forward``).
+
+    The attention cache is uniform (``{"k", "v"}``) or a ring
+    (``{"k_win", "v_win"}``, decode only); ``new_cache`` mirrors it, the
+    attention entries being the cache views written in place and the SSM
+    entries new tensors. ``k_extent`` bounds a uniform-cache decode's
+    attend (``attn_forward``). ``decode_kernel``: "eager" or "cuda".
+    """
+    def run_ssm(h):
+        if mode == "decode":
+            return ssm_mod.ssm_decode_step(lp["ssm"], h, cfg.ssm,
+                                           cache["ssm_state"],
+                                           cache["conv_state"],
+                                           kernel=decode_kernel)
+        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens)
+
+    def run_attn(h):
+        if "k_win" in cache:     # ring-buffer SWA decode
+            a, (rk, rv) = attn_mod.ring_decode_attend(
+                lp["attn"], h, cfg=cfg, ring_k=cache["k_win"],
+                ring_v=cache["v_win"], pos=pos, window=window,
+                kernel=decode_kernel)
+            return a, {"k_win": rk, "v_win": rv}
+        idx = 0 if mode == "prefill" else pos
+        kern = decode_kernel if mode == "decode" else "eager"
+        return attn_mod.attn_forward(
+            lp["attn"], h, cfg=cfg, window=window, positions=positions,
+            cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
+            q_chunk=q_chunk, k_extent=k_extent, kernel=kern)
+
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        out, (st, cs) = run_ssm(h)
+        return x + out, {"ssm_state": st, "conv_state": cs}
+
+    if cfg.family == "hybrid":
+        a, ac = run_attn(h)
+        s, (st, cs) = run_ssm(h)
+        mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
+                       + rms_norm(s, lp["branch_norm_ssm"], cfg.norm_eps))
+        x = x + mixed.to(x.dtype)
+        new_cache = {**ac, "ssm_state": st, "conv_state": cs}
+    else:
+        a, new_cache = run_attn(h)
+        x = x + a
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act), new_cache
+
+
+def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
+    """Write layer ``j``'s new ``key`` entry into the stacked cache (the
+    attention entries were written in place already)."""
+    dst = cache[key][j]
+    if val.data_ptr() != dst.data_ptr():
+        dst.copy_(val)
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_embeds=None, dtype=None) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if dtype is not None:
+        x = x.to(dtype)
+    if cfg.prefix_len and prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, last: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(last, lm_head_weight(params, cfg).to(last.dtype))
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving
+# ---------------------------------------------------------------------------
+
+def swa_layer_ids(cfg: ModelConfig):
+    return [i for i in range(cfg.num_layers) if cfg.window_for_layer(i) > 0]
+
+
+def global_layer_ids(cfg: ModelConfig):
+    return [i for i in range(cfg.num_layers) if cfg.window_for_layer(i) == 0]
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    L = cfg.num_layers
+    di, nh, conv_dim = ssm_mod.dims(cfg.d_model, cfg.ssm)
+    return {"ssm_state": _zeros((L, batch, nh, cfg.ssm.head_dim,
+                                 cfg.ssm.d_state), dtype, device),
+            "conv_state": _zeros((L, batch, cfg.ssm.d_conv - 1, conv_dim),
+                                 dtype, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Uniform decode cache: every attention layer keeps ``max_len``
+    positions."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    L = cfg.num_layers
+    c: dict = {}
+    if cfg.family != "ssm":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        c["k"] = _zeros((L, batch, max_len, kv, hd), dtype, device)
+        c["v"] = _zeros((L, batch, max_len, kv, hd), dtype, device)
+    if cfg.family in ("ssm", "hybrid"):
+        c.update(_ssm_cache(cfg, batch, dtype, device))
+    return c
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """Decode cache sized per layer kind: full-attention layers get
+    ``max_len`` buffers, SWA layers ring buffers of their window, capped
+    at ``max_len`` (positions never exceed it)."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    c: dict = {}
+    if cfg.family != "ssm":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        gl, wl = global_layer_ids(cfg), swa_layer_ids(cfg)
+        if gl:
+            c["k"] = _zeros((len(gl), batch, max_len, kv, hd), dtype, device)
+            c["v"] = _zeros((len(gl), batch, max_len, kv, hd), dtype, device)
+        if wl:
+            W = min(cfg.sliding_window, max_len)
+            c["k_win"] = _zeros((len(wl), batch, W, kv, hd), dtype, device)
+            c["v_win"] = _zeros((len(wl), batch, W, kv, hd), dtype, device)
+    if cfg.family in ("ssm", "hybrid"):
+        c.update(_ssm_cache(cfg, batch, dtype, device))
+    return c
+
+
+def ring_source_positions(last, W: int) -> torch.Tensor:
+    """Absolute position each W-ring slot holds once position ``last`` has
+    been written: slot ``s`` holds the latest ``p <= last`` with
+    ``p ≡ s (mod W)``; negative = never written (decode masks those).
+    ``last`` is an int or a ``(B,)`` tensor (a trailing slot axis is
+    appended). The one definition of the ring layout, shared by the
+    serving install and (transposed) the decode-side mask."""
+    last = torch.as_tensor(last, dtype=torch.int64)[..., None]
+    return last - (last - torch.arange(W, device=last.device)) % W
+
+
+def _kind_runs(cfg: ModelConfig):
+    """Contiguous same-kind layer runs, in layer order:
+    ``[("swa" | "full", [layer ids]), ...]``."""
+    runs: list = []
+    for i in range(cfg.num_layers):
+        kind = "swa" if cfg.window_for_layer(i) > 0 else "full"
+        if runs and runs[-1][0] == kind:
+            runs[-1][1].append(i)
+        else:
+            runs.append((kind, [i]))
+    return runs
+
+
+def _decode_pos(pos, batch: int, device) -> torch.Tensor:
+    """An int or a (B,) tensor -> the (B,) int32 tensor the decode path
+    (and the kernels) take."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(batch)
+    return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
+
+
+def _embed_token(params, cfg, token, dtype):
+    x = params["embed"][token][:, None, :]
+    return x if dtype is None else x.to(dtype)
+
+
+def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
+                        k_ext: int = 0, dtype=None,
+                        decode_kernel: str = "eager"):
+    """One decode step against an ``init_ring_cache`` layout.
+
+    token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
+    SWA layers attend against their W-slot rings; full-attention layers
+    write their uniform cache in place and attend against its first
+    ``k_ext`` positions (0 = all), masked at each row's ``pos + 1``.
+    Greedy tokens match ``decode_step`` (ring softmax sums run in slot
+    order, so floats may differ in the last ulp).
+
+    ``decode_kernel="cuda"`` runs every decode attend and recurrence
+    through the hand-written kernels (``kernels/ops.py``).
+    """
+    if cfg.family == "ssm":      # no attention: ring layout == uniform
+        return decode_step(params, cfg, token, cache, pos, dtype=dtype,
+                           decode_kernel=decode_kernel)
+    x = _embed_token(params, cfg, token, dtype)
+    pos = _decode_pos(pos, x.shape[0], x.device)
+    positions = attn_mod.positions_like(pos)
+    wmap = {layer: j for j, layer in enumerate(swa_layer_ids(cfg))}
+    gmap = {layer: j for j, layer in enumerate(global_layer_ids(cfg))}
+    has_ssm = cfg.family == "hybrid"
+    for kind, ids in _kind_runs(cfg):
+        for i in ids:
+            if kind == "swa":
+                j, keys, win, ext = wmap[i], ("k_win", "v_win"), \
+                    cfg.sliding_window, 0
+            else:
+                j, keys, win, ext = gmap[i], ("k", "v"), 0, k_ext
+            cl = {key: cache[key][j] for key in keys}
+            if has_ssm:
+                cl["ssm_state"] = cache["ssm_state"][i]
+                cl["conv_state"] = cache["conv_state"][i]
+            x, nc = _layer(cfg, layer_params(params, i), x, win, positions,
+                           "decode", cache=cl, pos=pos, q_chunk=1,
+                           k_extent=ext, decode_kernel=decode_kernel)
+            for key, val in nc.items():
+                _store(cache, key, j if key in keys else i, val)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x[:, 0, :]), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
+            q_chunk: int = 1024, dtype=None, lengths=None):
+    """Fill the cache from position 0; returns (last_logits (B, V), cache).
+
+    ``lengths`` (B,) enables bucketed prefill: each row's tokens beyond
+    lengths[b] are right-padding to a shared length. Logits are gathered
+    at each row's last real position, the SSM/conv states stop exactly
+    there (``ssm_forward``), and the pad keys written into the KV cache
+    are causally invisible to every real query and overwritten by decode
+    before they could be attended.
+    """
+    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    S = x.shape[1]
+    seq_lens = None
+    if lengths is not None:
+        seq_lens = torch.as_tensor(lengths, dtype=torch.int64,
+                                   device=x.device)
+        if cfg.prefix_len and prefix_embeds is not None:
+            seq_lens = seq_lens + cfg.prefix_len
+    positions = torch.arange(S, device=x.device)
+    for i in range(cfg.num_layers):
+        cl = {key: val[i] for key, val in cache.items()}
+        x, nc = _layer(cfg, layer_params(params, i), x,
+                       cfg.window_for_layer(i), positions, "prefill",
+                       cache=cl, q_chunk=q_chunk, seq_lens=seq_lens)
+        for key, val in nc.items():
+            _store(cache, key, i, val)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if seq_lens is None:
+        last = x[:, -1, :]
+    else:
+        last = x[torch.arange(x.shape[0], device=x.device), seq_lens - 1]
+    return _logits(params, cfg, last), cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
+                decode_kernel: str = "eager"):
+    """One autoregressive step against a uniform cache (the oracle).
+
+    token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
+    Returns (logits (B, V), cache).
+    """
+    x = _embed_token(params, cfg, token, dtype)
+    pos = _decode_pos(pos, x.shape[0], x.device)
+    positions = attn_mod.positions_like(pos)
+    for i in range(cfg.num_layers):
+        cl = {key: val[i] for key, val in cache.items()}
+        x, nc = _layer(cfg, layer_params(params, i), x,
+                       cfg.window_for_layer(i), positions, "decode",
+                       cache=cl, pos=pos, q_chunk=1,
+                       decode_kernel=decode_kernel)
+        for key, val in nc.items():
+            _store(cache, key, i, val)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x[:, 0, :]), cache

@@ -1,40 +1,52 @@
-"""Family dispatch (port of ``repro/models/registry.py``, resnet3d branch).
+"""Family dispatch (port of ``repro/models/registry.py``): the resnet3d
+branch and the LM branch (dense / ssm / hybrid).
 
     init_params(gen, cfg, device, dtype) -> flat param dict
-    loss_fn(params, cfg, batch)          -> (loss, metrics)
-    logits_fn(params, cfg, batch)        -> (B, classes)
+    loss_fn(params, cfg, batch)          -> (loss, metrics)    [resnet3d]
+    logits_fn(params, cfg, batch)        -> (B, classes)       [resnet3d]
     logit_width(cfg)                     -> KD compatibility width
+    init_cache / init_ring_cache / prefill / decode_step /
+    decode_step_grouped                  -> LM serving
 
-The LM / enc-dec families come with the LM stack (ROADMAP Queue 1 item 11).
+The moe, encdec, vlm and audio families are ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import resnet3d
+from repro_torch.models import lm, resnet3d
 from repro_torch.types import ModelConfig
 
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
-def _only_resnet3d(cfg: ModelConfig):
-    if cfg.family != "resnet3d":
-        raise NotImplementedError(
-            f"{cfg.family}: the port has the resnet3d family only so far "
-            "(LM stack: ROADMAP Queue 1 item 11)")
+
+def _unported(cfg: ModelConfig, what: str):
+    return NotImplementedError(
+        f"{cfg.family}: {what} is not ported yet (ROADMAP Queue 1 item 11)")
+
+
+def _lm(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in lm.FAMILIES:
+        raise _unported(cfg, what)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device,
                 dtype=torch.float32) -> dict:
-    _only_resnet3d(cfg)
-    return resnet3d.init_params(gen, cfg, device, dtype)
+    if cfg.family == "resnet3d":
+        return resnet3d.init_params(gen, cfg, device, dtype)
+    _lm(cfg, "init_params")
+    return lm.init_params(gen, cfg, device, dtype)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    _only_resnet3d(cfg)
+    if cfg.family != "resnet3d":
+        raise _unported(cfg, "loss_fn")
     return resnet3d.loss_fn(params, cfg, batch, **kw)
 
 
 def logits_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    _only_resnet3d(cfg)
+    if cfg.family != "resnet3d":
+        raise _unported(cfg, "logits_fn")
     return resnet3d.logits_fn(params, cfg, batch, **kw)
 
 
@@ -42,3 +54,41 @@ def logit_width(cfg: ModelConfig) -> int:
     """Width of the last logits axis: a teacher and a student can only
     distil if their widths match."""
     return cfg.num_classes if cfg.family == "resnet3d" else cfg.vocab_size
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    if cfg.family == "resnet3d":
+        raise ValueError(f"{cfg.family}: no autoregressive cache")
+    _lm(cfg, "init_cache")
+    return lm.init_cache(cfg, batch, seq_len, dtype, device)
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """Per-layer-kind decode cache: W-slot ring buffers for SWA layers,
+    ``seq_len`` buffers for full-attention layers (LM families only)."""
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.family}: no ring decode cache")
+    _lm(cfg, "init_ring_cache")
+    return lm.init_ring_cache(cfg, batch, seq_len, dtype, device)
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, cache, **kw):
+    _lm(cfg, "prefill")
+    return lm.prefill(params, cfg, batch["tokens"], cache,
+                      batch.get("prefix_embeds"), **kw)
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos, **kw):
+    _lm(cfg, "decode_step")
+    return lm.decode_step(params, cfg, token, cache, pos, **kw)
+
+
+def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos, **kw):
+    """Decode against an ``init_ring_cache`` layout; ``k_ext`` bounds the
+    K-extent full-attention layers attend against."""
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.family}: no grouped ring decode")
+    _lm(cfg, "decode_step_grouped")
+    return lm.decode_step_grouped(params, cfg, token, cache, pos, **kw)

@@ -2,8 +2,7 @@
 
 Frozen dataclasses, so configs are hashable and compare by value. The
 fields match the reference's exactly (the parity tests build both
-packages' configs by name and compare them); the LM sub-configs and the
-LM branch of ``reduced()`` come with the LM stack.
+packages' configs by name and compare them field by field).
 """
 from __future__ import annotations
 
@@ -14,6 +13,24 @@ from typing import Optional, Tuple
 ARCH_FAMILIES = (
     "dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio", "resnet3d",
 )
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    shared_expert: bool = False      # Llama-4 style always-on shared expert
+    router_aux_weight: float = 0.01  # load-balance loss weight
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2           # d_inner = expand * d_model
+    chunk: int = 128          # SSD chunk length
+    d_conv: int = 4           # depthwise conv width
 
 
 @dataclass(frozen=True)
@@ -31,8 +48,8 @@ class ModelConfig:
     global_every: int = 0
     global_layers: Tuple[int, ...] = ()
     rope_theta: float = 10_000.0
-    moe: Optional[object] = None      # LM sub-configs: ROADMAP item 11
-    ssm: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     prefix_len: int = 0
     num_classes: int = 0              # resnet3d: classifier width
     tie_embeddings: bool = True
@@ -57,26 +74,110 @@ class ModelConfig:
         if self.family in ("ssm", "hybrid") and self.ssm is None:
             raise ValueError(f"{self.name}: {self.family} requires SSMConfig")
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family in ("encdec", "audio")
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can decode at 500k context (SSM / SWA-dominant)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
+    def window_for_layer(self, layer: int) -> int:
+        """Effective attention window for a layer. 0 = full attention."""
+        if self.sliding_window == 0:
+            return 0
+        if self.global_layers and layer in self.global_layers:
+            return 0
+        if self.global_every and (layer + 1) % self.global_every == 0:
+            return 0
+        return self.sliding_window
+
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ModelConfig":
-        """A tiny same-family variant for CPU tests (the reference's rule:
-        resnet3d keeps its block counts, stem width 32, <= 16 classes).
-        The signature is the reference's; the LM widths do not apply yet."""
+        """A tiny same-family variant for CPU tests (the reference's rule).
+
+        resnet3d keeps its block counts, stem width 32, <= 16 classes. The
+        LM families keep the head/kv ratio, the attention pattern kind and
+        the MoE/SSM structure, shrinking every width: <= 4 experts,
+        d_model <= 512, ``num_layers`` layers.
+        """
         if self.family == "resnet3d":
             return dataclasses.replace(
                 self, name=self.name + "-reduced",
                 num_layers=2, d_model=32, num_classes=min(self.num_classes, 16))
-        raise NotImplementedError(
-            "reduced() of the LM families comes with the LM stack "
-            "(ROADMAP Queue 1 item 11)")
+        num_heads = max(2, min(4, self.num_heads)) if self.num_heads else 0
+        kv = max(1, min(num_heads, self.num_kv_heads)) if num_heads else 0
+        if num_heads and num_heads % kv:
+            kv = 1
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, num_experts=min(4, self.moe.num_experts),
+                top_k=min(self.moe.top_k, min(4, self.moe.num_experts)))
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(
+                self.ssm, d_state=min(16, self.ssm.d_state), head_dim=32,
+                chunk=32)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=num_layers,
+            num_encoder_layers=min(self.num_encoder_layers, num_layers),
+            d_model=min(d_model, 512),
+            num_heads=num_heads,
+            num_kv_heads=kv,
+            head_dim=(min(d_model, 512) // num_heads) if num_heads else 0,
+            d_ff=2 * min(d_model, 512),
+            vocab_size=vocab,
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            global_layers=tuple(g for g in self.global_layers
+                                if g < num_layers),
+            prefix_len=min(self.prefix_len, 8),
+            moe=moe,
+            ssm=ssm,
+        )
 
     def param_count(self) -> int:
-        if self.family != "resnet3d":
-            raise NotImplementedError(
-                "param_count of the LM families comes with the LM stack "
-                "(ROADMAP Queue 1 item 11)")
-        from repro_torch.models import resnet3d
-        return resnet3d.param_count(self)
+        """Approximate parameter count N (the reference's formula)."""
+        if self.family == "resnet3d":
+            from repro_torch.models import resnet3d
+            return resnet3d.param_count(self)
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        q = self.num_heads * hd
+        kvd = self.num_kv_heads * hd
+        attn = d * q + 2 * d * kvd + q * d
+        mlp = 3 * d * f
+        if self.moe is not None and self.moe.num_experts:
+            mlp = self.moe.num_experts * 3 * d * f + d * self.moe.num_experts
+            if self.moe.shared_expert:
+                mlp += 3 * d * f
+        ssm = 0
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            # in/out projections + B,C state projections (SSD, grouped B/C)
+            ssm = d * 2 * di + di * d + di * 2 * self.ssm.d_state
+        per_layer = 2 * d  # norms
+        if self.family == "ssm":
+            per_layer += ssm
+        elif self.family == "hybrid":
+            per_layer += attn + mlp + ssm
+        else:
+            per_layer += attn + mlp
+        total_layers = self.num_layers + self.num_encoder_layers
+        n = total_layers * per_layer + v * d + d
+        if not self.tie_embeddings:
+            n += v * d
+        return int(n)
 
 
 @dataclass(frozen=True)

@@ -4,6 +4,7 @@ skips with a reason. Imports no JAX, so the GPU machine runs it alone:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import itertools
 import math
 
 import numpy as np
@@ -88,3 +89,150 @@ def test_distill_kd_loss_goes_through_the_kernel(cuda, rng):
     want = distill.kd_loss(s, t, lab, 0.5, kd_kernel="eager")
     assert _close(got, want)
     assert np.isfinite(got.item())
+
+
+# ---------------------------------------------------------------------------
+# Serving decode kernels: ring attend, extent attend, SSD step
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _serve_close(got, want, tol):
+    return bool(((got.float() - want.float()).abs()
+                 <= tol * (1 + want.float().abs())).all())
+
+
+def _attend(rng, B, KV, G, D, L, q_dtype, kv_dtype, device):
+    q = torch.tensor(rng.standard_normal((B, KV, G, D)) * 0.4,
+                     dtype=torch.float32)
+    k = torch.tensor(rng.standard_normal((B, L, KV, D)) * 0.4,
+                     dtype=torch.float32)
+    v = torch.tensor(rng.standard_normal((B, L, KV, D)), dtype=torch.float32)
+    return q.to(device, q_dtype), k.to(device, kv_dtype), \
+        v.to(device, kv_dtype)
+
+
+DTYPE_MIXES = ((torch.float32, torch.float32),
+               (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.bfloat16))
+
+
+def _tol(*dtypes):
+    return SERVE_TOL[torch.bfloat16 if torch.bfloat16 in dtypes
+                     else torch.float32]
+
+
+def test_ring_and_extent_kernels_match_plain(cuda, rng):
+    """f32 and bf16 caches. Per-row positions: rings not yet full (the
+    floor-mod case), wrapped rings, W = 1 and odd W and windows; the
+    extent on every rung with a shallow and the deepest row. D = 18 takes
+    the scalar loads, the others the vector loads."""
+    from repro_torch.kernels import decode_attend as tda
+    for (q_dtype, kv_dtype), (B, KV, G, D) in itertools.product(
+            DTYPE_MIXES, ((4, 5, 5, 64), (2, 2, 2, 240), (3, 2, 3, 18))):
+        tol = _tol(q_dtype, kv_dtype)
+        for W in (1, 17, 64):
+            q, k, v = _attend(rng, B, KV, G, D, W, q_dtype, kv_dtype, cuda)
+            pos = torch.tensor([W // 2, 3 * W + 5, W - 1, 40][:B],
+                               dtype=torch.int32, device=cuda)
+            for window in (0, W if W % 2 else W - 1):
+                before = tda.ring_decode_attend.launches
+                got = tda.ring_decode_attend(q, k, v, pos, window)
+                torch.cuda.synchronize()
+                assert tda.ring_decode_attend.launches == before + 1
+                assert got.dtype == q_dtype
+                assert _serve_close(got, tref.ring_decode_attend_ref(
+                    q, k, v, pos, window), tol), (B, KV, G, D, W, window)
+        q, k, v = _attend(rng, B, KV, G, D, 128, q_dtype, kv_dtype, cuda)
+        for k_ext in (8, 16, 32, 64, 128):
+            pos = torch.tensor([0, k_ext - 1, k_ext // 2, k_ext - 1][:B],
+                               dtype=torch.int32, device=cuda)
+            for window in (0, 5):
+                got = tda.extent_decode_attend(q, k, v, pos, window, k_ext)
+                assert _serve_close(got, tref.extent_decode_attend_ref(
+                    q, k, v, pos, window, k_ext), tol), (D, k_ext, window)
+
+
+def test_ssd_decode_kernel_matches_plain(cuda, rng):
+    from repro_torch.kernels import ssd_decode as tsd
+    for (x_dtype, state_dtype), (B, H, P, N) in itertools.product(
+            DTYPE_MIXES, ((4, 50, 64, 16), (2, 3, 5, 128), (3, 4, 8, 6))):
+        tol = _tol(x_dtype, state_dtype)
+        dt = torch.nn.functional.softplus(torch.tensor(
+            rng.standard_normal((B, H)), dtype=torch.float32))
+        dt[1] = 0.0
+        args = (torch.tensor(rng.standard_normal((B, H, P))).to(cuda,
+                                                                x_dtype),
+                dt.to(cuda),
+                -torch.exp(torch.tensor(rng.standard_normal(H) * 0.3,
+                                        dtype=torch.float32)).to(cuda),
+                torch.tensor(rng.standard_normal((B, N)) * 0.5).to(cuda,
+                                                                   x_dtype),
+                torch.tensor(rng.standard_normal((B, N)) * 0.5).to(cuda,
+                                                                   x_dtype),
+                torch.tensor(rng.standard_normal((B, H, P, N))).to(
+                    cuda, state_dtype))
+        before = tsd.ssd_decode_step.launches
+        y, st = tsd.ssd_decode_step(*args)
+        torch.cuda.synchronize()
+        assert tsd.ssd_decode_step.launches == before + 1
+        y_ref, st_ref = tref.ssd_decode_step_ref(*args)
+        assert y.dtype == y_ref.dtype and st.dtype == state_dtype
+        assert _serve_close(y, y_ref, tol) and _serve_close(st, st_ref, tol)
+        assert torch.equal(st[1], args[-1][1])      # dt = 0: exact
+
+
+def test_decode_kernels_reject_mixed_devices(cuda):
+    from repro_torch.kernels import decode_attend as tda
+    from repro_torch.kernels import ssd_decode as tsd
+    q = torch.zeros(2, 1, 1, 8, device=cuda)
+    k = torch.zeros(2, 4, 1, 8, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tda.ring_decode_attend(q, k, k, pos.cpu(), 0)
+    with pytest.raises(ValueError):
+        tda.extent_decode_attend(q, k.cpu(), k, pos, 0, 4)
+    x = torch.zeros(2, 3, 4, device=cuda)
+    with pytest.raises(ValueError):
+        tsd.ssd_decode_step(x, torch.zeros(2, 3), torch.zeros(3, device=cuda),
+                            torch.zeros(2, 8, device=cuda),
+                            torch.zeros(2, 8, device=cuda),
+                            torch.zeros(2, 3, 4, 8, device=cuda))
+
+
+def test_serving_on_the_card_goes_through_the_kernels(cuda, rng):
+    """Reduced Hymba served on the card: the CUDA decode gives the eager
+    decode's tokens, and every decode tick launches each kernel once per
+    layer of its kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serving import ContinuousBatcher, generate_single
+    from repro_torch.kernels import decode_attend as tda
+    from repro_torch.kernels import ssd_decode as tsd
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b").reduced()
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  cuda)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 9, 21, 70)]
+    outs = {}
+    for kern in ("cuda", "eager"):
+        srv = ContinuousBatcher(params, cfg, max_slots=2, max_len=128,
+                                min_bucket=4, decode_kernel=kern)
+        counts = (tda.ring_decode_attend.launches,
+                  tda.extent_decode_attend.launches,
+                  tsd.ssd_decode_step.launches)
+        for p in prompts:
+            srv.submit(p, max_new=12)
+        outs[kern] = {r.rid: r.out for r in srv.run()}
+        n = srv._steps if kern == "cuda" else 0
+        assert (tda.ring_decode_attend.launches,
+                tda.extent_decode_attend.launches,
+                tsd.ssd_decode_step.launches) == (
+            counts[0] + n * len(lm.swa_layer_ids(cfg)),
+            counts[1] + n * len(lm.global_layer_ids(cfg)),
+            counts[2] + n * cfg.num_layers)
+    assert outs["cuda"] == outs["eager"]
+    assert outs["cuda"][3] == generate_single(params, cfg, prompts[3], 12,
+                                              max_len=128)

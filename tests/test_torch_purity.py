@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor anything of the
-reference package, and ``chip_smoke.py`` refuses to run without a card."""
+reference package, and ``chip_smoke.py`` and the serve CLI refuse to run
+without a card unless the CPU is asked for."""
 import os
 import re
 import subprocess
@@ -32,7 +33,7 @@ def test_port_imports_with_jax_blocked_and_loads_no_reference_module():
                          env={**os.environ, "PYTHONPATH": str(SRC)},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 25          # every module was imported
+    assert int(out.stdout) >= 41          # every module was imported
 
 
 _FORBIDDEN = re.compile(
@@ -61,3 +62,16 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_serve_cli_refuses_without_a_card_unless_asked_for_the_cpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "hymba-1.5b", "--reduced", "--continuous", "--requests", "1"],
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "served" not in out.stdout

@@ -32,6 +32,13 @@ def jax_flat_params(cfg, key) -> dict:
                             static_argnums=(1,))(key, cfg))
 
 
+def jax_params_both(cfg, key):
+    """One reference init of ``cfg`` from ``key``: (its pytree, the same
+    leaves flattened), so both packages get bit-identical weights."""
+    tree = jax.jit(jax_registry.init_params, static_argnums=(1,))(key, cfg)
+    return tree, _flatten(tree)
+
+
 def port_params(flat: dict, cfg, device="cpu") -> dict:
     return params_from_jax(flat, cfg, device=device)
 
