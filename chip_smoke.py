@@ -30,7 +30,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    requests of 1 to 1500 prompt tokens through the continuous batcher in
    ring mode on the CUDA kernels, every kernel's launches counted, 16
    decode ticks teacher-forced against the uniform eager decode, and one
-   decode tick traced by torch.profiler.
+   decode tick traced by torch.profiler;
+10. the scoring kernels (sliding-window attention, SSD chunk scan) against
+    their plain versions on the card, f32 and bf16, then timed at
+    Hymba-1.5B's full-width scoring shapes beside their bound and, for the
+    attention, ``scaled_dot_product_attention`` with the band mask;
+11. the reduced Hymba, Mamba2 and Gemma3 scoring forward
+    (``registry.loss_fn`` / ``logits_fn``, kernel="cuda") on the card
+    against the CPU (TF32 off);
+12. the scoring forward at full width: Hymba-1.5B, f32, B = 2, S = 2048,
+    ``loss_fn`` and ``logits_fn`` through the kernels (32 launches of each
+    a forward) against the eager forward on the card, both timed, one
+    forward traced by torch.profiler.
 
 Prints the card's line first, and at the end one ``{"kernels": [...]}``
 line, the card's line again, and last ``{"ok": true, "device": {...}}``.
@@ -55,7 +66,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TOL = 1e-4          # |kernel - plain| <= TOL * (1 + |plain|)
-KERNEL_SOURCES = ("kd_loss", "decode_attend", "ssd_decode")
+KERNEL_SOURCES = ("kd_loss", "decode_attend", "ssd_decode", "swa_attention",
+                  "ssd_scan")
 
 
 def _card_line() -> str:
@@ -822,6 +834,334 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
         "forced_logits_rel_err": max(errs), "tick_profile": tick}))
 
 
+# ---------------------------------------------------------------------------
+# Scoring: the sliding-window attention and the SSD chunk scan, the reduced
+# forward card vs CPU, the full-width forward
+# ---------------------------------------------------------------------------
+
+SCORE_TOL = {"f32": 1e-4, "bf16": 1e-2}   # |err| <= tol * (1 + |plain|)
+# Hymba-1.5B's scoring shapes at B = 2, S = 2048 (configs/hymba_1_5b.py):
+# 25 query heads of dim 64 (K/V repeated over the 5 kv groups) folded into
+# BH = 50, window 1024 on 29 layers and S on 3; 50 SSD heads of P 64,
+# N 16, chunk 128
+SCORE_B, SCORE_S = 2, 2048
+HYMBA_SWA = (SCORE_B * 25, SCORE_S, 64)
+HYMBA_SCAN = (SCORE_B, SCORE_S, 50, 64, 16, 128)
+# the reference's sweep (tests/test_kernels.py), Hymba's and Mamba2-130m's
+# shape (N = 128 with P = 64: the kernel takes 64 rows at a time)
+SCAN_SHAPES = ((128, 2, 32, 16, 32), (256, 3, 64, 16, 64),
+               (256, 2, 32, 128, 128), (64, 1, 64, 64, 64),
+               HYMBA_SCAN[1:], (512, 24, 64, 128, 256))
+
+
+def _swa_inputs(BH, S, D, dt_name, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k = ((0.3 * torch.randn(BH, S, D, generator=g)).to("cuda", _dt(dt_name))
+            for _ in range(2))
+    v = torch.randn(BH, S, D, generator=g).to("cuda", _dt(dt_name))
+    return q, k, v
+
+
+def _scan_inputs(B, S, H, P, N, dt_name, seed, live=None):
+    """SSD inputs as ``ssm_forward`` hands them over; rows from ``live`` on
+    are its chunk padding: zeros, dt = 0."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = F.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(0.3 * torch.randn(H, generator=g))
+    Bm = 0.5 * torch.randn(B, S, N, generator=g)
+    Cm = 0.5 * torch.randn(B, S, N, generator=g)
+    if live is not None:
+        for t in (x, dt, Bm, Cm):
+            t[:, live:] = 0.0
+    d = _dt(dt_name)
+    return (x.to("cuda", d), dt.cuda(), A.cuda(), Bm.to("cuda", d),
+            Cm.to("cuda", d))
+
+
+def _visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs of one head inside the causal band."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def _swa_bound(q, window: int) -> tuple:
+    """q, k, v read and the output written once; 4 D f32 operations per
+    visible pair (the score's and p.V's multiply-adds)."""
+    BH, S, D = q.shape
+    bytes_ms = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * D * BH * _visible_pairs(S, window) / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _scan_bound(x, N: int, chunk: int) -> tuple:
+    """x, dt, A, B, C read and y and the final state written once; per
+    (b, h, chunk) the causal triangle's C.B and G.(x dt) products,
+    2 Q(Q+1)/2 (N + P), and the state's readout and update, 4 Q P N."""
+    B, S, H, P = x.shape
+    es = x.element_size()
+    nbytes = (2 * x.numel() * es + 4 * B * S * H + 4 * H
+              + 2 * B * S * N * es + B * H * P * N * es)
+    Q = min(chunk, S)
+    per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N
+    ops = per_chunk * B * H * (S // Q)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_scoring_kernels() -> list:
+    """The sliding-window attention and the SSD scan against their plain
+    versions on the card, then timed at Hymba's full-width scoring
+    shapes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"swa": 0.0, "scan": 0.0}
+    cases = 0
+    for dn in ("f32", "bf16"):
+        tol = SCORE_TOL[dn]
+        for D, seqs in ((64, (40, 128, 256, 512, 2048)), (128, (128, 256)),
+                        (256, (128, 256))):
+            for S in seqs:
+                q, k, v = _swa_inputs(3, S, D, dn, seed=S + D)
+                for w in (1, 32, 100, 200, S, 0):
+                    got = ops.swa_attention(q, k, v, w)
+                    torch.cuda.synchronize()
+                    want = ref.swa_attention_ref(q, k, v, w or S)
+                    if got.dtype != q.dtype:
+                        raise AssertionError(f"swa dtype {got.dtype}")
+                    worst["swa"] = max(worst["swa"], _check_close(
+                        f"swa {dn} S={S} D={D} w={w}", got, want, tol))
+                    cases += 1
+        for i, (S, H, P, N, chunk) in enumerate(SCAN_SHAPES):
+            args = _scan_inputs(2, S, H, P, N, dn, seed=i)
+            y, h = ops.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            y_ref, h_ref = ref.ssd_scan_ref(*args, chunk)
+            what = f"scan {dn} {(S, H, P, N, chunk)}"
+            worst["scan"] = max(worst["scan"],
+                                _check_close(what + " y", y, y_ref, tol),
+                                _check_close(what + " state", h, h_ref, tol))
+            if y.dtype != args[0].dtype or h.dtype != args[0].dtype:
+                raise AssertionError(f"{what}: dtypes {y.dtype} {h.dtype}")
+            cases += 1
+        # ssm_forward's chunk padding: 200 live rows and 56 dt = 0 rows
+        # give the final state of the 200 rows alone
+        args = _scan_inputs(2, 256, 50, 64, 16, dn, seed=7, live=200)
+        y, h = ops.ssd_scan(*args, chunk=128)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ref.ssd_scan_ref(*(t[:, :200] if t.dim() > 1 else t
+                                          for t in args), 128)
+        worst["scan"] = max(
+            worst["scan"],
+            _check_close(f"scan {dn} padded y", y[:, :200], y_ref, tol),
+            _check_close(f"scan {dn} padded state", h, h_ref, tol))
+        cases += 1
+    print(json.dumps({"phase": "scoring_kernels", "cases": cases,
+                      "max_abs_err": worst}))
+    return _time_scoring_kernels(worst)
+
+
+def _time_scoring_kernels(worst: dict) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    out = []
+    BH, S, D = HYMBA_SWA
+    q, k, v = _swa_inputs(BH, S, D, "f32", seed=1)
+    rows = {}
+    for w in (1024, S):
+        row = _time_kernel(lambda: ops.swa_attention(q, k, v, w),
+                           lambda: ref.swa_attention_ref(q, k, v, w))
+        i = torch.arange(S, device="cuda")
+        band = (i[:, None] - i[None, :] >= 0) & (i[:, None] - i[None, :] < w)
+        row["library_ms"] = _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band), iters=50)
+        row["bound_ms"], row["bound_by"] = _swa_bound(q, w)
+        rows[w] = row
+    # the row is the 29 sliding-window layers' shape; the 3 global
+    # layers' (window S) rides along under "window_S"
+    out.append({"name": "swa_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+                "replaces": "src/repro/kernels/swa_attention.py:256",
+                "shape": {"BH_S_D": HYMBA_SWA, "window": 1024,
+                          "dtype": "float32"},
+                "max_abs_err": worst["swa"], **rows[1024],
+                "library": "F.scaled_dot_product_attention, boolean band "
+                           "mask",
+                "window_S": rows[S]})
+    B, S_, H, P, N, chunk = HYMBA_SCAN
+    args = _scan_inputs(B, S_, H, P, N, "f32", seed=3)
+    row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
+                       lambda: ref.ssd_scan_ref(*args, chunk))
+    bound, by = _scan_bound(args[0], N, chunk)
+    out.append({"name": "ssd_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:100",
+                "shape": {"B_S_H_P_N": HYMBA_SCAN[:5], "chunk": chunk,
+                          "dtype": "float32"},
+                "max_abs_err": worst["scan"], **row, "bound_ms": bound,
+                "bound_by": by, "library_ms": None})
+    for k_ in out:
+        print(json.dumps({"phase": "scoring_kernel_time", **k_}))
+    return out
+
+
+def _score_launches() -> dict:
+    from repro_torch.kernels import ssd_scan, swa_attention
+    return {"swa_attention": swa_attention.swa_attention.launches,
+            "ssd_scan": ssd_scan.ssd_scan.launches}
+
+
+def _zero_score_launches() -> None:
+    from repro_torch.kernels import ssd_scan, swa_attention
+    swa_attention.swa_attention.launches = 0
+    ssd_scan.ssd_scan.launches = 0
+
+
+def _score_batch(cfg, B, S, seed, device):
+    """Random tokens and their next-token labels (the last one ignored)."""
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -100)], axis=1)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def _per_forward(cfg) -> dict:
+    """Kernel launches one scoring forward makes: one attend per attention
+    layer, one scan per SSM layer."""
+    return {"swa_attention": 0 if cfg.family == "ssm" else cfg.num_layers,
+            "ssd_scan": cfg.num_layers if cfg.family != "dense" else 0}
+
+
+def _score(params, cfg, batch, kernel: str):
+    """(loss, logits) of one batch: ``registry.loss_fn`` and
+    ``registry.logits_fn``, no autograd."""
+    import torch
+    from repro_torch.models import registry
+    with torch.no_grad():
+        loss, _ = registry.loss_fn(params, cfg, batch, kernel=kernel)
+        logits = registry.logits_fn(params, cfg, batch, kernel=kernel)
+    return loss, logits
+
+
+def phase_scoring_card_vs_cpu():
+    """Reduced Hymba, Mamba2 and Gemma3 scored on the card (the kernels)
+    and on the CPU (their plain versions), TF32 off."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ("hymba-1.5b", "mamba2-130m", "gemma3-12b"):
+        cfg = get_config(arch).reduced()
+        cpu = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
+        card = {k: v.cuda() for k, v in cpu.items()}
+        res = {}
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            _zero_score_launches()
+            res[dev] = _score(params, cfg, _score_batch(cfg, 2, 256, 0, dev),
+                              "cuda")
+            want = ({k: 2 * n for k, n in _per_forward(cfg).items()}
+                    if dev == "cuda" else {k: 0 for k in _score_launches()})
+            if _score_launches() != want:
+                raise AssertionError(f"{arch} on {dev}: launches "
+                                     f"{_score_launches()}, want {want}")
+        loss_err = abs(float(res["cuda"][0]) - float(res["cpu"][0])) \
+            / abs(float(res["cpu"][0]))
+        if loss_err > 1e-4:
+            raise AssertionError(f"{arch}: loss card vs CPU {loss_err}")
+        out[arch] = {"loss": float(res["cuda"][0]), "loss_rel_err": loss_err,
+                     "logits_rel_err": _logits_close(
+                         f"{arch} scoring logits", res["cuda"][1],
+                         res["cpu"][1], rtol=1e-4)}
+    print(json.dumps({"phase": "scoring_card_vs_cpu", **out}))
+
+
+def phase_score_full_width(kernels: list, seed: int) -> None:
+    """Hymba-1.5B at full width, f32 weights from ``seed``: one batch of
+    B = 2 sequences of 2048 tokens scored by ``loss_fn`` and ``logits_fn``
+    through the kernels (the main path: counts zeroed just before, read
+    just after), then by the eager forward, both timed; one kernel forward
+    traced."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    batch = _score_batch(cfg, SCORE_B, SCORE_S, seed, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_score_launches()
+    t0 = time.perf_counter()
+    loss_k, logits_k = _score(params, cfg, batch, "cuda")
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches = _score_launches()
+    want = {k: 2 * n for k, n in _per_forward(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"full-width scoring launches {launches}, "
+                             f"want {want} (two forwards)")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _zero_score_launches()
+    loss_e, logits_e = _score(params, cfg, batch, "eager")
+    if any(_score_launches().values()):
+        raise AssertionError(f"eager scoring launched kernels: "
+                             f"{_score_launches()}")
+    if not (bool(torch.isfinite(logits_k).all())
+            and math.isfinite(float(loss_k))):
+        raise AssertionError("non-finite full-width scoring")
+    if tuple(logits_k.shape) != (SCORE_B, SCORE_S, cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(logits_k.shape)}")
+    logits_err = _logits_close("full-width scoring logits", logits_k,
+                               logits_e)
+    loss_err = abs(float(loss_k) - float(loss_e)) / abs(float(loss_e))
+    if loss_err > 1e-4:
+        raise AssertionError(f"full-width loss kernel vs eager {loss_err}")
+    del logits_k, logits_e
+
+    def forward(kernel):
+        def run():
+            with torch.no_grad():
+                return lm.forward_hidden(params, cfg, batch["tokens"],
+                                         kernel=kernel)
+        return run
+
+    times = {}
+    for kernel in ("eager", "cuda", "cuda", "eager"):
+        fn = forward(kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times.setdefault(kernel, []).append(
+            (time.perf_counter() - t0) / 3 * 1e3)
+    print(json.dumps({
+        "phase": "score_full_width", "arch": cfg.name,
+        "batch": [SCORE_B, SCORE_S], "loss": float(loss_k),
+        "loss_eager": float(loss_e), "loss_rel_err": loss_err,
+        "logits_rel_err": logits_err, "launches": launches,
+        "launches_per_forward": _per_forward(cfg),
+        "score_wall_s_loss_and_logits": wall_k, "peak_mem_gib": peak_gib,
+        "forward_hidden_ms": times,
+        "forward_profile": _profile(forward("cuda"), 1),
+        "forward_profile_eager": _profile(forward("eager"), 1)}))
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
@@ -838,8 +1178,8 @@ def build_all() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the full-width serving run's weights and "
-                         "requests")
+                    help="seed of the full-width serving and scoring runs' "
+                         "weights and tokens")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -857,6 +1197,10 @@ def main(argv=None) -> int:
     phase_serve_card_vs_cpu()
     phase_serve_full_width(serve_kernels, args.seed)
     kernels += serve_kernels
+    score_kernels = phase_scoring_kernels()
+    phase_scoring_card_vs_cpu()
+    phase_score_full_width(score_kernels, args.seed)
+    kernels += score_kernels
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -44,7 +44,7 @@ import torch
 from repro_torch.core.compile_cache import ShapeCache, bucket_for, bucket_ladder
 from repro_torch.device import params_device
 from repro_torch.models import lm, registry
-from repro_torch.models.attention import DECODE_KERNELS
+from repro_torch.models.attention import KERNELS as DECODE_KERNELS
 from repro_torch.types import ModelConfig
 
 DECODE_MODES = ("ring", "uniform")

@@ -1,13 +1,25 @@
 """Public entries of the port's kernels (counterpart of
-``repro/kernels/ops.py``). The sliding-window prefill attention and the
-SSD chunk scan (kernels 5 and 6 of ROADMAP Queue 2) are still to be
-ported."""
+``repro/kernels/ops.py``)."""
 from __future__ import annotations
 
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.decode_attend import (extent_decode_attend,
                                                ring_decode_attend)
 from repro_torch.kernels.kd_loss import kd_loss_rows
 from repro_torch.kernels.ssd_decode import ssd_decode_step
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = ["extent_decode_attend", "kd_loss_rows", "ring_decode_attend",
-           "ssd_decode_step"]
+           "ssd_decode_step", "ssd_scan", "swa_attention"]
+
+
+def swa_attention(q, k, v, window: int, causal: bool = True):
+    """(BH, S, D) sliding-window flash attention; window=0 -> full. S is a
+    multiple of the reference's block, min(128, S)."""
+    S = q.shape[1]
+    block = min(128, S)
+    if S % block:
+        raise ValueError(f"seq len {S} not divisible by blocks "
+                         f"(qb={block}, kb={block})")
+    return _swa.swa_attention(q, k, v, window if window > 0 else S,
+                              causal=causal)

@@ -25,11 +25,61 @@ def kd_loss_ref(student_logits, teacher_logits, labels, alpha: float,
     return torch.where(valid.float() > 0.0, out, torch.zeros_like(out))
 
 
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Scoring kernels: sliding-window attention and the SSD chunk scan
+# ---------------------------------------------------------------------------
+
+def swa_attention_ref(q, k, v, window: int, causal: bool = True):
+    """Sliding-window attention. q, k, v: (BH, S, D); window > 0 = the
+    keys each query may see (its own position included); causal=False
+    sees |i - j| < window. f32 scores, softmax and p·V; returns q's
+    dtype."""
+    BH, S, D = q.shape
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (D ** -0.5)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    ok = ((qi - ki < window) & (qi - ki >= 0)) if causal \
+        else ((qi - ki).abs() < window)
+    s = s.masked_fill(~ok[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int):
+    """Mamba2 SSD: the model's chunked scan (``models.ssm.ssd_chunked``)
+    run in f32 and rounded once to x's dtype, as the reference's Pallas
+    scan computes it (its bf16 einsums would round C·Bᵀ and the carried
+    state on the way). x: (B, S, H, P); dt: (B, S, H) softplus'ed; A:
+    (H,); Bm, Cm: (B, S, N). Returns (y (B, S, H, P), final state
+    (B, H, P, N)), both in x's dtype."""
+    from repro_torch.models.ssm import ssd_chunked
+    y, h = ssd_chunked(x.float(), dt.float(), A.float(), Bm.float(),
+                       Cm.float(), chunk)
+    return y.to(x.dtype), h.to(x.dtype)
+
+
+def ssd_sequential_ref(x, dt, A, Bm, Cm):
+    """The O(S) recurrence, the independent ground truth for SSD:
+    h_t = exp(dt_t A) h_{t-1} + dt_t · x_t ⊗ B_t;  y_t = C_t · h_t."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * A[None, :])                      # (B, H)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], bf[:, t])
+        h = h * dA[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Decode kernels (serving): the one-token attends and the SSD step
 # ---------------------------------------------------------------------------
-
-NEG_INF = -1e30
 
 
 def _window_bias(pos, window: int, k_pos):

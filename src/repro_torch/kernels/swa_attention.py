@@ -1,0 +1,110 @@
+"""Causal sliding-window flash attention over folded heads, the scoring
+forward's attend.
+
+Port of ``repro/kernels/swa_attention.py::swa_attention_pallas``, as the
+hand-written CUDA kernel ``csrc/swa_attention.cu``: an online softmax over
+only the key tiles that meet each query tile's band. The reference's
+bidirectional mode (``causal=False``) never loads keys after a query
+block, so it is not ported: the wrapper refuses it on every device.
+
+On a CPU tensor the wrapper computes the plain version
+(``ref.swa_attention_ref``); on a CUDA tensor it launches the kernel or
+raises. The kernel has no backward (the reference defines no VJP), so the
+wrapper refuses inputs that require a gradient under grad mode.
+``swa_attention.launches`` counts the launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+
+
+@functools.cache
+def _lib():
+    """The bound C entry point, built and loaded at first launch."""
+    from repro_torch.kernels import build
+    lib = build.load("swa_attention")
+    lib.swa_attention_fwd.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_int] * 4 + [ctypes.c_float]
+                                      + [ctypes.c_int, ctypes.c_void_p])
+    lib.swa_attention_fwd.restype = ctypes.c_int
+    lib.swa_attention_error_string.argtypes = [ctypes.c_int]
+    lib.swa_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """The scoring kernels have no backward: refuse an output autograd
+    would need to differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward (the reference defines no "
+                         "VJP): call it under torch.no_grad() or on inputs "
+                         "that need no gradient")
+
+
+def _check(q, k, v, window: int, causal: bool):
+    if not causal:
+        raise ValueError("swa_attention is causal only: the reference's "
+                         "causal=False never reads keys after a query block "
+                         "(ROADMAP Queue 3)")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share (BH, S, D): {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype} / {k.dtype} / {v.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be an int >= 1, got {window!r}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    check_no_grad("swa_attention", q, k, v)
+
+
+def swa_attention(q, k, v, window: int, causal: bool = True):
+    """Causal sliding-window attention: query i sees keys j with
+    0 <= i - j < window (window >= S: full causal).
+
+    q, k, v: (BH, S, D), one dtype (float32 or bfloat16), D in
+    ``HEAD_DIMS``. Returns (BH, S, D) in q's dtype; f32 inside.
+    """
+    _check(q, k, v, window, causal)
+    if q.device.type == "cpu":
+        return ref.swa_attention_ref(q, k, v, window, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no sliding-window attention kernel for {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    BH, S, D = q.shape
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.swa_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
+            D, window, D ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"swa_attention launch failed: "
+                           f"{lib.swa_attention_error_string(err).decode()} "
+                           f"({err})")
+    swa_attention.launches += 1
+    return out
+
+
+swa_attention.launches = 0

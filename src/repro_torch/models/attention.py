@@ -12,9 +12,10 @@ the ring slot ``pos % W`` each row writes, the row's cache write and its
 ``k_len = pos + 1``. Caches are updated in place (the reference returns
 new arrays; the port saves the copy) and returned.
 
-Decode kernels: ``"cuda"`` runs the hand-written attends
-(``kernels/ops.py``: ring and extent), ``"eager"`` the plain torch path
-below — the oracle they are held against.
+Kernels: ``"cuda"`` runs the hand-written attends (``kernels/ops.py``):
+the causal sliding-window attention of the cache-free scoring forward,
+and the ring and extent attends of decode; ``"eager"`` the plain torch
+path below — the oracle they are held against.
 """
 from __future__ import annotations
 
@@ -24,13 +25,13 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, fan_in_init
 
 NEG_INF = -1e30
-DECODE_KERNELS = ("cuda", "eager")
+KERNELS = ("cuda", "eager")
 
 
-def check_decode_kernel(kernel: str) -> None:
-    if kernel not in DECODE_KERNELS:
-        raise ValueError(f"decode kernel must be one of {DECODE_KERNELS}, "
-                         f"got {kernel!r}")
+def check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r}: the scoring or decode kernel "
+                         f"must be one of {KERNELS}")
 
 
 def _rows(x, device) -> torch.Tensor:
@@ -68,18 +69,27 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     caches; negative = unwritten slot, always masked). ``k_len`` (int or
     (B,)) masks absolute cache positions >= k_len.
 
-    Only the plain path is ported: ``kernel="pallas"``/``"cuda"`` (the
-    flash SWA prefill kernel) is ROADMAP Queue 2 item 5.
+    ``kernel="cuda"`` runs the causal self-attend of the scoring forward
+    (Sq == Sk, an int window, no k_positions / k_len) through the
+    sliding-window kernel (``kernels.ops.swa_attention``): K and V are
+    repeated over the G query heads and the heads folded into (B·H, S, D),
+    as the reference's ``kernel="pallas"`` does.
     """
-    if kernel in ("pallas", "cuda"):
-        raise NotImplementedError(
-            "the sliding-window prefill kernel is not ported yet "
-            "(ROADMAP Queue 2 item 5); use kernel='eager'")
-    if kernel != "eager":
-        raise ValueError(f"unknown attention kernel {kernel!r}")
+    check_kernel(kernel)
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
+    if kernel == "cuda":
+        if (k_positions is not None or k_len is not None or not causal
+                or Sq != Sk or not isinstance(window, int)):
+            raise ValueError(
+                "kernel='cuda' supports the causal self-attend only "
+                "(Sq == Sk, int window, no k_positions/k_len)")
+        kg = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+        vg = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, Sq, D).contiguous()
+        out = ops.swa_attention(fold(q), fold(kg), fold(vg), window)
+        return out.reshape(B, H, Sq, D).transpose(1, 2)
     dev = q.device
     scale = D ** -0.5
     qg = q.reshape(B, Sq, KV, G, D)
@@ -170,7 +180,7 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
     (``kernels.ops.ring_decode_attend``), which maps slots to positions
     and masks inside the kernel.
     """
-    check_decode_kernel(kernel)
+    check_kernel(kernel)
     B, Sq, _ = x.shape
     if Sq != 1:
         raise ValueError(f"ring decode takes one token per row, got {Sq}")
@@ -208,16 +218,18 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
     every row this equals the unsliced attend: the dropped positions are
     the ones the ``k_len`` mask zeroes.
 
-    ``kernel="cuda"`` (decode only) runs the attend as the extent kernel
-    (``kernels.ops.extent_decode_attend``), which reads only the first
-    ``k_extent`` positions and applies the ``k_len`` mask itself.
+    ``kernel="cuda"``: without a cache, the self-attend runs through the
+    sliding-window kernel (``gqa_attention``); with one (decode), the
+    attend is the extent kernel (``kernels.ops.extent_decode_attend``),
+    which reads only the first ``k_extent`` positions and applies the
+    ``k_len`` mask itself.
     """
-    check_decode_kernel(kernel)
+    check_kernel(kernel)
     B, Sq, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if cache is None:
         out = gqa_attention(q, k, v, window=window, causal=causal,
-                            q_chunk=q_chunk)
+                            q_chunk=q_chunk, kernel=kernel)
         return _out_proj(p, out, x), None
     ck, cv = cache["k"], cache["v"]
     idx = 0 if cache_index is None else cache_index

@@ -11,6 +11,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(stddev: float = 0.02):
@@ -102,3 +103,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     mask = (labels != ignore_index).float()
     nll = (lse - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1.0)
+
+
+def _chunk_nll(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor):
+    """One chunk's summed next-token NLL and count of non-ignored labels."""
+    logits = torch.matmul(h, lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(min=0).unsqueeze(-1))[..., 0]
+    mask = (labels != -100).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Next-token CE without materialising (B, S, V) at once.
+
+    Walks sequence chunks; under autograd each chunk's logits are
+    recomputed in the backward pass (``torch.utils.checkpoint``), so peak
+    memory is (B, chunk, V). hidden: (B, S, d); lm_head: (d, V); labels:
+    (B, S), -100 ignored.
+    """
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        pad = chunk - S % chunk
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-100)
+        S += pad
+    remat = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or lm_head.requires_grad)
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        args = (hidden[:, i:i + chunk], lm_head, labels[:, i:i + chunk])
+        a, c = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+                else _chunk_nll(*args))
+        nll, cnt = nll + a, cnt + c
+    return nll / torch.clamp(cnt, min=1.0)

@@ -1,27 +1,34 @@
-"""Decoder-only LM for the dense / ssm / hybrid families: params, bucketed
+"""Decoder-only LM for the dense / ssm / hybrid families: params, the
+scoring forward (``forward_hidden``, ``loss_fn``, ``logits_fn``), bucketed
 prefill and KV/SSM-cache decode (port of ``repro/models/lm.py``).
 
 Params are a flat dict keyed by the reference checkpoint's paths
 (``embed``, ``layers/attn/wq``, ``layers/ssm/in_proj``, ``final_norm``
 ...). Layer params keep the reference's leading ``L`` axis; where the
 reference ``lax.scan``s over it, the port runs a plain Python loop, each
-layer's window a Python int.
+layer's window a Python int. That lets the scoring forward take the
+reference's kernel switches of ``gqa_attention`` and ``ssm_forward`` one
+level up: ``kernel="cuda"`` runs every layer's attend and SSD scan through
+the hand-written kernels, ``"eager"`` (the default) is op for op the
+reference's forward. The reference cannot: its scanned window is a traced
+scalar, and its attention kernel needs a static one.
 
 Decode positions are per-row ``(B,)`` int32 tensors (the reference
 decodes at one scalar position and ``vmap``s over the serving slots).
 Caches are updated in place and returned. Not ported yet (ROADMAP Queue 1
-item 11): ``forward_hidden``, ``loss_fn``, ``logits_fn``,
-``decode_step_ring`` and ``to_ring_cache``; the moe / vlm families.
+item 11): ``decode_step_ring`` and ``to_ring_cache``; the moe / vlm
+families.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import normal_init, rms_norm
+from repro_torch.models.common import chunked_lm_loss, normal_init, rms_norm
 from repro_torch.types import ModelConfig
 
 FAMILIES = ("dense", "ssm", "hybrid")
@@ -129,13 +136,14 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Layer body — one code path for prefill / decode
+# Layer body — one code path for train / prefill / decode
 # ---------------------------------------------------------------------------
 
 def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
-           cache, pos=None, q_chunk: int = 1024, k_extent: int = 0,
-           seq_lens=None, decode_kernel: str = "eager"):
-    """One layer. mode: 'prefill' | 'decode'. Returns (x, new_cache).
+           cache=None, pos=None, q_chunk: int = 1024, k_extent: int = 0,
+           seq_lens=None, kernel: str = "eager"):
+    """One layer. mode: 'train' | 'prefill' | 'decode'. Returns (x,
+    new_cache); 'train' takes no cache and returns None for it.
 
     ``seq_lens`` (B,) marks right-padded bucketed-prefill rows: attention
     needs no mask (pad keys sit at positions the causal mask already
@@ -145,25 +153,34 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     (``{"k_win", "v_win"}``, decode only); ``new_cache`` mirrors it, the
     attention entries being the cache views written in place and the SSM
     entries new tensors. ``k_extent`` bounds a uniform-cache decode's
-    attend (``attn_forward``). ``decode_kernel``: "eager" or "cuda".
+    attend (``attn_forward``). ``kernel`` ("eager" or "cuda") picks the
+    scoring kernels in 'train' mode and the decode kernels in 'decode';
+    prefill runs eager.
     """
+    train = mode == "train"
+
     def run_ssm(h):
         if mode == "decode":
             return ssm_mod.ssm_decode_step(lp["ssm"], h, cfg.ssm,
                                            cache["ssm_state"],
                                            cache["conv_state"],
-                                           kernel=decode_kernel)
-        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens)
+                                           kernel=kernel)
+        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens,
+                                   kernel=kernel if train else "eager")
 
     def run_attn(h):
+        if train:
+            return attn_mod.attn_forward(lp["attn"], h, cfg=cfg,
+                                         window=window, positions=positions,
+                                         q_chunk=q_chunk, kernel=kernel)
         if "k_win" in cache:     # ring-buffer SWA decode
             a, (rk, rv) = attn_mod.ring_decode_attend(
                 lp["attn"], h, cfg=cfg, ring_k=cache["k_win"],
                 ring_v=cache["v_win"], pos=pos, window=window,
-                kernel=decode_kernel)
+                kernel=kernel)
             return a, {"k_win": rk, "v_win": rv}
         idx = 0 if mode == "prefill" else pos
-        kern = decode_kernel if mode == "decode" else "eager"
+        kern = kernel if mode == "decode" else "eager"
         return attn_mod.attn_forward(
             lp["attn"], h, cfg=cfg, window=window, positions=positions,
             cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
@@ -172,7 +189,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, (st, cs) = run_ssm(h)
-        return x + out, {"ssm_state": st, "conv_state": cs}
+        return x + out, None if train else {"ssm_state": st,
+                                            "conv_state": cs}
 
     if cfg.family == "hybrid":
         a, ac = run_attn(h)
@@ -180,7 +198,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
         mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
                        + rms_norm(s, lp["branch_norm_ssm"], cfg.norm_eps))
         x = x + mixed.to(x.dtype)
-        new_cache = {**ac, "ssm_state": st, "conv_state": cs}
+        new_cache = None if train else {**ac, "ssm_state": st,
+                                        "conv_state": cs}
     else:
         a, new_cache = run_attn(h)
         x = x + a
@@ -208,6 +227,71 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _logits(params, cfg: ModelConfig, last: torch.Tensor) -> torch.Tensor:
     return torch.matmul(last, lm_head_weight(params, cfg).to(last.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / scoring)
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   prefix_embeds=None, remat: bool = True,
+                   q_chunk: int = 1024, dtype=None, act_pspec=None,
+                   moe_ctx=None, kernel: str = "eager"):
+    """Returns (hidden (B, S, d), aux_loss).
+
+    ``kernel="cuda"`` runs each layer's attend (``gqa_attention``) and SSD
+    scan (``ssm_forward``) through the hand-written kernels, one launch of
+    each a layer; they have no backward, so that path scores under
+    ``torch.no_grad()``. ``remat`` recomputes each layer in the backward
+    pass (``torch.utils.checkpoint``) when autograd records. Sequence
+    parallelism (``act_pspec``) and MoE routing (``moe_ctx``) are not
+    ported (ROADMAP Queue 1 items 11 and 13).
+    """
+    if act_pspec is not None or moe_ctx is not None:
+        raise NotImplementedError("act_pspec / moe_ctx are not ported yet "
+                                  "(ROADMAP Queue 1 items 11 and 13)")
+    _check_family(cfg)
+    attn_mod.check_kernel(kernel)
+    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = remat and torch.is_grad_enabled()
+
+    def body(x, lp, window):
+        return _layer(cfg, lp, x, window, positions, "train",
+                      q_chunk=q_chunk, kernel=kernel)[0]
+
+    for i in range(cfg.num_layers):
+        lp, window = layer_params(params, i), cfg.window_for_layer(i)
+        x = (checkpoint(body, x, lp, window, use_reentrant=False) if remat
+             else body(x, lp, window))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
+            q_chunk: int = 1024, loss_chunk: int = 512, dtype=None,
+            act_pspec=None, moe_ctx=None, kernel: str = "eager"):
+    """Next-token CE (+ MoE aux). batch: tokens (B, S), labels (B, S)[,
+    prefix_embeds]. With a prefix, labels cover only the token part.
+    Returns (loss, {"ce", "aux"})."""
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"],
+                                 batch.get("prefix_embeds"), remat=remat,
+                                 q_chunk=q_chunk, dtype=dtype,
+                                 act_pspec=act_pspec, moe_ctx=moe_ctx,
+                                 kernel=kernel)
+    if cfg.prefix_len and batch.get("prefix_embeds") is not None:
+        hidden = hidden[:, cfg.prefix_len:, :]
+    head = lm_head_weight(params, cfg).to(hidden.dtype)
+    ce = chunked_lm_loss(hidden, head, batch["labels"], chunk=loss_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def logits_fn(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+              remat: bool = False, dtype=None, kernel: str = "eager"):
+    """Every position's logits, (B, S, V)."""
+    hidden, _ = forward_hidden(params, cfg, tokens, prefix_embeds,
+                               remat=remat, dtype=dtype, kernel=kernel)
+    return _logits(params, cfg, hidden)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +433,7 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
                 cl["conv_state"] = cache["conv_state"][i]
             x, nc = _layer(cfg, layer_params(params, i), x, win, positions,
                            "decode", cache=cl, pos=pos, q_chunk=1,
-                           k_extent=ext, decode_kernel=decode_kernel)
+                           k_extent=ext, kernel=decode_kernel)
             for key, val in nc.items():
                 _store(cache, key, j if key in keys else i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -406,7 +490,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
         x, nc = _layer(cfg, layer_params(params, i), x,
                        cfg.window_for_layer(i), positions, "decode",
                        cache=cl, pos=pos, q_chunk=1,
-                       decode_kernel=decode_kernel)
+                       kernel=decode_kernel)
         for key, val in nc.items():
             _store(cache, key, i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

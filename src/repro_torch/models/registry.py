@@ -2,8 +2,9 @@
 branch and the LM branch (dense / ssm / hybrid).
 
     init_params(gen, cfg, device, dtype) -> flat param dict
-    loss_fn(params, cfg, batch)          -> (loss, metrics)    [resnet3d]
-    logits_fn(params, cfg, batch)        -> (B, classes)       [resnet3d]
+    loss_fn(params, cfg, batch, **kw)    -> (loss, metrics)
+    logits_fn(params, cfg, batch, **kw)  -> LM: (B, S, V); resnet3d:
+                                            (B, classes)
     logit_width(cfg)                     -> KD compatibility width
     init_cache / init_ring_cache / prefill / decode_step /
     decode_step_grouped                  -> LM serving
@@ -39,15 +40,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    if cfg.family != "resnet3d":
-        raise _unported(cfg, "loss_fn")
-    return resnet3d.loss_fn(params, cfg, batch, **kw)
+    """LM: next-token CE of ``batch`` (tokens, labels); ``kernel="cuda"``
+    scores through the hand-written kernels."""
+    if cfg.family == "resnet3d":
+        return resnet3d.loss_fn(params, cfg, batch, **kw)
+    _lm(cfg, "loss_fn")
+    return lm.loss_fn(params, cfg, batch, **kw)
 
 
 def logits_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    if cfg.family != "resnet3d":
-        raise _unported(cfg, "logits_fn")
-    return resnet3d.logits_fn(params, cfg, batch, **kw)
+    if cfg.family == "resnet3d":
+        return resnet3d.logits_fn(params, cfg, batch, **kw)
+    _lm(cfg, "logits_fn")
+    return lm.logits_fn(params, cfg, batch["tokens"],
+                        batch.get("prefix_embeds"), **kw)
 
 
 def logit_width(cfg: ModelConfig) -> int:

@@ -2,10 +2,9 @@
 (port of ``repro/models/ssm.py``). Group count G=1 (B/C shared across
 heads), as in Mamba2-130m.
 
-Decode kernels: ``ssm_decode_step(kernel="cuda")`` runs the fused SSD
-step (``kernels/ops.py``); ``"eager"`` is the torch oracle. The chunked
-prefill scan is the plain version only: its kernel is ROADMAP Queue 2
-item 6.
+Kernels: ``ssm_forward(kernel="cuda")`` runs the SSD core through the
+chunk-scan kernel and ``ssm_decode_step(kernel="cuda")`` through the fused
+SSD step (``kernels/ops.py``); ``"eager"`` is the torch oracle.
 """
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.attention import check_decode_kernel
+from repro_torch.models.attention import check_kernel
 from repro_torch.models.common import fan_in_init, rms_norm
 from repro_torch.types import SSMConfig
 
@@ -84,17 +83,20 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
 
     dA = dt_c * A[None, None, None, :]                    # (b,c,q,h) negative
     cum = torch.cumsum(dA, dim=2)                         # within-chunk cumsum
+    # a mixed-dtype einsum runs in the promoted dtype, as jnp.einsum does
+    # (f32 for bf16 x and f32 dt); torch.einsum would refuse the mix
+    ft = torch.promote_types(x.dtype, dt.dtype)
 
     # --- intra-chunk (quadratic within chunk) ---
     L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))        # (b,c,h,q,k)
     scores = torch.einsum("bcqn,bckn->bcqk", C_c, B_c)    # (b,c,q,k)
     xdt = x * dt_c[..., None]                             # fold dt into x
-    y = torch.einsum("bchqk,bcqk,bckhp->bcqhp", L, scores, xdt)
+    y = torch.einsum("bchqk,bcqk,bckhp->bcqhp", L, scores.to(ft), xdt)
 
     # --- chunk states ---
     decay_states = torch.exp(cum[:, :, -1:, :] - cum)     # (b,c,q,h)
     states = torch.einsum("bcqh,bcqn,bcqhp->bchpn",
-                          dt_c * decay_states, B_c, x)
+                          dt_c * decay_states, B_c.to(ft), x.to(ft))
     chunk_decay = torch.exp(torch.sum(dA, dim=2))         # (b,c,h)
 
     # --- inter-chunk recurrence ---
@@ -108,8 +110,8 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
             + states[:, c].float()
     h_prev = torch.stack(h_prev, dim=1)                   # (b,c,h,p,n)
 
-    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", C_c, torch.exp(cum),
-                           h_prev.to(x.dtype))
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", C_c.to(ft),
+                           torch.exp(cum), h_prev.to(x.dtype).to(ft))
     y = (y + y_inter).reshape(Bsz, S, H, P)
     return y[:, :S_orig], h.to(x.dtype)
 
@@ -132,15 +134,16 @@ def ssm_forward(p, x, ssm: SSMConfig, state=None, conv_state=None,
     garbage; real positions and both states equal those of the unpadded
     sequence.
 
-    ``kernel="pallas"``/``"cuda"`` (the chunked scan kernel) is ROADMAP
-    Queue 2 item 6.
+    ``kernel="cuda"`` runs the SSD core through the chunk-scan kernel
+    (``kernels.ops.ssd_scan``); it takes no initial ``state`` (scoring,
+    not chunked prefill). The sequence is padded to the chunk with dt = 0
+    rows, exact no-ops on the state, as the reference's
+    ``kernel="pallas"`` does.
     """
-    if kernel in ("pallas", "cuda"):
-        raise NotImplementedError(
-            "the SSD chunk-scan kernel is not ported yet (ROADMAP Queue 2 "
-            "item 6); use kernel='eager'")
-    if kernel != "eager":
-        raise ValueError(f"unknown ssm kernel {kernel!r}")
+    check_kernel(kernel)
+    if kernel == "cuda" and state is not None:
+        raise ValueError("kernel='cuda' does not take an initial state; use "
+                         "kernel='eager' for chunked prefill")
     B, S, d = x.shape
     di, nh, conv_dim = dims(d, ssm)
     N = ssm.d_state
@@ -178,7 +181,17 @@ def ssm_forward(p, x, ssm: SSMConfig, state=None, conv_state=None,
         dt = dt * active[..., None].to(dt.dtype)
     A = -torch.exp(p["A_log"].float())
 
-    y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk, h0=state)
+    if kernel == "cuda":
+        padn = -S % min(ssm.chunk, S)     # rows up to a multiple of the chunk
+
+        def fit(t):     # (B, S, ...) -> (B, S + padn, ...), contiguous
+            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, padn)).contiguous()
+
+        y, h_final = ops.ssd_scan(fit(xh), fit(dt), A, fit(Bm), fit(Cm),
+                                  ssm.chunk)
+        y = y[:, :S]
+    else:
+        y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk, h0=state)
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["norm"])
@@ -195,7 +208,7 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
     ``kernel="cuda"`` fuses the recurrence (decay + rank-1 update +
     readout) into ``kernels.ops.ssd_decode_step``: one read and one write
     of the state, the update tensor never materialised."""
-    check_decode_kernel(kernel)
+    check_kernel(kernel)
     B, _, d = x.shape
     di, nh, conv_dim = dims(d, ssm)
     N = ssm.d_state

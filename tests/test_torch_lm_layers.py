@@ -117,9 +117,16 @@ def test_gqa_attention_ring_positions_and_unported_kernel(rng):
                               k_positions=T(k_pos), q_chunk=1),
           jattn.gqa_attention(J(q), J(k), J(v), window=5, q_offset=12,
                               k_positions=J(k_pos), q_chunk=1))
-    for kern in ("pallas", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            tattn.gqa_attention(T(q), T(k), T(v), kernel=kern)
+    # the scoring kernel's path (its plain version on the CPU) against the
+    # reference's kernel="pallas"; it takes the causal self-attend only
+    qs, ks, vs = _qkv(rng, 1, 16, 16, 4, 2, 64)
+    close(tattn.gqa_attention(T(qs), T(ks), T(vs), window=5, kernel="cuda"),
+          jattn.gqa_attention(J(qs), J(ks), J(vs), window=5,
+                              kernel="pallas"), rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="causal self-attend"):
+        tattn.gqa_attention(T(q), T(k), T(v), kernel="cuda")
+    with pytest.raises(ValueError, match="must be one of"):
+        tattn.gqa_attention(T(q), T(k), T(v), kernel="pallas")
     with pytest.raises(ValueError, match="q_chunk"):
         q6, k6, v6 = _qkv(rng, 1, 6, 6, 2, 2, 8)
         tattn.gqa_attention(T(q6), T(k6), T(v6), q_chunk=4)
@@ -246,9 +253,20 @@ def test_ssd_chunked_and_ssm_forward_seq_lens(rng):
     close(cs, jcs)
     out2, _ = tssm.ssm_forward(tp, T(x), ssm)
     close(out2, jssm.ssm_forward(jp, J(x), ssm)[0], atol=1e-4)
-    for kern in ("pallas", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            tssm.ssm_forward(tp, T(x), ssm, kernel=kern)
+    # the chunk-scan kernel's path (its plain version on the CPU), S = 40
+    # padded to the chunk, with right-padded rows, against the reference's
+    # kernel="pallas"
+    out, (st, _) = tssm.ssm_forward(tp, T(x), ssm, seq_lens=T(lens),
+                                    kernel="cuda")
+    jout, (jst, _) = jssm.ssm_forward(jp, J(x), ssm, seq_lens=J(lens),
+                                      kernel="pallas")
+    for b, n in enumerate(lens):
+        close(out[b, :n], jout[b, :n], atol=1e-4)
+    close(st, jst, atol=1e-4)
+    with pytest.raises(ValueError, match="initial state"):
+        tssm.ssm_forward(tp, T(x), ssm, state=st, kernel="cuda")
+    with pytest.raises(ValueError, match="must be one of"):
+        tssm.ssm_forward(tp, T(x), ssm, kernel="pallas")
 
 
 def test_ssm_decode_step_matches(rng):
