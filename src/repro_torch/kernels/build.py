@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under
-the repository root (listed in ``.gitignore``). The hash covers that source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is compiled at import: the first ``load`` builds.
+the repository root (listed in ``.gitignore``). The hash covers that source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing is
+compiled at import: the first ``load`` builds.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the sources' shared headers
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,6 +1,7 @@
 // Causal sliding-window flash attention for Hopper (sm_90a), the scoring /
 // training forward of every attention layer:
-//   out[bh, i] = sum_j softmax_j(q[bh, i] . k[bh, j] * scale) v[bh, j]
+//   out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / G] * scale)
+//                  v[b, j, h / G]
 // over the keys j with 0 <= i - j < window (window = S: full causal).
 //
 // Replaces the TPU kernel repro/kernels/swa_attention.py::
@@ -11,36 +12,59 @@
 // block's last tile), so it is not the function its docstring names; the
 // wrapper refuses causal=False.
 //
-// Layout: q, k, v, out (BH, S, D), heads folded into BH by the caller,
-// row-major, D in {64, 128, 256}; q/k/v f32 or bf16 (one dtype), out in
-// that dtype; f32 inside.
+// Layout: the model's own. q and out are (B, S, H, D), k and v (B, S, KV, D),
+// all row-major and contiguous, G = H / KV: query head h reads kv head
+// h / G in place, from the row strides H * D and KV * D, so the caller
+// neither repeats K and V over the query groups nor folds the heads. The
+// folded (BH, S, D) entry is the same kernel with B = BH and H = KV = 1.
+// D in {64, 128, 256}; q/k/v f32 or bf16 (one dtype), out in that dtype;
+// f32 inside.
 //
-// Design. One block of 256 threads (a 16 x 16 grid) per (bh, 64-row query
-// tile). The query tile goes to shared memory as f32 once; the block then
-// visits only the 64-key tiles that meet its band, (q0 - window, q0 + 63],
-// in order. Per tile:
-//   1. K and V tiles to shared memory as f32 (16-byte loads, rows >= S are
-//      zeros);
-//   2. scores: each thread a 4 x 4 register tile (rows ty + 16i, keys
-//      tx + 16j) of (q . k) * scale over D from shared memory; a masked
-//      pair (outside the band, or a key >= S) gets -1e30, as in the
-//      reference;
-//   3. online softmax: four threads a row take the tile's row max,
-//      m_new = max(m, tile max), p = exp(s - m_new) with masked p set to an
-//      exact 0, l = l * exp(m - m_new) + sum p;
-//   4. acc = acc * exp(m - m_new) + p . V, each thread holding 4 rows x
-//      D / 16 columns of the f32 accumulator in registers.
-// At the end out = acc / max(l, 1e-30), rounded once to the output dtype.
-// Tiles are 64 x 64 whatever D; the reference's 128 blocks are a TPU
-// BlockSpec choice. Blocks with later query tiles (more keys when the band
-// is wide) are launched first.
+// Design. One block, one warpgroup (four warps, 16 query rows each), per
+// (b, h, 64-row query tile). The block visits only the key tiles (32 keys
+// at D = 64, 16 above, so that three blocks share an SM at D = 64) that
+// meet its band, (q0 - window, q0 + 63], in order. Per tile:
+//   0. the tile's K and V, copied as stored by cp.async while the previous
+//      tile ran, become TF32 operand planes in shared memory in wgmma's
+//      core-matrix layout (8 rows x 16 bytes, no swizzle, K-major as tf32
+//      wgmma requires): K as stored, V transposed; hi and, for f32 inputs,
+//      lo; then the raw buffers take the next tile's copy;
+//   1. S = Q K^T by wgmma.m64nNk8 (N = the tile's keys), the A operand Q's
+//      fragments from registers (read from shared memory and split), B the
+//      K planes; a masked pair (outside the band, or a key >= S) gets
+//      -1e30, as in the reference;
+//   2. online softmax on the accumulator registers, in the log2 domain
+//      (exp(s - m) = exp2(s log2e - m log2e)): the four lanes of a row take
+//      its max by shuffles, m_new = max(m, tile max), p = exp2(s - m_new)
+//      with masked p an exact 0, each lane keeps its part of l;
+//   3. O = O * exp2(m - m_new) + P V by wgmma.m64nDk8, P straight from the
+//      score registers: the accumulator's lanes hold keys (2t, 2t + 1) of
+//      each 8-key group, and the V^T planes hold each group's keys in the
+//      order (0, 2, 4, 6, 1, 3, 5, 7), so P needs no shuffle.
+// At the end out = O / max(l, 1e-30), rounded once to the output dtype.
+// A row whose first visited tile is all masked keeps m = -1e30 and l = 0
+// (exp2(0) for the accumulator's correction, p = 0), with no NaN; rows
+// past S are zeros and are not written. Within a block the steps run in
+// turn (the tensor cores wait while it stages and takes the softmax);
+// three blocks an SM at D = 64 (168 registers a thread, 68 KB of shared
+// memory) fill each other's gaps.
 //
-// Bound on the H100: the function reads q, k, v once and writes out once,
-// 4 * BH * S * D elements, and does ~4 D f32 operations per visible
-// (query, key) pair. At Hymba's scoring shape (BH = 50, S = 2048, D = 64,
-// f32, window 1024) that is 105 MB (31 us at 3.35 TB/s) against 20 GFLOP
-// (0.30 ms at 67 TFLOP/s): bound by the f32 operations. This first kernel
-// runs them on the FMA pipes from shared memory (no tensor cores).
+// Precision. The check against the plain version is 1e-4 (1 + |ref|) in
+// f32, which one TF32 pass (~11 bits) misses. f32 inputs therefore run
+// 3xTF32: each operand splits into hi, its TF32 truncation (a mask), and
+// lo = x - hi, exact, which the tensor core reads as TF32 in turn (it
+// ignores a register's low 13 bits); lo.hi + hi.lo + hi.hi accumulate in
+// f32 (lo.lo, ~2^-22 of the product, is dropped). bf16 values are exact in
+// TF32, so a bf16 Q K^T is one exact product per pair; P (f32) still
+// splits in two for P V.
+//
+// Bound on the H100: the function reads q, k, v once and writes out once
+// (the kv heads once each: (2 H + 2 KV) B S D elements) and does 4 D
+// multiply-add operations per visible (query, key) pair. At Hymba's scoring
+// shape (B = 2, S = 2048, H = 25, KV = 5, D = 64, f32, window 1024) that is
+// 63 MB (19 us at 3.35 TB/s) against 20.1 GFLOP: 0.30 ms at the f32 FMA
+// rate (67 TFLOP/s), 0.12 ms as 3xTF32 on the tensor cores (3 x 20.1
+// GFLOP at 495 TFLOP/s).
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/build.py).
 // The launch goes on the caller's stream; the entry returns
@@ -48,15 +72,48 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kQB = 64;         // query rows of a block
-constexpr int kKB = 64;         // keys of a tile
-constexpr int kPLd = kKB + 4;   // row stride of the score tile
-constexpr float kNegInf = -1e30f;
+using tf32::AFrag;
+using tf32::Split;
+using tf32::Wgmma;
+using tf32::cp_async16;
+using tf32::split;
 
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kQB = 64;         // query rows of a block, 16 a warp
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys of a tile: 32 at D = 64, 16 above, so that a block's buffers fit
+// three blocks an SM at D = 64, two at 128 and one at 256
+template <int D>
+__host__ __device__ constexpr int key_tile() { return D == 64 ? 32 : 16; }
+
+// Per dtype: the row pad of the tiles copied as stored (rows stay 16-byte
+// aligned and the fragment reads fall on distinct banks), the elements of
+// a 16-byte copy, and whether an operand needs a lo part (3xTF32)
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kPad = 4, kVec = 4;
+  static constexpr bool kSplit = true;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kPad = 8, kVec = 8;
+  static constexpr bool kSplit = false;   // exact in TF32
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -69,25 +126,28 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float get(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// rows [row0, row0 + 64) of one (S, D) head into a (64, D + 4) f32 tile
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int S) {
-  constexpr int kPerRow = D / 4;
-  for (int idx = threadIdx.x; idx < kQB * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) val = load4(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = val;
+// ROWS rows from row0 of one head (row stride ld elements) into a
+// (ROWS, D + pad) tile by cp.async; rows >= S are zeros
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld,
+                                          int row0, int S) {
+  constexpr int kVec = Elem<T>::kVec, kLd = D + Elem<T>::kPad;
+  constexpr int kPerRow = D / kVec;
+  static_assert(ROWS * kPerRow % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kPerRow / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * kLd + c,
+               src + static_cast<size_t>(ok ? row0 + r : 0) * ld + c, ok);
   }
 }
 
@@ -97,215 +157,300 @@ __device__ __forceinline__ bool visible(int q_pos, int k_pos, int window,
   return d >= 0 && d < window && k_pos < S;
 }
 
-template <int D>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(kQB) * (D + 4) * 3 + kQB * kPLd + 3 * kQB;
+// Shared memory: q (kQB rows) and the raw K and V tiles (kKB rows each) as
+// stored, then the TF32 operand planes of the tile's products, each
+// kKB x D f32 in core matrices: K (keys x d, for S = Q K^T) and V^T (d x
+// keys, for O += P V), hi and, for f32 inputs, lo
+template <typename T, int D>
+struct Smem {
+  static constexpr int kKB = key_tile<D>();
+  static constexpr int kLd = D + Elem<T>::kPad;
+  static constexpr int kPlanes = Elem<T>::kSplit ? 2 : 1;
+  static constexpr size_t kRawBytes = sizeof(T) * (kQB + 2 * kKB) * kLd;
+  // V^T's chunks of 4 keys sit 16 bytes apart beyond their core matrices,
+  // so that the transposing writes of a warp fall on distinct banks
+  static constexpr uint32_t kLboK = kKB / 8 * 128, kLboV = D / 8 * 128 + 16;
+  static constexpr size_t kPlaneFloats = (kKB / 4 * kLboV / 4 + 31) / 32 * 32;
+  static constexpr size_t kBytes =
+      kRawBytes + sizeof(float) * 2 * kPlanes * kPlaneFloats;
+  static_assert(kRawBytes % 128 == 0, "planes 128-byte aligned");
+};
+
+// K tile -> planes: element (key, d) of core matrix (key / 8, d / 4) at
+// floats ((d / 4) (kKB / 8) + key / 8) 32 + (key % 8) 4 + d % 4: LBO (along
+// d) kKB / 8 core matrices, SBO (along keys) one. V tile -> V^T planes:
+// (d, key) of core matrix (d / 8, c), with the keys of each 8-key group j
+// in the order the P fragment holds them, 2t in chunk 2j and 2t + 1 in
+// chunk 2j + 1, position t: c = 2j + (key % 2), element (key % 8) / 2;
+// LBO (along keys) D / 8 core matrices and 16 bytes, SBO (along d) one.
+template <typename T, int D>
+__device__ __forceinline__ void stage_planes(const T* k_raw, const T* v_raw,
+                                             float* k_hi, float* k_lo,
+                                             float* v_hi, float* v_lo) {
+  constexpr int kKB = Smem<T, D>::kKB, kLd = Smem<T, D>::kLd;
+  constexpr bool kSplit = Elem<T>::kSplit;
+#pragma unroll
+  for (int i = 0; i < kKB * D / 4 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int key = idx % kKB, d4 = idx / kKB;   // neighbours: keys
+    const float4 kv = load4(k_raw + key * kLd + 4 * d4);
+    const int ko = (d4 * (kKB / 8) + key / 8) * 32 + (key % 8) * 4;
+    if (kSplit) {
+      const Split a = split(kv.x), b = split(kv.y), c = split(kv.z),
+                  d = split(kv.w);
+      *reinterpret_cast<uint4*>(k_hi + ko) = make_uint4(a.hi, b.hi, c.hi,
+                                                        d.hi);
+      *reinterpret_cast<uint4*>(k_lo + ko) = make_uint4(a.lo, b.lo, c.lo,
+                                                        d.lo);
+    } else {
+      *reinterpret_cast<float4*>(k_hi + ko) = kv;
+    }
+    const float4 vv = load4(v_raw + key * kLd + 4 * d4);
+    const float ve[4] = {vv.x, vv.y, vv.z, vv.w};
+    const int c = 2 * (key / 8) + (key % 2), e = (key % 8) / 2;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = 4 * d4 + q;
+      const int vo = c * (Smem<T, D>::kLboV / 4) + (d / 8) * 32 + (d % 8) * 4 +
+                     e;
+      if (kSplit) {
+        const Split sv = split(ve[q]);
+        v_hi[vo] = __uint_as_float(sv.hi);
+        v_lo[vo] = __uint_as_float(sv.lo);
+      } else {
+        v_hi[vo] = ve[q];
+      }
+    }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
 swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int S,
-                     int n_qt, int window, float scale) {
-  constexpr int kLd = D + 4;
-  constexpr int kCW = D / 64;   // float4 columns a thread owns in p.V
+                     int H, int KV, int n_qt, int window, float scale) {
+  using L = Smem<T, D>;
+  constexpr bool kSplit = Elem<T>::kSplit;
+  constexpr int kKB = L::kKB, kLd = L::kLd;
+  constexpr int kNT = kKB / 8;   // 8-key groups of a tile
+  constexpr int kDT = D / 8;     // 8-column groups of the output
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kQB * kLd;
-  float* v_s = k_s + kKB * kLd;
-  float* p_s = v_s + kKB * kLd;
-  float* m_s = p_s + kQB * kPLd;
-  float* l_s = m_s + kQB;
-  float* c_s = l_s + kQB;
+  T* q_s = reinterpret_cast<T*>(smem4);   // (kQB, kLd)
+  T* k_raw = q_s + kQB * kLd;             // (kKB, kLd)
+  T* v_raw = k_raw + kKB * kLd;           // (kKB, kLd)
+  float* k_hi = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + L::kRawBytes);
+  float* k_lo = k_hi + L::kPlaneFloats;                 // f32 inputs only
+  float* v_hi = k_hi + L::kPlanes * L::kPlaneFloats;
+  float* v_lo = v_hi + L::kPlaneFloats;                 // f32 inputs only
 
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kQB;   // long rows first
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  // blocks of one query tile run together, the G heads of a kv head side
+  // by side (their K/V tiles stay in L2); the latest tiles (most keys when
+  // the band is wide) first
+  const int BH = gridDim.x / n_qt;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * kQB;
+  const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const size_t ldq = static_cast<size_t>(H) * D;
+  const size_t ldk = static_cast<size_t>(KV) * D;
+  const T* qb = q + static_cast<size_t>(b) * S * ldq +
+                static_cast<size_t>(h) * D;
+  const T* kb = k + static_cast<size_t>(b) * S * ldk +
+                static_cast<size_t>(kvh) * D;
+  const T* vb = v + static_cast<size_t>(b) * S * ldk +
+                static_cast<size_t>(kvh) * D;
+  T* ob = out + static_cast<size_t>(b) * S * ldq + static_cast<size_t>(h) * D;
 
-  load_tile<T, D>(q_s, q + base, q0, S);
-  if (tid < kQB) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][kCW][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCW; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 16 * warp;   // the warp's first row
+  const int row[2] = {w0 + g, w0 + g + 8};
+  // scores in the log2 domain: exp(s - m) = exp2(s log2e - m log2e)
+  const float scale2 = scale * kLog2e;
+  constexpr uint32_t kLboK = L::kLboK, kLboV = L::kLboV;
 
   // the key tiles that meet the band of rows [q0, last_q]
   const int last_q = min(q0 + kQB, S) - 1;
   const int t_lo = max(0, q0 - window + 1) / kKB, t_hi = last_q / kKB;
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kKB;
-    __syncthreads();   // the previous tile's K, V and p are consumed
-    load_tile<T, D>(k_s, k + base, k0, S);
-    load_tile<T, D>(v_s, v + base, k0, S);
-    __syncthreads();
 
-    // 2. scores, rows ty + 16i, keys tx + 16j
-    float s[4][4];
+  load_tile<T, D, kQB>(q_s, qb, ldq, q0, S);
+  load_tile<T, D, kKB>(k_raw, kb, ldk, t_lo * kKB, S);
+  load_tile<T, D, kKB>(v_raw, vb, ldk, t_lo * kKB, S);
+  tf32::cp_commit();
+
+  float o[D / 2];   // O: rows w0 + g, + 8, columns 8c + 2t, + 1
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * kLd + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-        }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int tile = t_lo; tile <= t_hi; ++tile) {
+    // the tile's raw copy has landed and the last products are done with
+    // the planes: rebuild them, then the raw buffers take the next tile
+    tf32::cp_wait<0>();
+    __syncthreads();
+    stage_planes<T, D>(k_raw, v_raw, k_hi, k_lo, v_hi, v_lo);
+    tf32::fence_async_smem();
+    __syncthreads();
+    if (tile < t_hi) {
+      load_tile<T, D, kKB>(k_raw, kb, ldk, (tile + 1) * kKB, S);
+      load_tile<T, D, kKB>(v_raw, vb, ldk, (tile + 1) * kKB, S);
+      tf32::cp_commit();
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        p_s[r * kPLd + c] =
-            visible(q0 + r, k0 + c, window, S) ? s[i][j] * scale : kNegInf;
-      }
-    __syncthreads();
+    const int k0 = tile * kKB;
 
-    // 3. online softmax: four threads a row, keys part + 4 * kk
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* row = p_s + r * kPLd;
-      float mx = kNegInf;
+    // 1. S = Q K^T on the tensor cores: lane (g, t) holds rows g, g + 8
+    //    and keys 8j + 2t, + 1 in s[4j + e]
+    float s[kKB / 2];
 #pragma unroll
-      for (int kk = 0; kk < kKB / 4; ++kk) mx = fmaxf(mx, row[part + 4 * kk]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
+    for (int i = 0; i < kKB / 2; ++i) s[i] = 0.f;
+    tf32::wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKB / 4; ++kk) {
-        const int c = part + 4 * kk;
-        const float p = visible(q0 + r, k0 + c, window, S)
-                            ? expf(row[c] - m_new) : 0.f;
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+    for (int kk = 0; kk < D; kk += 8) {
+      const T* qr = q_s + (16 * warp + g) * kLd + kk + t;
+      const float qv[4] = {to_f(qr[0]), to_f(qr[8 * kLd]), to_f(qr[4]),
+                           to_f(qr[8 * kLd + 4])};
+      const AFrag<kSplit> a(qv);
+      const int off = kk / 4 * (kKB / 8) * 32;
+      const uint64_t dk = tf32::smem_desc(k_hi + off, kLboK, 128);
+      if (kSplit) {
+        const uint64_t dl = tf32::smem_desc(k_lo + off, kLboK, 128);
+        Wgmma<kKB>::run(s, a.lo, dk, 1);
+        Wgmma<kKB>::run(s, a.hi, dl, 1);
+        Wgmma<kKB>::run(s, a.hi, dk, 1);
+      } else {
+        Wgmma<kKB>::run(s, a.hi, dk, 1);
       }
     }
-    __syncthreads();
+    tf32::wg_commit();
+    tf32::wg_wait<0>();
+    tf32::fence_regs(s);
 
-    // 4. acc = acc * corr + p . V, rows ty + 16i, columns 4tx + 64c + e
+    // 2. mask, online softmax in the log2 domain
+    const bool full = k0 + kKB - 1 <= w0 && w0 + 15 - k0 < window &&
+                      k0 + kKB <= S;   // every pair of the warp visible
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int c = 0; c < kCW; ++c)
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale2;
+        if (!full && !visible(row[e >> 1], k0 + 8 * j + 2 * t + (e & 1),
+                              window, S))
+          x = kNegInf;
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
     }
-#pragma unroll 2
-    for (int j = 0; j < kKB; j += 4) {
-      float4 pr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPLd + j);
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int e = 0; e < 4; ++e) {
+        // a masked pair's score is exactly -1e30: its p is an exact 0
+        const float x = s[4 * j + e];
+        const float p = x == kNegInf ? 0.f : exp2f(x - m[e >> 1]);
+        s[4 * j + e] = p;
+        l[e >> 1] += p;
+      }
 #pragma unroll
-        for (int c = 0; c < kCW; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              v_s + (j + jj) * kLd + 4 * tx + 64 * c);
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // 3. O += P V on the tensor cores; the A fragment of 8-key group j is
+    //    (p[g][2t], p[g+8][2t], p[g][2t+1], p[g+8][2t+1]), which the V^T
+    //    planes hold in that key order
+    tf32::wg_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = get(pr[i], jj);
-            acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(p, vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(p, vv.w, acc[i][c][3]);
-          }
-        }
+    for (int j = 0; j < kNT; ++j) {
+      const float pv[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1],
+                           s[4 * j + 3]};
+      const AFrag<true> pa(pv);
+      const int off = 2 * j * (kLboV / 4);
+      const uint64_t dv = tf32::smem_desc(v_hi + off, kLboV, 128);
+      Wgmma<D>::run(o, pa.lo, dv, 1);
+      if (kSplit)
+        Wgmma<D>::run(o, pa.hi, tf32::smem_desc(v_lo + off, kLboV, 128), 1);
+      Wgmma<D>::run(o, pa.hi, dv, 1);
     }
+    tf32::wg_commit();
+    tf32::wg_wait<0>();
+    tf32::fence_regs(o);
   }
 
-  // out = acc / max(l, 1e-30); l_s was last written before the final
-  // barrier of the tile loop
+  // out = O / max(l, 1e-30): the row's l is the sum of its four lanes'
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= S) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* o = out + base + static_cast<size_t>(q0 + r) * D;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    if (row[r] >= S) continue;
+    T* orow = ob + static_cast<size_t>(row[r]) * ldq + 2 * t;
 #pragma unroll
-    for (int c = 0; c < kCW; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store1(o + 4 * tx + 64 * c + e, acc[i][c][e] / l);
+    for (int c = 0; c < kDT; ++c)
+      store2(orow + 8 * c, o[4 * c + 2 * r] / l[r],
+             o[4 * c + 2 * r + 1] / l[r]);
   }
 }
 
 template <typename T, int D>
-int launch_t(const void* q, const void* k, const void* v, void* out, int BH,
-             int S, int window, float scale, cudaStream_t stream) {
+int launch_t(const void* q, const void* k, const void* v, void* out, int B,
+             int S, int H, int KV, int window, float scale,
+             cudaStream_t stream) {
   auto kern = swa_attention_kernel<T, D>;
-  const size_t smem = sizeof(float) * smem_floats<D>();
+  constexpr size_t smem = Smem<T, D>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_qt = (S + kQB - 1) / kQB;
-  kern<<<BH * n_qt, kThreads, smem, stream>>>(
+  kern<<<B * H * n_qt, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, n_qt, window,
+      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, n_qt, window,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int BH,
-             int S, int D, int window, float scale, cudaStream_t st) {
+int launch_d(const void* q, const void* k, const void* v, void* out, int B,
+             int S, int H, int KV, int D, int window, float scale,
+             cudaStream_t st) {
+#define ARGS q, k, v, out, B, S, H, KV, window, scale, st
   switch (D) {
-    case 64: return launch_t<T, 64>(q, k, v, out, BH, S, window, scale, st);
-    case 128: return launch_t<T, 128>(q, k, v, out, BH, S, window, scale, st);
-    case 256: return launch_t<T, 256>(q, k, v, out, BH, S, window, scale, st);
+    case 64: return launch_t<T, 64>(ARGS);
+    case 128: return launch_t<T, 128>(ARGS);
+    case 256: return launch_t<T, 256>(ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). q, k, v and
-// out must be 16-byte aligned. window >= 1 (window >= S: full causal).
-// Returns the launch's cudaError_t.
+// q, out (B, S, H, D); k, v (B, S, KV, D); H a multiple of KV. dtype:
+// 0 = float32, 1 = bfloat16 (q, k, v and out alike). q, k, v and out must
+// be 16-byte aligned. window >= 1 (window >= S: full causal). Returns the
+// launch's cudaError_t.
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                      int BH, int S, int D, int window, float scale,
-                      int dtype, void* stream) {
-  if (BH <= 0 || S <= 0) return 0;
-  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
+                      int B, int S, int H, int KV, int D, int window,
+                      float scale, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (window < 1 || KV <= 0 || H % KV)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, out, BH, S, D, window, scale, st);
+    return launch_d<float>(q, k, v, out, B, S, H, KV, D, window, scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, BH, S, D, window, scale, st);
+    return launch_d<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, window,
+                                   scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

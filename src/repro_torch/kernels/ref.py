@@ -48,6 +48,21 @@ def swa_attention_ref(q, k, v, window: int, causal: bool = True):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def swa_attention_gqa_ref(q, k, v, window: int, causal: bool = True):
+    """``swa_attention_ref`` in the model's layout, as the reference's
+    ``gqa_attention(kernel="pallas")`` reaches its kernel: q (B, S, H, D),
+    k and v (B, S, KV, D) repeated over the G = H // KV query heads, the
+    heads folded into (B·H, S, D), attended and unfolded. Returns the
+    (B, S, H, D) view of the folded result."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kg = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+    vg = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    out = swa_attention_ref(fold(q), fold(kg), fold(vg), window, causal)
+    return out.reshape(B, H, S, D).transpose(1, 2)
+
+
 def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int):
     """Mamba2 SSD: the model's chunked scan (``models.ssm.ssd_chunked``)
     run in f32 and rounded once to x's dtype, as the reference's Pallas

@@ -71,9 +71,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``kernel="cuda"`` runs the causal self-attend of the scoring forward
     (Sq == Sk, an int window, no k_positions / k_len) through the
-    sliding-window kernel (``kernels.ops.swa_attention``): K and V are
-    repeated over the G query heads and the heads folded into (B·H, S, D),
-    as the reference's ``kernel="pallas"`` does.
+    sliding-window kernel's GQA entry (``kernels.ops.swa_attention_gqa``),
+    which reads q, k and v in this layout, kv head h // G for query head
+    h: nothing is repeated or folded. Its plain version (CPU tensors) is
+    the reference's ``kernel="pallas"``: K and V repeated over the G
+    query heads, the heads folded into (B·H, S, D).
     """
     check_kernel(kernel)
     B, Sq, H, D = q.shape
@@ -85,11 +87,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(
                 "kernel='cuda' supports the causal self-attend only "
                 "(Sq == Sk, int window, no k_positions/k_len)")
-        kg = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
-        vg = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
-        fold = lambda t: t.transpose(1, 2).reshape(B * H, Sq, D).contiguous()
-        out = ops.swa_attention(fold(q), fold(kg), fold(vg), window)
-        return out.reshape(B, H, Sq, D).transpose(1, 2)
+        return ops.swa_attention_gqa(q, k, v, window)
     dev = q.device
     scale = D ** -0.5
     qg = q.reshape(B, Sq, KV, G, D)

@@ -3,6 +3,9 @@ which computes it on CPU tensors) against the reference's Pallas scan in
 interpret mode and against the O(S) recurrence, on the same numpy inputs
 (the cases of ``tests/test_kernels.py``); ``ssm_forward(kernel="cuda")``
 against the reference's ``kernel="pallas"``; the wrapper's refusals."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -148,9 +151,13 @@ def test_ssd_scan_wrapper_refusals(rng):
 
 
 def test_block_chunk_fits_shared_memory():
-    assert tscan.block_chunk(64, 16) == 128        # Hymba's heads
-    assert tscan.block_chunk(64, 128) == 64        # Mamba2's
-    for P in range(4, tscan.MAX_P + 1, 4):
-        for N in range(4, tscan.MAX_N + 1, 4):
-            assert tscan.smem_bytes(tscan.block_chunk(P, N), P, N) \
-                <= tscan.SMEM_LIMIT
+    """The wrapper's constants are the kernels' own (csrc/ssd_scan.cu): the
+    kernels' chunk, kQ = 16 kWarps rows, and the largest P and N. That a
+    block of that chunk fits shared memory at P = 64, N = 128 is held on
+    the card (test_torch_cuda_forward.py, chip_smoke.py's SCAN_SHAPES)."""
+    src = (Path(tscan.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert const["kQ"] == "16 * kWarps"
+    assert 16 * int(const["kWarps"]) == tscan.BLOCK_CHUNK == 64
+    assert int(const["kMaxP"]) == tscan.MAX_P
+    assert int(const["kMaxN"]) == tscan.MAX_N

@@ -1,9 +1,9 @@
 """The plain version of the port's sliding-window attention kernel (and its
 wrapper, which computes it on CPU tensors) against the reference's Pallas
 kernel in interpret mode, on the same numpy inputs (the cases of
-``tests/test_kernels.py``); ``gqa_attention(kernel="cuda")`` against the
-reference's ``kernel="pallas"``; the wrapper's and the switch's
-refusals."""
+``tests/test_kernels.py``); ``gqa_attention(kernel="cuda")``, through the
+kernel's GQA entry, against the reference's ``kernel="pallas"``; the
+wrappers' and the switch's refusals."""
 import numpy as np
 import pytest
 
@@ -71,6 +71,34 @@ def test_gqa_attention_cuda_matches_pallas(window, rng):
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("G", [1, 5])
+def test_gqa_entry_matches_pallas(G, rng):
+    """gqa_attention(kernel="cuda") goes through the GQA entry
+    (``ops.swa_attention_gqa``), whose plain version repeats, folds and
+    unfolds as the reference's kernel="pallas" does: B = 2, two kv heads,
+    D = 64, S = 128 and 256, windows 48 and 0 (full)."""
+    B, KV, D = 2, 2, 64
+    H = G * KV
+    for S in (128, 256):
+        q = (rng.standard_normal((B, S, H, D)) * 0.3).astype(np.float32)
+        k = (rng.standard_normal((B, S, KV, D)) * 0.3).astype(np.float32)
+        v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+        tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+        for window in (48, 0):
+            want = np.asarray(jattn.gqa_attention(
+                *(jnp.asarray(a) for a in (q, k, v)), window=window,
+                kernel="pallas"))
+            before = tswa.swa_attention.launches
+            got = tattn.gqa_attention(tq, tk, tv, window=window,
+                                      kernel="cuda")
+            assert tswa.swa_attention.launches == before   # plain on a CPU
+            assert got.shape == (B, S, H, D)
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
+                                       atol=2e-4)
+            entry = tops.swa_attention_gqa(tq, tk, tv, window)
+            assert torch.equal(entry, got)
+
+
 def test_window_zero_is_full_causal(rng):
     q, k, v = _qkv(rng, 2, 256, 64)
     tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
@@ -118,6 +146,24 @@ def test_wrapper_and_switch_refusals(rng):
         tswa.swa_attention(qg, q, q, 8)
     with torch.no_grad():
         tswa.swa_attention(qg, q, q, 8)
+    # the GQA entry: (B, S, H, D) against (B, S, KV, D), KV dividing H
+    q4, k4 = torch.zeros((1, 128, 4, 64)), torch.zeros((1, 128, 2, 64))
+    bad4 = [
+        (q4, torch.zeros((1, 128, 3, 64)), torch.zeros((1, 128, 3, 64))),
+        (q4, k4, torch.zeros((1, 128, 1, 64))),           # v differs from k
+        (q4, torch.zeros((1, 64, 2, 64)), torch.zeros((1, 64, 2, 64))),
+        (q, k4, k4),                                      # q folded
+        (torch.zeros((1, 128, 8, 64))[:, :, ::2], k4, k4),   # strided
+        (q4, k4.bfloat16(), k4),                          # dtypes differ
+    ]
+    for args in bad4:
+        with pytest.raises(ValueError):
+            tswa.swa_attention_gqa(*args, 8)
+    with pytest.raises(ValueError, match="causal only"):
+        tswa.swa_attention_gqa(q4, k4, k4, 8, causal=False)
+    with pytest.raises(ValueError, match="not divisible"):
+        z4 = torch.zeros((1, 200, 2, 64))
+        tops.swa_attention_gqa(z4, z4, z4, 8)
     # gqa_attention(kernel="cuda") takes the causal self-attend only
     x = torch.zeros((1, 16, 2, 64))
     for kw in (dict(causal=False), dict(k_len=4),
