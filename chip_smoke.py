@@ -21,9 +21,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    timed and traced by torch.profiler, with the KD step's launches
    counted;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
-   against their plain versions on the card, f32 and bf16 caches, then
-   timed at Hymba-1.5B's full-width decode shape beside their bound and
-   ``scaled_dot_product_attention``;
+   against their plain versions on the card, f32 and bf16 caches, an
+   extent of 131072 keys among them, then timed at Hymba-1.5B's
+   full-width decode shape beside their bound and
+   ``scaled_dot_product_attention``, each timed call held against its
+   plain version and the attends' kernels a call measured (one);
 8. the reduced Hymba serving path on the card against the CPU (TF32 off):
    identical tokens, prefill and decode logits to rtol 1e-3;
 9. the serving path at full width: Hymba-1.5B, f32, four slots, eight
@@ -33,13 +35,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    decode tick traced by torch.profiler;
 10. the scoring kernels (sliding-window attention through its folded and
     its GQA entry, SSD chunk scan) against their plain versions on the
-    card, f32 and bf16, then timed at Hymba-1.5B's full-width scoring
-    shapes beside their bounds (for the attention at the f32 FMA rate and
-    as 3xTF32 on the tensor cores) and, for the attention,
-    ``scaled_dot_product_attention`` with the band mask;
+    card, f32 and bf16, Gemma3-12B's GQA shape at head dim 240 among
+    them, then timed at Hymba-1.5B's full-width scoring shapes (the
+    attention also at Gemma3-12B's) beside their bounds (for the attention
+    at the f32 FMA rate and as 3xTF32 on the tensor cores) and, for the
+    attention, ``scaled_dot_product_attention`` with the band mask;
 11. the reduced Hymba, Mamba2 and Gemma3 scoring forward
     (``registry.loss_fn`` / ``logits_fn``, kernel="cuda") on the card
-    against the CPU (TF32 off);
+    against the CPU (TF32 off); then Gemma3-12B at its config's widths,
+    cut to its first 6 layers (one global), B = 1, S = 2048, through the
+    kernels against the eager forward on the card;
 12. the scoring forward at full width: Hymba-1.5B, f32, B = 2, S = 2048,
     ``loss_fn`` and ``logits_fn`` through the kernels (32 launches of each
     a forward) against the eager forward on the card, both timed, one
@@ -388,6 +393,8 @@ _TDT = {"f32": "float32", "bf16": "bfloat16"}
 # deepest rung at max_len 2048; 50 SSD heads of P 64, N 16
 HYMBA_ATTEND = (4, 5, 5, 64)
 HYMBA_SSD = (4, 50, 64, 16)
+# one row of Hymba's attend heads over 131072 cache positions
+LONG_EXTENT, LONG_KEYS = (1, 5, 5, 64), 131072
 
 
 def _dt(name):
@@ -498,7 +505,7 @@ def phase_decode_kernels() -> list:
                 # per-row positions: rings not yet full and wrapped ones
                 rows = [W // 2, 3 * W + 5, W - 1, 7 * W + 2][:B]
                 pos = torch.tensor(rows, dtype=torch.int32, device="cuda")
-                for window in (0, W if W % 2 else W - 1):
+                for window in (0, W if W % 2 else W - 1, 5):
                     got = da.ring_decode_attend(q, k, v, pos, window)
                     torch.cuda.synchronize()
                     want = ref.ring_decode_attend_ref(q, k, v, pos, window)
@@ -521,6 +528,22 @@ def phase_decode_kernels() -> list:
                         f"extent {qn}/{kvn} {(B, KV, G, D)} k_ext={k_ext} "
                         f"pos={rows} window={window}", got, want, tol))
                     cases += 1
+        # far more keys than one block's shared memory held before the
+        # redesign (~84k at G = 5): 131072, all visible or a window
+        B, KV, G, D = LONG_EXTENT
+        q, k, v = _attend_inputs(B, KV, G, D, LONG_KEYS, _dt(qn), _dt(kvn),
+                                 seed=7)
+        pos = torch.tensor([LONG_KEYS - 1], dtype=torch.int32, device="cuda")
+        for window in (0, 1000):
+            got = da.extent_decode_attend(q, k, v, pos, window, LONG_KEYS)
+            torch.cuda.synchronize()
+            want = ref.extent_decode_attend_ref(q, k, v, pos, window,
+                                                LONG_KEYS)
+            worst["extent"] = max(worst["extent"], _check_close(
+                f"extent {qn}/{kvn} {LONG_EXTENT} k_ext={LONG_KEYS} "
+                f"window={window}", got, want, tol))
+            cases += 1
+        del q, k, v
     for xn, sn in DECODE_COMBOS:
         tol = SERVE_TOL["bf16" if "bf16" in (xn, sn) else "f32"]
         for B, H, P, N in (HYMBA_SSD, (4, 24, 64, 128)):
@@ -557,6 +580,16 @@ def _ssd_inputs(B, H, P, N, x_dt, s_dt, seed):
             Cm.to("cuda", x_dt), st.to("cuda", s_dt))
 
 
+def _one_kernel(name: str, row: dict) -> None:
+    """Fails unless the profiler saw one kernel, about once a call (the
+    trace may drop an event or two of the 50 calls)."""
+    if row["kernels_per_call"] is None or row["distinct_kernels"] != 1 \
+            or round(row["kernels_per_call"]) != 1:
+        raise AssertionError(
+            f"{name}: {row['distinct_kernels']} distinct kernels, "
+            f"{row['kernels_per_call']} a call, not one launch")
+
+
 def _time_decode_kernels(worst: dict) -> list:
     import torch
     from repro_torch.kernels import decode_attend as da
@@ -569,8 +602,13 @@ def _time_decode_kernels(worst: dict) -> list:
     pos = torch.tensor([1100, 1500, 1030, 2000], dtype=torch.int32,
                        device="cuda")
     vis = _ring_visible(pos, 1024, 1024)
+    worst["ring"] = max(worst["ring"], _check_close(
+        f"ring timed {HYMBA_ATTEND} pos={pos.tolist()}",
+        da.ring_decode_attend(q, k, v, pos, 1024),
+        ref.ring_decode_attend_ref(q, k, v, pos, 1024), SERVE_TOL["f32"]))
     row = _time_kernel(lambda: da.ring_decode_attend(q, k, v, pos, 1024),
                        lambda: ref.ring_decode_attend_ref(q, k, v, pos, 1024))
+    _one_kernel("ring_decode_attend", row)
     bound, by = _attend_bound(q, k, vis)
     out.append({"name": "ring_decode_attend", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
@@ -587,9 +625,15 @@ def _time_decode_kernels(worst: dict) -> list:
     pos = torch.tensor([2047, 1500, 1100, 1024], dtype=torch.int32,
                        device="cuda")
     vis = _extent_visible(pos, 2048, 0)
+    worst["extent"] = max(worst["extent"], _check_close(
+        f"extent timed {HYMBA_ATTEND} pos={pos.tolist()}",
+        da.extent_decode_attend(q, k, v, pos, 0, 2048),
+        ref.extent_decode_attend_ref(q, k, v, pos, 0, 2048),
+        SERVE_TOL["f32"]))
     row = _time_kernel(
         lambda: da.extent_decode_attend(q, k, v, pos, 0, 2048),
         lambda: ref.extent_decode_attend_ref(q, k, v, pos, 0, 2048))
+    _one_kernel("extent_decode_attend", row)
     bound, by = _attend_bound(q, k, vis)
     out.append({"name": "extent_decode_attend", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
@@ -752,6 +796,9 @@ def phase_serve_card_vs_cpu():
 
 
 FULL_PROMPTS = (1, 7, 33, 100, 513, 1024, 1100, 1500)
+# phase 9's traced tick before the decode attends' redesign (PERF.md §5:
+# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+TICK_BEFORE = {"kernels": 3718, "device_ms": 12.61}
 
 
 def phase_serve_full_width(kernels: list, seed: int) -> None:
@@ -850,7 +897,9 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
         "group_admits": {str(k): v for k, v in srv.group_admits.items()},
         "launches": launches, "peak_mem_gib": peak_gib,
         "generate_single_share": same / len(prompts),
-        "forced_logits_rel_err": max(errs), "tick_profile": tick}))
+        "forced_logits_rel_err": max(errs), "tick_profile": tick,
+        # the same tick traced before the decode attends' redesign
+        "tick_before_redesign": TICK_BEFORE}))
 
 
 # ---------------------------------------------------------------------------
@@ -868,6 +917,10 @@ COPY_KERNELS = ("copy", "Copy", "index", "Index", "repeat")
 # 128
 SCORE_B, SCORE_S = 2, 2048
 HYMBA_GQA = (SCORE_B, SCORE_S, 25, 5, 64)
+# Gemma3-12B's (configs/gemma3_12b.py): 16 query heads over 8 kv heads of
+# dim 240 (d_model 3840), one sequence of 2048, window 1024 on five layers
+# of six
+GEMMA_GQA = (1, SCORE_S, 16, 8, 240)
 HYMBA_SWA = (SCORE_B * 25, SCORE_S, 64)
 HYMBA_SCAN = (SCORE_B, SCORE_S, 50, 64, 16, 128)
 # the reference's sweep (tests/test_kernels.py), Hymba's and Mamba2-130m's
@@ -983,7 +1036,7 @@ def phase_scoring_kernels() -> list:
         tol = SCORE_TOL[dn]
         # the GQA entry at G = 1, 2 and 5 query heads over 2 kv heads
         for D, seqs in ((64, (40, 256, 2048)), (128, (256,)),
-                        (256, (128, 256))):
+                        (240, (128, 256)), (256, (128, 256))):
             for S in seqs:
                 for G in (1, 2, 5):
                     q, k, v = _gqa_inputs(2, S, 2 * G, 2, D, dn,
@@ -999,19 +1052,21 @@ def phase_scoring_kernels() -> list:
                             f"swa gqa {dn} S={S} D={D} G={G} w={w}", got,
                             want, tol))
                         cases += 1
-        # the GQA entry at the main path's own shape and windows
-        B, S, H, KV, D = HYMBA_GQA
-        q, k, v = _gqa_inputs(B, S, H, KV, D, dn, seed=5)
-        for w in (1024, S):
-            got = ops.swa_attention_gqa(q, k, v, w)
-            torch.cuda.synchronize()
-            want = ref.swa_attention_gqa_ref(q, k, v, w)
-            worst["swa_gqa"] = max(worst["swa_gqa"], _check_close(
-                f"swa gqa {dn} {HYMBA_GQA} w={w}", got, want, tol))
-            cases += 1
-        del q, k, v, got, want
+        # the GQA entry at the main path's own shape and windows, and at
+        # Gemma3-12B's (head dim 240)
+        for shape in (HYMBA_GQA, GEMMA_GQA):
+            B, S, H, KV, D = shape
+            q, k, v = _gqa_inputs(B, S, H, KV, D, dn, seed=5)
+            for w in (1024, S):
+                got = ops.swa_attention_gqa(q, k, v, w)
+                torch.cuda.synchronize()
+                want = ref.swa_attention_gqa_ref(q, k, v, w)
+                worst["swa_gqa"] = max(worst["swa_gqa"], _check_close(
+                    f"swa gqa {dn} {shape} w={w}", got, want, tol))
+                cases += 1
+            del q, k, v, got, want
         for D, seqs in ((64, (40, 128, 256, 512, 2048)), (128, (128, 256)),
-                        (256, (128, 256))):
+                        (240, (128, 256)), (256, (128, 256))):
             for S in seqs:
                 q, k, v = _swa_inputs(3, S, D, dn, seed=S + D)
                 for w in (1, 32, 100, 200, S, 0):
@@ -1054,13 +1109,29 @@ def phase_scoring_kernels() -> list:
     return _time_scoring_kernels(worst)
 
 
+def _time_gqa_entry(q, k, v, w: int, folded: tuple) -> dict:
+    """The GQA entry timed beside its plain version, its bounds and one
+    ``scaled_dot_product_attention`` call on the ``folded`` (BH, S, D)
+    q, k, v with the band mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    row = _time_kernel(lambda: ops.swa_attention_gqa(q, k, v, w),
+                       lambda: ref.swa_attention_gqa_ref(q, k, v, w))
+    row.update(_swa_bound(q, k, w))
+    i = torch.arange(q.shape[1], device="cuda")
+    band = (i[:, None] - i[None, :] >= 0) & (i[:, None] - i[None, :] < w)
+    row["library_ms"] = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        *folded, attn_mask=band), iters=50)
+    return row
+
+
 def _time_scoring_kernels(worst: dict) -> list:
     """The main path's entry of each scoring kernel timed at Hymba's
     full-width shapes: the attention's GQA entry (the folded entry beside
-    it, under ``folded_entry``) and the scan (one call, its three
-    kernels)."""
+    it, under ``folded_entry``; Gemma3-12B's shape under ``gemma3_12b``)
+    and the scan (one call, its three kernels)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as tscan
     out = []
@@ -1069,17 +1140,27 @@ def _time_scoring_kernels(worst: dict) -> list:
     q, k, v = _swa_inputs(*HYMBA_SWA, "f32", seed=1)
     rows = {}
     for w in (1024, S):
-        row = _time_kernel(lambda: ops.swa_attention_gqa(qg, kg, vg, w),
-                           lambda: ref.swa_attention_gqa_ref(qg, kg, vg, w))
-        row.update(_swa_bound(qg, kg, w))
+        row = _time_gqa_entry(qg, kg, vg, w, (q, k, v))
         folded = _time_kernel(lambda: ops.swa_attention(q, k, v, w),
                               lambda: ref.swa_attention_ref(q, k, v, w))
-        i = torch.arange(S, device="cuda")
-        band = (i[:, None] - i[None, :] >= 0) & (i[:, None] - i[None, :] < w)
-        row["library_ms"] = _cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=band), iters=50)
         row["folded_entry"] = {**folded, **_swa_bound(q, k, w)}
         rows[w] = row
+    # Gemma3-12B's shape: each timed call held against its plain version
+    qg, kg, vg = _gqa_inputs(*GEMMA_GQA, "f32", seed=2)
+    Bg, Sg, Hg, _, Dg = GEMMA_GQA         # the heads folded, K/V repeated
+    folded = tuple(torch.repeat_interleave(t, Hg // t.shape[2], dim=2)
+                   .transpose(1, 2).reshape(Bg * Hg, Sg, Dg).contiguous()
+                   for t in (qg, kg, vg))
+    gemma = {}
+    for w in (1024, Sg):
+        worst["swa_gqa"] = max(worst["swa_gqa"], _check_close(
+            f"swa gqa timed {GEMMA_GQA} w={w}",
+            ops.swa_attention_gqa(qg, kg, vg, w),
+            ref.swa_attention_gqa_ref(qg, kg, vg, w), SCORE_TOL["f32"]))
+        row = _time_gqa_entry(qg, kg, vg, w, folded)
+        _one_kernel(f"swa_attention {GEMMA_GQA} w={w}", row)
+        gemma["window_1024" if w == 1024 else "window_S"] = row
+    del qg, kg, vg, folded
     # the row is the 29 sliding-window layers' shape; the 3 global
     # layers' (window S) rides along under "window_S"
     out.append({"name": "swa_attention", "route": "cuda",
@@ -1094,7 +1175,9 @@ def _time_scoring_kernels(worst: dict) -> list:
                 **rows[1024],
                 "library": "F.scaled_dot_product_attention on the folded "
                            "heads, boolean band mask",
-                "window_S": rows[S]})
+                "window_S": rows[S],
+                "gemma3_12b": {"B_S_H_KV_D": GEMMA_GQA, "dtype": "float32",
+                               **gemma}})
     B, S_, H, P, N, chunk = HYMBA_SCAN
     args = _scan_inputs(B, S_, H, P, N, "f32", seed=3)
     row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
@@ -1161,9 +1244,10 @@ def _score(params, cfg, batch, kernel: str):
     return loss, logits
 
 
-def phase_scoring_card_vs_cpu():
+def phase_scoring_card_vs_cpu(seed: int):
     """Reduced Hymba, Mamba2 and Gemma3 scored on the card (the kernels)
-    and on the CPU (their plain versions), TF32 off."""
+    and on the CPU (their plain versions), TF32 off; then Gemma3-12B at
+    full width, six layers, kernels against eager on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import registry
@@ -1193,6 +1277,76 @@ def phase_scoring_card_vs_cpu():
                          f"{arch} scoring logits", res["cuda"][1],
                          res["cpu"][1], rtol=1e-4)}
     print(json.dumps({"phase": "scoring_card_vs_cpu", **out}))
+    _score_gemma_six_layers(seed)
+
+
+def _score_kernels_vs_eager(params, cfg, batch, what: str) -> dict:
+    """``batch`` scored by ``loss_fn`` and ``logits_fn`` through the kernels
+    (counts zeroed just before, read just after: two forwards' launches)
+    and by the eager forward (no launch): finite logits of the batch's
+    shape within 1e-3·(1+|ref|), the loss within 1e-4 relative."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_score_launches()
+    t0 = time.perf_counter()
+    loss_k, logits_k = _score(params, cfg, batch, "cuda")
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches = _score_launches()
+    want = {k: 2 * n for k, n in _per_forward(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, want {want} "
+                             f"(two forwards)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _zero_score_launches()
+    loss_e, logits_e = _score(params, cfg, batch, "eager")
+    if any(_score_launches().values()):
+        raise AssertionError(f"{what}: eager scoring launched kernels: "
+                             f"{_score_launches()}")
+    if not (bool(torch.isfinite(logits_k).all())
+            and math.isfinite(float(loss_k))):
+        raise AssertionError(f"non-finite {what}")
+    shape = (*batch["tokens"].shape, cfg.vocab_size)
+    if tuple(logits_k.shape) != shape:
+        raise AssertionError(f"{what}: logits shape "
+                             f"{tuple(logits_k.shape)}, want {shape}")
+    logits_err = _logits_close(f"{what} logits", logits_k, logits_e)
+    loss_err = abs(float(loss_k) - float(loss_e)) / abs(float(loss_e))
+    if loss_err > 1e-4:
+        raise AssertionError(f"{what}: loss kernel vs eager {loss_err}")
+    return {"loss": float(loss_k), "loss_eager": float(loss_e),
+            "loss_rel_err": loss_err, "logits_rel_err": logits_err,
+            "launches": launches, "launches_per_forward": _per_forward(cfg),
+            "score_wall_s_loss_and_logits": wall_k, "peak_mem_gib": peak_gib}
+
+
+def _score_gemma_six_layers(seed: int) -> None:
+    """Gemma3-12B at the widths of the repo's config (d_model 3840, 16
+    heads over 8 kv heads of dim 240 = 3840 / 16, d_ff 15360, vocab
+    262144; the published model's head dim is 256, the config sets none),
+    cut in depth to its first 6 layers: five at window 1024 and layer 5
+    global (every 6th). Random f32 weights from ``seed`` (~9 GB), B = 1,
+    S = 2048: kernels against the eager forward on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-12b"), num_layers=6)
+    if lm.global_layer_ids(cfg) != [5] or cfg.head_dim != 240:
+        raise AssertionError(f"gemma3-12b cut: globals "
+                             f"{lm.global_layer_ids(cfg)}, head dim "
+                             f"{cfg.head_dim}")
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    batch = _score_batch(cfg, 1, SCORE_S, seed, "cuda")
+    res = _score_kernels_vs_eager(params, cfg, batch, "gemma3-12b scoring")
+    print(json.dumps({
+        "phase": "score_gemma3_six_layers", "arch": cfg.name,
+        "layers": cfg.num_layers, "global_layers": lm.global_layer_ids(cfg),
+        "head_dim": cfg.head_dim, "batch": [1, SCORE_S],
+        "params": sum(v.numel() for v in params.values()), **res}))
 
 
 def phase_score_full_width(kernels: list, seed: int) -> None:
@@ -1209,37 +1363,9 @@ def phase_score_full_width(kernels: list, seed: int) -> None:
     params = registry.init_params(
         torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
     batch = _score_batch(cfg, SCORE_B, SCORE_S, seed, "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_score_launches()
-    t0 = time.perf_counter()
-    loss_k, logits_k = _score(params, cfg, batch, "cuda")
-    torch.cuda.synchronize()
-    wall_k = time.perf_counter() - t0
-    launches = _score_launches()
-    want = {k: 2 * n for k, n in _per_forward(cfg).items()}
-    if launches != want:
-        raise AssertionError(f"full-width scoring launches {launches}, "
-                             f"want {want} (two forwards)")
+    res = _score_kernels_vs_eager(params, cfg, batch, "full-width scoring")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    _zero_score_launches()
-    loss_e, logits_e = _score(params, cfg, batch, "eager")
-    if any(_score_launches().values()):
-        raise AssertionError(f"eager scoring launched kernels: "
-                             f"{_score_launches()}")
-    if not (bool(torch.isfinite(logits_k).all())
-            and math.isfinite(float(loss_k))):
-        raise AssertionError("non-finite full-width scoring")
-    if tuple(logits_k.shape) != (SCORE_B, SCORE_S, cfg.vocab_size):
-        raise AssertionError(f"logits shape {tuple(logits_k.shape)}")
-    logits_err = _logits_close("full-width scoring logits", logits_k,
-                               logits_e)
-    loss_err = abs(float(loss_k) - float(loss_e)) / abs(float(loss_e))
-    if loss_err > 1e-4:
-        raise AssertionError(f"full-width loss kernel vs eager {loss_err}")
-    del logits_k, logits_e
+        k["launches"] = res["launches"][k["name"]]
 
     def forward(kernel):
         def run():
@@ -1260,12 +1386,7 @@ def phase_score_full_width(kernels: list, seed: int) -> None:
             (time.perf_counter() - t0) / 3 * 1e3)
     print(json.dumps({
         "phase": "score_full_width", "arch": cfg.name,
-        "batch": [SCORE_B, SCORE_S], "loss": float(loss_k),
-        "loss_eager": float(loss_e), "loss_rel_err": loss_err,
-        "logits_rel_err": logits_err, "launches": launches,
-        "launches_per_forward": _per_forward(cfg),
-        "score_wall_s_loss_and_logits": wall_k, "peak_mem_gib": peak_gib,
-        "forward_hidden_ms": times,
+        "batch": [SCORE_B, SCORE_S], **res, "forward_hidden_ms": times,
         # the copy, index and repeat kernels of each forward: the attend's
         # repeat / fold / unfold are gone from the kernel path
         "forward_profile": _profile(forward("cuda"), 1, top=16,
@@ -1310,7 +1431,7 @@ def main(argv=None) -> int:
     phase_serve_full_width(serve_kernels, args.seed)
     kernels += serve_kernels
     score_kernels = phase_scoring_kernels()
-    phase_scoring_card_vs_cpu()
+    phase_scoring_card_vs_cpu(args.seed)
     phase_score_full_width(score_kernels, args.seed)
     kernels += score_kernels
 

@@ -17,8 +17,16 @@
 // h / G in place, from the row strides H * D and KV * D, so the caller
 // neither repeats K and V over the query groups nor folds the heads. The
 // folded (BH, S, D) entry is the same kernel with B = BH and H = KV = 1.
-// D in {64, 128, 256}; q/k/v f32 or bf16 (one dtype), out in that dtype;
-// f32 inside.
+// D in {64, 128, 240, 256}; q/k/v f32 or bf16 (one dtype), out in that
+// dtype; f32 inside.
+//
+// D = 240 (gemma3-12b: d_model 3840 over 16 heads) is an instantiation of
+// its own, not a zero-pad to 256: wgmma.m64nNk8 takes N = 240 (a multiple
+// of 8) for P V, Q K^T steps through D in 8-wide slices (30 of them), and a
+// 240-float row is 60 16-byte chunks, so the tiles, the core-matrix planes
+// and the GQA read in place stay as at D = 256, with its 16-key tiles. Only
+// the copy and staging loops gain a bound check, since 16 rows of 60 (or,
+// in bf16, 30) chunks are not a multiple of the block's 128 threads.
 //
 // Design. One block, one warpgroup (four warps, 16 query rows each), per
 // (b, h, 64-row query tile). The block visits only the key tiles (32 keys
@@ -90,7 +98,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // keys of a tile: 32 at D = 64, 16 above, so that a block's buffers fit
-// three blocks an SM at D = 64, two at 128 and one at 256
+// three blocks an SM at D = 64, two at 128 and one at 240 and 256
 template <int D>
 __host__ __device__ constexpr int key_tile() { return D == 64 ? 32 : 16; }
 
@@ -139,11 +147,11 @@ template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld,
                                           int row0, int S) {
   constexpr int kVec = Elem<T>::kVec, kLd = D + Elem<T>::kPad;
-  constexpr int kPerRow = D / kVec;
-  static_assert(ROWS * kPerRow % kThreads == 0, "whole copies a thread");
+  constexpr int kPerRow = D / kVec, kCopies = ROWS * kPerRow;
 #pragma unroll
-  for (int i = 0; i < ROWS * kPerRow / kThreads; ++i) {
+  for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
+    if (kCopies % kThreads && idx >= kCopies) break;
     const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
     const bool ok = row0 + r < S;
     cp_async16(dst + r * kLd + c,
@@ -189,9 +197,11 @@ __device__ __forceinline__ void stage_planes(const T* k_raw, const T* v_raw,
                                              float* v_hi, float* v_lo) {
   constexpr int kKB = Smem<T, D>::kKB, kLd = Smem<T, D>::kLd;
   constexpr bool kSplit = Elem<T>::kSplit;
+  constexpr int kItems = kKB * D / 4;
 #pragma unroll
-  for (int i = 0; i < kKB * D / 4 / kThreads; ++i) {
+  for (int i = 0; i < (kItems + kThreads - 1) / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
+    if (kItems % kThreads && idx >= kItems) break;
     const int key = idx % kKB, d4 = idx / kKB;   // neighbours: keys
     const float4 kv = load4(k_raw + key * kLd + 4 * d4);
     const int ko = (d4 * (kKB / 8) + key / 8) * 32 + (key % 8) * 4;
@@ -425,6 +435,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
   switch (D) {
     case 64: return launch_t<T, 64>(ARGS);
     case 128: return launch_t<T, 128>(ARGS);
+    case 240: return launch_t<T, 240>(ARGS);
     case 256: return launch_t<T, 256>(ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

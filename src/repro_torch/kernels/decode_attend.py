@@ -6,7 +6,8 @@ and ``extent_decode_attend_pallas``, both the hand-written CUDA kernel
 ``csrc/decode_attend.cu``. Unlike the reference, whose kernels take one
 scalar position and are ``vmap``ped over the serving slots, every row
 here has its own position: ``pos`` is a (B,) int32 tensor on the card,
-read by the kernel.
+read by the kernel. Any number of keys runs: the kernel splits each row's
+visible keys over a cluster of blocks, each holding only fixed-size tiles.
 
 On a CPU tensor each wrapper computes the plain version (``ref.py``); on
 a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
@@ -24,9 +25,6 @@ from repro_torch.kernels import ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
 MAX_G = 16
-SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
-_THREADS = 256               # kThreads in csrc/decode_attend.cu
-_CLUSTER = 8                 # kCluster there: blocks per (row, kv head)
 
 
 @functools.cache
@@ -46,18 +44,7 @@ def _lib():
     return lib
 
 
-def smem_bytes(G: int, D: int, L: int) -> int:
-    """Shared memory one block of the kernel takes (csrc/decode_attend.cu):
-    q, the scores of its eighth of the keys, one partial p·V per key group
-    and 2·G softmax statistics. With D % 4 == 0 the p·V pass runs
-    256 / (D / 4) key groups (fewer when the scalar path runs, so this is
-    an upper bound)."""
-    groups = _THREADS // (D // 4 if D % 4 == 0 else D)
-    per = -(-L // _CLUSTER)
-    return 4 * (G * D + G * per + groups * G * D + 2 * G)
-
-
-def _check(q, k, v, pos, L: int):
+def _check(q, k, v, pos):
     if q.dim() != 4:
         raise ValueError(f"q must be (B, KV, G, D), got {tuple(q.shape)}")
     B, KV, G, D = q.shape
@@ -82,16 +69,17 @@ def _check(q, k, v, pos, L: int):
     if not 1 <= D <= MAX_D or not 1 <= G <= MAX_G:
         raise ValueError(f"head dim {D} (max {MAX_D}) or group {G} "
                          f"(max {MAX_G}) out of range")
-    if smem_bytes(G, D, L) > SMEM_LIMIT:
-        raise ValueError(f"{L} keys x {G} heads do not fit one block's "
-                         f"shared memory ({smem_bytes(G, D, L)} B)")
 
 
-def _vec(k, v) -> int:
-    """4-element vector loads need D % 4 == 0 and aligned k, v."""
-    align = 4 * k.element_size()
-    return int(k.shape[-1] % 4 == 0 and k.data_ptr() % align == 0
-               and v.data_ptr() % align == 0)
+def _chunk(k, v) -> int:
+    """Bytes of one global-to-shared copy: the largest of 16, 8 and 4 that
+    divides a row of D elements and the addresses of k and v; 2 for bf16
+    rows of odd D."""
+    row = k.shape[-1] * k.element_size()
+    for c in (16, 8, 4):
+        if row % c == 0 and k.data_ptr() % c == 0 and v.data_ptr() % c == 0:
+            return c
+    return 2
 
 
 def _launch(name: str, q, k, v, pos, extent: tuple, window: int):
@@ -105,7 +93,7 @@ def _launch(name: str, q, k, v, pos, extent: tuple, window: int):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             out.data_ptr(), B, *extent, KV, G, D, int(window), D ** -0.5,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], _vec(k, v), stream)
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], _chunk(k, v), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.decode_attend_error_string(err).decode()} "
@@ -122,7 +110,7 @@ def ring_decode_attend(q, k, v, pos, window: int):
     (B, KV, G, D) in q's dtype.
     """
     W = k.shape[1]
-    _check(q, k, v, pos, W)
+    _check(q, k, v, pos)
     if q.device.type == "cpu":
         return ref.ring_decode_attend_ref(q, k, v, pos, window)
     if q.device.type != "cuda":
@@ -144,7 +132,7 @@ def extent_decode_attend(q, k, v, pos, window: int, k_ext: int):
     S_max = k.shape[1] if k.dim() == 4 else 0
     if not 1 <= k_ext <= S_max:
         raise ValueError(f"k_ext {k_ext} out of range [1, {S_max}]")
-    _check(q, k, v, pos, k_ext)
+    _check(q, k, v, pos)
     if q.device.type == "cpu":
         return ref.extent_decode_attend_ref(q, k, v, pos, window, k_ext)
     if q.device.type != "cuda":

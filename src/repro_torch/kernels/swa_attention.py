@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 240, 256)   # the kernel's; the plain version takes any
 
 
 @functools.cache
@@ -63,8 +63,6 @@ def _check_common(q, k, v, window: int, causal: bool):
             or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype} / {k.dtype} / {v.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if not isinstance(window, int) or window < 1:
         raise ValueError(f"window must be an int >= 1, got {window!r}")
     for name, x in (("k", k), ("v", v)):
@@ -102,6 +100,8 @@ def _launch(q, k, v, B: int, S: int, H: int, KV: int, window: int):
     """One kernel launch over q (B, S, H, D), k and v (B, S, KV, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"no sliding-window attention kernel for {q.device}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -125,8 +125,8 @@ def swa_attention(q, k, v, window: int, causal: bool = True):
     """Causal sliding-window attention: query i sees keys j with
     0 <= i - j < window (window >= S: full causal).
 
-    q, k, v: (BH, S, D), one dtype (float32 or bfloat16), D in
-    ``HEAD_DIMS``. Returns (BH, S, D) in q's dtype; f32 inside.
+    q, k, v: (BH, S, D), one dtype (float32 or bfloat16); on the card D
+    in ``HEAD_DIMS``. Returns (BH, S, D) in q's dtype; f32 inside.
     """
     _check(q, k, v, window, causal)
     if q.device.type == "cpu":

@@ -154,6 +154,24 @@ def test_ring_and_extent_kernels_match_plain(cuda, rng):
                     q, k, v, pos, window, k_ext), tol), (D, k_ext, window)
 
 
+def test_extent_kernel_past_the_old_shared_memory_limit(cuda, rng):
+    """131072 keys of one row at Hymba's attend heads (KV = 5, G = 5,
+    D = 64): far past the ~84k that fit one block's shared memory before
+    the kernel split the keys over a cluster in fixed-size tiles. Every key
+    visible, then a window of 1000; f32 and bf16 caches."""
+    from repro_torch.kernels import decode_attend as tda
+    B, KV, G, D, L = 1, 5, 5, 64, 131072
+    pos = torch.tensor([L - 1], dtype=torch.int32, device=cuda)
+    for q_dtype, kv_dtype in DTYPE_MIXES:
+        q, k, v = _attend(rng, B, KV, G, D, L, q_dtype, kv_dtype, cuda)
+        for window in (0, 1000):
+            got = tda.extent_decode_attend(q, k, v, pos, window, L)
+            torch.cuda.synchronize()
+            assert _serve_close(got, tref.extent_decode_attend_ref(
+                q, k, v, pos, window, L), _tol(q_dtype, kv_dtype)), \
+                (q_dtype, kv_dtype, window)
+
+
 def test_ssd_decode_kernel_matches_plain(cuda, rng):
     from repro_torch.kernels import ssd_decode as tsd
     for (x_dtype, state_dtype), (B, H, P, N) in itertools.product(

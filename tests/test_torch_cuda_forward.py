@@ -78,6 +78,33 @@ def test_swa_attention_gqa_entry_matches_plain(cuda, dtype, rng):
                 assert _close(got, want, dtype), (D, S, G, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_head_dim_240_matches_plain(cuda, dtype, rng):
+    """gemma3-12b's head dim 240 through both entries: G = 1 and 2 query
+    heads a kv head (gemma3-12b has 2), S below one tile, ragged and
+    several tiles, windows of one key up to full, one launch a call."""
+    B, KV, D = 1, 2, 240
+    for S in (40, 128, 256):
+        k = _t(rng, (B, S, KV, D), 0.3, cuda, dtype)
+        v = _t(rng, (B, S, KV, D), 1.0, cuda, dtype)
+        for G in (1, 2):
+            q = _t(rng, (B, S, G * KV, D), 0.3, cuda, dtype)
+            for w in (1, 33, 100, S, 0):
+                before = tswa.swa_attention.launches
+                got = ops.swa_attention_gqa(q, k, v, w)
+                torch.cuda.synchronize()
+                assert tswa.swa_attention.launches == before + 1
+                assert got.dtype == dtype and got.is_contiguous()
+                want = tref.swa_attention_gqa_ref(q, k, v, w or S)
+                assert _close(got, want, dtype), (S, G, w)
+        qf, kf, vf = (_t(rng, (3, S, D), sc, cuda, dtype)
+                      for sc in (0.3, 0.3, 1.0))
+        for w in (1, 100, 0):
+            got = ops.swa_attention(qf, kf, vf, w)
+            assert _close(got, tref.swa_attention_ref(qf, kf, vf, w or S),
+                          dtype), (S, "folded", w)
+
+
 @pytest.mark.parametrize("N", [16, 128])
 def test_ssd_scan_split_over_chunks(cuda, N, rng):
     """1, 2, 16 and 32 of the kernels' 64-row chunks at Hymba's N = 16
@@ -150,6 +177,9 @@ def test_scoring_kernels_refuse_causal_false_and_strides(cuda):
                           q, q, 8)
     with pytest.raises(ValueError):
         ops.swa_attention(q, q.cpu(), q, 8)
+    d32 = torch.zeros((2, 128, 32), device=cuda)     # not a kernel head dim
+    with pytest.raises(ValueError, match="head dim"):
+        ops.swa_attention(d32, d32, d32, 8)
     x = torch.zeros((1, 64, 2, 64), device=cuda)
     dt = torch.zeros((1, 64, 2), device=cuda)
     A = torch.zeros(2, device=cuda)

@@ -61,20 +61,52 @@ def test_ring_decode_attend_matches_pallas(W, pos, window, rng):
     assert tda.ring_decode_attend.launches == before   # CPU: no launch
 
 
+def _per_row(kernel, q, k, v, rows, *args):
+    """The reference kernel run row by row at each row's scalar position."""
+    return np.concatenate([np.asarray(kernel(
+        jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]),
+        jnp.asarray(v[b:b + 1]), jnp.int32(p), *args, interpret=True))
+        for b, p in enumerate(rows)])
+
+
 def test_ring_decode_attend_per_row_positions(rng):
     """Each row at its own position (the port's batched slots) equals the
-    reference kernel run row by row at that row's scalar position."""
+    reference kernel run row by row at that row's scalar position. Then
+    the visibility splits of the CUDA kernel's design, which divides each
+    row's visible keys evenly over a cluster of ceil(L / 64) <= 16 blocks:
+    at L = 1024 (16 blocks of 64 keys) a ring row not yet full (41 of
+    1024 slots written), a wrapped one, and windows of 5 and 100 keys,
+    shorter than or across one block's share; at k_ext = 2048 (16 blocks of
+    up to 128) extent rows with pos + 1 < k_ext, windows 0 and 30."""
     B, KV, G, D, W, window = 4, 2, 2, 16, 17, 9
     q, k, v = _attend_inputs(rng, B, KV, G, D, W)
     rows = [3, 16, 40, 100]
-    want = np.concatenate([np.asarray(ring_decode_attend_pallas(
-        jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]),
-        jnp.asarray(v[b:b + 1]), jnp.int32(p), jnp.int32(window),
-        interpret=True)) for b, p in enumerate(rows)])
+    want = _per_row(ring_decode_attend_pallas, q, k, v, rows,
+                    jnp.int32(window))
     pos = torch.tensor(rows, dtype=torch.int32)
     t = [torch.tensor(a) for a in (q, k, v)]
     _both(tref.ring_decode_attend_ref(*t, pos, window),
           tda.ring_decode_attend(*t, pos, window), want)
+
+    B, KV, G, D = 2, 1, 2, 16
+    q, k, v = _attend_inputs(rng, B, KV, G, D, 1024)
+    rows = [40, 1500]
+    pos = torch.tensor(rows, dtype=torch.int32)
+    t = [torch.tensor(a) for a in (q, k, v)]
+    for window in (5, 100):
+        want = _per_row(ring_decode_attend_pallas, q, k, v, rows,
+                        jnp.int32(window))
+        _both(tref.ring_decode_attend_ref(*t, pos, window),
+              tda.ring_decode_attend(*t, pos, window), want)
+    q, k, v = _attend_inputs(rng, B, KV, G, D, 2048)
+    rows = [700, 2046]
+    pos = torch.tensor(rows, dtype=torch.int32)
+    t = [torch.tensor(a) for a in (q, k, v)]
+    for window in (0, 30):
+        want = _per_row(extent_decode_attend_pallas, q, k, v, rows,
+                        jnp.int32(window), 2048)
+        _both(tref.extent_decode_attend_ref(*t, pos, window, 2048),
+              tda.extent_decode_attend(*t, pos, window, 2048), want)
 
 
 # k_ext at every rung of the pow-2 ladder (min_bucket 4 .. S_max 64)
@@ -119,10 +151,11 @@ def test_decode_attend_wrappers_check_their_inputs():
     for args in bad:
         with pytest.raises(ValueError):
             tda.ring_decode_attend(*args, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((1, 160000, 1, 8))
-        tda.ring_decode_attend(torch.zeros((1, 1, 16, 8)), big, big,
-                               _pos(1, 0), 0)
+    # no limit on the number of keys: 160000 slots at G = 16
+    big = torch.ones((1, 160000, 1, 8))
+    out = tda.ring_decode_attend(torch.zeros((1, 1, 16, 8)), big, big,
+                                 _pos(1, 159999), 0)
+    assert torch.allclose(out, torch.ones((1, 1, 16, 8)), rtol=0, atol=TOL)
 
 
 def _ssd_inputs(rng, B, H, P, N):

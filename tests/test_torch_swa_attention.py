@@ -3,7 +3,11 @@ wrapper, which computes it on CPU tensors) against the reference's Pallas
 kernel in interpret mode, on the same numpy inputs (the cases of
 ``tests/test_kernels.py``); ``gqa_attention(kernel="cuda")``, through the
 kernel's GQA entry, against the reference's ``kernel="pallas"``; the
-wrappers' and the switch's refusals."""
+wrappers' and the switch's refusals; head dim 240 (gemma3-12b), the
+attention alone and a reduced gemma3 forward at that head dim."""
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 
@@ -11,16 +15,21 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
+import repro.configs as jcfg
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.swa_attention import swa_attention_pallas
 from repro.models import attention as jattn
+from repro.models import lm as jlm
+from repro_torch import configs as tcfg
+from repro_torch.checkpoint.convert import params_from_jax
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import swa_attention as tswa
 from repro_torch.models import attention as tattn
+from repro_torch.models import lm as tlm
 
-from torch_parity import JDT, TDT
+from torch_parity import JDT, TDT, jax_params_both
 
 
 def _qkv(rng, BH, S, D, dt="f32"):
@@ -99,6 +108,50 @@ def test_gqa_entry_matches_pallas(G, rng):
             assert torch.equal(entry, got)
 
 
+def test_head_dim_240_matches_pallas():
+    """gemma3-12b's head dim: B = 1, S = 128, H = 2 over KV = 1, D = 240,
+    window 64, f32, q and k ~ 0.3 N(0, 1), v ~ N(0, 1). The GQA entry on
+    CPU tensors (its plain version; the kernel's own D = 240 is held on the
+    card) against the reference's Pallas kernel in interpret mode on the
+    repeated, folded heads, to this file's f32 tolerance."""
+    gen = np.random.default_rng(0)
+    B, S, H, KV, D, w = 1, 128, 2, 1, 240, 64
+    q = (0.3 * gen.standard_normal((B, S, H, D))).astype(np.float32)
+    k = (0.3 * gen.standard_normal((B, S, KV, D))).astype(np.float32)
+    v = gen.standard_normal((B, S, KV, D)).astype(np.float32)
+    fold = lambda a: jnp.asarray(np.repeat(a, H // a.shape[2], axis=2)
+                                 .transpose(0, 2, 1, 3).reshape(B * H, S, D))
+    want = np.asarray(swa_attention_pallas(
+        fold(q), fold(k), fold(v), w, q_block=128, k_block=128,
+        interpret=True)).reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    before = tswa.swa_attention.launches
+    got = tops.swa_attention_gqa(*(torch.tensor(a) for a in (q, k, v)), w)
+    assert tswa.swa_attention.launches == before
+    assert got.shape == (B, S, H, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_gemma3_forward_at_head_dim_240(rng):
+    """The reduced gemma3 cut to 6 layers (five at window 64, layer 5
+    global, as every 6th layer is) at head dim 240, scored with
+    kernel="cuda" on CPU tensors, against the reference's forward on
+    JAX-initialised params: hidden states to 1e-4, as
+    tests/test_torch_lm_forward.py holds the other head dims."""
+    jc = dataclasses.replace(
+        jcfg.get_config("gemma3-12b").reduced(num_layers=6), head_dim=240)
+    tc = dataclasses.replace(
+        tcfg.get_config("gemma3-12b").reduced(num_layers=6), head_dim=240)
+    jp, flat = jax_params_both(jc, jax.random.PRNGKey(0))
+    tp = params_from_jax(flat, tc)
+    toks = rng.integers(0, jc.vocab_size, (2, 128)).astype(np.int32)
+    with torch.no_grad():
+        hidden, _ = tlm.forward_hidden(tp, tc, torch.tensor(toks),
+                                       kernel="cuda")
+    jhidden, _ = jlm.forward_hidden(jp, jc, jnp.asarray(toks))
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(jhidden),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_window_zero_is_full_causal(rng):
     q, k, v = _qkv(rng, 2, 256, 64)
     tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
@@ -129,8 +182,12 @@ def test_wrapper_and_switch_refusals(rng):
     with pytest.raises(ValueError, match="not divisible"):
         z = torch.zeros((1, 200, 64))
         tops.swa_attention(z, z, z, 8)
+    # any head dim on CPU tensors (the plain version); the kernel's own
+    # head dims are refused on the card (tests/test_torch_cuda_forward.py)
+    z = torch.zeros((2, 128, 32))
+    assert torch.equal(tswa.swa_attention(z, z, z, 8),
+                       tref.swa_attention_ref(z, z, z, 8))
     bad = [
-        (torch.zeros((2, 128, 32)),) * 3,                 # head dim 32
         (q, q.double(), q),                               # dtypes differ
         (torch.zeros((2, 64, 128))[:, :, ::2], q, q),     # strided
         (q, torch.zeros((2, 64, 64)), q),                 # shapes differ
