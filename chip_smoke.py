@@ -9,30 +9,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles the port's CUDA sources for sm_90a, one nvcc each, all
    at once, and prints the build seconds and ptxas reports;
-3. each kernel against its plain PyTorch version on the card, forward and
-   backward, masked rows exactly 0;
+3. the launch floor (a one-element ``torch.zeros``'s device time, a
+   yardstick only); the KD loss's forward and backward kernels against
+   their plain PyTorch versions on the card, masked rows of NaN / Inf
+   exactly 0, the backward with and without the teacher's gradient; both
+   timed at the main path's shape beside their plain versions' kernels a
+   call; then the host time of the SSD step's and the KD loss's wrappers,
+   cProfile over 1000 calls each (``host_profile`` lines), before the
+   pipelines run in the process;
 4. the reduced pipeline on the card against the same pipeline on the CPU
    (TF32 off for this phase): losses to rtol 1e-3, virtual clock exact,
-   one kernel launch per KD step on the card and none on the CPU;
+   one forward and one backward kernel launch per KD step on the card and
+   none on the CPU;
 5. the main path at full width: ResNet3D-34 -> 18 KD (400 classes) then
    the four-Jetson async fine-tune, with every kernel's launches counted;
 6. one KD step and one client step at the main path's clip shape and at
    the paper's (8x112x112, batch 8), TF32 at PyTorch's default, each
-   timed and traced by torch.profiler, with the KD step's launches
-   counted;
+   timed and traced by torch.profiler (kernels a step), with the KD
+   step's forward and backward launches counted;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
-   extent of 131072 keys among them, then timed at Hymba-1.5B's
-   full-width decode shape beside their bound and
-   ``scaled_dot_product_attention``, each timed call held against its
-   plain version and the attends' kernels a call measured (one);
+   extent of 131072 keys among them, the SSD step also on the decode
+   step's own views with its state written in place; then timed at
+   Hymba-1.5B's full-width decode shape beside their bound and
+   ``scaled_dot_product_attention`` (the SSD step on contiguous operands
+   and on the path's views in place), each timed call held against its
+   plain version and each kernel's launches a call measured (one);
 8. the reduced Hymba serving path on the card against the CPU (TF32 off):
    identical tokens, prefill and decode logits to rtol 1e-3;
 9. the serving path at full width: Hymba-1.5B, f32, four slots, eight
    requests of 1 to 1500 prompt tokens through the continuous batcher in
    ring mode on the CUDA kernels, every kernel's launches counted, 16
    decode ticks teacher-forced against the uniform eager decode, and one
-   decode tick traced by torch.profiler;
+   decode tick traced by torch.profiler (kernels a tick);
 10. the scoring kernels (sliding-window attention through its folded and
     its GQA entry, SSD chunk scan) against their plain versions on the
     card, f32 and bf16, Gemma3-12B's GQA shape at head dim 240 among
@@ -118,9 +127,32 @@ def _max_err(got, want):
     return float(diff.max()), ok
 
 
-def phase_kernels() -> dict:
-    """Fused KD loss kernel vs ``kd_loss_ref`` on the card."""
+def _bwd_err(got, want, bf16: bool) -> tuple:
+    """Max |got - want| and whether it is within TOL * (1 + |want|), plus,
+    for bf16 gradients, one bf16 step (2^-7 |want|): the kernel and the
+    plain version round nearly equal f32 values to bf16."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    lim = TOL * (1.0 + want.abs()) + (2.0 ** -7 if bf16 else 0.0) * want.abs()
+    return float(diff.max()), bool((diff <= lim).all())
+
+
+def phase_launch_floor() -> float:
+    """Device time of a one-element ``torch.zeros`` (one fill kernel): a
+    yardstick for the launch-bound kernels, used by nothing on any path."""
     import torch
+    floor = _profile(lambda: torch.zeros(1, device="cuda"), 50)
+    ms = floor.get("device_ms_per_call")
+    print(json.dumps({"phase": "launch_floor", "launch_floor_ms": ms,
+                      "kernels_per_call": floor.get("kernels_per_step")}))
+    return ms
+
+
+def phase_kernels() -> list:
+    """Fused KD loss kernels (forward, backward) vs their plain versions
+    on the card, then timed at the main path's shape."""
+    import torch
+    from repro_torch.core import distill
     from repro_torch.kernels import kd_loss, ref
     worst = 0.0
     for R, V in ((4, 400), (128, 400), (37, 1000), (8, 513)):
@@ -153,9 +185,50 @@ def phase_kernels() -> dict:
             and torch.equal(padded[8:], torch.zeros(3, device="cuda"))):
         raise AssertionError(f"masked rows not exact: {padded.tolist()}")
 
-    # backward: the autograd Function (kernel forward + analytic backward)
-    # vs autograd through the plain version, in f32 (bf16 gradients would
-    # differ by their own rounding, not by the kernel)
+    # the backward kernel vs its plain version from the forward's saved
+    # logsumexp: vector rows, scalar rows (V = 513), one block a row
+    # (V = 4096); masked rows of NaN / Inf / 1e30 exactly 0; with and
+    # without dt; at (4, 400) also a masked mean's cotangent, one value
+    # broadcast with stride 0
+    worst_bwd = 0.0
+    for R, V, broadcast in ((4, 400, False), (4, 400, True),
+                            (37, 1000, False), (8, 513, False),
+                            (3, 4096, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            s, t, lab = _kd_inputs(R, V, dtype, seed=R + V)
+            s[1], t[1], s[2] = math.nan, math.inf, 1e30
+            valid = torch.ones(R, device="cuda")
+            valid[1:3] = 0.0
+            if broadcast:
+                g = torch.full((1,), 0.5, device="cuda").expand(R)
+            else:
+                g = torch.randn(R,
+                                generator=torch.Generator().manual_seed(V))
+                g = g.cuda()
+            lse = torch.empty(R, device="cuda")
+            kd_loss._fused_fwd(s, t, lab, 0.3, 2.0, valid, lse)
+            want = kd_loss.kd_loss_rows_bwd(s, t, lab, valid, g, 0.3, 2.0)
+            for need_dt in (True, False):
+                got = kd_loss.kd_loss_fused_bwd(s, t, lab, valid, g, lse, 0.3,
+                                                2.0, need_dt=need_dt)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("ds", "dt"), got, want):
+                    if a is None:
+                        continue
+                    err, ok = _bwd_err(a, b, dtype == torch.bfloat16)
+                    worst_bwd = max(worst_bwd, err)
+                    if not ok or not torch.equal(a[1:3],
+                                                 torch.zeros_like(a[1:3])):
+                        raise AssertionError(
+                            f"kd_loss_bwd {name} R={R} V={V} {dtype} "
+                            f"need_dt={need_dt} broadcast={broadcast}: "
+                            f"max abs err {err}")
+                if (got[1] is None) == need_dt:
+                    raise AssertionError("kd_loss_bwd: dt returned wrongly")
+
+    # the autograd Function (both kernels) vs autograd through the plain
+    # version, in f32; then ``distill.kd_loss``'s masked mean through the
+    # kernels vs the eager loss (its sum's cotangent has stride 0)
     for R, V in ((4, 400), (37, 1000)):
         s, t, lab = _kd_inputs(R, V, torch.float32, seed=2)
         w = torch.randn(R, generator=torch.Generator().manual_seed(3)).cuda()
@@ -167,49 +240,67 @@ def phase_kernels() -> dict:
             grads.append((sp.grad, tp.grad))
         for a, b in zip(*grads):
             err, ok = _max_err(a, b)
-            worst = max(worst, err)
+            worst_bwd = max(worst_bwd, err)
             if not ok:
                 raise AssertionError(f"kd_loss backward R={R} V={V}: {err}")
+    s, t, lab = _kd_inputs(4, 400, torch.float32, seed=4)
+    valid = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    grads = []
+    for kernel in ("cuda", "eager"):
+        sp = s.clone().requires_grad_(True)
+        tp = t.clone().requires_grad_(True)
+        distill.kd_loss(sp, tp, lab, 0.3, temperature=2.0, kd_kernel=kernel,
+                        valid=valid).backward()
+        grads.append((sp.grad, tp.grad))
+    for a, b in zip(*grads):
+        err, ok = _max_err(a, b)
+        worst_bwd = max(worst_bwd, err)
+        if not ok or not torch.equal(a[1], torch.zeros_like(a[1])):
+            raise AssertionError(f"distill.kd_loss masked mean: {err}")
 
-    # time at the main path's shape: R = KD batch 4, V = 400 classes, f32.
-    # ms / plain_ms are device time alone (profiler), comparable with the
-    # bound; call_ms / plain_call_ms are CUDA events around back-to-back
-    # calls, the cost a caller pays with the host launch included. Where
-    # the profiler traces no device time, ms / plain_ms fall back to the
-    # events and ms_source says so.
+    # time at the main path's shape (R = KD batch 4, V = 400 classes, f32)
+    # as the KD step calls them: the forward with no mask, writing the
+    # logsumexp; the backward without dt (the teacher runs under no_grad)
+    # from a mean's cotangent. ms / plain_ms are device time (profiler);
+    # call_ms / plain_call_ms are CUDA events around back-to-back calls,
+    # the host launch included.
     R, V = 4, 400
     s, t, lab = _kd_inputs(R, V, torch.float32)
-    valid = torch.ones(R, device="cuda")
-
-    def fused():
-        return kd_loss.kd_loss_fused(s, t, lab, 0.5, valid=valid)
-
-    def plain():
-        return ref.kd_loss_ref(s, t, lab, 0.5, valid=valid)
-
-    call_ms, plain_call_ms = _cuda_ms(fused), _cuda_ms(plain)
-    kernel_dev, plain_dev = _profile(fused, 50), _profile(plain, 50)
-    traced = ("device_ms_per_step" in kernel_dev
-              and "device_ms_per_step" in plain_dev)
-    # each input read once, the output written once; ~7 f32 operations an
-    # element (exp, compare/add for the online max-sum, sub, scale, fma)
-    nbytes = 2 * R * V * 4 + 3 * R * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 7 * R * V / F32_FLOPS * 1e3
-    ms = kernel_dev["device_ms_per_call"] if traced else call_ms
-    return {"name": "kd_loss", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
-            "replaces": "src/repro/kernels/kd_loss.py:119",
-            "max_abs_err": worst, "ms": ms, "kernel_ms": ms,
-            "plain_ms": (plain_dev["device_ms_per_call"] if traced
-                         else plain_call_ms),
-            "ms_source": ("profiler device time" if traced
-                          else "cuda events, host launch included"),
-            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "plain_kernels": plain_dev.get("kernels_per_step"),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    lse = torch.empty(R, device="cuda")
+    g = torch.full((R,), 1.0 / R, device="cuda")
+    fwd = _time_kernel(
+        lambda: kd_loss._fused_fwd(s, t, lab, 0.5, 1.0, None, lse),
+        lambda: ref.kd_loss_ref(s, t, lab, 0.5))
+    bwd = _time_kernel(
+        lambda: kd_loss.kd_loss_fused_bwd(s, t, lab, None, g, lse, 0.5, 1.0,
+                                          need_dt=False),
+        lambda: kd_loss.kd_loss_rows_bwd(s, t, lab, None, g, 0.5, 1.0))
+    _one_kernel("kd_loss", fwd)
+    _one_kernel("kd_loss_bwd", bwd)
+    # forward: s and t read once, labels read, out and lse written; ~7
+    # f32 operations an element (max, sub, exp, add, compare, sub-scale,
+    # fma). Backward: s and t read, ds written, labels, g, lse read; ~8
+    # (sub, scale, sub, exp, compare, two multiply-adds, multiply)
+    rows = []
+    for name, row, nbytes, ops, src_line in (
+            ("kd_loss", fwd, 2 * R * V * 4 + 3 * R * 4, 7 * R * V,
+             "src/repro/kernels/kd_loss.py:119"),
+            ("kd_loss_bwd", bwd, 3 * R * V * 4 + 3 * R * 4, 8 * R * V,
+             "src/repro/kernels/kd_loss.py:164 _rows_bwd")):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_FLOPS * 1e3
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
+                     "replaces": src_line,
+                     "max_abs_err": worst if name == "kd_loss" else worst_bwd,
+                     **row, "kernel_ms": row["ms"],
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "library_ms": None})
+    for row in rows:
+        print(json.dumps({"phase": "kd_kernel_time", **row}))
+    return rows
 
 
 def _all_losses(report) -> list:
@@ -219,24 +310,36 @@ def _all_losses(report) -> list:
     return out + report["stage2"]["losses"]
 
 
-def _expect_launches(what: str, want: int) -> None:
+def _kd_launches() -> dict:
     from repro_torch.kernels import kd_loss
-    got = kd_loss.kd_loss_fused.launches
-    if got != want:
-        raise AssertionError(f"{what}: kd_loss launched {got} times, "
-                             f"expected {want}")
+    return {"kd_loss": kd_loss.kd_loss_fused.launches,
+            "kd_loss_bwd": kd_loss.kd_loss_fused_bwd.launches}
+
+
+def _zero_kd_launches() -> None:
+    from repro_torch.kernels import kd_loss
+    kd_loss.kd_loss_fused.launches = 0
+    kd_loss.kd_loss_fused_bwd.launches = 0
+
+
+def _expect_launches(what: str, want: int) -> None:
+    """Both KD kernels launched ``want`` times: one forward and one
+    backward a KD step."""
+    got = _kd_launches()
+    if got != {"kd_loss": want, "kd_loss_bwd": want}:
+        raise AssertionError(f"{what}: KD kernels launched {got}, "
+                             f"expected {want} each")
 
 
 def phase_cpu_vs_card():
     import torch
-    from repro_torch.kernels import kd_loss
     from repro_torch.launch.pipeline import run_pipeline
     kw = dict(reduced=True, mode="async", clients=2, epochs=2, batch=2,
               kd_steps=4, teacher_steps=2, seed=0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        kd_loss.kd_loss_fused.launches = 0
+        _zero_kd_launches()
         gpu, gp = run_pipeline(device="cuda", **kw)
         _expect_launches("reduced pipeline on the card", kw["kd_steps"])
         cpu, cp = run_pipeline(device="cpu", **kw)
@@ -260,15 +363,14 @@ def phase_cpu_vs_card():
 
 
 def phase_full_width(kernels: list) -> dict:
-    from repro_torch.kernels import kd_loss
     from repro_torch.launch.pipeline import run_pipeline
     kd_steps = 8
-    kd_loss.kd_loss_fused.launches = 0
+    _zero_kd_launches()
     report, _ = run_pipeline(arch="resnet3d-18", teacher="resnet3d-34",
                              reduced=False, mode="async", clients=4,
                              epochs=4, batch=4, kd_steps=kd_steps,
                              teacher_steps=2, device="cuda")
-    launches = {"kd_loss": kd_loss.kd_loss_fused.launches}
+    launches = _kd_launches()
     losses = _all_losses(report)
     if not losses or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses: {losses}")
@@ -337,7 +439,6 @@ def phase_step_times():
     from repro_torch.configs import RESNET18, RESNET34
     from repro_torch.core import distill, fedasync
     from repro_torch.data import SyntheticActionDataset
-    from repro_torch.kernels import kd_loss
     from repro_torch.models import registry
     from repro_torch.optim import trainable_mask
     from repro_torch.types import DistillConfig, FedConfig
@@ -365,7 +466,7 @@ def phase_step_times():
                "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
         torch.cuda.reset_peak_memory_stats()
         for key, fn in fns.items():
-            kd_loss.kd_loss_fused.launches = 0
+            _zero_kd_launches()
             fn()                               # warm-up (cuDNN autotune)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -374,8 +475,11 @@ def phase_step_times():
             torch.cuda.synchronize()
             out[key + "_ms"] = (time.perf_counter() - t0) / 5 * 1e3
             out[key + "_profile"] = _profile(fn, 3)
+            out[key + "_kernels"] = out[key + "_profile"].get(
+                "kernels_per_step")
             # 1 warm-up + 5 timed + 3 profiled calls; a KD step launches
-            # the kernel once, a client step never
+            # the forward and the backward kernel once each, a client step
+            # never
             _expect_launches(f"{name} {key}", 9 if key == "kd_step" else 0)
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         print(json.dumps(out))
@@ -560,6 +664,26 @@ def phase_decode_kernels() -> list:
             if not torch.equal(st[1], args[-1][1]):     # the dt = 0 row
                 raise AssertionError(f"{what}: dt = 0 row's state moved")
             cases += 1
+        # the decode step's own operands: x, B and C views of the conv
+        # output, the state written in place; skew 1 shifts B and C off
+        # 16 bytes (the scalar path), as does N = 6
+        for B, H, P, N, skew in (HYMBA_SSD + (0,), (4, 24, 64, 128, 0),
+                                 HYMBA_SSD + (1,), (3, 4, 8, 6, 0)):
+            args = _ssd_path_views(B, H, P, N, _dt(xn), _dt(sn), seed=N,
+                                   skew=skew)
+            y_ref, st_ref = ref.ssd_decode_step_ref(*args)
+            state = args[-1]
+            before, ptr = state.clone(), state.data_ptr()
+            y, st = ssd_decode.ssd_decode_step(*args, state_out=state)
+            torch.cuda.synchronize()
+            what = f"ssd views in place {xn}/{sn} {(B, H, P, N)} skew={skew}"
+            worst["ssd"] = max(worst["ssd"],
+                               _check_close(what + " y", y, y_ref, tol),
+                               _check_close(what + " state", st, st_ref, tol))
+            if st.data_ptr() != ptr or not torch.equal(st[1], before[1]):
+                raise AssertionError(f"{what}: not in place, or the dt = 0 "
+                                     f"row's state moved")
+            cases += 1
     print(json.dumps({"phase": "decode_kernels", "cases": cases,
                       "max_abs_err": worst}))
     return _time_decode_kernels(worst)
@@ -578,6 +702,84 @@ def _ssd_inputs(B, H, P, N, x_dt, s_dt, seed):
     st = torch.randn(B, H, P, N, generator=g)
     return (xh.to("cuda", x_dt), dt.cuda(), A.cuda(), Bm.to("cuda", x_dt),
             Cm.to("cuda", x_dt), st.to("cuda", s_dt))
+
+
+def _ssd_path_views(B, H, P, N, x_dt, s_dt, seed, skew=0):
+    """``_ssd_inputs`` with x, B and C cut, as ``ssm_decode_step`` cuts
+    them, from one (B, H*P + 2N + skew) conv output."""
+    import torch
+    xh, dt, A, Bm, Cm, st = _ssd_inputs(B, H, P, N, x_dt, s_dt, seed)
+    xbc = torch.empty(B, H * P + 2 * N + skew, device="cuda", dtype=x_dt)
+    xbc[:, :H * P] = xh.reshape(B, H * P)
+    xbc[:, H * P + skew:H * P + skew + N] = Bm
+    xbc[:, H * P + skew + N:] = Cm
+    return (xbc[:, :H * P].reshape(B, H, P), dt, A,
+            xbc[:, H * P + skew:H * P + skew + N], xbc[:, H * P + skew + N:],
+            st)
+
+
+HOST_PROFILE_CALLS = 1000
+
+
+def _host_profile(fn) -> dict:
+    """The host's microseconds a call of ``fn`` (wall clock around
+    HOST_PROFILE_CALLS back-to-back calls, the card synchronised at the
+    end: the kernels are shorter than their launches), then the functions
+    with the most own time under cProfile, in microseconds a call."""
+    import cProfile
+    import pstats
+    import torch
+    n = HOST_PROFILE_CALLS
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / n * 1e6
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:8]
+    return {"host_us_per_call": wall_us,
+            "top_own_time": [
+                {"function": f"{os.path.basename(f)}:{line}({name})",
+                 "us_per_call": tt / n * 1e6, "calls_per_call": nc / n}
+                for (f, line, name), (_, nc, tt, _, _) in top]}
+
+
+def phase_host_profile() -> None:
+    """Where the host time of the SSD step's and the KD loss's wrappers
+    goes, at their main paths' shapes: the SSD step at Hymba-1.5B's decode
+    shape on contiguous operands and on the decode step's views with the
+    state in place; the KD forward at R = 4, V = 400; a KD forward and
+    backward through autograd, the teacher without a gradient."""
+    import torch
+    from repro_torch.kernels import kd_loss, ssd_decode
+    xc, dt, A, bc, cc, st = _ssd_inputs(*HYMBA_SSD, torch.float32,
+                                        torch.float32, seed=5)
+    xv, dt, A, bv, cv, sv = _ssd_path_views(*HYMBA_SSD, torch.float32,
+                                            torch.float32, seed=5)
+    s, t, lab = _kd_inputs(4, 400, torch.float32)
+    sp = s.clone().requires_grad_(True)
+
+    def kd_step():
+        kd_loss.kd_loss_rows(sp, t, lab, 0.5).mean().backward()
+    for name, fn in (
+            ("ssd_decode_step contiguous",
+             lambda: ssd_decode.ssd_decode_step(xc, dt, A, bc, cc, st)),
+            ("ssd_decode_step views in place",
+             lambda: ssd_decode.ssd_decode_step(xv, dt, A, bv, cv, sv,
+                                                state_out=sv)),
+            ("kd_loss_fused", lambda: kd_loss.kd_loss_fused(s, t, lab, 0.5)),
+            ("kd_loss_rows forward + backward", kd_step)):
+        print(json.dumps({"phase": "host_profile", "wrapper": name,
+                          "calls": HOST_PROFILE_CALLS, **_host_profile(fn)}))
 
 
 def _one_kernel(name: str, row: dict) -> None:
@@ -646,10 +848,19 @@ def _time_decode_kernels(worst: dict) -> list:
                 "library": "F.scaled_dot_product_attention, boolean mask"})
     # SSD step: the state read and written once, x, dt, A, B, C read,
     # y written; ~6 f32 operations per state element
+    # (contiguous operands, a new state; and the path's call: the conv
+    # output's views, the state written in place)
     B_, H, P, N = HYMBA_SSD
     args = _ssd_inputs(B_, H, P, N, torch.float32, torch.float32, seed=3)
     row = _time_kernel(lambda: ssd_decode.ssd_decode_step(*args),
                        lambda: ref.ssd_decode_step_ref(*args))
+    _one_kernel("ssd_decode_step", row)
+    views = _ssd_path_views(B_, H, P, N, torch.float32, torch.float32,
+                            seed=3)
+    path = _time_kernel(
+        lambda: ssd_decode.ssd_decode_step(*views, state_out=views[-1]),
+        lambda: ref.ssd_decode_step_ref(*views))
+    _one_kernel("ssd_decode_step on the path's views", path)
     nbytes = 4 * (2 * B_ * H * P * N + 2 * B_ * H * P + B_ * H + H
                   + 2 * B_ * N)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -659,6 +870,8 @@ def _time_decode_kernels(worst: dict) -> list:
                 "replaces": "src/repro/kernels/ssd_scan.py:167",
                 "shape": {"B_H_P_N": HYMBA_SSD, "dtype": "float32"},
                 "max_abs_err": worst["ssd"], **row,
+                "views_in_place": {k: path[k] for k in (
+                    "ms", "call_ms", "kernels_per_call", "ms_source")},
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": None})
@@ -796,9 +1009,9 @@ def phase_serve_card_vs_cpu():
 
 
 FULL_PROMPTS = (1, 7, 33, 100, 513, 1024, 1100, 1500)
-# phase 9's traced tick before the decode attends' redesign (PERF.md §5:
-# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-TICK_BEFORE = {"kernels": 3718, "device_ms": 12.61}
+# phase 9's traced tick before the SSD step read its operands in place
+# (PERF.md §5: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+TICK_BEFORE = {"kernels": 3717.7, "device_ms": 12.33}
 
 
 def phase_serve_full_width(kernels: list, seed: int) -> None:
@@ -898,7 +1111,9 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
         "launches": launches, "peak_mem_gib": peak_gib,
         "generate_single_share": same / len(prompts),
         "forced_logits_rel_err": max(errs), "tick_profile": tick,
-        # the same tick traced before the decode attends' redesign
+        "kernels_per_tick": tick.get("kernels_per_step"),
+        "device_ms_per_tick": tick.get("device_ms_per_step"),
+        # the same tick traced before the SSD step's redesign
         "tick_before_redesign": TICK_BEFORE}))
 
 
@@ -1422,7 +1637,9 @@ def main(argv=None) -> int:
     print(card)
     build_all()
 
-    kernels = [phase_kernels()]
+    phase_launch_floor()
+    kernels = phase_kernels()
+    phase_host_profile()
     phase_cpu_vs_card()
     phase_full_width(kernels)
     phase_step_times()

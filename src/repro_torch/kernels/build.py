@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources and load them with ctypes.
+"""Build the port's CUDA sources, load them with ctypes and launch them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under
@@ -15,6 +15,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -66,3 +68,15 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
     return _LIBS[name]
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``: a C entry called with ``device``'s current
+    stream. The current device is switched only when it is another one
+    (the switch costs a caller microseconds a launch); the stream is asked
+    for by index, which skips the device's parsing."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)

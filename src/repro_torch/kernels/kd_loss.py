@@ -3,16 +3,21 @@
 Port of ``repro/kernels/kd_loss.py``. The forward is the hand-written
 CUDA kernel ``csrc/kd_loss.cu`` (replacing the Pallas ``kd_loss_pallas``);
 ``kd_loss_rows`` wraps it in a ``torch.autograd.Function`` whose backward
-is the reference's analytic ``_rows_bwd`` in torch ops:
+is the same file's backward kernel (replacing the reference's analytic
+``_rows_bwd``, XLA ops), one launch from the forward's saved logsumexp:
 
     ∂L_r/∂s = α·(softmax(s_r) - onehot(y_r)) + 2(1-α)(s_r - t_r)/T²
     ∂L_r/∂t = -2(1-α)(s_r - t_r)/T²
 
 Rows with ``valid == 0`` give exactly 0.0 loss and exactly-zero gradients,
 by select, so garbage logits in padded rows cannot leak NaN/Inf.
+``valid=None`` means every row is live and reaches the kernel as a null
+pointer (no mask is made).
 
-On a CPU tensor ``kd_loss_fused`` computes the plain version
-(``ref.kd_loss_ref``); on a CUDA tensor it launches the kernel or raises.
+On a CPU tensor each wrapper computes its plain version (``ref.kd_loss_ref``,
+``kd_loss_rows_bwd``); on a CUDA tensor it launches its kernel or raises.
+``kd_loss_fused.launches`` and ``kd_loss_fused_bwd.launches`` count the
+launches and nothing else.
 """
 from __future__ import annotations
 
@@ -21,27 +26,32 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
-def _kernel_fn():
+def _lib():
     """The bound C entry points, built and loaded at first launch."""
-    from repro_torch.kernels import build
     lib = build.load("kd_loss")
-    fn = lib.kd_loss_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.kd_loss_fwd.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.kd_loss_fwd.restype = ctypes.c_int
+    lib.kd_loss_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_float,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.kd_loss_bwd.restype = ctypes.c_int
     lib.kd_loss_error_string.argtypes = [ctypes.c_int]
     lib.kd_loss_error_string.restype = ctypes.c_char_p
-    return fn, lib.kd_loss_error_string
+    return lib
 
 
 def _check(s, t, labels, valid):
+    """Device, dtype, shape and contiguity, by direct comparisons; valid
+    may be None."""
     if s.dim() != 2:
         raise ValueError(f"student logits must be (R, V), got {tuple(s.shape)}")
     R, V = s.shape
@@ -53,52 +63,61 @@ def _check(s, t, labels, valid):
     if labels.shape != (R,) or labels.dtype != torch.int32:
         raise ValueError(f"labels must be ({R},) int32, got "
                          f"{tuple(labels.shape)} {labels.dtype}")
-    if valid.shape != (R,) or valid.dtype != torch.float32:
+    if valid is not None and (valid.shape != (R,)
+                              or valid.dtype != torch.float32):
         raise ValueError(f"valid must be ({R},) float32, got "
                          f"{tuple(valid.shape)} {valid.dtype}")
-    for name, x in (("student", s), ("teacher", t), ("labels", labels),
-                    ("valid", valid)):
-        if x.device != s.device:
-            raise ValueError(f"{name} on {x.device}, student on {s.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = s.device
+    if t.device != dev or labels.device != dev \
+            or (valid is not None and valid.device != dev):
+        raise ValueError(f"teacher, labels and valid must be on the "
+                         f"student's {dev}")
+    if not (s.is_contiguous() and t.is_contiguous()
+            and labels.is_contiguous()
+            and (valid is None or valid.is_contiguous())):
+        raise ValueError("logits, labels and valid must be contiguous")
     if V < 1 or R >= 2 ** 31 or V >= 2 ** 31:
         raise ValueError(f"unsupported shape (R, V) = ({R}, {V})")
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _fused_fwd(s, t, labels, alpha, temperature, valid, lse):
+    """The per-row loss (R,) f32: on a CPU tensor the plain version, on a
+    CUDA tensor the forward kernel, which also writes the row logsumexp
+    into ``lse`` (an (R,) f32 buffer) unless it is None."""
+    if s.device.type == "cpu":
+        return ref.kd_loss_ref(s, t, labels, alpha, temperature=temperature,
+                               valid=valid)
+    if s.device.type != "cuda":
+        raise ValueError(f"no kd_loss kernel for {s.device}")
+    _check(s, t, labels, valid)
+    R, V = s.shape
+    out = torch.empty(R, dtype=torch.float32, device=s.device)
+    if R == 0:
+        return out
+    lib = _lib()
+    err = build.launch(lib.kd_loss_fwd, s.device, s.data_ptr(),
+                       t.data_ptr(), labels.data_ptr(), _ptr(valid),
+                       out.data_ptr(), _ptr(lse), R, V, float(alpha),
+                       1.0 / float(temperature), _DTYPE_CODE[s.dtype])
+    if err:
+        raise RuntimeError(f"kd_loss kernel launch failed: "
+                           f"{lib.kd_loss_error_string(err).decode()} "
+                           f"({err})")
+    kd_loss_fused.launches += 1
+    return out
 
 
 def kd_loss_fused(student_logits, teacher_logits, labels, alpha: float,
                   temperature: float = 1.0, valid=None):
     """Per-row fused loss. student/teacher: (R, V) f32 or bf16; labels
     (R,) int32; valid (R,) float32 or None (all live). Returns (R,) f32.
-
-    ``kd_loss_fused.launches`` counts the kernel launches (and nothing
-    else), so a run can show that it went through the kernel.
     """
-    if student_logits.device.type == "cpu":
-        return ref.kd_loss_ref(student_logits, teacher_logits, labels, alpha,
-                               temperature=temperature, valid=valid)
-    if student_logits.device.type != "cuda":
-        raise ValueError(f"no kd_loss kernel for {student_logits.device}")
-    R, V = student_logits.shape
-    if valid is None:
-        valid = torch.ones(R, dtype=torch.float32,
-                           device=student_logits.device)
-    _check(student_logits, teacher_logits, labels, valid)
-    out = torch.empty(R, dtype=torch.float32, device=student_logits.device)
-    if R == 0:
-        return out
-    fn, err_str = _kernel_fn()
-    with torch.cuda.device(student_logits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(student_logits.data_ptr(), teacher_logits.data_ptr(),
-                 labels.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                 R, V, float(alpha), 1.0 / float(temperature),
-                 _DTYPE_CODE[student_logits.dtype], stream)
-    if err:
-        raise RuntimeError(f"kd_loss kernel launch failed: "
-                           f"{err_str(err).decode()} ({err})")
-    kd_loss_fused.launches += 1
-    return out
+    return _fused_fwd(student_logits, teacher_logits, labels, alpha,
+                      temperature, valid, None)
 
 
 kd_loss_fused.launches = 0
@@ -106,36 +125,82 @@ kd_loss_fused.launches = 0
 
 def kd_loss_rows_bwd(s, t, labels, valid, g, alpha: float,
                      temperature: float):
-    """The reference's analytic backward (``_rows_bwd``) in torch ops."""
+    """The reference's analytic backward (``_rows_bwd``) in torch ops: the
+    backward kernel's plain version. valid may be None (all live)."""
     s32, t32 = s.float(), t.float()
     p = torch.softmax(s32, dim=-1)
     cols = torch.arange(s.shape[-1], device=s.device)
     onehot = (cols[None, :] == labels.long()[:, None]).float()
     dsq = (2.0 / (temperature * temperature)) * (s32 - t32)
-    live = (valid > 0.0)[:, None]
     gcol = g.float()[:, None]
-    zero = torch.zeros((), device=s.device)
-    ds = torch.where(live, gcol * (alpha * (p - onehot)
-                                   + (1.0 - alpha) * dsq), zero)
-    dt = torch.where(live, gcol * (-(1.0 - alpha)) * dsq, zero)
+    ds = gcol * (alpha * (p - onehot) + (1.0 - alpha) * dsq)
+    dt = gcol * (-(1.0 - alpha)) * dsq
+    if valid is not None:
+        live = (valid > 0.0)[:, None]
+        zero = torch.zeros((), device=s.device)
+        ds, dt = torch.where(live, ds, zero), torch.where(live, dt, zero)
     return ds.to(s.dtype), dt.to(t.dtype)
+
+
+def kd_loss_fused_bwd(s, t, labels, valid, g, lse, alpha: float,
+                      temperature: float, need_dt: bool = True):
+    """(ds, dt) of the per-row loss for the row cotangent ``g`` (R,) f32,
+    in the logits' dtype; dt is None when ``need_dt`` is False, and the
+    kernel then neither computes nor writes it. ``lse`` is the forward's
+    row logsumexp (f32, from ``_fused_fwd``; unused on the CPU). ``g``
+    may have any stride, 0 among them (a cotangent broadcast from a sum);
+    the logits, labels and valid are checked as the forward checks them."""
+    if s.device.type == "cpu":
+        ds, dt = kd_loss_rows_bwd(s, t, labels, valid, g, alpha, temperature)
+        return ds, (dt if need_dt else None)
+    if s.device.type != "cuda":
+        raise ValueError(f"no kd_loss backward kernel for {s.device}")
+    _check(s, t, labels, valid)
+    R, V = s.shape
+    if g.shape != (R,) or g.dtype != torch.float32 or g.device != s.device \
+            or lse is None or lse.shape != (R,) \
+            or lse.dtype != torch.float32 or lse.device != s.device \
+            or not lse.is_contiguous():
+        raise ValueError(f"g and lse must be ({R},) float32 on {s.device}, "
+                         f"lse contiguous")
+    ds = torch.empty_like(s)
+    dt = torch.empty_like(t) if need_dt else None
+    if R == 0:
+        return ds, dt
+    lib = _lib()
+    err = build.launch(lib.kd_loss_bwd, s.device, s.data_ptr(),
+                       t.data_ptr(), labels.data_ptr(), _ptr(valid),
+                       g.data_ptr(), g.stride(0), lse.data_ptr(),
+                       ds.data_ptr(), _ptr(dt), R, V, float(alpha),
+                       1.0 / float(temperature), _DTYPE_CODE[s.dtype])
+    if err:
+        raise RuntimeError(f"kd_loss backward kernel launch failed: "
+                           f"{lib.kd_loss_error_string(err).decode()} "
+                           f"({err})")
+    kd_loss_fused_bwd.launches += 1
+    return ds, dt
+
+
+kd_loss_fused_bwd.launches = 0
 
 
 class _KDLossRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s, t, labels, valid, alpha, temperature):
-        ctx.save_for_backward(s, t, labels, valid)
+        lse = (torch.empty(s.shape[0], dtype=torch.float32, device=s.device)
+               if s.is_cuda else None)
+        out = _fused_fwd(s, t, labels, alpha, temperature, valid, lse)
+        ctx.save_for_backward(s, t, labels, valid, lse)
         ctx.alpha, ctx.temperature = alpha, temperature
-        return kd_loss_fused(s, t, labels, alpha, temperature=temperature,
-                             valid=valid)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        s, t, labels, valid = ctx.saved_tensors
-        ds, dt = kd_loss_rows_bwd(s, t, labels, valid, g, ctx.alpha,
-                                  ctx.temperature)
-        return (ds if ctx.needs_input_grad[0] else None,
-                dt if ctx.needs_input_grad[1] else None,
+        s, t, labels, valid, lse = ctx.saved_tensors
+        ds, dt = kd_loss_fused_bwd(s, t, labels, valid, g, lse, ctx.alpha,
+                                   ctx.temperature,
+                                   need_dt=ctx.needs_input_grad[1])
+        return (ds if ctx.needs_input_grad[0] else None, dt,
                 None, None, None, None)
 
 
@@ -144,12 +209,9 @@ def kd_loss_rows(student_logits, teacher_logits, labels, alpha: float,
     """Differentiable per-row fused KD loss (gradients flow to both logit
     tensors; labels/valid are not differentiable). Same shapes and masking
     as ``kd_loss_fused``."""
-    R = student_logits.shape[0]
-    if valid is None:
-        valid = torch.ones(R, dtype=torch.float32,
-                           device=student_logits.device)
+    if valid is not None:
+        valid = valid.float().contiguous()
     return _KDLossRows.apply(student_logits.contiguous(),
                              teacher_logits.contiguous(),
                              labels.to(torch.int32).contiguous(),
-                             valid.float().contiguous(),
-                             float(alpha), float(temperature))
+                             valid, float(alpha), float(temperature))

@@ -152,7 +152,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     The attention cache is uniform (``{"k", "v"}``) or a ring
     (``{"k_win", "v_win"}``, decode only); ``new_cache`` mirrors it, the
     attention entries being the cache views written in place and the SSM
-    entries new tensors. ``k_extent`` bounds a uniform-cache decode's
+    entries new tensors (but for the SSM state of a CUDA-kernel decode,
+    also updated in place). ``k_extent`` bounds a uniform-cache decode's
     attend (``attn_forward``). ``kernel`` ("eager" or "cuda") picks the
     scoring kernels in 'train' mode and the decode kernels in 'decode';
     prefill runs eager.
@@ -209,7 +210,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
 
 def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
     """Write layer ``j``'s new ``key`` entry into the stacked cache (the
-    attention entries were written in place already)."""
+    attention entries, and a CUDA-kernel decode's SSM state, were written
+    in place already)."""
     dst = cache[key][j]
     if val.data_ptr() != dst.data_ptr():
         dst.copy_(val)

@@ -203,11 +203,14 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
                     kernel: str = "eager"):
     """One-token recurrent step. x: (B, 1, d). state: (B, H, P, N),
     conv_state: (B, d_conv-1, conv_dim). Returns (out, (state,
-    conv_state)) as new tensors; the caller stores them.
+    conv_state)); the caller stores them.
 
     ``kernel="cuda"`` fuses the recurrence (decay + rank-1 update +
     readout) into ``kernels.ops.ssd_decode_step``: one read and one write
-    of the state, the update tensor never materialised."""
+    of the state, the update tensor never materialised. It reads x, B and
+    C as the views of the conv output they are, and updates ``state`` in
+    place, as the decode attends write the KV cache: the state it returns
+    is the caller's own tensor. The eager path returns a new state."""
     check_kernel(kernel)
     B, _, d = x.shape
     di, nh, conv_dim = dims(d, ssm)
@@ -218,8 +221,13 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
 
     window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
     new_conv_state = window[:, 1:, :]
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xbc.dtype)) \
-        + p["conv_b"].to(xbc.dtype)
+    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xbc.dtype))
+    # einsum may leave (B, conv_dim) column-major; the sum is written
+    # row-major, so x, B and C below are views with unit inner strides, as
+    # the SSD step's kernel reads them
+    conv_out = torch.add(conv, p["conv_b"].to(xbc.dtype),
+                         out=torch.empty(conv.shape, dtype=conv.dtype,
+                                         device=conv.device))
     xbc = F.silu(conv_out)
 
     xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
@@ -227,9 +235,8 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
     dt = _softplus_dt(dt, p)                                    # (B, H)
     A = -torch.exp(p["A_log"].float())
     if kernel == "cuda":
-        y, state = ops.ssd_decode_step(xh.contiguous(), dt, A,
-                                       Bm.contiguous(), Cm.contiguous(),
-                                       state)
+        y, state = ops.ssd_decode_step(xh, dt, A, Bm, Cm, state,
+                                       state_out=state)
     else:
         dA = torch.exp(dt * A[None, :])                         # (B, H)
         # h <- dA * h + dt * x ⊗ B

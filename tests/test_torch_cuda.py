@@ -81,7 +81,61 @@ def test_kd_loss_kernel_rejects_mixed_devices_and_strides(cuda):
         tkd.kd_loss_fused(torch.zeros(8, 4, device=cuda).T, s, lab, 0.5)
 
 
+def _bwd_close(got, want, dtype):
+    """Within TOL of the plain version; in bf16 both round nearly equal f32
+    values, so they may also differ by one bf16 step (2^-7 of |ref|)."""
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    want = want.float()
+    return bool(((got.float() - want).abs()
+                 <= TOL * (1 + want.abs()) + step * want.abs()).all())
+
+
+def test_kd_loss_backward_kernel_matches_plain(cuda, rng):
+    """The backward kernel against ``kd_loss_rows_bwd`` from the forward
+    kernel's saved logsumexp: 16-byte rows (400, 1000), scalar rows (513),
+    one block a row (4096); f32 and bf16; masked rows holding NaN, Inf and
+    1e30 give exact zeros; without dt, none is written. At (4, 400) the
+    cotangent is also a masked mean's: one value broadcast, stride 0."""
+    for (R, V, broadcast), dtype in itertools.product(
+            ((4, 400, False), (4, 400, True), (37, 1000, False),
+             (8, 513, False), (3, 4096, False)),
+            (torch.float32, torch.bfloat16)):
+        s, t, lab = _inputs(rng, R, V, dtype, cuda)
+        s[1], t[1], s[2] = math.nan, math.inf, 1e30
+        valid = torch.ones(R, device=cuda)
+        valid[1:3] = 0.0
+        if broadcast:
+            g = torch.full((1,), 0.5, device=cuda).expand(R)
+            assert g.stride(0) == 0
+        else:
+            g = torch.tensor(rng.standard_normal(R), dtype=torch.float32,
+                             device=cuda)
+        lse = torch.empty(R, device=cuda)
+        fwd = tkd.kd_loss_fused.launches
+        out = tkd._fused_fwd(s, t, lab, 0.3, 2.0, valid, lse)
+        assert tkd.kd_loss_fused.launches == fwd + 1
+        assert torch.equal(out[1:3], torch.zeros(2, device=cuda))
+        live = valid > 0
+        assert _close(lse[live], torch.logsumexp(s[live].float(), -1))
+        want_ds, want_dt = tkd.kd_loss_rows_bwd(s, t, lab, valid, g, 0.3, 2.0)
+        for need_dt in (True, False):
+            before = tkd.kd_loss_fused_bwd.launches
+            ds, dt = tkd.kd_loss_fused_bwd(s, t, lab, valid, g, lse, 0.3,
+                                           2.0, need_dt=need_dt)
+            torch.cuda.synchronize()
+            assert tkd.kd_loss_fused_bwd.launches == before + 1
+            assert ds.dtype == dtype and (dt is not None) == need_dt
+            assert _bwd_close(ds, want_ds, dtype), (R, V, dtype, need_dt)
+            assert torch.equal(ds[1:3], torch.zeros_like(ds[1:3]))
+            if need_dt:
+                assert _bwd_close(dt, want_dt, dtype), (R, V, dtype)
+                assert torch.equal(dt[1:3], torch.zeros_like(dt[1:3]))
+
+
 def test_distill_kd_loss_goes_through_the_kernel(cuda, rng):
+    """``distill.kd_loss`` through both kernels against the eager loss:
+    the value, and with a mask the gradients (the masked mean's sum hands
+    the backward kernel a stride-0 cotangent)."""
     s, t, lab = _inputs(rng, 4, 400, torch.float32, cuda)
     before = tkd.kd_loss_fused.launches
     got = distill.kd_loss(s, t, lab, 0.5, kd_kernel="cuda")
@@ -89,6 +143,17 @@ def test_distill_kd_loss_goes_through_the_kernel(cuda, rng):
     want = distill.kd_loss(s, t, lab, 0.5, kd_kernel="eager")
     assert _close(got, want)
     assert np.isfinite(got.item())
+    valid = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda)
+    grads = []
+    for kernel in ("cuda", "eager"):
+        sp = s.clone().requires_grad_(True)
+        tp = t.clone().requires_grad_(True)
+        distill.kd_loss(sp, tp, lab, 0.3, temperature=2.0, kd_kernel=kernel,
+                        valid=valid).backward()
+        grads.append((sp.grad, tp.grad))
+    for a, b in zip(*grads):
+        assert _close(a, b)
+        assert torch.equal(a[1], torch.zeros_like(a[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +237,47 @@ def test_extent_kernel_past_the_old_shared_memory_limit(cuda, rng):
                 (q_dtype, kv_dtype, window)
 
 
+def _ssd_path_views(rng, B, H, P, N, x_dtype, state_dtype, cuda, skew):
+    """x, B and C as views of one (B, H*P + 2N + skew) conv output, as
+    ``ssm_decode_step`` cuts them; ``skew`` = 1 shifts B and C off their
+    16-byte alignment (the scalar path)."""
+    di = H * P
+    xbc = torch.tensor(rng.standard_normal((B, di + 2 * N + skew)) * 0.5,
+                       dtype=torch.float32).to(cuda, x_dtype)
+    xh = xbc[:, :di].reshape(B, H, P)
+    Bm = xbc[:, di + skew:di + skew + N]
+    Cm = xbc[:, di + skew + N:]
+    dt = torch.nn.functional.softplus(torch.tensor(
+        rng.standard_normal((B, H)), dtype=torch.float32))
+    dt[1] = 0.0
+    A = -torch.exp(torch.tensor(rng.standard_normal(H) * 0.3,
+                                dtype=torch.float32))
+    st = torch.tensor(rng.standard_normal((B, H, P, N)))
+    return xh, dt.to(cuda), A.to(cuda), Bm, Cm, st.to(cuda, state_dtype)
+
+
 def test_ssd_decode_kernel_matches_plain(cuda, rng):
+    """Contiguous operands, then the path's own views with the state
+    written in place (``state_out=state``): Hymba's N = 16 and N = 128 on
+    the vector path, N = 6 and a B view off its alignment on the scalar
+    path. One launch a call; a dt = 0 row's state stays bit for bit."""
     from repro_torch.kernels import ssd_decode as tsd
+    for (x_dtype, state_dtype), (B, H, P, N, skew) in itertools.product(
+            DTYPE_MIXES, ((4, 50, 64, 16, 0), (2, 3, 64, 128, 0),
+                          (3, 4, 8, 6, 0), (4, 50, 64, 16, 1))):
+        tol = _tol(x_dtype, state_dtype)
+        args = _ssd_path_views(rng, B, H, P, N, x_dtype, state_dtype, cuda,
+                               skew)
+        y_ref, st_ref = tref.ssd_decode_step_ref(*args)
+        state = args[-1]
+        before, ptr = state.clone(), state.data_ptr()
+        launches = tsd.ssd_decode_step.launches
+        y, st = tsd.ssd_decode_step(*args, state_out=state)
+        torch.cuda.synchronize()
+        assert tsd.ssd_decode_step.launches == launches + 1
+        assert st.data_ptr() == ptr and y.dtype == y_ref.dtype
+        assert _serve_close(y, y_ref, tol) and _serve_close(st, st_ref, tol)
+        assert torch.equal(st[1], before[1]), (B, H, P, N, skew)
     for (x_dtype, state_dtype), (B, H, P, N) in itertools.product(
             DTYPE_MIXES, ((4, 50, 64, 16), (2, 3, 5, 128), (3, 4, 8, 6))):
         tol = _tol(x_dtype, state_dtype)
