@@ -18,11 +18,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    cProfile over 1000 calls each (``host_profile`` lines), before the
    pipelines run in the process;
 4. the reduced pipeline on the card against the same pipeline on the CPU
-   (TF32 off for this phase): losses to rtol 1e-3, virtual clock exact,
-   one forward and one backward kernel launch per KD step on the card and
-   none on the CPU;
+   (TF32 off for this phase), async, then sync FedAvg with the scratch
+   baseline: losses to rtol 1e-3, virtual clock exact, params within
+   1e-3 * (1 + |cpu|), one forward and one backward kernel launch per KD
+   step on the card and none on the CPU;
 5. the main path at full width: ResNet3D-34 -> 18 KD (400 classes) then
    the four-Jetson async fine-tune, with every kernel's launches counted;
+   then the sync baseline with the scratch fine-tune beside it and async
+   again, both at 8 global epochs (two sync rounds): both virtual clocks
+   and the async-vs-sync reduction, each run's wall time, the stage-2 and
+   scratch accuracies, the KD launches;
 6. one KD step and one client step at the main path's clip shape and at
    the paper's (8x112x112, batch 8), TF32 at PyTorch's default, each
    timed and traced by torch.profiler (kernels a step), with the KD
@@ -58,7 +63,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``loss_fn`` and ``logits_fn`` through the kernels (32 launches of each
     a forward) against the eager forward on the card, both timed, one
     forward of each traced by torch.profiler, its copy, index and repeat
-    kernels listed.
+    kernels listed;
+13. the trainer (``repro_torch.launch.train``) at full width on
+    the card: ``--mode central`` for 8 steps, and ``--mode sync
+    --distill-first`` (16 teacher and 16 KD steps, then two sync rounds),
+    each result line printed, its losses finite, the KD launches counted
+    (16 of each on the distill-first run, none on the central one);
+14. Table II's analytic sync-vs-async model on both Jetson fleets (host
+    math): the reduction must reach 35%.
 
 Prints the card's line first, and at the end one ``{"kernels": [...]}``
 line, the card's line again, and last ``{"ok": true, "device": {...}}``.
@@ -307,7 +319,10 @@ def _all_losses(report) -> list:
     out = []
     for st in report["stage1"]["stages"]:
         out += st["losses"]
-    return out + report["stage2"]["losses"]
+    out += report["stage2"]["losses"]
+    if "scratch" in report:
+        out.append(report["scratch"]["final_loss"])
+    return out
 
 
 def _kd_launches() -> dict:
@@ -331,56 +346,147 @@ def _expect_launches(what: str, want: int) -> None:
                              f"expected {want} each")
 
 
-def phase_cpu_vs_card():
+def _pipeline_card_vs_cpu(mode: str, **extra) -> None:
+    """The reduced pipeline in ``mode`` on the card and on the CPU."""
     import torch
     from repro_torch.launch.pipeline import run_pipeline
-    kw = dict(reduced=True, mode="async", clients=2, epochs=2, batch=2,
-              kd_steps=4, teacher_steps=2, seed=0)
+    kw = dict(reduced=True, mode=mode, clients=2, epochs=2, batch=2,
+              kd_steps=4, teacher_steps=2, seed=0, **extra)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         _zero_kd_launches()
         gpu, gp = run_pipeline(device="cuda", **kw)
-        _expect_launches("reduced pipeline on the card", kw["kd_steps"])
+        _expect_launches(f"reduced {mode} pipeline on the card",
+                         kw["kd_steps"])
         cpu, cp = run_pipeline(device="cpu", **kw)
-        _expect_launches("reduced pipeline on the CPU", kw["kd_steps"])
+        _expect_launches(f"reduced {mode} pipeline on the CPU",
+                         kw["kd_steps"])
     finally:
         torch.backends.cudnn.allow_tf32 = True        # PyTorch's defaults
         torch.backends.cuda.matmul.allow_tf32 = False
     a, b = _all_losses(gpu), _all_losses(cpu)
     if len(a) != len(b) or not all(
             math.isclose(x, y, rel_tol=1e-3) for x, y in zip(a, b)):
-        raise AssertionError(f"card vs CPU losses differ:\n{a}\n{b}")
+        raise AssertionError(f"{mode}: card vs CPU losses differ:\n{a}\n{b}")
     if gpu["stage2"]["virtual_wall_s"] != cpu["stage2"]["virtual_wall_s"]:
-        raise AssertionError("virtual clocks differ")
+        raise AssertionError(f"{mode}: virtual clocks differ")
     perr = max(float(((gp[k].cpu() - cp[k]).abs()
                       / (1.0 + cp[k].abs())).max()) for k in cp)
     if perr > 1e-3:
-        raise AssertionError(f"card vs CPU params differ: {perr}")
-    print(json.dumps({"phase": "cpu_vs_card", "losses_card": a,
-                      "losses_cpu": b, "param_rel_err": perr,
+        raise AssertionError(f"{mode}: card vs CPU params differ: {perr}")
+    print(json.dumps({"phase": "cpu_vs_card", "mode": mode, **extra,
+                      "losses_card": a, "losses_cpu": b,
+                      "param_rel_err": perr,
                       "virtual_wall_s": gpu["stage2"]["virtual_wall_s"]}))
 
 
-def phase_full_width(kernels: list) -> dict:
+def phase_cpu_vs_card():
+    _pipeline_card_vs_cpu("async")
+    _pipeline_card_vs_cpu("sync", compare_scratch=True)
+
+
+def _full_width_pipeline(what: str, **kw) -> tuple:
+    """ResNet3D-34 -> 18 (400 classes), 2 teacher and 8 KD steps, then
+    four Jetsons: the report and the KD launches (one forward and one
+    backward a KD step, counted from zero just before, read just after)."""
     from repro_torch.launch.pipeline import run_pipeline
     kd_steps = 8
     _zero_kd_launches()
     report, _ = run_pipeline(arch="resnet3d-18", teacher="resnet3d-34",
-                             reduced=False, mode="async", clients=4,
-                             epochs=4, batch=4, kd_steps=kd_steps,
-                             teacher_steps=2, device="cuda")
+                             reduced=False, clients=4, batch=4,
+                             kd_steps=kd_steps, teacher_steps=2,
+                             device="cuda", **kw)
     launches = _kd_launches()
     losses = _all_losses(report)
     if not losses or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite losses: {losses}")
+        raise AssertionError(f"{what}: non-finite losses: {losses}")
+    _expect_launches(what, kd_steps)
+    return report, launches
+
+
+def phase_full_width(kernels: list) -> dict:
+    """The main path at full width: async (4 global epochs), then the sync
+    baseline with the scratch run beside it and async again, both at 8
+    global epochs (two sync rounds) for the virtual clocks' comparison."""
+    report, launches = _full_width_pipeline("full-width async pipeline",
+                                            mode="async", epochs=4)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} never launched on the path")
-    _expect_launches("full-width pipeline", kd_steps)
+        k["launches_by_path"] = {"async_pipeline": launches[k["name"]]}
     print(json.dumps({"phase": "full_width", "report": report}))
+    sync, sync_launches = _full_width_pipeline(
+        "full-width sync pipeline", mode="sync", epochs=8,
+        compare_scratch=True)
+    async8, _ = _full_width_pipeline("full-width async pipeline, 8 epochs",
+                                     mode="async", epochs=8)
+    for k in kernels:
+        k["launches_by_path"]["sync_pipeline"] = sync_launches[k["name"]]
+    v_sync = sync["stage2"]["virtual_wall_s"]
+    v_async = async8["stage2"]["virtual_wall_s"]
+    print(json.dumps({
+        "phase": "full_width_sync", "epochs": 8, "report": sync,
+        "virtual_wall_s": {"sync": v_sync, "async": v_async},
+        "async_vs_sync_reduction": 1.0 - v_async / v_sync,
+        "real_wall_s": {"sync_with_scratch": sync["real_wall_s"],
+                        "async": async8["real_wall_s"]},
+        "accuracy": {"stage2": sync["stage2"]["accuracy"],
+                     "scratch": sync["scratch"]["accuracy"]},
+        "kd_launches": sync_launches}))
     return report
+
+
+def _train(argv: list) -> dict:
+    """``repro_torch.launch.train.main(argv)`` in this process: its output
+    kept, its JSON result line returned."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    out = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"train {argv}: exit {rc}\n{out}")
+    return json.loads(out[-1])
+
+
+def phase_train(kernels: list) -> None:
+    """The trainer at full width (ResNet3D-18, 400 classes) on the
+    card: central fine-tuning for 8 steps, then sync FedAvg on four Jetsons
+    after ``--distill-first`` (16 teacher and 16 KD steps from
+    ResNet3D-34); finite losses, KD launches counted around each run."""
+    runs = {"central": ["--mode", "central", "--steps", "8"],
+            "sync_distill_first": ["--mode", "sync", "--distill-first",
+                                   "--epochs", "8"]}
+    for name, argv in runs.items():
+        _zero_kd_launches()
+        res = _train(argv + ["--device", "cuda"])
+        launches = _kd_launches()
+        if not math.isfinite(res["final_loss"]):
+            raise AssertionError(f"train {name}: loss {res['final_loss']}")
+        _expect_launches(f"train {name}",
+                         16 if "--distill-first" in argv else 0)
+        if name == "central":
+            res["step_ms"] = res["wall_s"] / 8 * 1e3
+        else:
+            for k in kernels:
+                if k["name"] in launches:
+                    k["launches_by_path"]["train_distill_first"] = \
+                        launches[k["name"]]
+        print(json.dumps({"phase": "train", "run": name, "result": res,
+                          "kd_launches": launches}))
+
+
+def phase_analytic_speedup() -> None:
+    """Table II's sync-vs-async model on both Jetson fleets (host math)."""
+    from repro_torch.core import fleet, simulator
+    out = {name: simulator.analytic_speedup(f, epochs=80, local_epochs=3)
+           for name, f in (("hmdb51", fleet.JETSON_FLEET_HMDB51),
+                           ("ucf101", fleet.JETSON_FLEET_UCF101))}
+    if not all(v["reduction"] >= 0.35 for v in out.values()):
+        raise AssertionError(f"Table II's reduction below 35%: {out}")
+    print(json.dumps({"phase": "analytic_speedup", **out}))
 
 
 def _profile(fn, steps: int = 3, top: int = 6, match: tuple = ()) -> dict:
@@ -1650,6 +1756,8 @@ def main(argv=None) -> int:
     score_kernels = phase_scoring_kernels()
     phase_scoring_card_vs_cpu(args.seed)
     phase_score_full_width(score_kernels, args.seed)
+    phase_train(kernels)
+    phase_analytic_speedup()
     kernels += score_kernels
 
     print(json.dumps({"kernels": kernels}))

@@ -176,6 +176,12 @@ def make_distill_engine(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                          clip_norm=clip_norm)
 
 
+def make_scratch_run(cfg: ModelConfig, dcfg: DistillConfig,
+                     clip_norm: float = 1.0) -> ScratchRun:
+    """A fresh CE-only run (nothing cached, as ``make_distill_engine``)."""
+    return ScratchRun(cfg, dcfg, clip_norm=clip_norm)
+
+
 # ---------------------------------------------------------------------------
 # Evaluation
 # ---------------------------------------------------------------------------
@@ -244,7 +250,7 @@ def run_chain(chain: Sequence[ModelConfig], dcfg: DistillConfig,
     if teacher_params is None:
         teacher_params = registry.init_params(gen, tcfg, device)
         if trained_teacher_steps:
-            run = ScratchRun(tcfg, dcfg)
+            run = make_scratch_run(tcfg, dcfg)
             state = {"params": teacher_params,
                      "opt": run.opt.init(teacher_params)}
 

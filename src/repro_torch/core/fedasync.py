@@ -25,6 +25,23 @@ from repro_torch.optim import (apply_mask, proximal_grad, sgd,
 from repro_torch.types import FedConfig, ModelConfig
 
 
+def staleness_fn(a: float):
+    """s(x) = (1+x)^{-a} in f32 (the exponent rounded to f32, as the
+    reference's weak-typed scalar is); s(0) = 1, decreasing (paper §IV-A).
+    The server's β_t come from ``group_mixing_weights``."""
+    def s(x):
+        x = torch.clamp(torch.as_tensor(x), min=0).to(torch.float32)
+        return (1.0 + x) ** torch.tensor(-a, dtype=torch.float32)
+    return s
+
+
+def mixing_weight(fed: FedConfig, t, tau):
+    """β·s(t - τ) in f32."""
+    return (torch.tensor(fed.mixing_beta, dtype=torch.float32)
+            * staleness_fn(fed.staleness_a)(torch.as_tensor(t)
+                                            - torch.as_tensor(tau)))
+
+
 @dataclass
 class ServerState:
     params: Any

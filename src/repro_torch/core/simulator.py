@@ -1,27 +1,28 @@
 """Event-driven simulator of the heterogeneous embedded-device fleet.
 
-Port of ``repro/core/simulator.py``, asynchronous mode (paper Algorithm 1)
-through the per-iteration client loop. The paper's testbed is four Jetson
-types whose per-epoch times differ by up to 4.7×; the simulator advances a
-virtual clock from those measured times while running real updates. The
-clock is host-side numpy drawn in the reference's order, so
-``wall_clock_s``, the staleness and group histograms and the trace equal
-the reference's exactly.
+Port of ``repro/core/simulator.py``: asynchronous mode (paper Algorithm 1)
+and the synchronous FedAvg baseline, both through the per-iteration client
+loop, and the analytic sync-vs-async model of Table II. The paper's
+testbed is four Jetson types whose per-epoch times differ by up to 4.7×;
+the simulator advances a virtual clock from those measured times while
+running real updates. The clock is host-side numpy drawn in the
+reference's order, so ``wall_clock_s``, the staleness and group
+histograms and the trace equal the reference's exactly.
 
-Still to be ported: the batched scan/vmap engine (``engine="scan"``,
+Still to be ported: the batched engines (``engine`` other than ``"loop"``,
 ROADMAP Queue 1 item 7), ``algorithm=`` (item 8), compressed updates
-(item 6), ``run_sync`` and streaming fleets (item 9).
+(item 6) and streaming fleets (item 9).
 """
 from __future__ import annotations
 
 import heapq
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core import fedasync
+from repro_torch.core import fedasync, fedavg
 from repro_torch.core.fedasync import ServerState
 from repro_torch.core.fleet import DeviceProfile, Fleet
 from repro_torch.device import resolve_device
@@ -124,6 +125,19 @@ class Scheduler:
         return group
 
 
+def _check_ported(engine: str, algorithm, fleet) -> None:
+    if engine != "loop":
+        raise NotImplementedError(
+            f"engine={engine!r}: the port has the per-iteration loop only; "
+            "the batched scan/vmap engine is ROADMAP Queue 1 item 7")
+    if algorithm is not None:
+        raise NotImplementedError(
+            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    if not isinstance(fleet, Fleet):
+        raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
+                        "FleetSpec populations are ROADMAP Queue 1 item 9")
+
+
 def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
               iters_per_epoch: int = 1, jitter: float = 0.0,
               eval_fn: Optional[Callable] = None, eval_every: int = 10,
@@ -139,20 +153,11 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     ``fed.clients_per_round`` > 0 keeps that many clients in flight,
     sampling replacements from the rest of the population.
     """
-    if engine != "loop":
-        raise NotImplementedError(
-            f"engine={engine!r}: the port has the per-iteration loop only; "
-            "the batched scan/vmap engine is ROADMAP Queue 1 item 7")
-    if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    _check_ported(engine, algorithm, fleet)
     if fed.compress_bits:
         raise NotImplementedError(
             "fed.compress_bits: compressed updates are ROADMAP Queue 1 "
             "item 6")
-    if not isinstance(fleet, Fleet):
-        raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
-                        "FleetSpec populations are ROADMAP Queue 1 item 9")
     fleet.check(fed)
     device = resolve_device(device)
     params0 = {k: v.to(device) for k, v in params0.items()}
@@ -231,3 +236,76 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     return SimResult(wall_clock_s=now, history=history, trace=trace,
                      params=server.params, staleness_hist=staleness_hist,
                      group_hist=group_hist, max_inflight=sched.max_inflight)
+
+
+# ---------------------------------------------------------------------------
+# Synchronous FedAvg baseline
+# ---------------------------------------------------------------------------
+
+def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
+             iters_per_epoch: int = 1, jitter: float = 0.0,
+             eval_fn: Optional[Callable] = None, eval_every: int = 10,
+             engine: str = "loop", algorithm=None,
+             device=None) -> SimResult:
+    """Virtual-clock synchronous FedAvg: each round costs the slowest of
+    its clients' ``fed.local_iters_max`` local iterations.
+
+    ``fed.clients_per_round`` = m > 0 draws m clients a round uniformly
+    without replacement and releases them after it; a round then stands
+    for m global epochs, so ``rounds = max(global_epochs // m, 1)``. 0
+    runs the whole population every round.
+    """
+    _check_ported(engine, algorithm, fleet)
+    fleet.check(fed)
+    device = resolve_device(device)
+    params = {k: v.to(device) for k, v in params0.items()}
+    rng = np.random.default_rng(fed.seed)
+    sample_rng = np.random.default_rng((fed.seed, 0x5A3D))
+    step, opt = fedasync.make_client_step(cfg, fed)
+    mask = trainable_mask(params, fed.trainable)
+    now = 0.0
+    history, trace = [], []
+    m = fed.clients_per_round or fleet.population
+    rounds = max(fed.global_epochs // max(m, 1), 1)
+    for r in range(rounds):
+        if m < fleet.population:
+            ids = [int(k) for k in fleet.sample(sample_rng, m)]
+        else:
+            ids = list(range(fleet.population))
+        batches = [fleet.data(k)() for k in ids]
+        params, losses = fedavg.fedavg_round_loop(
+            params, batches, cfg, fed, step=step, opt=opt, mask=mask)
+        dt = max(_client_time(fleet.profile(k), fed.local_iters_max,
+                              iters_per_epoch, rng, jitter)
+                 for k in ids)
+        if m < fleet.population:
+            fleet.release(ids)
+        now += dt
+        loss = float(np.mean([l[-1] for l in losses if l]))
+        history.append((now, r + 1, loss))
+        trace.append(TraceEvent(now, "round", -1, r + 1, 0, 0.0, loss))
+        if eval_fn is not None and (r + 1) % eval_every == 0:
+            eval_fn(r + 1, now, params)
+    return SimResult(wall_clock_s=now, history=history, trace=trace,
+                     params=params)
+
+
+# ---------------------------------------------------------------------------
+# Analytic speedup model (Table II's claim without training)
+# ---------------------------------------------------------------------------
+
+def analytic_speedup(fleet: Sequence[DeviceProfile], epochs: int,
+                     local_epochs: int = 3) -> dict:
+    """Wall clock of sync vs async on a fleet, ignoring numerics.
+
+    Sync: rounds of max(client), each consuming n_clients global epochs.
+    Async: clients stream updates independently, so the server is done
+    when ``epochs`` updates arrived at the aggregate rate Σ 1/T_k.
+    """
+    n = len(fleet)
+    per_update = [p.epoch_seconds * local_epochs + p.upload_seconds
+                  for p in fleet]
+    sync = epochs / n * max(per_update)
+    async_ = epochs / sum(1.0 / t for t in per_update)
+    return {"sync_s": sync, "async_s": async_,
+            "reduction": 1.0 - async_ / sync}

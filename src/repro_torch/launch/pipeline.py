@@ -1,16 +1,21 @@
 """Two-stage pipeline: KD compression -> federated fine-tuning.
 
-Port of ``repro/launch/pipeline.py``, asynchronous mode. Stage 1 distils
-a server-side teacher into the deployable student over the full synthetic
-dataset (``core/distill.py``); stage 2 fine-tunes the distilled student
-across the heterogeneous Jetson fleet on each client's reduced local
-shard by Algorithm 1 (``core/simulator.py::run_async``, per-iteration
-client loop). Runs on the card unless ``--device cpu`` is given.
+Port of ``repro/launch/pipeline.py``. Stage 1 distils a server-side
+teacher into the deployable student over the full synthetic dataset
+(``core/distill.py``); stage 2 fine-tunes the distilled student across the
+heterogeneous Jetson fleet on each client's reduced local shard,
+asynchronously by Algorithm 1 (``simulator.run_async``) or synchronously
+by FedAvg (``simulator.run_sync``), both through the per-iteration client
+loop. ``compare_scratch`` also fine-tunes a random init of the student the
+same way: the KD-vs-scratch comparison. Runs on the card unless
+``--device cpu`` is given.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke
     PYTHONPATH=src python -m repro_torch.launch.pipeline --arch resnet3d-18 \
         --teacher resnet3d-34 --kd-steps 8 --teacher-steps 2
+    PYTHONPATH=src python -m repro_torch.launch.pipeline --reduced \
+        --mode sync --compare-scratch --device cpu
 """
 from __future__ import annotations
 
@@ -19,20 +24,17 @@ import hashlib
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
-from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
+from repro_torch.core.fleet import Fleet
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import build_fleet
+from repro_torch.models import registry
 from repro_torch.types import DistillConfig, FedConfig, ModelConfig
-
-
-def build_fleet(n: int):
-    """n Jetson profiles, cycling through the paper's four device types."""
-    base = list(JETSON_FLEET_HMDB51)
-    return tuple(base[i % len(base)] for i in range(n))
 
 
 def params_digest(params: dict) -> str:
@@ -47,17 +49,26 @@ def params_digest(params: dict) -> str:
 
 
 def _finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
-              seed: int, device):
-    """Stage 2: async fine-tune from ``params`` over an iid partition of
-    the clients' reduced local dataset."""
+              mode: str, seed: int, device):
+    """Stage 2: federated fine-tune from ``params`` over an iid partition
+    of the clients' reduced local dataset."""
     parts = iid_partition(max(len(ds), fed.num_clients * 8),
                           fed.num_clients, seed=seed)
     data = [BatchLoader(ds, batch, steps=fed.local_iters_max,
                         seed=k, indices=parts[k])
             for k in range(fed.num_clients)]
     fleet = Fleet.from_lists(build_fleet(fed.num_clients), data)
-    return simulator.run_async(params, cfg, fed, fleet, engine="loop",
-                               device=device)
+    run = simulator.run_async if mode == "async" else simulator.run_sync
+    return run(params, cfg, fed, fleet, engine="loop", device=device)
+
+
+def _scratch_init(cfg: ModelConfig, seed: int, device) -> dict:
+    """The scratch baseline's random init of the student: a generator of
+    its own, seeded from (seed, 1), so it is deterministic and apart from
+    stage 1's stream."""
+    gen_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
+    return registry.init_params(torch.Generator().manual_seed(gen_seed),
+                                cfg, device)
 
 
 def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
@@ -68,24 +79,20 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
                  kd_kernel: str = "cuda", engine: str = "loop",
                  codistill: bool = False, compare_scratch: bool = False,
                  eval_steps: int = 4, seed: int = 0, device=None):
-    """Run KD compression then asynchronous federated fine-tuning.
+    """Run KD compression then federated fine-tuning (``mode`` "async" or
+    "sync").
 
     Returns ``(report, params)``: a JSON-serialisable dict and the
     fine-tuned student's params.
     """
-    if mode != "async":
-        raise NotImplementedError(
-            f"mode={mode!r}: sync FedAvg is ROADMAP Queue 1 item 7")
+    if mode not in ("async", "sync"):
+        raise ValueError(f"mode must be 'async' or 'sync', got {mode!r}")
     if engine != "loop":
         raise NotImplementedError(
             f"engine={engine!r}: the batched engine is ROADMAP Queue 1 item 7")
     if codistill:
         raise NotImplementedError(
             "codistill: CodistillFleet is ROADMAP Queue 1 item 4")
-    if compare_scratch:
-        raise NotImplementedError(
-            "compare_scratch: the scratch baseline run is ROADMAP Queue 1 "
-            "item 10")
     device = resolve_device(device)
     cfg = get_config(arch)
     tcfg = get_config(teacher)
@@ -104,7 +111,7 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
         [tcfg, cfg], dcfg, loader, kd_eval, steps_per_stage=kd_steps,
         seed=seed, kd_kernel=kd_kernel, trained_teacher_steps=teacher_steps,
         epoch_len=kd_epoch_len, device=device)
-    report["stage1"] = {"stages": [
+    report["stage1"] = {"codistill": False, "stages": [
         {"teacher": s.teacher, "student": s.student, "losses": s.losses,
          "accuracy": s.accuracy, "steps": len(s.losses),
          "wall_s": s.wall_time_s} for s in stages]}
@@ -115,7 +122,7 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     # programs as the server's, so KD transfer is real
     fed = FedConfig(num_clients=clients, global_epochs=epochs, seed=seed)
     ds = make_dataset_for(cfg, small=True, seed=seed)
-    res = _finetune(params, cfg, fed, ds, batch, seed, device)
+    res = _finetune(params, cfg, fed, ds, batch, mode, seed, device)
     params = res.params
     held_out = list(ds.batches(batch, eval_steps, seed=777))
     report["stage2"] = {"final_loss": res.final_loss,
@@ -123,6 +130,14 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
                         "virtual_wall_s": res.wall_clock_s,
                         "accuracy": distill.evaluate(params, cfg, held_out)}
     report["params_digest"] = params_digest(params)
+
+    if compare_scratch:
+        # the same fine-tune from a random init: the KD baseline
+        sres = _finetune(_scratch_init(cfg, seed, device), cfg, fed, ds,
+                         batch, mode, seed, device)
+        report["scratch"] = {
+            "final_loss": sres.final_loss,
+            "accuracy": distill.evaluate(sres.params, cfg, held_out)}
     report["real_wall_s"] = time.time() - t0
     return report, params
 
@@ -132,6 +147,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="resnet3d-18")
     ap.add_argument("--teacher", default="resnet3d-34")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mode", choices=["async", "sync"], default="async")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=4)
     ap.add_argument("--batch", type=int, default=4)
@@ -142,6 +158,8 @@ def main(argv=None):
                     help="KD steps per loss read-back (default: whole stage)")
     ap.add_argument("--kd-kernel", choices=list(distill.KD_KERNELS),
                     default="cuda")
+    ap.add_argument("--compare-scratch", action="store_true",
+                    help="also fine-tune from a random init and report it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--seed", type=int, default=0)
@@ -150,10 +168,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     kw = dict(arch=args.arch, teacher=args.teacher, reduced=args.reduced,
-              clients=args.clients, epochs=args.epochs, batch=args.batch,
-              kd_steps=args.kd_steps, teacher_steps=args.teacher_steps,
-              kd_lr=args.kd_lr, kd_epoch_len=args.kd_epoch_len,
-              kd_kernel=args.kd_kernel, seed=args.seed, device=args.device)
+              mode=args.mode, clients=args.clients, epochs=args.epochs,
+              batch=args.batch, kd_steps=args.kd_steps,
+              teacher_steps=args.teacher_steps, kd_lr=args.kd_lr,
+              kd_epoch_len=args.kd_epoch_len, kd_kernel=args.kd_kernel,
+              compare_scratch=args.compare_scratch, seed=args.seed,
+              device=args.device)
     if args.smoke:
         kw.update(reduced=True, clients=2, epochs=2, batch=2,
                   kd_steps=4, teacher_steps=2, eval_steps=2)

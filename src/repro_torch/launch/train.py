@@ -1,0 +1,188 @@
+"""Trainer: the paper's stage 2 and its two baselines.
+
+Port of ``repro/launch/train.py`` on a resident fleet of ``--clients``
+Jetsons: federated fine-tuning asynchronously (Algorithm 1, ``--mode
+async``), synchronously (FedAvg, ``--mode sync``), or centrally on the
+server with no clients (``--mode central``), from a random init or, with
+``--distill-first``, from a short teacher -> student KD stage
+(``launch/pipeline.py`` runs both stages in full). Runs on the card
+unless ``--device cpu`` is given, and prints one JSON result line last.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.train --mode sync \
+        --epochs 8 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --mode central \
+        --steps 20 --reduced --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.checkpoint import save_params
+from repro_torch.configs import get_config
+from repro_torch.core import distill, simulator
+from repro_torch.core.fedasync import make_client_step
+from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
+from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+from repro_torch.optim import trainable_mask
+from repro_torch.types import DistillConfig, FedConfig
+
+ENGINES = ("scan", "loop", "shard", "hier")
+ALGORITHMS = ("fedprox", "lowrank", "scaffold")
+
+
+def build_fleet(n: int):
+    """n Jetson profiles, cycling through the paper's four device types."""
+    base = list(JETSON_FLEET_HMDB51)
+    return tuple(base[i % len(base)] for i in range(n))
+
+
+def _refuse_unported(args) -> None:
+    if args.engine != "loop":
+        raise NotImplementedError(
+            f"--engine {args.engine}: the batched engines are ROADMAP "
+            "Queue 1 item 7")
+    if args.algorithm != "fedprox":
+        raise NotImplementedError(
+            f"--algorithm {args.algorithm}: the FedAlgorithm layer is "
+            "ROADMAP Queue 1 item 8")
+    if args.population:
+        raise NotImplementedError(
+            "--population: streaming FleetSpec populations are ROADMAP "
+            "Queue 1 item 9")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="resnet3d-18")
+    ap.add_argument("--mode", choices=["async", "sync", "central"],
+                    default="async")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--epochs", type=int, default=20,
+                    help="global epochs E (async/sync)")
+    ap.add_argument("--steps", type=int, default=50,
+                    help="steps (central mode)")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--population", type=int, default=0,
+                    help="streaming fleet population (not ported: only 0, "
+                         "the resident fleet of --clients devices)")
+    ap.add_argument("--clients-per-round", type=int, default=0,
+                    help="sync draws m clients a round, async keeps m in "
+                         "flight; 0 = the whole fleet")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--beta", type=float, default=0.7)
+    ap.add_argument("--a", type=float, default=0.5)
+    ap.add_argument("--theta", type=float, default=0.01)
+    ap.add_argument("--trainable", choices=["all", "last_layer"],
+                    default="all")
+    ap.add_argument("--engine", choices=ENGINES, default="loop",
+                    help="client execution; the port has the per-iteration "
+                         "loop only")
+    ap.add_argument("--algorithm", choices=ALGORITHMS, default="fedprox",
+                    help="federated algorithm; the port has the paper's "
+                         "proximal local SGD only")
+    ap.add_argument("--async-window", type=float, default=0.0,
+                    help="staleness-bounded micro-batching window W in "
+                         "virtual seconds (async mode); 0 = event by event")
+    ap.add_argument("--distill-first", action="store_true",
+                    help="run a short teacher -> student KD stage first")
+    ap.add_argument("--kd-kernel", choices=list(distill.KD_KERNELS),
+                    default="cuda",
+                    help="KD loss: the fused CUDA kernel (default) or the "
+                         "eager torch version")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    print(f"arch={cfg.name} family={cfg.family} mode={args.mode}")
+
+    params = registry.init_params(torch.Generator().manual_seed(args.seed),
+                                  cfg, device)
+
+    if args.distill_first and cfg.family == "resnet3d":
+        teacher_cfg = get_config("resnet3d-34")
+        if args.reduced:
+            teacher_cfg = teacher_cfg.reduced()
+        big = make_dataset_for(cfg, small=False, seed=args.seed)
+        loader = BatchLoader(big, args.batch, steps=16, seed=args.seed)
+        eval_b = list(big.batches(args.batch, 4, seed=999))
+        dcfg = DistillConfig(lr=0.01, chain=(teacher_cfg.name, cfg.name))
+        params, stages = distill.run_chain(
+            [teacher_cfg, cfg], dcfg, loader, eval_b,
+            steps_per_stage=16, seed=args.seed, trained_teacher_steps=16,
+            kd_kernel=args.kd_kernel, device=device)
+        for st in stages:
+            print(f"  KD {st.teacher} -> {st.student}: "
+                  f"acc={st.accuracy:.3f} ({st.wall_time_s:.1f}s)")
+
+    fed = FedConfig(num_clients=args.clients, global_epochs=args.epochs,
+                    mixing_beta=args.beta, staleness_a=args.a,
+                    prox_theta=args.theta, lr=args.lr,
+                    trainable=args.trainable,
+                    clients_per_round=args.clients_per_round,
+                    seed=args.seed)
+    ds = make_dataset_for(cfg, small=True, seed=args.seed + 1)
+    t0 = time.time()
+
+    if args.mode == "central":
+        step, opt = make_client_step(cfg, fed)
+        mask = trainable_mask(params, fed.trainable)
+        opt_state = opt.init(params)
+        anchor = params
+        for i, batch in enumerate(ds.batches(args.batch, args.steps,
+                                             seed=args.seed)):
+            params, opt_state, loss = step(params, opt_state, anchor, batch,
+                                           mask)
+            if i % 10 == 0:
+                print(f"  step {i:4d} loss {float(loss):.4f}")
+        result = {"mode": "central", "final_loss": float(loss),
+                  "wall_s": time.time() - t0}
+    else:
+        parts = iid_partition(max(len(ds), args.clients * 8), args.clients,
+                              seed=args.seed)
+        data = [BatchLoader(ds, args.batch, steps=fed.local_iters_max,
+                            seed=k, indices=parts[k])
+                for k in range(args.clients)]
+        fleet = Fleet.from_lists(build_fleet(args.clients), data)
+        if args.mode == "async":
+            res = simulator.run_async(params, cfg, fed, fleet,
+                                      window=args.async_window,
+                                      device=device)
+        else:
+            res = simulator.run_sync(params, cfg, fed, fleet, device=device)
+        params = res.params
+        print(f"  virtual wall-clock {res.wall_clock_s:.0f}s "
+              f"final loss {res.final_loss:.4f}")
+        if args.mode == "async":
+            print(f"  staleness histogram: {res.staleness_hist}")
+            if args.async_window > 0:
+                print(f"  receive-group histogram (W={args.async_window}): "
+                      f"{res.group_hist}")
+        result = {"mode": args.mode, "algorithm": args.algorithm,
+                  "final_loss": res.final_loss,
+                  "virtual_wall_s": res.wall_clock_s,
+                  "real_wall_s": time.time() - t0}
+
+    if args.ckpt:
+        save_params(params, args.ckpt, extra=result)
+        print(f"  saved {args.ckpt}")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -71,10 +71,12 @@ def _path_views(rng, B, H, P, N, x_dtype=torch.float32):
 
 
 def _jax(t):
-    """A torch tensor as a JAX array of the same dtype (bf16 exactly)."""
+    """A torch tensor as a JAX array of the same dtype (bf16 exactly) on
+    memory of its own: on the CPU ``jnp.asarray`` of a numpy array may
+    share the array's buffer, and the port writes the state in place."""
     if t.dtype == torch.bfloat16:
         return jnp.asarray(t.float().numpy(), jnp.bfloat16)
-    return jnp.asarray(t.contiguous().numpy())
+    return jnp.array(t.contiguous().numpy(), copy=True)
 
 
 @pytest.mark.parametrize("in_place", [False, True])
@@ -88,8 +90,8 @@ def test_ssd_decode_step_on_path_views_matches_pallas(mix, in_place, rng):
     assert not xh.is_contiguous() and not Bm.is_contiguous()
     if mix == "bf16":
         state = state.bfloat16()
-    y_want, st_want = ssd_decode_step_pallas(
-        *[_jax(a) for a in (xh, dt, A, Bm, Cm, state)], interpret=True)
+    y_want, st_want = jax.block_until_ready(ssd_decode_step_pallas(
+        *[_jax(a) for a in (xh, dt, A, Bm, Cm, state)], interpret=True))
     before = state.clone()
     out = state if in_place else None
     y, st = ssd_decode.ssd_decode_step(xh, dt, A, Bm, Cm, state,

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor anything of the
-reference package, and ``chip_smoke.py`` and the serve CLI refuse to run
-without a card unless the CPU is asked for."""
+reference package, and ``chip_smoke.py`` and the serve and train CLIs
+refuse to run without a card unless the CPU is asked for."""
 import os
 import re
 import subprocess
@@ -75,3 +75,16 @@ def test_serve_cli_refuses_without_a_card_unless_asked_for_the_cpu():
         text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "served" not in out.stdout
+
+
+def test_train_cli_refuses_without_a_card_unless_asked_for_the_cpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mode", "sync",
+         "--reduced"],
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "final_loss" not in out.stdout
