@@ -18,20 +18,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
    cProfile over 1000 calls each (``host_profile`` lines), before the
    pipelines run in the process;
 4. the reduced pipeline on the card against the same pipeline on the CPU
-   (TF32 off for this phase), async, then sync FedAvg with the scratch
-   baseline: losses to rtol 1e-3, virtual clock exact, params within
-   1e-3 * (1 + |cpu|), one forward and one backward kernel launch per KD
-   step on the card and none on the CPU;
+   (TF32 off and cuDNN's deterministic algorithms for this phase), both on
+   the batched engines (``engine="scan"``: CUDA graphs on the card),
+   async, then sync FedAvg with the scratch baseline: losses to rtol
+   1e-3, virtual clock exact, params within 1e-3 * (1 + |cpu|) (the
+   card's run on ``loop`` too), one forward and one backward KD kernel a
+   KD step on the card by the profiler's device events, none on the CPU;
 5. the main path at full width: ResNet3D-34 -> 18 KD (400 classes) then
-   the four-Jetson async fine-tune, with every kernel's launches counted;
-   then the sync baseline with the scratch fine-tune beside it and async
-   again, both at 8 global epochs (two sync rounds): both virtual clocks
-   and the async-vs-sync reduction, each run's wall time, the stage-2 and
-   scratch accuracies, the KD launches;
+   the four-Jetson async fine-tune on ``scan``, the first run of its
+   engines in the process, with every kernel's launches counted; the
+   same pipeline on ``loop``, on ``scan`` again and on ``scan`` a third
+   time, traced (every KD launch a replay: none from the host, the card's
+   by the profiler); ``loop`` and ``scan`` with TF32 off and cuDNN
+   deterministic: virtual clocks equal, params within 1e-6 * (1 + |loop|),
+   each run's wall time (``engines_full_width``); then the sync baseline
+   with the scratch fine-tune beside it, traced, and async again, both at
+   8 global epochs (two sync rounds): both virtual clocks and the
+   async-vs-sync reduction, each run's wall time, the stage-2 and scratch
+   accuracies, the KD launches; then the async pipeline as a user runs
+   it, one process a run (``python -m repro_torch.launch.pipeline``), on
+   ``scan`` and ``loop`` at 4 and 256 global epochs, twice each, and the
+   epochs at which the two engines break even (``break_even``);
 6. one KD step and one client step at the main path's clip shape and at
    the paper's (8x112x112, batch 8), TF32 at PyTorch's default, each
    timed and traced by torch.profiler (kernels a step), with the KD
-   step's forward and backward launches counted;
+   step's forward and backward launches counted; then, at the main path's
+   clip shape, one KD epoch of 8 steps replayed as a CUDA graph and one
+   sync round of 4 clients x 3 steps on ``scan`` against ``loop``, and
+   the same round's clients one after another in one graph (the
+   engine's path) against ``torch.func.vmap`` (grouped convolutions):
+   wall and device ms, the device-busy share, the KD kernels of one
+   replay from the profiler's device events and from the counts, and
+   each comparison's spread with and without cuDNN's deterministic
+   algorithms (``captured``); then fresh engines report one program and
+   one capture per round shape over three H^k draws, and replay under
+   ``torch.cuda.set_sync_debug_mode("error")`` (``engines``);
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
    extent of 131072 keys among them, the SSD step also on the decode
@@ -66,7 +87,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     kernels listed;
 13. the trainer (``repro_torch.launch.train``) at full width on
     the card: ``--mode central`` for 8 steps, and ``--mode sync
-    --distill-first`` (16 teacher and 16 KD steps, then two sync rounds),
+    --distill-first --engine scan`` (16 teacher and 16 KD steps, then two
+    sync rounds),
     each result line printed, its losses finite, the KD launches counted
     (16 of each on the distill-first run, none on the central one);
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
@@ -337,47 +359,87 @@ def _zero_kd_launches() -> None:
     kd_loss.kd_loss_fused_bwd.launches = 0
 
 
-def _expect_launches(what: str, want: int) -> None:
-    """Both KD kernels launched ``want`` times: one forward and one
-    backward a KD step."""
-    got = _kd_launches()
+def _expect_launches(what: str, got: dict, want: int) -> None:
+    """Both KD kernels launched ``want`` times in ``got``: one forward and
+    one backward a KD step."""
     if got != {"kd_loss": want, "kd_loss_bwd": want}:
         raise AssertionError(f"{what}: KD kernels launched {got}, "
                              f"expected {want} each")
 
 
+def _traced_kd(fn) -> tuple:
+    """``fn()``'s result and the KD kernels the card ran in it, from the
+    profiler's device events: a replayed graph's kernels are listed one
+    by one, where the wrappers' counts see only eager launches and
+    captures."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "kd_loss" in e.name]
+    return out, {"kd_loss": sum("bwd" not in n for n in names),
+                 "kd_loss_bwd": sum("bwd" in n for n in names)}
+
+
+class _Exact:
+    """TF32 off for cuDNN and cuBLAS and cuDNN's deterministic algorithms
+    inside the block, PyTorch's defaults (cuDNN TF32 on, cuBLAS off,
+    cuDNN free to pick) after it. A run repeated on the card in the block
+    gives the same bits; these switches enter each graph's signature, so
+    a block captures graphs of its own."""
+
+    def __enter__(self):
+        import torch
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = False
+
+
 def _pipeline_card_vs_cpu(mode: str, **extra) -> None:
     """The reduced pipeline in ``mode`` on the card and on the CPU."""
-    import torch
     from repro_torch.launch.pipeline import run_pipeline
     kw = dict(reduced=True, mode=mode, clients=2, epochs=2, batch=2,
-              kd_steps=4, teacher_steps=2, seed=0, **extra)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        _zero_kd_launches()
-        gpu, gp = run_pipeline(device="cuda", **kw)
-        _expect_launches(f"reduced {mode} pipeline on the card",
+              kd_steps=4, teacher_steps=2, seed=0, engine="scan", **extra)
+    with _Exact():
+        (gpu, gp), ran = _traced_kd(lambda: run_pipeline(device="cuda",
+                                                         **kw))
+        _expect_launches(f"reduced {mode} pipeline on the card", ran,
                          kw["kd_steps"])
+        _zero_kd_launches()
         cpu, cp = run_pipeline(device="cpu", **kw)
         _expect_launches(f"reduced {mode} pipeline on the CPU",
-                         kw["kd_steps"])
-    finally:
-        torch.backends.cudnn.allow_tf32 = True        # PyTorch's defaults
-        torch.backends.cuda.matmul.allow_tf32 = False
+                         _kd_launches(), 0)
+        (_, lp), ran_loop = _traced_kd(lambda: run_pipeline(
+            device="cuda", **{**kw, "engine": "loop"}))
+        _expect_launches(f"reduced {mode} pipeline on the card, loop",
+                         ran_loop, kw["kd_steps"])
     a, b = _all_losses(gpu), _all_losses(cpu)
     if len(a) != len(b) or not all(
             math.isclose(x, y, rel_tol=1e-3) for x, y in zip(a, b)):
         raise AssertionError(f"{mode}: card vs CPU losses differ:\n{a}\n{b}")
     if gpu["stage2"]["virtual_wall_s"] != cpu["stage2"]["virtual_wall_s"]:
         raise AssertionError(f"{mode}: virtual clocks differ")
-    perr = max(float(((gp[k].cpu() - cp[k]).abs()
-                      / (1.0 + cp[k].abs())).max()) for k in cp)
-    if perr > 1e-3:
-        raise AssertionError(f"{mode}: card vs CPU params differ: {perr}")
-    print(json.dumps({"phase": "cpu_vs_card", "mode": mode, **extra,
+    perr = _rel_err({k: v.cpu() for k, v in gp.items()}, cp)
+    perr_loop = _rel_err({k: v.cpu() for k, v in lp.items()}, cp)
+    if max(perr, perr_loop) > 1e-3:
+        raise AssertionError(f"{mode}: card vs CPU params differ: {perr} "
+                             f"(card on loop: {perr_loop})")
+    print(json.dumps({"phase": "cpu_vs_card", "mode": mode,
+                      "engine": kw["engine"], **extra,
                       "losses_card": a, "losses_cpu": b,
                       "param_rel_err": perr,
+                      "param_rel_err_card_on_loop": perr_loop,
+                      "kd_kernels_ran_on_card": ran,
                       "virtual_wall_s": gpu["stage2"]["virtual_wall_s"]}))
 
 
@@ -386,54 +448,169 @@ def phase_cpu_vs_card():
     _pipeline_card_vs_cpu("sync", compare_scratch=True)
 
 
-def _full_width_pipeline(what: str, **kw) -> tuple:
+# scan vs loop, replay vs eager, vmap vs sequential clients on the card,
+# in an ``_Exact`` block on both sides: |d| <= tol * (1 + |ref|). There a
+# computation repeated on the card gives the same bits (``spread``), and
+# two orders of the same sums differ by an ulp or so.
+ENGINE_TOL = 1e-6
+KD_STEPS = 8        # the full-width pipeline's, one KD epoch
+
+
+def _full_width_pipeline(what: str, traced: bool = False, **kw) -> tuple:
     """ResNet3D-34 -> 18 (400 classes), 2 teacher and 8 KD steps, then
-    four Jetsons: the report and the KD launches (one forward and one
-    backward a KD step, counted from zero just before, read just after)."""
+    four Jetsons: the report, the KD kernels' host launches (the wrappers'
+    counts from zero just before, read just after: eager launches and
+    captures), with ``traced`` the KD kernels the card ran
+    (``_traced_kd``, else None), and the fine-tuned params."""
     from repro_torch.launch.pipeline import run_pipeline
-    kd_steps = 8
+
+    def run():
+        return run_pipeline(arch="resnet3d-18", teacher="resnet3d-34",
+                            reduced=False, clients=4, batch=4,
+                            kd_steps=KD_STEPS, teacher_steps=2,
+                            device="cuda", **kw)
     _zero_kd_launches()
-    report, _ = run_pipeline(arch="resnet3d-18", teacher="resnet3d-34",
-                             reduced=False, clients=4, batch=4,
-                             kd_steps=kd_steps, teacher_steps=2,
-                             device="cuda", **kw)
-    launches = _kd_launches()
+    (report, params), ran = _traced_kd(run) if traced else (run(), None)
+    host = _kd_launches()
     losses = _all_losses(report)
     if not losses or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{what}: non-finite losses: {losses}")
-    _expect_launches(what, kd_steps)
-    return report, launches
+    if ran is not None:
+        _expect_launches(what, ran, KD_STEPS)
+    return report, host, ran, params
 
 
 def phase_full_width(kernels: list) -> dict:
-    """The main path at full width: async (4 global epochs), then the sync
-    baseline with the scratch run beside it and async again, both at 8
-    global epochs (two sync rounds) for the virtual clocks' comparison."""
-    report, launches = _full_width_pipeline("full-width async pipeline",
-                                            mode="async", epochs=4)
+    """The main path at full width: async (4 global epochs) on ``scan``,
+    the first run of its engines in this process, so its KD epoch runs
+    eagerly and the wrappers' counts are the card's launches; then
+    ``loop``, ``scan`` again (the graphs of signatures seen twice are
+    captured) and ``scan`` a third time, traced (every KD launch a replay:
+    none from the host, 8 of each on the card); then ``loop`` and
+    ``scan`` in an ``_Exact`` block for their comparison; then the sync
+    baseline with the scratch run beside it, traced, and async again,
+    both at 8 global epochs (two sync rounds) for the virtual clocks'
+    comparison."""
+    report, launches, _, _ = _full_width_pipeline(
+        "full-width async pipeline", mode="async", epochs=4)
+    _expect_launches("full-width async pipeline, first run", launches,
+                     KD_STEPS)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"async_pipeline": launches[k["name"]]}
     print(json.dumps({"phase": "full_width", "report": report}))
-    sync, sync_launches = _full_width_pipeline(
-        "full-width sync pipeline", mode="sync", epochs=8,
-        compare_scratch=True)
-    async8, _ = _full_width_pipeline("full-width async pipeline, 8 epochs",
-                                     mode="async", epochs=8)
+    loop, loop_host, _, _ = _full_width_pipeline(
+        "full-width async pipeline on loop", mode="async", epochs=4,
+        engine="loop")
+    second, second_host, _, _ = _full_width_pipeline(
+        "full-width async pipeline on scan, second run", mode="async",
+        epochs=4)
+    third, third_host, third_ran, _ = _full_width_pipeline(
+        "full-width async pipeline on scan, replayed", traced=True,
+        mode="async", epochs=4)
+    _expect_launches("full-width async pipeline, replayed: host launches",
+                     third_host, 0)
     for k in kernels:
-        k["launches_by_path"]["sync_pipeline"] = sync_launches[k["name"]]
+        k["launches_by_path"]["async_pipeline_replayed"] = {
+            "host": third_host[k["name"]], "card": third_ran[k["name"]]}
+    with _Exact():
+        loop_x, _, _, loop_params = _full_width_pipeline(
+            "full-width async pipeline on loop, exact", mode="async",
+            epochs=4, engine="loop")
+        scan_x, _, _, params = _full_width_pipeline(
+            "full-width async pipeline on scan, exact", mode="async",
+            epochs=4)
+    clocks = {r["stage2"]["virtual_wall_s"]
+              for r in (report, loop, second, third, loop_x, scan_x)}
+    if len(clocks) != 1:
+        raise AssertionError(f"scan vs loop: virtual clocks differ {clocks}")
+    perr = _rel_err(params, loop_params)
+    if perr > ENGINE_TOL:
+        raise AssertionError(f"scan vs loop params differ: {perr}")
+    print(json.dumps({
+        "phase": "engines_full_width", "card": _card_line(),
+        "virtual_wall_s": report["stage2"]["virtual_wall_s"],
+        "param_rel_err_scan_vs_loop_exact": perr, "tol": ENGINE_TOL,
+        "real_wall_s": {"scan_first": report["real_wall_s"],
+                        "loop": loop["real_wall_s"],
+                        "scan_second": second["real_wall_s"],
+                        "loop_exact": loop_x["real_wall_s"],
+                        "scan_exact": scan_x["real_wall_s"]},
+        "stage1_wall_s": {
+            name: r["stage1"]["stages"][0]["wall_s"] for name, r in (
+                ("scan_first", report), ("loop", loop),
+                ("scan_second", second))},
+        "kd_host_launches": {"scan_first": launches, "loop": loop_host,
+                             "scan_second": second_host,
+                             "scan_replayed": third_host},
+        "kd_kernels_ran_on_card_replayed": third_ran,
+        "stage2_losses_exact": {"scan": scan_x["stage2"]["losses"],
+                                "loop": loop_x["stage2"]["losses"]}}))
+    sync, sync_host, sync_ran, _ = _full_width_pipeline(
+        "full-width sync pipeline", traced=True, mode="sync", epochs=8,
+        compare_scratch=True)
+    async8, _, _, _ = _full_width_pipeline(
+        "full-width async pipeline, 8 epochs", mode="async", epochs=8)
+    for k in kernels:
+        k["launches_by_path"]["sync_pipeline"] = {
+            "host": sync_host[k["name"]], "card": sync_ran[k["name"]]}
     v_sync = sync["stage2"]["virtual_wall_s"]
     v_async = async8["stage2"]["virtual_wall_s"]
     print(json.dumps({
         "phase": "full_width_sync", "epochs": 8, "report": sync,
         "virtual_wall_s": {"sync": v_sync, "async": v_async},
         "async_vs_sync_reduction": 1.0 - v_async / v_sync,
-        "real_wall_s": {"sync_with_scratch": sync["real_wall_s"],
+        "real_wall_s": {"sync_with_scratch_traced": sync["real_wall_s"],
                         "async": async8["real_wall_s"]},
         "accuracy": {"stage2": sync["stage2"]["accuracy"],
                      "scratch": sync["scratch"]["accuracy"]},
-        "kd_launches": sync_launches}))
+        "kd_host_launches": sync_host, "kd_kernels_ran_on_card": sync_ran}))
     return report
+
+
+BREAK_EVEN_EPOCHS = (4, 256)
+
+
+def phase_break_even() -> None:
+    """The full-width async pipeline as a user runs it, one pipeline a
+    process (``python -m repro_torch.launch.pipeline``), on ``scan`` and
+    on ``loop`` at 4 and 256 global epochs, twice each in the order scan,
+    loop, loop, scan: each run's ``real_wall_s`` (set-up and stage 1
+    included), the virtual clocks equal, each engine's fixed and
+    per-epoch cost from its means, and the global epochs at which the two
+    engines' lines cross (None when they do not)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    wall, clock = {}, {}
+    for epochs in BREAK_EVEN_EPOCHS:
+        for engine in ("scan", "loop", "loop", "scan"):
+            argv = [sys.executable, "-m", "repro_torch.launch.pipeline",
+                    "--epochs", str(epochs), "--engine", engine,
+                    "--teacher-steps", "2", "--kd-steps", str(KD_STEPS),
+                    "--device", "cuda"]
+            out = subprocess.run(argv, env=env, cwd=ROOT, text=True,
+                                 capture_output=True, timeout=600)
+            if out.returncode:
+                raise AssertionError(f"{argv}: exit {out.returncode}\n"
+                                     f"{out.stderr[-4000:]}")
+            rep = json.loads(out.stdout.strip().splitlines()[-1])
+            wall.setdefault(engine, {}).setdefault(epochs, []).append(
+                rep["real_wall_s"])
+            clock.setdefault(epochs, set()).add(
+                rep["stage2"]["virtual_wall_s"])
+    if any(len(c) != 1 for c in clock.values()):
+        raise AssertionError(f"scan vs loop: virtual clocks differ {clock}")
+    lo, hi = BREAK_EVEN_EPOCHS
+    mean = {e: {n: sum(v) / len(v) for n, v in w.items()}
+            for e, w in wall.items()}
+    slope = {e: (m[hi] - m[lo]) / (hi - lo) for e, m in mean.items()}
+    icpt = {e: mean[e][lo] - slope[e] * lo for e in mean}
+    gain = slope["loop"] - slope["scan"]
+    print(json.dumps({
+        "phase": "break_even", "card": _card_line(),
+        "real_wall_s": wall, "mean_real_wall_s": mean,
+        "s_per_global_epoch": slope, "s_fixed": icpt,
+        "break_even_global_epochs": ((icpt["scan"] - icpt["loop"]) / gain
+                                     if gain > 0 else None)}))
 
 
 def _train(argv: list) -> dict:
@@ -455,27 +632,32 @@ def phase_train(kernels: list) -> None:
     """The trainer at full width (ResNet3D-18, 400 classes) on the
     card: central fine-tuning for 8 steps, then sync FedAvg on four Jetsons
     after ``--distill-first`` (16 teacher and 16 KD steps from
-    ResNet3D-34); finite losses, KD launches counted around each run."""
+    ResNet3D-34), traced; finite losses, the KD kernels' host launches
+    counted around each run and, on the traced one, the launches the card
+    ran."""
     runs = {"central": ["--mode", "central", "--steps", "8"],
             "sync_distill_first": ["--mode", "sync", "--distill-first",
-                                   "--epochs", "8"]}
+                                   "--epochs", "8", "--engine", "scan"]}
     for name, argv in runs.items():
         _zero_kd_launches()
-        res = _train(argv + ["--device", "cuda"])
-        launches = _kd_launches()
-        if not math.isfinite(res["final_loss"]):
-            raise AssertionError(f"train {name}: loss {res['final_loss']}")
-        _expect_launches(f"train {name}",
-                         16 if "--distill-first" in argv else 0)
         if name == "central":
+            res, ran = _train(argv + ["--device", "cuda"]), None
+            _expect_launches(f"train {name}", _kd_launches(), 0)
             res["step_ms"] = res["wall_s"] / 8 * 1e3
         else:
+            res, ran = _traced_kd(lambda: _train(argv + ["--device",
+                                                         "cuda"]))
+            _expect_launches(f"train {name}", ran, 16)
             for k in kernels:
-                if k["name"] in launches:
-                    k["launches_by_path"]["train_distill_first"] = \
-                        launches[k["name"]]
+                if k["name"] in ran:
+                    k["launches_by_path"]["train_distill_first"] = {
+                        "host": _kd_launches()[k["name"]],
+                        "card": ran[k["name"]]}
+        if not math.isfinite(res["final_loss"]):
+            raise AssertionError(f"train {name}: loss {res['final_loss']}")
         print(json.dumps({"phase": "train", "run": name, "result": res,
-                          "kd_launches": launches}))
+                          "kd_host_launches": _kd_launches(),
+                          "kd_kernels_ran_on_card": ran}))
 
 
 def phase_analytic_speedup() -> None:
@@ -586,9 +768,295 @@ def phase_step_times():
             # 1 warm-up + 5 timed + 3 profiled calls; a KD step launches
             # the forward and the backward kernel once each, a client step
             # never
-            _expect_launches(f"{name} {key}", 9 if key == "kd_step" else 0)
+            _expect_launches(f"{name} {key}", _kd_launches(),
+                             9 if key == "kd_step" else 0)
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         print(json.dumps(out))
+
+
+def _wall_ms(fn, calls: int = 5) -> float:
+    """Host milliseconds a call over ``calls`` back-to-back calls, the card
+    synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def _rel_err(got: dict, want: dict) -> float:
+    """max |got - want| / (1 + |want|) over every leaf, by key."""
+    return max(float(((got[k] - want[k]).abs() / (1.0 + want[k].abs())).max())
+               for k in want)
+
+
+def _kd_in_profile(prof: dict) -> dict:
+    """The KD forward and backward kernels a call, from the profiler's
+    device events."""
+    matched = prof.get("matched", {})
+    return {"kd_loss": sum(c for k, c in matched.items() if "bwd" not in k),
+            "kd_loss_bwd": sum(c for k, c in matched.items() if "bwd" in k)}
+
+
+def _spread(fn, calls: int = 4) -> float:
+    """The largest ``_rel_err`` of ``fn()``'s params over ``calls`` calls
+    against its first: 0 when the card repeats the computation bit for
+    bit."""
+    first = fn()[0]
+    return max(_rel_err(fn()[0], first) for _ in range(calls - 1))
+
+
+def phase_captured(kernels: list) -> None:
+    """At the main path's clip shape (4x16x16, batch 4): one KD epoch of 8
+    steps (ResNet3D-34 -> 18, 400 classes) in a fresh engine, its first
+    call eager, its second captured and replayed, later ones replayed,
+    each against the epoch run eagerly step by step; one sync round of 4
+    clients x 3 steps on ``scan`` against ``loop``; the round's clients
+    under ``torch.func.vmap`` against one after another (the engine's
+    path), each one graph, and the first eager calls of each
+    (torch.func's first use in the process among them). The comparisons
+    in an ``_Exact`` block, with each computation's spread over repeated
+    calls there and with cuDNN free to pick its algorithms (TF32 still
+    off); the timings
+    (host clock, 5 calls of replays) and traces (device ms, busy share,
+    kernels) at PyTorch's default switches. The KD kernels: the wrappers'
+    host launches in the eager call, the capture and the replays, and the
+    profiler's device events of a replay."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.core import distill, fed_engine, fedavg
+    from repro_torch.core.compile_cache import GraphCache
+    from repro_torch.data import SyntheticActionDataset, stack_batches
+    from repro_torch.device import batch_to
+    from repro_torch.models import registry
+    from repro_torch.optim import trainable_mask
+    from repro_torch.types import DistillConfig, FedConfig
+    gen = torch.Generator().manual_seed(0)
+    teacher = registry.init_params(gen, RESNET34, "cuda")
+    student = registry.init_params(gen, RESNET18, "cuda")
+    ds = SyntheticActionDataset(num_classes=400, samples_per_class=1,
+                                frames=4, size=16, seed=0)
+    H = 8
+    stacked = stack_batches(ds.batches(4, H, seed=1))
+    engine = distill.DistillEngine(
+        RESNET34, RESNET18,
+        DistillConfig(lr=0.01, chain=(RESNET34.name, RESNET18.name)))
+    state = engine.opt.init(student)
+    on_card = batch_to(stacked, "cuda")
+
+    def replay():
+        return engine.epoch(teacher, student, state, stacked)
+
+    def eager():
+        return engine._epoch(teacher, student, state["mom"], on_card)
+
+    def host_launches(fn):
+        _zero_kd_launches()
+        out = fn()
+        return out, _kd_launches()
+    with _Exact():
+        want = eager()
+        runs = [host_launches(replay) for _ in range(3)]
+        kd_err = max(_rel_err(out[0], want[0]) for out, _ in runs)
+        kd_spread = _spread(eager)
+    host = {"eager": runs[0][1], "capture": runs[1][1], "replay": runs[2][1]}
+    if kd_err > ENGINE_TOL:
+        raise AssertionError(f"replayed KD epoch vs eager: {kd_err}")
+    for what, n in (("eager", H), ("capture", H), ("replay", 0)):
+        _expect_launches(f"KD epoch's {what} call: host launches",
+                         host[what], n)
+    with _Exact():
+        torch.backends.cudnn.deterministic = False
+        kd_spread_free = _spread(eager)
+    replay(), replay()                 # eager, then captured, by default
+    _zero_kd_launches()
+    kd = {"replay_ms_per_epoch": _wall_ms(replay)}
+    _expect_launches("5 replayed KD epochs: host launches", _kd_launches(),
+                     0)
+    kd["eager_ms_per_epoch"] = _wall_ms(eager)
+    kd["replay_profile"] = _profile(replay, 3, match=("kd_loss",))
+    kd["eager_profile"] = _profile(eager, 3, match=("kd_loss",))
+    traced = _kd_in_profile(kd["replay_profile"])
+    _expect_launches("KD kernels the card ran a replay",
+                     {k: round(v) for k, v in traced.items()}, H)
+    kd.update(kd_step_ms_captured=kd["replay_ms_per_epoch"] / H,
+              kd_step_ms_eager=kd["eager_ms_per_epoch"] / H,
+              kd_host_launches_exact_block=host,
+              kd_kernels_ran_on_card_per_replay=traced,
+              max_rel_err_vs_eager=kd_err, spread=kd_spread,
+              spread_cudnn_free=kd_spread_free)
+    for k in kernels:
+        if k["name"] in traced:
+            k["launches_per_replayed_epoch"] = {
+                "H": H, "host_at_capture": host["capture"][k["name"]],
+                "host_a_replay": host["replay"][k["name"]],
+                "card_a_replay": traced[k["name"]]}
+
+    fed = FedConfig()
+    rnd = fed_engine.make_sync_round(RESNET18, fed)
+    lists = [list(ds.batches(4, fed.local_iters_max, seed=10 + c))
+             for c in range(4)]
+
+    def scan():
+        return fedavg.fedavg_round(student, [iter(b) for b in lists],
+                                   RESNET18, fed, engine=rnd)
+
+    def loop():
+        return fedavg.fedavg_round_loop(student, [iter(b) for b in lists],
+                                        RESNET18, fed)
+    with _Exact():
+        want = loop()[0]
+        rnd_err = max(_rel_err(scan()[0], want) for _ in range(3))
+    if rnd_err > ENGINE_TOL:
+        raise AssertionError(f"scan vs loop round: {rnd_err}")
+    scan(), scan()                     # captured by default if not yet
+    round_ = {"clients": 4, "H": fed.local_iters_max,
+              "scan_ms": _wall_ms(scan), "loop_ms": _wall_ms(loop),
+              "scan_profile": _profile(scan, 3),
+              "loop_profile": _profile(loop, 3),
+              "max_rel_err_scan_vs_loop": rnd_err}
+
+    # the engine's clients, one after another in one graph, against the
+    # same clients under torch.func.vmap (grouped convolutions), written
+    # here for the comparison only
+    run = rnd.client
+    padded = {k: np.stack([np.stack([b[k] for b in bl]) for bl in lists])
+              for k in lists[0][0]}
+    iters = np.full(4, fed.local_iters_max, np.int32)
+    mask = trainable_mask(student, fed.trainable)
+    vm_cache = GraphCache()
+
+    def vmapped(params, stacked, mask, iters):
+        from torch.func import grad_and_value, vmap
+
+        def vg(p, b):
+            grads, loss = grad_and_value(lambda q: run._task_loss(q, b))(p)
+            return loss, grads
+        ctx = fed_engine.StepCtx(vg, run.opt, params, mask, fed)
+        return vmap(lambda s, n: run._scan(ctx, params, s, n))(stacked,
+                                                               iters)
+
+    def sequential():
+        return run.run_batch(student, padded, iters, mask=mask)
+
+    def grouped():
+        return vm_cache.call("vmap", vmapped, (student, padded, mask, iters))
+    # a process's first torch.func call loads torch._dynamo
+    eager_args = (student, batch_to(padded, "cuda"), mask,
+                  torch.as_tensor(iters, device="cuda"))
+    dynamo_before = "torch._dynamo" in sys.modules
+    first_ms = {"vmap": _wall_ms(lambda: vmapped(*eager_args), 1)}
+    first_ms["vmap_again"] = _wall_ms(lambda: vmapped(*eager_args), 1)
+    first_ms["sequential"] = _wall_ms(lambda: run._clients(*eager_args), 1)
+    with _Exact():
+        seq = [sequential() for _ in range(3)]
+        vm = [grouped() for _ in range(3)]
+        vm_err = max(_rel_err(v[0], q[0]) for v, q in zip(vm, seq))
+        spreads = {"sequential": _spread(sequential),
+                   "vmap": _spread(grouped)}
+        torch.backends.cudnn.deterministic = False
+        spreads_free = {"sequential": _spread(sequential),
+                        "vmap": _spread(grouped)}
+    if vm_err > ENGINE_TOL or not all(bool(torch.isfinite(v[1]).all())
+                                      for v in vm):
+        raise AssertionError(f"vmap vs sequential clients: {vm_err}")
+    for fn in (sequential, grouped, sequential, grouped):
+        fn()                           # captured by default if not yet
+    batching = {"sequential_ms": _wall_ms(sequential),
+                "vmap_ms": _wall_ms(grouped),
+                "sequential_profile": _profile(sequential, 3),
+                "vmap_profile": _profile(grouped, 3),
+                "eager_call_ms": first_ms,
+                "torch_dynamo_loaded_before": dynamo_before,
+                "max_rel_err_vmap_vs_sequential": vm_err,
+                "spread": spreads, "spread_cudnn_free": spreads_free}
+    print(json.dumps({"phase": "captured", "card": _card_line(),
+                      "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "errors_in_exact_block": True, "tol": ENGINE_TOL,
+                      "kd_epoch": kd, "sync_round": round_,
+                      "client_batching": batching}))
+
+
+def phase_engines() -> None:
+    """Fresh engines at the main path's shapes, so that every count is
+    this phase's own: the async kickoff's burst (4 clients padded to
+    H_max) and a lone dispatch (1 client padded to H_max), each over three
+    H^k draws, a sync round and the 8-step KD epoch three times each: one
+    program shape and one capture each, whatever the H^k; then one more
+    call of each under ``torch.cuda.set_sync_debug_mode("error")``: a
+    replay, with no new capture and no host sync. The main path's own
+    (memoized) engines' shapes and captures after phases 5 and 6 are
+    printed beside."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.core import distill, fed_engine
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.models import registry
+    from repro_torch.types import DistillConfig, FedConfig
+    fed = FedConfig()
+    dcfg = DistillConfig(lr=0.01, chain=(RESNET34.name, RESNET18.name))
+    client = fed_engine.ClientRun(RESNET18, fed)
+    sync = fed_engine.SyncRound(RESNET18, fed)
+    kd = distill.DistillEngine(RESNET34, RESNET18, dcfg)
+    gen = torch.Generator().manual_seed(1)
+    student = registry.init_params(gen, RESNET18, "cuda")
+    teacher = registry.init_params(gen, RESNET34, "cuda")
+    ds = make_dataset_for(RESNET18, small=True, seed=0)
+    stacks = [stack_batches(ds.batches(4, fed.local_iters_max, seed=k))
+              for k in range(4)]
+    H = fed.local_iters_max
+    burst, _ = fed_engine.pad_client_batches(stacks)
+    lone, _ = fed_engine.pad_client_batches(stacks[:1])
+    kd_stack = stack_batches(make_dataset_for(RESNET18, small=False)
+                             .batches(4, 8, seed=2))
+    draws = [np.asarray(d, np.int32) for d in ([3, 1, 2, 3], [1, 1, 2, 3],
+                                               [2, 3, 3, 1])]
+    calls = {
+        "burst": lambda i: client.run_batch(student, burst, draws[i]),
+        "lone": lambda i: client.run_batch(
+            student, lone, draws[i][:1] % H + 1),
+        "sync_round": lambda i: sync(student, stacks),
+        "kd_epoch": lambda i: kd.epoch(teacher, student,
+                                       kd.opt.init(student), kd_stack)}
+    for fn in calls.values():
+        for i in range(3):
+            fn(i)
+
+    def counts():
+        return {"client_run": [client.num_compiled,
+                               client._graphs.num_captured],
+                "sync_round": [sync.num_compiled, sync._graphs.num_captured],
+                "kd_epoch": [kd.num_compiled, kd._graphs.num_captured]}
+    got = counts()
+    want = {"client_run": [2, 2], "sync_round": [1, 1], "kd_epoch": [1, 1]}
+    if got != want:
+        raise AssertionError(f"[program shapes, captures]: {got}, "
+                             f"expected {want}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if counts() != want:
+        raise AssertionError(f"a replay captured anew: {counts()}")
+    main = {"client_run": fed_engine.make_client_run(RESNET18, fed),
+            "sync_round": fed_engine.make_sync_round(RESNET18, fed),
+            "kd_epoch": distill.make_distill_engine(RESNET34, RESNET18,
+                                                    dcfg),
+            "teacher_pretrain": distill.make_scratch_run(RESNET34, dcfg)}
+    print(json.dumps({
+        "phase": "engines", "program_shapes_and_captures": got,
+        "h_draws": [d.tolist() for d in draws],
+        "replayed_without_host_sync": list(calls),
+        "main_path_engines": {name: [e.num_compiled, e._graphs.num_captured]
+                              for name, e in main.items()}}))
 
 
 # ---------------------------------------------------------------------------
@@ -859,14 +1327,30 @@ def _host_profile(fn) -> dict:
                 for (f, line, name), (_, nc, tt, _, _) in top]}
 
 
+def host_profile_tree(tree: str) -> None:
+    """``phase_host_profile`` on the wrappers of another checkout of the
+    repo (e.g. a ``git archive`` of the parent unpacked under ``build/``):
+    its kernels built there, its ``src`` first on ``sys.path``. Run in a
+    fresh process, before anything imports ``repro_torch``."""
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import repro_torch
+    if not repro_torch.__file__.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"repro_torch came from {repro_torch.__file__}")
+    build_all()
+    print(json.dumps({"phase": "host_profile_tree", "tree": tree}))
+    phase_host_profile()
+
+
 def phase_host_profile() -> None:
-    """Where the host time of the SSD step's and the KD loss's wrappers
-    goes, at their main paths' shapes: the SSD step at Hymba-1.5B's decode
-    shape on contiguous operands and on the decode step's views with the
-    state in place; the KD forward at R = 4, V = 400; a KD forward and
-    backward through autograd, the teacher without a gradient."""
+    """Where the host time of the kernels' wrappers goes, at their main
+    paths' shapes: the SSD step at Hymba-1.5B's decode shape on contiguous
+    operands and on the decode step's views with the state in place; the
+    KD forward at R = 4, V = 400; a KD forward and backward through
+    autograd, the teacher without a gradient; the ring and extent decode
+    attends at Hymba-1.5B's decode shape; the sliding-window attention's
+    GQA entry and the SSD chunk scan at its scoring shape."""
     import torch
-    from repro_torch.kernels import kd_loss, ssd_decode
+    from repro_torch.kernels import decode_attend, kd_loss, ops, ssd_decode
     xc, dt, A, bc, cc, st = _ssd_inputs(*HYMBA_SSD, torch.float32,
                                         torch.float32, seed=5)
     xv, dt, A, bv, cv, sv = _ssd_path_views(*HYMBA_SSD, torch.float32,
@@ -876,6 +1360,17 @@ def phase_host_profile() -> None:
 
     def kd_step():
         kd_loss.kd_loss_rows(sp, t, lab, 0.5).mean().backward()
+    B, KV, G, D = HYMBA_ATTEND
+    pos = torch.tensor([1100, 1500, 1030, 2000], dtype=torch.int32,
+                       device="cuda")
+    ring = _attend_inputs(B, KV, G, D, 1024, torch.float32, torch.float32,
+                          seed=1)
+    ext = _attend_inputs(B, KV, G, D, 2048, torch.float32, torch.float32,
+                         seed=2)
+    epos = torch.tensor([2047, 1500, 1100, 1024], dtype=torch.int32,
+                        device="cuda")
+    gqa = _gqa_inputs(*HYMBA_GQA, "f32", seed=3)
+    scan = _scan_inputs(*HYMBA_SCAN[:5], "f32", seed=3)
     for name, fn in (
             ("ssd_decode_step contiguous",
              lambda: ssd_decode.ssd_decode_step(xc, dt, A, bc, cc, st)),
@@ -883,7 +1378,15 @@ def phase_host_profile() -> None:
              lambda: ssd_decode.ssd_decode_step(xv, dt, A, bv, cv, sv,
                                                 state_out=sv)),
             ("kd_loss_fused", lambda: kd_loss.kd_loss_fused(s, t, lab, 0.5)),
-            ("kd_loss_rows forward + backward", kd_step)):
+            ("kd_loss_rows forward + backward", kd_step),
+            ("ring_decode_attend",
+             lambda: decode_attend.ring_decode_attend(*ring, pos, 1024)),
+            ("extent_decode_attend",
+             lambda: decode_attend.extent_decode_attend(*ext, epos, 1024,
+                                                        2048)),
+            ("swa_attention_gqa",
+             lambda: ops.swa_attention_gqa(*gqa, 1024)),
+            ("ssd_scan", lambda: ops.ssd_scan(*scan, HYMBA_SCAN[5]))):
         print(json.dumps({"phase": "host_profile", "wrapper": name,
                           "calls": HOST_PROFILE_CALLS, **_host_profile(fn)}))
 
@@ -1748,7 +2251,10 @@ def main(argv=None) -> int:
     phase_host_profile()
     phase_cpu_vs_card()
     phase_full_width(kernels)
+    phase_break_even()
     phase_step_times()
+    phase_captured(kernels)
+    phase_engines()
     serve_kernels = phase_decode_kernels()
     phase_serve_card_vs_cpu()
     phase_serve_full_width(serve_kernels, args.seed)

@@ -1,20 +1,31 @@
-"""Bucketing helpers and program-shape accounting for bounded-shape
-serving (port of ``repro/core/compile_cache.py``).
+"""Program caches and the bucketing helpers of bounded-shape serving
+(port of ``repro/core/compile_cache.py``).
 
 The reference funnels serving's dynamic quantities into a small static
 ladder of padded shapes so that XLA compiles a bounded number of
-programs. The port runs eagerly and compiles nothing, but it keeps the
-ladder and counts the distinct program shapes it runs, so that
-``prefill_compiles`` / ``decode_compiles`` keep their meaning: the number
-of distinct (entry point, argument shapes) the serving loop ran. That is
-the reference's own fallback count (``JitCache`` records each call's
-argument signature for when jax's private cache size is gone).
+programs. Serving in the port runs eagerly and compiles nothing, but it
+keeps the ladder and counts the distinct program shapes it runs
+(``ShapeCache``), so that ``prefill_compiles`` / ``decode_compiles`` keep
+their meaning: the number of distinct (entry point, argument shapes) the
+serving loop ran. That is the reference's own fallback count (``JitCache``
+records each call's argument signature for when jax's private cache size
+is gone).
+
+``GraphCache`` is the port's ``JitCache`` for the federated engines and
+the KD epoch: on CUDA tensors each (entry point, argument signature) runs
+eagerly the first time, is captured into a ``torch.cuda.CUDAGraph`` the
+second time and replayed from then on; on CPU tensors the function runs
+eagerly. ``num_compiled`` counts the signatures either way.
 
 ``bucket_for(P) = next_pow2(clamp(P, min_bucket, max_len))`` (capped at
 ``max_len``) maps a prompt length to its padded prefill length;
 ``bucket_ladder`` lists every rung.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
+
 
 
 def _signature(args) -> tuple:
@@ -63,6 +74,152 @@ class ShapeCache:
         return sum(len(s) for n, s in self._seen.items()
                    if n == name or (isinstance(n, tuple) and n
                                     and n[0] == name))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _is_array(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _flatten(tree, leaves: list):
+    """Append ``tree``'s tensor and numpy leaves to ``leaves`` (dicts walked
+    in their own order, which ``_unflatten`` keeps) and return its hashable
+    spec: the structure with its keys, each array leaf as ``None``, every
+    other leaf by value."""
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return ("l" if isinstance(tree, list) else "t",
+                tuple(_flatten(x, leaves) for x in tree))
+    if _is_array(tree):
+        leaves.append(tree)
+        return None
+    return ("v", tree)
+
+
+def _unflatten(spec, it):
+    if spec is None:
+        return next(it)
+    kind, body = spec
+    if kind == "d":
+        return {k: _unflatten(v, it) for k, v in body}
+    if kind == "v":
+        return body
+    items = [_unflatten(v, it) for v in body]
+    return items if kind == "l" else tuple(items)
+
+
+def _cuda_device(leaves):
+    """The device of the first CUDA tensor among ``leaves``, else None."""
+    for x in leaves:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return x.device
+    return None
+
+
+class _Graph:
+    """One captured call. ``fn`` must be functional: it reads its
+    arguments and returns new tensors.
+
+    It copies the arguments' array leaves into static device buffers and
+    captures ``fn`` on them; a capture that fails raises. ``replay`` copies
+    new arguments into the buffers, replays, and copies the outputs out of
+    the graph's memory (the next replay writes over them), so nothing it
+    returns aliases the graph.
+
+    A kernel wrapper's ``launches`` count is bumped while its launch is
+    captured: the capture is that launch, recorded once. A replay runs the
+    captured kernels on the card without the wrappers, so it adds nothing
+    to the counts; the profiler's device events count what a replay ran."""
+
+    def __init__(self, fn, args, device, pool):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        self.buffers = [torch.as_tensor(x).to(device, copy=True)
+                        for x in leaves]
+        static = _unflatten(spec, iter(self.buffers))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            out = fn(*static)
+        self.out_leaves: list = []
+        self.out_spec = _flatten(out, self.out_leaves)
+
+    def replay(self, args):
+        leaves: list = []
+        _flatten(args, leaves)
+        for buf, x in zip(self.buffers, leaves):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            buf.copy_(x, non_blocking=True)
+        self.graph.replay()
+        return _unflatten(self.out_spec,
+                          (t.clone() for t in self.out_leaves))
+
+
+class GraphCache:
+    """One CUDA graph per (entry point, argument signature), captured the
+    second time the signature is called.
+
+    ``call(name, fn, args)`` runs ``fn(*args)``. ``args`` is a tree of
+    dicts, lists and tuples whose leaves are tensors, numpy arrays (inputs:
+    any values at the same shape and dtype replay one graph) and other
+    values (baked into the graph: part of the signature). With no CUDA
+    tensor among the leaves ``fn`` runs eagerly. On the card every call
+    hands ``fn`` its array leaves as tensors on that device; the first
+    call with a signature runs ``fn`` eagerly: the warm-up that lets
+    cuDNN, cuBLAS and the caching allocator settle (and builds the
+    kernels) before a capture, and all a signature called once ever pays.
+    The second call captures it on that tensor's device (``_Graph``) and
+    replays; later calls replay. The signature also holds the device and
+    the cuDNN and cuBLAS switches read at capture (TF32, deterministic,
+    benchmark). The graphs of one cache share one memory pool: each
+    replay's outputs are copied out before the next call, and calls run
+    in the stream order they are made. ``num_compiled`` counts the
+    signatures, CPU ones included; ``num_captured`` the graphs."""
+
+    def __init__(self):
+        self._seen: set = set()
+        self._graphs: dict = {}
+        self._pool = None
+
+    def call(self, name, fn, args):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        device = _cuda_device(leaves)
+        key = (name, spec, tuple((tuple(x.shape), str(x.dtype))
+                                 for x in leaves), device,
+               torch.backends.cudnn.allow_tf32,
+               torch.backends.cudnn.deterministic,
+               torch.backends.cudnn.benchmark,
+               torch.backends.cuda.matmul.allow_tf32)
+        first = key not in self._seen
+        self._seen.add(key)
+        if device is None:
+            return fn(*args)
+        if first:
+            return fn(*_unflatten(spec, (torch.as_tensor(x).to(device)
+                                         for x in leaves)))
+        graph = self._graphs.get(key)
+        if graph is None:
+            with torch.cuda.device(device):
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                graph = _Graph(fn, args, device, self._pool)
+            self._graphs[key] = graph
+        return graph.replay(args)
+
+    @property
+    def num_compiled(self) -> int:
+        return len(self._seen)
+
+    @property
+    def num_captured(self) -> int:
+        """CUDA graphs captured (one per CUDA signature called twice or
+        more)."""
+        return len(self._graphs)
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,15 @@ between teacher and student logits (the paper's choice at T=1). In TA
 stages the classification targets are the teacher's hard predictions.
 
 ``DistillEngine.step`` runs the teacher forward under ``no_grad``, then
-the student forward/backward, global-norm clipping and SGD; ``epoch`` is
-a Python loop over ``step``. The fused KD loss is the hand-written CUDA
-kernel by default (``kd_kernel="cuda"``); ``"eager"`` is the plain torch
-version. Codistillation and the analytic chain-time model are still to be
-ported (ROADMAP Queue 1 item 4).
+the student forward/backward, global-norm clipping and SGD. ``epoch`` runs
+H such steps as one call: on the card one CUDA graph per (H, batch shape),
+captured once and replayed (``compile_cache.GraphCache``), the counterpart
+of the reference's ``lax.scan`` epoch; on the CPU the same steps eagerly.
+The fused KD loss is the hand-written CUDA kernel by default
+(``kd_kernel="cuda"``; inside the graph its forward and its backward are
+graph nodes, the backward captured from autograd's device thread);
+``"eager"`` is the plain torch version. Codistillation and the analytic
+chain-time model are still to be ported (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import fed_engine
+from repro_torch.core.compile_cache import GraphCache
 from repro_torch.data import stack_batches
 from repro_torch.device import batch_to, params_device, resolve_device
 from repro_torch.kernels import ops, ref
@@ -74,16 +80,29 @@ def _check_widths(a: ModelConfig, b: ModelConfig):
             f"KD needs equal logit width: {a.name} vs {b.name}")
 
 
-def _epoch(step, params, opt_state, stacked):
-    """Run ``step(params, opt_state, batch)`` over a batch dict with
-    leading axis H (one host-to-device copy); losses as one (H,) tensor."""
+def _epoch(step, params, mom, stacked):
+    """``step(params, opt_state, batch)`` over a batch dict with leading
+    axis H; returns (params, momentum, losses (H,)). The body of a
+    captured epoch: the stack is already on the params' device there, and
+    the step count, a host integer, stays outside (``_run_epoch``)."""
     stacked = batch_to(stacked, params_device(params))
+    opt_state = {"mom": mom, "step": 0}
     losses = []
     for i in range(len(stacked["labels"])):
         params, opt_state, loss = step(
             params, opt_state, {k: v[i] for k, v in stacked.items()})
         losses.append(loss)
-    return params, opt_state, torch.stack(losses)
+    return params, opt_state["mom"], torch.stack(losses)
+
+
+def _run_epoch(graphs: GraphCache, body, fixed: tuple, params, opt_state,
+               stacked):
+    """One epoch through ``graphs``: ``body(*fixed, params, mom, stacked)``
+    captured once per (H, batch shape) on the card."""
+    params, mom, losses = graphs.call(
+        "epoch", body, fixed + (params, opt_state["mom"], stacked))
+    return (params, {"mom": mom, "step": opt_state["step"] + len(losses)},
+            losses)
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +113,11 @@ class DistillEngine:
     """KD steps: teacher forward + student step.
 
     ``step(teacher_params, params, opt_state, batch)`` returns ``(params,
-    opt_state, loss)``; ``epoch(..., stacked)`` runs ``step`` over a batch
-    dict with leading axis H (``data.stack_batches``) and returns the
-    losses as one (H,) tensor, so a caller syncs with the device once per
-    epoch. Gradients are clipped by global norm (the MSE-on-logits term is
+    opt_state, loss)``; ``epoch(..., stacked)`` runs H steps over a batch
+    dict with leading axis H (``data.stack_batches``) as one call (one CUDA
+    graph per (H, batch shape) on the card) and returns the losses as one
+    (H,) tensor, so a caller syncs with the device once per epoch.
+    Gradients are clipped by global norm (the MSE-on-logits term is
     scale-unbounded).
     """
 
@@ -113,6 +133,7 @@ class DistillEngine:
         self.use_teacher_targets = use_teacher_targets
         self.clip_norm = clip_norm
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
+        self._graphs = GraphCache()
 
     def _loss(self, params, batch, teacher_logits):
         logits = registry.logits_fn(params, self.student_cfg, batch)
@@ -135,9 +156,21 @@ class DistillEngine:
         params, opt_state = self.opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
-    def epoch(self, teacher_params, params, opt_state, stacked):
+    def _epoch(self, teacher_params, params, mom, stacked):
         return _epoch(functools.partial(self.step, teacher_params), params,
-                      opt_state, stacked)
+                      mom, stacked)
+
+    @property
+    def num_compiled(self) -> int:
+        """Distinct epoch shapes run: one per (H, batch shape)."""
+        return self._graphs.num_compiled
+
+    def epoch(self, teacher_params, params, opt_state, stacked,
+              donate: bool = False):
+        """``donate`` is the reference's keyword; the stack is copied into
+        the graph's input either way."""
+        return _run_epoch(self._graphs, self._epoch, (teacher_params,),
+                          params, opt_state, stacked)
 
 
 class ScratchRun:
@@ -151,6 +184,7 @@ class ScratchRun:
         self.dcfg = dcfg
         self.clip_norm = clip_norm
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
+        self._graphs = GraphCache()
 
     def step(self, params, opt_state, batch):
         batch = batch_to(batch, params_device(params))
@@ -161,25 +195,40 @@ class ScratchRun:
         params, opt_state = self.opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
-    def epoch(self, params, opt_state, stacked):
-        return _epoch(self.step, params, opt_state, stacked)
+    def _epoch(self, params, mom, stacked):
+        return _epoch(self.step, params, mom, stacked)
+
+    @property
+    def num_compiled(self) -> int:
+        return self._graphs.num_compiled
+
+    def epoch(self, params, opt_state, stacked, donate: bool = False):
+        return _run_epoch(self._graphs, self._epoch, (), params, opt_state,
+                          stacked)
 
 
 def make_distill_engine(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                         dcfg: DistillConfig, kd_kernel: str = "cuda",
                         use_teacher_targets: bool = True,
                         clip_norm: float = 1.0) -> DistillEngine:
-    """A fresh engine. The reference memoizes compiled programs here; the
-    port runs eagerly and has nothing to cache."""
-    return DistillEngine(teacher_cfg, student_cfg, dcfg, kd_kernel=kd_kernel,
-                         use_teacher_targets=use_teacher_targets,
-                         clip_norm=clip_norm)
+    """Memoized on the whole program's identity (both configs, the
+    distill config, the kernel choice) through the fed engines' FIFO
+    cache, so repeated pipeline runs replay their captured epochs."""
+    key = ("distill", teacher_cfg, student_cfg, dcfg, kd_kernel,
+           use_teacher_targets, clip_norm)
+    return fed_engine.cached_engine(
+        key, lambda: DistillEngine(teacher_cfg, student_cfg, dcfg,
+                                   kd_kernel=kd_kernel,
+                                   use_teacher_targets=use_teacher_targets,
+                                   clip_norm=clip_norm))
 
 
 def make_scratch_run(cfg: ModelConfig, dcfg: DistillConfig,
                      clip_norm: float = 1.0) -> ScratchRun:
-    """A fresh CE-only run (nothing cached, as ``make_distill_engine``)."""
-    return ScratchRun(cfg, dcfg, clip_norm=clip_norm)
+    """A CE-only run, memoized as ``make_distill_engine``."""
+    return fed_engine.cached_engine(
+        ("scratch", cfg, dcfg, clip_norm),
+        lambda: ScratchRun(cfg, dcfg, clip_norm=clip_norm))
 
 
 # ---------------------------------------------------------------------------

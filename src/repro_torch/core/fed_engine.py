@@ -1,0 +1,470 @@
+"""Batched client engines for the federated hot path (port of
+``repro/core/fed_engine.py``).
+
+The per-iteration loop (``fedasync.client_update`` /
+``fedavg.fedavg_round_loop``) launches one step's kernels from the host
+and reads its loss back at every local iteration. These engines run a
+client's H local proximal-SGD iterations as one call (``ClientRun``), a
+burst of clients as one call (``ClientRun.run_batch``) and a whole sync
+round with its weighted average as one call (``SyncRound``). On the card
+each call is captured once into a CUDA graph per round shape and
+replayed after that (``compile_cache.GraphCache``): no host launch and no
+host read inside a round, the counterpart of the reference's
+``lax.scan`` / ``vmap`` programs. On the CPU the same functions run
+eagerly.
+
+Heterogeneous fleets (each device k has its own H^k ∈ [H_min, H_max])
+batch through the *padded* path: every client's batch stack is
+zero-padded to a common H_max (``pad_client_batches``) and a per-client
+iteration count masks the steps: steps with index ≥ H^k leave (params,
+optimizer state) unchanged and emit NaN losses. H^k is a device tensor,
+an input of the graph, so one graph per round shape ``(n_clients, H_max,
+batch...)`` covers every H^k draw.
+
+The clients of a batch run one after another with plain autograd inside
+the one call. ``torch.func.vmap`` over them (grouped convolutions for
+ResNet3D) replays a 4-client round 1.45x faster on the H100, but its first
+call in a process loads ``torch._dynamo``, seconds that hundreds of
+rounds do not win back (PERF.md §6), and the LM losses checkpoint their
+activations, which ``torch.func.grad`` refuses.
+
+``donate`` keywords are kept so that call sites read as the reference's;
+the engines never write into a caller's tensors either way (the batch
+stacks are copied into the graph's inputs, the params are read).
+
+``algorithm=None`` is FedProx, the paper's proximal local SGD; the
+``FedAlgorithm`` layer is ROADMAP Queue 1 item 8, and the step is shaped
+(``StepCtx``, ``fedprox_step``) so that its ``client_step`` can take the
+step's place. The sharded and hierarchical rounds are item 13. The loop
+stays as the parity oracle.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+from repro_torch.core.compile_cache import GraphCache
+from repro_torch.device import batch_to, params_device
+from repro_torch.models import registry
+from repro_torch.optim import (Optimizer, apply_mask, proximal_grad, sgd,
+                               trainable_mask, value_and_grad)
+from repro_torch.types import FedConfig, ModelConfig
+
+
+def _check_algorithm(algorithm) -> None:
+    if algorithm is not None:
+        raise NotImplementedError(
+            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+
+
+def _leaves(stack: dict) -> list:
+    """A batch stack's arrays in key order (the reference's leaf order)."""
+    return [np.asarray(stack[k]) for k in sorted(stack)]
+
+
+def stack_shapes(stack: dict) -> tuple:
+    """A batch stack's keys with each leaf's per-batch shape and dtype:
+    stacks that agree on it pad into one client batch."""
+    return tuple((k, np.shape(stack[k])[1:], np.asarray(stack[k]).dtype.str)
+                 for k in sorted(stack))
+
+
+def stack_client_batches(client_batch_stacks: Sequence[dict]) -> dict:
+    """Stack per-client batch stacks (each leaf (H, ...)) into one dict
+    with a leading client axis (n_clients, H, ...).
+
+    All clients must share H and the batch shapes; raises ValueError
+    otherwise: heterogeneous fleets batch through ``pad_client_batches``.
+    """
+    if not client_batch_stacks:
+        raise ValueError("no client batch stacks")
+    shapes = [tuple(l.shape for l in _leaves(s)) for s in client_batch_stacks]
+    if any(s != shapes[0] for s in shapes[1:]):
+        raise ValueError(
+            f"heterogeneous client batch stacks {shapes}; use "
+            "pad_client_batches to pad per-client H to a common H_max and "
+            "run the padded masked-scan round (one batched call)")
+    return {k: np.stack([np.asarray(s[k]) for s in client_batch_stacks])
+            for k in client_batch_stacks[0]}
+
+
+def pad_client_batches(client_batch_stacks: Sequence, H_max: int | None
+                       = None):
+    """Pad per-client batch stacks (each leaf (H^k, ...)) to a common H_max
+    and stack to (n_clients, H_max, ...).
+
+    Returns ``(stacked, iters)``: ``iters`` is the int32 array of the true
+    H^k, the scan mask. Padding is zeros, which the mask discards. Clients
+    may be empty (``None`` or zero-length stacks) as long as one client
+    has a batch to take shapes from. Keys, trailing shapes and dtypes must
+    agree across clients; raises ValueError otherwise.
+    """
+    if not client_batch_stacks:
+        raise ValueError("no client batch stacks")
+    lens = [0 if not s else int(_leaves(s)[0].shape[0])
+            for s in client_batch_stacks]
+    ref = next((s for s, h in zip(client_batch_stacks, lens) if h), None)
+    if ref is None:
+        raise ValueError("all clients empty; nothing to pad from")
+    if H_max is None:
+        H_max = max(lens)
+    if max(lens) > H_max:
+        raise ValueError(f"client iteration counts {lens} exceed "
+                         f"H_max={H_max}")
+    keys = sorted(ref)
+    trailing = [(l.shape[1:], l.dtype) for l in _leaves(ref)]
+    out = {k: np.zeros((len(lens), H_max) + shp, dt)
+           for k, (shp, dt) in zip(keys, trailing)}
+    for c, (s, h) in enumerate(zip(client_batch_stacks, lens)):
+        if h == 0:
+            continue
+        if sorted(s) != keys:
+            raise ValueError(
+                "client batch stacks disagree on their keys; matching leaf "
+                "shapes cannot substitute for matching keys")
+        flat = _leaves(s)
+        if [(l.shape[1:], l.dtype) for l in flat] != trailing:
+            raise ValueError(
+                "client batch stacks disagree on per-batch shapes/dtypes; "
+                "padding only evens out iteration counts — use the "
+                "per-client fallback for truly ragged batches")
+        for k, l in zip(keys, flat):
+            out[k][c, :h] = l
+    return out, np.asarray(lens, np.int32)
+
+
+def _batch_len(stacked: dict) -> int:
+    return int(stacked[sorted(stacked)[0]].shape[0])
+
+
+def _full_iters(stacked_clients: dict) -> np.ndarray:
+    """(n,) iteration vector for 'every client runs the whole stack'."""
+    n, H = stacked_clients[sorted(stacked_clients)[0]].shape[:2]
+    return np.full((int(n),), int(H), np.int32)
+
+
+def _pad_H(fed: FedConfig, client_stacks) -> int:
+    """Pad target: the config's H_max, stretched if a caller handed in a
+    longer stack, so the padded graph's shape stays the same whatever H^k
+    is drawn."""
+    return max(fed.local_iters_max,
+               max((_batch_len(s) for s in client_stacks if s), default=0))
+
+
+def _index(tree: dict, i) -> dict:
+    return {k: v[i] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# The local step
+# ---------------------------------------------------------------------------
+
+class StepCtx(NamedTuple):
+    """What a local step reads besides its carry and batch (the
+    reference's ``algorithms.StepCtx`` without the server context)."""
+    value_and_grad: object      # (params, batch) -> (loss, grads)
+    opt: Optimizer
+    anchor: dict                # the received global model
+    mask: dict                  # trainable mask, per leaf
+    fed: FedConfig
+
+
+def fedprox_step(ctx: StepCtx, carry, batch):
+    """One proximal local SGD iteration, exactly
+    ``fedasync.make_client_step``'s: gradients, the proximal term, the
+    trainable mask, then SGD. ``carry`` is (params, opt_state); returns
+    (new_carry, loss)."""
+    params, opt_state = carry
+    loss, grads = ctx.value_and_grad(params, batch)
+    grads = proximal_grad(grads, params, ctx.anchor, ctx.fed.prox_theta)
+    grads = apply_mask(grads, ctx.mask)
+    return ctx.opt.update(grads, opt_state, params), loss
+
+
+def _where(active, new, old):
+    """``new`` where ``active`` (a 0-d bool tensor), else ``old``, over
+    the carry's dicts and tuples; other leaves (the step count) from
+    ``new``."""
+    if isinstance(new, dict):
+        return {k: _where(active, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return type(new)(_where(active, a, b) for a, b in zip(new, old))
+    if isinstance(new, torch.Tensor):
+        return torch.where(active, new, old)
+    return new
+
+
+class ClientRun:
+    """A client's H local steps in one call.
+
+    ``engine(params_global, stacked, mask=None)`` -> ``(w_new, losses)``
+    where ``stacked`` is a batch dict with leading axis H
+    (``data.stack_batches``) and ``losses`` is an (H,) tensor: the only
+    host read a caller pays is reading it. One graph per H.
+
+    ``run_batch(params_global, client_stacks, iters)`` is the padded
+    batched variant: many clients with different H^k in one call,
+    returning ``(w_news, losses)`` with leading client axes (no
+    aggregation: the async simulator runs every dispatch through it,
+    padded to ``fed.local_iters_max``; ``SyncRound`` adds the weighted
+    average). One graph per (m, H_max) burst shape.
+    """
+
+    def __init__(self, cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
+                 algorithm=None):
+        _check_algorithm(algorithm)
+        self.cfg = cfg
+        self.fed = fed
+        self.loss_kwargs = dict(loss_kwargs or {})
+        self.opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
+        self._graphs = GraphCache()
+
+    def _task_loss(self, params, batch):
+        return registry.loss_fn(params, self.cfg, batch,
+                                **self.loss_kwargs)[0]
+
+    def _ctx(self, anchor, mask) -> StepCtx:
+        def vg(p, b):
+            return value_and_grad(lambda q: self._task_loss(q, b), p)
+        return StepCtx(vg, self.opt, anchor, mask, self.fed)
+
+    def _scan(self, ctx: StepCtx, params_global, stacked, n_iters=None):
+        """H steps over ``stacked`` from ``params_global`` with a fresh
+        optimizer state; with ``n_iters`` (a 0-d int tensor) the steps
+        from index ``n_iters`` on leave the carry unchanged and emit
+        NaN."""
+        stacked = batch_to(stacked, params_device(params_global))
+        carry = (params_global, self.opt.init(params_global))
+        losses = []
+        for i in range(_batch_len(stacked)):
+            new, loss = fedprox_step(ctx, carry, _index(stacked, i))
+            if n_iters is not None:
+                active = i < n_iters
+                new = _where(active, new, carry)
+                loss = torch.where(active, loss, math.nan)
+            carry = new
+            losses.append(loss)
+        return carry[0], torch.stack(losses)
+
+    def _run(self, params_global, stacked, mask):
+        return self._scan(self._ctx(params_global, mask), params_global,
+                          stacked)
+
+    def _clients(self, params_global, stacked_clients, mask, iters=None):
+        """Every client's scan from the same anchor, one after another:
+        (w_news, losses) with a leading client axis. ``iters`` (an (n,)
+        int tensor) masks each client's steps."""
+        device = params_device(params_global)
+        stacked_clients = batch_to(stacked_clients, device)
+        if iters is not None:
+            iters = torch.as_tensor(iters, device=device)
+        ctx = self._ctx(params_global, mask)
+        outs = [self._scan(ctx, params_global, _index(stacked_clients, c),
+                           None if iters is None else iters[c])
+                for c in range(_batch_len(stacked_clients))]
+        return ({k: torch.stack([w[k] for w, _ in outs])
+                 for k in params_global},
+                torch.stack([l for _, l in outs]))
+
+    @property
+    def num_compiled(self) -> int:
+        """Distinct round shapes run: one per H on the unpadded path, one
+        per (n_clients, H_max) on the padded one, whatever the H^k."""
+        return self._graphs.num_compiled
+
+    def __call__(self, params_global, stacked, mask=None, donate=False):
+        if mask is None:
+            mask = trainable_mask(params_global, self.fed.trainable)
+        return self._graphs.call("run", self._run,
+                                 (params_global, stacked, mask))
+
+    def run_batch(self, params_global, client_stacks, iters=None, mask=None,
+                  donate=None):
+        """``client_stacks``: a sequence of per-client batch stacks
+        (padded here by ``pad_client_batches``) or a client-stacked dict
+        with (n_clients, H_max, ...) leaves plus ``iters``. Returns
+        ``(w_news, losses)`` with leading client axes; loss rows are NaN
+        beyond each client's H^k."""
+        if isinstance(client_stacks, (list, tuple)):
+            client_stacks, lens = pad_client_batches(
+                client_stacks, H_max=_pad_H(self.fed, client_stacks))
+            if iters is None:
+                iters = lens
+        if iters is None:
+            iters = _full_iters(client_stacks)
+        if mask is None:
+            mask = trainable_mask(params_global, self.fed.trainable)
+        return self._graphs.call(
+            "batch", self._clients,
+            (params_global, client_stacks, mask,
+             np.asarray(iters, np.int32)))
+
+    def unstack(self, stacked: dict, n: int) -> tuple:
+        """Split a client-stacked dict (leaves (n, ...)) into n per-client
+        dicts of views: no copy and no launch (the engine's outputs are
+        already out of the graph's memory)."""
+        return tuple(_index(stacked, j) for j in range(n))
+
+
+_ENGINE_CACHE: dict = {}
+_ENGINE_CACHE_MAX = 32      # FIFO-bounded: engines hold captured graphs
+
+
+def _engine_key(kind, cfg: ModelConfig, fed: FedConfig, loss_kwargs):
+    """Cache key over the fields that shape the client program. Server-
+    side knobs (mixing_beta, staleness_a, ...) do not: two sweeps that
+    differ only there share engines."""
+    lk = tuple(sorted((loss_kwargs or {}).items()))
+    key = (kind, cfg, fed.lr, fed.momentum, fed.weight_decay,
+           fed.prox_theta, fed.trainable, lk, "fedprox")
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def cached_engine(key, build):
+    """FIFO-bounded engine memo shared across subsystems (the fed engines
+    through ``_engine_key``; ``core.distill`` brings its own keys).
+    ``key=None`` or an unhashable key builds afresh."""
+    if key is not None:
+        try:
+            hash(key)
+        except TypeError:
+            key = None
+    if key is None:
+        return build()
+    if key not in _ENGINE_CACHE:
+        while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
+            _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+        _ENGINE_CACHE[key] = build()
+    return _ENGINE_CACHE[key]
+
+
+def make_client_run(cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
+                    algorithm=None) -> ClientRun:
+    """The engine replacing the per-iteration step loop, memoized on the
+    client-relevant config fields so repeated runs reuse their graphs."""
+    _check_algorithm(algorithm)
+    return cached_engine(_engine_key("client", cfg, fed, loss_kwargs),
+                         lambda: ClientRun(cfg, fed, loss_kwargs))
+
+
+def _weighted_params(w_news: dict, weights, params_global: dict) -> dict:
+    """einsum over the client axis, accumulated in f32, cast back."""
+    return {k: torch.einsum("c,c...->...", weights,
+                            w_news[k].float()).to(p.dtype)
+            for k, p in params_global.items()}
+
+
+class SyncRound:
+    """A FedAvg round in one call: every client's local run, then the
+    weighted average.
+
+    ``round(params_global, client_stacks, weights, mask=None, iters=None)``
+    -> ``(new_global, losses (n_clients, H))``. ``client_stacks`` is a
+    sequence of per-client batch stacks (stacked, or padded when their
+    H^k differ) or a client-stacked dict with leading (n_clients, H)
+    axes. With ``iters`` the padded masked round runs: NaN losses past
+    each client's budget, one graph per round shape whatever the H^k.
+    """
+
+    def __init__(self, cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
+                 algorithm=None):
+        # the memoized ClientRun: async dispatches and the sync round's
+        # clients share one step
+        self.client = make_client_run(cfg, fed, loss_kwargs,
+                                      algorithm=algorithm)
+        self.fed = fed
+        self._graphs = GraphCache()
+
+    def _rnd(self, params_global, stacked_clients, weights, mask):
+        w_news, losses = self.client._clients(params_global,
+                                              stacked_clients, mask)
+        return self._average(w_news, weights, params_global), losses
+
+    def _rnd_padded(self, params_global, stacked_clients, weights, iters,
+                    mask):
+        w_news, losses = self.client._clients(params_global, stacked_clients,
+                                              mask, iters)
+        return self._average(w_news, weights, params_global), losses
+
+    @staticmethod
+    def _average(w_news, weights, params_global):
+        weights = torch.as_tensor(weights,
+                                  device=params_device(params_global))
+        return _weighted_params(w_news, weights, params_global)
+
+    @property
+    def num_compiled(self) -> int:
+        """Distinct round shapes run: one per (n_clients, H)."""
+        return self._graphs.num_compiled
+
+    def _prep(self, params_global, client_stacks, weights, mask, iters):
+        if isinstance(client_stacks, (list, tuple)):
+            try:
+                client_stacks = stack_client_batches(client_stacks)
+            except ValueError:
+                client_stacks, lens = pad_client_batches(
+                    client_stacks, H_max=_pad_H(self.fed, client_stacks))
+                if iters is None:   # caller-supplied H^k wins over lens
+                    iters = lens
+        n = _batch_len(client_stacks)
+        if weights is None:
+            weights = np.full((n,), 1.0 / n, np.float32)
+        else:
+            weights = np.asarray(weights, np.float32)
+        if mask is None:
+            mask = trainable_mask(params_global, self.fed.trainable)
+        return client_stacks, weights, mask, iters
+
+    def __call__(self, params_global, client_stacks, weights=None,
+                 mask=None, iters=None, donate=None,
+                 donate_params: bool = False):
+        client_stacks, weights, mask, iters = self._prep(
+            params_global, client_stacks, weights, mask, iters)
+        if iters is None:
+            return self._graphs.call(
+                "rnd", self._rnd,
+                (params_global, client_stacks, weights, mask))
+        return self._graphs.call(
+            "pad", self._rnd_padded,
+            (params_global, client_stacks, weights,
+             np.asarray(iters, np.int32), mask))
+
+
+def make_sync_round(cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
+                    algorithm=None) -> SyncRound:
+    """The round engine replacing fedavg's per-client loop, memoized like
+    ``make_client_run``."""
+    _check_algorithm(algorithm)
+    return cached_engine(_engine_key("sync", cfg, fed, loss_kwargs),
+                         lambda: SyncRound(cfg, fed, loss_kwargs))
+
+
+def _multi_device(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the sharded and hierarchical rounds are ROADMAP Queue 1 "
+        "item 13")
+
+
+class ShardedSyncRound(SyncRound):
+    """The sync round with its client axis split over devices: ROADMAP
+    Queue 1 item 13."""
+
+    def __init__(self, *args, **kwargs):
+        raise _multi_device("ShardedSyncRound")
+
+
+def make_sharded_sync_round(cfg: ModelConfig, fed: FedConfig, mesh=None,
+                            loss_kwargs=None, algorithm=None):
+    raise _multi_device("make_sharded_sync_round")
+
+
+def make_hierarchical_sync_round(cfg: ModelConfig, fed: FedConfig,
+                                 mesh=None, edges: int | None = None,
+                                 loss_kwargs=None, algorithm=None):
+    raise _multi_device("make_hierarchical_sync_round")

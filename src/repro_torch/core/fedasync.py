@@ -1,7 +1,9 @@
 """Asynchronous federated optimization (paper Algorithm 1).
 
-Port of ``repro/core/fedasync.py``, the per-iteration loop kept as the
-port's own oracle.
+Port of ``repro/core/fedasync.py``: the server's mix, one receive at a
+time or a group in one call (``make_batched_server_update``), and the
+client's per-iteration loop, kept as the oracle of the batched engines
+(``core/fed_engine.py``).
 
 Server: on receiving (w_new, τ) from any client at global epoch t,
     β_t = β · s(t - τ),   s(x) = (1 + x)^{-a}        (paper §V-C)
@@ -18,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.compile_cache import GraphCache
 from repro_torch.device import batch_to, params_device
 from repro_torch.models import registry
 from repro_torch.optim import (apply_mask, proximal_grad, sgd,
@@ -60,6 +63,34 @@ def _mix(params: dict, w_new: dict, beta_t: float) -> dict:
             for k, a in params.items()}
 
 
+def _mix_many_impl(params: dict, betas, *w_news) -> dict:
+    """m receives applied in order, each exactly ``_mix``'s arithmetic
+    (1-β and β in f32, f32 accumulate, cast back per receive)."""
+    betas = torch.as_tensor(betas, device=params_device(params))
+    for i, w_new in enumerate(w_news):
+        b = betas[i]
+        params = {k: ((1.0 - b) * a.float() + b * w_new[k].float()).to(a.dtype)
+                  for k, a in params.items()}
+    return params
+
+
+# one graph per group size m (and params signature), shared by every
+# FedConfig: the mix reads no config field
+_GRAPHS = GraphCache()
+
+
+def _mix_many(params: dict, betas, *w_news) -> dict:
+    return _GRAPHS.call("mix_many", _mix_many_impl,
+                        (params, np.asarray(betas, np.float32)) + w_news)
+
+
+def make_batched_server_update(fed: FedConfig):
+    """The fused mix of a group of receives: ``(w, βs, *w_news) -> w``, the
+    m mixes in order in one call, with no host read between them; replayed
+    as one CUDA graph per group size on the card. Config-independent."""
+    return _mix_many
+
+
 def group_mixing_weights(fed: FedConfig, t: int, taus):
     """(staleness, β_t) for each of a group of receives applied in order:
     the i-th lands at global epoch t + i, so its staleness is
@@ -81,15 +112,22 @@ def server_receive(state: ServerState, w_new, tau: int,
                        t=state.t + 1, total_updates=state.total_updates + 1)
 
 
-def server_receive_many(state: ServerState, updates, fed: FedConfig):
-    """Apply a group of receives ``[(w_new, τ), ...]`` in order: exactly m
-    chained ``server_receive`` calls. Returns ``(new_state, stalenesses,
-    betas)``."""
+def server_receive_many(state: ServerState, updates, fed: FedConfig,
+                        mix_many=None):
+    """Apply a group of receives ``[(w_new, τ), ...]`` in order: m chained
+    ``server_receive`` calls. A singleton stays on the scalar mix (so
+    ``window=0`` is the event-by-event loop); a group of m ≥ 2 goes to
+    ``mix_many`` (default ``make_batched_server_update(fed)``) as one
+    call. Returns ``(new_state, stalenesses, betas)``."""
     stals, betas = group_mixing_weights(fed, state.t,
                                         [tau for _, tau in updates])
-    params = state.params
-    for (w_new, _), beta in zip(updates, betas):
-        params = _mix(params, w_new, beta)
+    if len(updates) == 1:
+        params = _mix(state.params, updates[0][0], betas[0])
+    else:
+        if mix_many is None:
+            mix_many = make_batched_server_update(fed)
+        params = mix_many(state.params, betas,
+                          *[w_new for w_new, _ in updates])
     return (ServerState(params=params, t=state.t + len(updates),
                         total_updates=state.total_updates + len(updates)),
             stals, betas)

@@ -1,22 +1,30 @@
 """Synchronous FedAvg baseline (McMahan et al. [30]; paper baseline #2).
 
-Port of ``repro/core/fedavg.py`` through the per-client loop. Each round
-every client runs up to ``fed.local_iters_max`` local steps from the
-current global model; the server replaces the model with the (data-size)
-weighted average. The wall clock of a round is its slowest client
-(``core/simulator.py::run_sync``): the straggler penalty the async variant
-removes.
+Port of ``repro/core/fedavg.py``. Each round every client runs up to
+``fed.local_iters_max`` local steps from the current global model; the
+server replaces the model with the (data-size) weighted average. The wall
+clock of a round is its slowest client (``core/simulator.py::run_sync``):
+the straggler penalty the async variant removes.
 
-Still to be ported: the batched round (``engine`` other than ``"loop"``,
-ROADMAP Queue 1 item 7) and the ``algorithm=`` layer (item 8).
+``fedavg_round`` runs the whole round as one ``fed_engine.SyncRound``
+call (one CUDA graph replay per round shape on the card). Clients with
+different batch counts H^k, including zero (out of data), pad to H_max
+and run the masked round; only batch shapes that disagree drop to the
+per-client fallback (``_ragged_fallback``). ``fedavg_round_loop`` is the
+per-client, per-iteration loop, kept as the parity oracle. The
+``algorithm=`` layer is ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.core import fed_engine
 from repro_torch.core.fedasync import make_client_step
+from repro_torch.data import stack_batches
 from repro_torch.optim import trainable_mask
 from repro_torch.types import FedConfig, ModelConfig
 
@@ -75,15 +83,131 @@ def fedavg_round_loop(params_global, client_batches: Sequence,
 
 
 def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
-                 fed: FedConfig, engine="loop", mask=None,
-                 data_sizes: Sequence[int] | None = None, algorithm=None):
-    """One synchronous round. ``engine="loop"`` is ``fedavg_round_loop``,
-    the only engine ported; returns (new_global_params, per_client_losses).
+                 fed: FedConfig, engine=None, mask=None,
+                 data_sizes: Sequence[int] | None = None,
+                 donate_params: bool = False, algorithm=None):
+    """One synchronous round as one batched call.
+
+    ``client_batches``: per-client iterables of batches; each is taken to
+    at most H = ``fed.local_iters_max`` batches and all clients run
+    together. Returns (new_global_params, per_client_losses), the losses
+    as lists of floats (H^k per client) read back once, as the loop
+    oracle returns them. Equal counts take the plain round, unequal ones
+    the padded masked round; batch shapes that disagree within or across
+    clients drop to ``_ragged_fallback``.
+
+    ``engine``: a ``fed_engine.SyncRound``, ``None`` (the memoized
+    default), or an ``fleet.EngineSpec`` / its string ("loop" routes to
+    ``fedavg_round_loop``; "shard" and "hier" are ROADMAP Queue 1 item
+    13). ``donate_params`` is the reference's keyword; the port never
+    writes into ``params_global``.
     """
-    if engine != "loop":
+    if algorithm is not None:
         raise NotImplementedError(
-            f"engine={engine!r}: the port has the per-client loop only; the "
-            "batched round is ROADMAP Queue 1 item 7")
-    return fedavg_round_loop(params_global, client_batches, cfg, fed,
-                             mask=mask, data_sizes=data_sizes,
-                             algorithm=algorithm)
+            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    if engine is not None and not isinstance(engine, fed_engine.SyncRound):
+        from repro_torch.core.fleet import EngineSpec
+        engine = EngineSpec.from_str(engine).build_sync(cfg, fed)
+        if engine is None:                  # EngineSpec.LOOP
+            return fedavg_round_loop(params_global, client_batches, cfg,
+                                     fed, mask=mask, data_sizes=data_sizes)
+    # materialize up to H batches per client first: iterators may be
+    # generators, so raggedness must be detected before anything is lost
+    client_lists = [list(itertools.islice(b, fed.local_iters_max))
+                    for b in client_batches]
+    sigs = {_batch_sig(b) for bl in client_lists for b in bl}
+    counts = [len(bl) for bl in client_lists]
+    if client_lists and len(sigs) == 1:
+        if engine is None:
+            engine = fed_engine.make_sync_round(cfg, fed)
+        if min(counts) == max(counts) > 0:
+            # straight to (n_clients, H, ...): one host copy
+            stacked = {k: np.stack([[b[k] for b in bl]
+                                    for bl in client_lists])
+                       for k in client_lists[0][0]}
+            new_global, losses = engine(
+                params_global, stacked,
+                weights=_client_weights(len(client_lists), data_sizes),
+                mask=mask, donate=True, donate_params=donate_params)
+            return new_global, losses.cpu().numpy().tolist()
+        return _padded_round(params_global, client_lists, cfg, fed, engine,
+                             mask, data_sizes, donate_params)
+    return _ragged_fallback(params_global, client_lists, cfg, fed, engine,
+                            mask, data_sizes)
+
+
+def _batch_sig(b):
+    return tuple(sorted((k, np.shape(v), str(np.asarray(v).dtype))
+                        for k, v in b.items()))
+
+
+def _padded_round(params_global, client_lists, cfg, fed, engine, mask,
+                  data_sizes, donate_params=False):
+    """Heterogeneous-H round as one padded masked call: batches written
+    straight into one zero-initialized (n_clients, H_max, ...) array per
+    key, the true H^k as the mask. Empty clients run zero steps and add
+    the unchanged global to the average, as in the loop oracle."""
+    ref = next(b for bl in client_lists for b in bl)
+    n = len(client_lists)
+    H_max = max(fed.local_iters_max, max(len(bl) for bl in client_lists))
+    iters = np.asarray([len(bl) for bl in client_lists], np.int32)
+    stacked = {}
+    for k, v in ref.items():
+        out = np.zeros((n, H_max) + np.shape(v), np.asarray(v).dtype)
+        for c, bl in enumerate(client_lists):
+            for i, b in enumerate(bl):
+                out[c, i] = b[k]
+        stacked[k] = out
+    if engine is None:
+        engine = fed_engine.make_sync_round(cfg, fed)
+    new_global, losses = engine(params_global, stacked,
+                                weights=_client_weights(n, data_sizes),
+                                mask=mask, iters=iters, donate=True,
+                                donate_params=donate_params)
+    losses = losses.cpu().numpy()
+    return new_global, [[float(x) for x in row[:h]]
+                        for row, h in zip(losses, iters)]
+
+
+def _ragged_fallback(params_global, client_lists, cfg, fed, engine, mask,
+                     data_sizes, algorithm=None):
+    """Per-client runs and the weighted average when no batched call can
+    form (batch shapes disagree): stackable clients run on the client
+    engine, ragged ones on the per-iteration step loop, empty ones return
+    the global model."""
+    if algorithm is not None:
+        raise NotImplementedError(
+            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    # the round engine's client (and its graphs) when one was given
+    run = engine.client if engine is not None \
+        else fed_engine.make_client_run(cfg, fed)
+    if mask is None:
+        mask = trainable_mask(params_global, fed.trainable)
+    results, losses = [], []
+    for bl in client_lists:
+        if not bl:                          # client out of data
+            results.append(params_global)
+            losses.append([])
+            continue
+        try:
+            s = stack_batches(bl)
+        except ValueError:                  # ragged shapes within client
+            s = None
+        if s is None:
+            step, opt = make_client_step(cfg, fed)
+            params = params_global
+            opt_state = opt.init(params)
+            cl = []
+            for batch in bl:
+                params, opt_state, loss = step(params, opt_state,
+                                               params_global, batch, mask)
+                cl.append(float(loss))
+            results.append(params)
+            losses.append(cl)
+        else:
+            w_new, ls = run(params_global, s, mask=mask)
+            results.append(w_new)
+            losses.append(ls.cpu().numpy().tolist())
+    return (weighted_average(results,
+                             _client_weights(len(results), data_sizes)),
+            losses)

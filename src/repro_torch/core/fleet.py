@@ -1,14 +1,15 @@
 """Client fleets (port of the resident half of ``repro/core/fleet.py``).
 
 ``Fleet.from_lists`` holds an explicit small fleet: one ``DeviceProfile``
-and one re-startable loader per client (the paper's four Jetsons). The
-streaming ``FleetSpec`` populations and ``EngineSpec`` are still to be
-ported (ROADMAP Queue 1 item 9).
+and one re-startable loader per client (the paper's four Jetsons).
+``EngineSpec`` is the one definition of the engine knob. The streaming
+``FleetSpec`` populations are still to be ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +37,70 @@ JETSON_FLEET_UCF101 = (
     DeviceProfile("jetson-xavier-nx", 821.9, 322.5),
     DeviceProfile("jetson-agx-xavier", 572.1, 217.7),
 )
+
+
+# ---------------------------------------------------------------------------
+# EngineSpec — the single definition of the engine knob
+# ---------------------------------------------------------------------------
+
+class EngineSpec(enum.Enum):
+    """Client-execution engine selector.
+
+    SCAN   the batched engines (``core/fed_engine.py``): a client's H local
+           steps, a burst of clients or a whole sync round as one call,
+           replayed as one CUDA graph per round shape on the card — the
+           default everywhere.
+    LOOP   per-iteration dispatch loop; the parity oracle.
+    SHARD  SCAN with the sync round's client axis split over devices
+           (sync only; ROADMAP Queue 1 item 13).
+    HIER   SCAN over a two-level edge / clients mesh (sync only; item 13).
+    """
+
+    SCAN = "scan"
+    LOOP = "loop"
+    SHARD = "shard"
+    HIER = "hier"
+
+    @classmethod
+    def from_str(cls, value, allowed: Optional[Tuple["EngineSpec", ...]]
+                 = None) -> "EngineSpec":
+        """Validate ``value`` (a string or an EngineSpec) into a member;
+        ``allowed`` restricts the accepted subset, and the error names the
+        valid options."""
+        if isinstance(value, cls):
+            spec = value
+        else:
+            try:
+                spec = cls(value)
+            except ValueError:
+                raise ValueError(
+                    f"engine must be one of "
+                    f"{[m.value for m in cls]}, got {value!r}") from None
+        if allowed is not None and spec not in allowed:
+            raise ValueError(
+                f"engine {spec.value!r} not supported here; valid options: "
+                f"{[m.value for m in allowed]}")
+        return spec
+
+    def build_sync(self, cfg, fed, mesh=None, algorithm=None):
+        """The sync-round engine for this member (None for LOOP: the
+        caller owns the per-iteration oracle path)."""
+        from repro_torch.core import fed_engine
+        if self is EngineSpec.SCAN:
+            return fed_engine.make_sync_round(cfg, fed, algorithm=algorithm)
+        if self is EngineSpec.SHARD:
+            return fed_engine.make_sharded_sync_round(cfg, fed, mesh=mesh,
+                                                      algorithm=algorithm)
+        if self is EngineSpec.HIER:
+            return fed_engine.make_hierarchical_sync_round(
+                cfg, fed, mesh=mesh, algorithm=algorithm)
+        return None
+
+
+# engine subsets accepted by the two simulator entry points
+SYNC_ENGINES = (EngineSpec.SCAN, EngineSpec.LOOP, EngineSpec.SHARD,
+                EngineSpec.HIER)
+ASYNC_ENGINES = (EngineSpec.SCAN, EngineSpec.LOOP)
 
 
 class Fleet:

@@ -1,17 +1,19 @@
 """Event-driven simulator of the heterogeneous embedded-device fleet.
 
 Port of ``repro/core/simulator.py``: asynchronous mode (paper Algorithm 1)
-and the synchronous FedAvg baseline, both through the per-iteration client
-loop, and the analytic sync-vs-async model of Table II. The paper's
-testbed is four Jetson types whose per-epoch times differ by up to 4.7×;
-the simulator advances a virtual clock from those measured times while
-running real updates. The clock is host-side numpy drawn in the
-reference's order, so ``wall_clock_s``, the staleness and group
-histograms and the trace equal the reference's exactly.
+and the synchronous FedAvg baseline, on the batched engines
+(``engine="scan"``, the default: ``core/fed_engine.py``, CUDA graphs on
+the card) or the per-iteration loop (``"loop"``, the oracle), and the
+analytic sync-vs-async model of Table II. The paper's testbed is four
+Jetson types whose per-epoch times differ by up to 4.7×; the simulator
+advances a virtual clock from those measured times while running real
+updates. The clock is host-side numpy drawn in the reference's order, so
+``wall_clock_s``, the staleness and group histograms and the trace equal
+the reference's exactly, on either engine.
 
-Still to be ported: the batched engines (``engine`` other than ``"loop"``,
-ROADMAP Queue 1 item 7), ``algorithm=`` (item 8), compressed updates
-(item 6) and streaming fleets (item 9).
+Still to be ported: ``algorithm=`` (ROADMAP Queue 1 item 8), compressed
+updates (item 6), streaming fleets (item 9) and the sharded and
+hierarchical engines (item 13).
 """
 from __future__ import annotations
 
@@ -22,9 +24,11 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core import fedasync, fedavg
+from repro_torch.core import fed_engine, fedasync, fedavg
 from repro_torch.core.fedasync import ServerState
-from repro_torch.core.fleet import DeviceProfile, Fleet
+from repro_torch.core.fleet import (ASYNC_ENGINES, SYNC_ENGINES,
+                                    DeviceProfile, EngineSpec, Fleet)
+from repro_torch.data import stack_batches
 from repro_torch.device import resolve_device
 from repro_torch.optim import trainable_mask
 from repro_torch.types import FedConfig, ModelConfig
@@ -125,35 +129,44 @@ class Scheduler:
         return group
 
 
-def _check_ported(engine: str, algorithm, fleet) -> None:
-    if engine != "loop":
+def _check_ported(engine, allowed, algorithm, fleet) -> EngineSpec:
+    espec = EngineSpec.from_str(engine, allowed=allowed)
+    if espec in (EngineSpec.SHARD, EngineSpec.HIER):
         raise NotImplementedError(
-            f"engine={engine!r}: the port has the per-iteration loop only; "
-            "the batched scan/vmap engine is ROADMAP Queue 1 item 7")
+            f"engine={espec.value!r}: the sharded and hierarchical rounds "
+            "are ROADMAP Queue 1 item 13")
     if algorithm is not None:
         raise NotImplementedError(
             "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
     if not isinstance(fleet, Fleet):
         raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
                         "FleetSpec populations are ROADMAP Queue 1 item 9")
+    return espec
 
 
 def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
               iters_per_epoch: int = 1, jitter: float = 0.0,
               eval_fn: Optional[Callable] = None, eval_every: int = 10,
-              engine: str = "loop", window: float = 0.0,
+              engine="scan", window: float = 0.0,
               window_policy: str = "skip", algorithm=None,
               device=None) -> SimResult:
     """Virtual-clock run of asynchronous federated learning.
 
-    Each dispatch runs the client's H^k local iterations now
-    (``fedasync.client_update``) and queues its receive at the virtual
-    finish time; receives drain in ``Scheduler.pop_window`` groups and
-    mix into the server in order (``fedasync.server_receive_many``).
+    Each dispatch runs the client's H^k local iterations now and queues
+    its receive at the virtual finish time; receives drain in
+    ``Scheduler.pop_window`` groups and mix into the server in order
+    (``fedasync.server_receive_many``, a group of m ≥ 2 in one call).
     ``fed.clients_per_round`` > 0 keeps that many clients in flight,
     sampling replacements from the rest of the population.
+
+    ``engine="scan"`` (default) runs every dispatch, a lone one or a
+    burst of concurrent ones (the kickoff, and with ``window`` > 0 each
+    group's re-dispatches), as one ``run_batch`` padded to
+    ``fed.local_iters_max`` with one host read of the losses; on the card
+    each burst size is one CUDA graph whatever the H^k. ``"loop"`` is the per-iteration oracle
+    (``fedasync.client_update``). The virtual clock is the same on both.
     """
-    _check_ported(engine, algorithm, fleet)
+    espec = _check_ported(engine, ASYNC_ENGINES, algorithm, fleet)
     if fed.compress_bits:
         raise NotImplementedError(
             "fed.compress_bits: compressed updates are ROADMAP Queue 1 "
@@ -163,8 +176,12 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     params0 = {k: v.to(device) for k, v in params0.items()}
     rng = np.random.default_rng(fed.seed)
     sample_rng = np.random.default_rng((fed.seed, 0xA51C))
-    step, opt = fedasync.make_client_step(cfg, fed)
+    if espec is EngineSpec.SCAN:
+        run = fed_engine.make_client_run(cfg, fed)
+    else:
+        step, opt = fedasync.make_client_step(cfg, fed)
     mask = trainable_mask(params0, fed.trainable)
+    mix_many = fedasync.make_batched_server_update(fed)
     server = ServerState(params=params0, t=0)
 
     H: dict = {}
@@ -176,18 +193,50 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     staleness_hist: dict = {}
     group_hist: dict = {}
 
+    def _run_clients(ks) -> dict:
+        """{k: (w_new, losses)} for clients ``ks`` from the current server
+        model. On the scan engine every dispatch, lone or a burst, is one
+        ``run_batch`` padded to ``fed.local_iters_max``, so one program
+        per burst size covers every H^k; clients whose batch shapes
+        differ run as bursts of their own."""
+        results = {}
+        if espec is EngineSpec.LOOP:
+            for k in ks:
+                w_new, _, losses = fedasync.client_update(
+                    server.params, server.t, fleet.data(k)(), cfg, fed,
+                    step=step, opt=opt, mask=mask, num_iters=H[k])
+                results[k] = (w_new, losses)
+            return results
+        bursts: dict = {}
+        for k in ks:
+            stack = stack_batches(fleet.data(k)(), limit=H[k])
+            if stack is None:                        # client out of data
+                results[k] = (server.params, [])
+            else:
+                bursts.setdefault(fed_engine.stack_shapes(stack),
+                                  []).append((k, stack))
+        for burst in bursts.values():
+            padded, iters = fed_engine.pad_client_batches(
+                [stack for _, stack in burst], H_max=fed.local_iters_max)
+            w_news, loss_arr = run.run_batch(server.params, padded, iters,
+                                             mask=mask, donate=True)
+            la = loss_arr.cpu().numpy()              # one host read
+            for j, ((k, _), w) in enumerate(zip(burst, run.unstack(
+                    w_news, len(burst)))):
+                results[k] = (w, [float(la[j, iters[j] - 1])])
+        return results
+
     def dispatch(ks, now: float):
         tau = server.t
         for k in ks:
             if k not in H:
                 H[k] = fleet.iters(k, fed)
             inflight.add(k)
+        # the local training runs NOW (numerically); its finish time is
+        # virtual
+        results = _run_clients(ks)
         for k in ks:
-            # the local training runs NOW (numerically); its finish time
-            # is virtual
-            w_new, _, losses = fedasync.client_update(
-                server.params, server.t, fleet.data(k)(), cfg, fed,
-                step=step, opt=opt, mask=mask, num_iters=H[k])
+            w_new, losses = results[k]
             dt = _client_time(fleet.profile(k), H[k], iters_per_epoch, rng,
                               jitter)
             sched.push(now + dt, k, w_new, tau,
@@ -206,7 +255,8 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
                                  fed.global_epochs - server.t)
         t0 = server.t
         server, stals, betas = fedasync.server_receive_many(
-            server, [(w_new, tau) for _, _, w_new, tau, _ in group], fed)
+            server, [(w_new, tau) for _, _, w_new, tau, _ in group], fed,
+            mix_many=mix_many)
         for i, ((ft, k, _, _, loss), st, bt) in enumerate(
                 zip(group, stals, betas)):
             now = ft
@@ -245,8 +295,7 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
 def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
              iters_per_epoch: int = 1, jitter: float = 0.0,
              eval_fn: Optional[Callable] = None, eval_every: int = 10,
-             engine: str = "loop", algorithm=None,
-             device=None) -> SimResult:
+             engine="scan", algorithm=None, device=None) -> SimResult:
     """Virtual-clock synchronous FedAvg: each round costs the slowest of
     its clients' ``fed.local_iters_max`` local iterations.
 
@@ -254,14 +303,22 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     without replacement and releases them after it; a round then stands
     for m global epochs, so ``rounds = max(global_epochs // m, 1)``. 0
     runs the whole population every round.
+
+    ``engine="scan"`` (default) runs every round as one ``SyncRound``
+    call (a CUDA graph replay on the card); ``"loop"`` is the per-client
+    oracle; ``"shard"`` and ``"hier"`` are ROADMAP Queue 1 item 13.
     """
-    _check_ported(engine, algorithm, fleet)
+    espec = _check_ported(engine, SYNC_ENGINES, algorithm, fleet)
     fleet.check(fed)
     device = resolve_device(device)
     params = {k: v.to(device) for k, v in params0.items()}
     rng = np.random.default_rng(fed.seed)
     sample_rng = np.random.default_rng((fed.seed, 0x5A3D))
-    step, opt = fedasync.make_client_step(cfg, fed)
+    if espec is EngineSpec.LOOP:
+        step, opt = fedasync.make_client_step(cfg, fed)
+        round_engine = None
+    else:
+        round_engine = espec.build_sync(cfg, fed)
     mask = trainable_mask(params, fed.trainable)
     now = 0.0
     history, trace = [], []
@@ -273,8 +330,13 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
         else:
             ids = list(range(fleet.population))
         batches = [fleet.data(k)() for k in ids]
-        params, losses = fedavg.fedavg_round_loop(
-            params, batches, cfg, fed, step=step, opt=opt, mask=mask)
+        if round_engine is not None:
+            params, losses = fedavg.fedavg_round(
+                params, batches, cfg, fed, engine=round_engine, mask=mask,
+                donate_params=True)
+        else:
+            params, losses = fedavg.fedavg_round_loop(
+                params, batches, cfg, fed, step=step, opt=opt, mask=mask)
         dt = max(_client_time(fleet.profile(k), fed.local_iters_max,
                               iters_per_epoch, rng, jitter)
                  for k in ids)

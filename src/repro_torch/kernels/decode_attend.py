@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
@@ -30,7 +30,6 @@ MAX_G = 16
 @functools.cache
 def _lib():
     """The bound C entry points, built and loaded at first launch."""
-    from repro_torch.kernels import build
     lib = build.load("decode_attend")
     for name, n_ints in (("ring_decode_attend_fwd", 5),
                          ("extent_decode_attend_fwd", 6)):
@@ -88,12 +87,11 @@ def _launch(name: str, q, k, v, pos, extent: tuple, window: int):
     out = torch.empty_like(q)
     B, KV, G, D = q.shape
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, *extent, KV, G, D, int(window), D ** -0.5,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], _chunk(k, v), stream)
+    err = build.launch(
+        getattr(lib, name), q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), pos.data_ptr(), out.data_ptr(), B, *extent, KV, G, D,
+        int(window), D ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+        _chunk(k, v))
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.decode_attend_error_string(err).decode()} "

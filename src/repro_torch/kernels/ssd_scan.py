@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.swa_attention import check_no_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,7 +33,6 @@ BLOCK_CHUNK = 64     # kQ there: the rows of a chunk the kernels take
 @functools.cache
 def _lib():
     """The bound C entry point, built and loaded at first launch."""
-    from repro_torch.kernels import build
     lib = build.load("ssd_scan")
     lib.ssd_scan_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                                  + [ctypes.c_void_p])
@@ -100,12 +99,11 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
                          device=x.device)
     decay = torch.empty((B, H, nc), dtype=torch.float32, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), h_out.data_ptr(), states.data_ptr(),
-            decay.data_ptr(), B, S, H, P, N, _DTYPE_CODE[x.dtype], stream)
+    err = build.launch(
+        lib.ssd_scan_fwd, x.device, x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), states.data_ptr(), decay.data_ptr(), B, S, H, P, N,
+        _DTYPE_CODE[x.dtype])
     if err:
         raise RuntimeError(f"ssd_scan launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()} "

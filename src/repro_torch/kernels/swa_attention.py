@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 240, 256)   # the kernel's; the plain version takes any
@@ -34,7 +34,6 @@ HEAD_DIMS = (64, 128, 240, 256)   # the kernel's; the plain version takes any
 @functools.cache
 def _lib():
     """The bound C entry point, built and loaded at first launch."""
-    from repro_torch.kernels import build
     lib = build.load("swa_attention")
     lib.swa_attention_fwd.argtypes = ([ctypes.c_void_p] * 4
                                       + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -108,11 +107,9 @@ def _launch(q, k, v, B: int, S: int, H: int, KV: int, window: int):
     D = q.shape[-1]
     out = torch.empty_like(q)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.swa_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, KV, D, window, D ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    err = build.launch(lib.swa_attention_fwd, q.device, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+                       KV, D, window, D ** -0.5, _DTYPE_CODE[q.dtype])
     if err:
         raise RuntimeError(f"swa_attention launch failed: "
                            f"{lib.swa_attention_error_string(err).decode()} "

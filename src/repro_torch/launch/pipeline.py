@@ -5,17 +5,19 @@ teacher into the deployable student over the full synthetic dataset
 (``core/distill.py``); stage 2 fine-tunes the distilled student across the
 heterogeneous Jetson fleet on each client's reduced local shard,
 asynchronously by Algorithm 1 (``simulator.run_async``) or synchronously
-by FedAvg (``simulator.run_sync``), both through the per-iteration client
-loop. ``compare_scratch`` also fine-tunes a random init of the student the
-same way: the KD-vs-scratch comparison. Runs on the card unless
-``--device cpu`` is given.
+by FedAvg (``simulator.run_sync``). Both stages run on the batched
+engines by default (``engine="scan"``: the KD epochs and the client runs
+replayed as CUDA graphs on the card); ``engine="loop"`` runs stage 2 on
+the per-iteration oracle. ``compare_scratch`` also fine-tunes a random
+init of the student the same way: the KD-vs-scratch comparison. Runs on
+the card unless ``--device cpu`` is given.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke
     PYTHONPATH=src python -m repro_torch.launch.pipeline --arch resnet3d-18 \
         --teacher resnet3d-34 --kd-steps 8 --teacher-steps 2
     PYTHONPATH=src python -m repro_torch.launch.pipeline --reduced \
-        --mode sync --compare-scratch --device cpu
+        --mode sync --compare-scratch --device cpu --engine loop
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
-from repro_torch.core.fleet import Fleet
+from repro_torch.core.fleet import EngineSpec, Fleet
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import build_fleet
@@ -49,7 +51,7 @@ def params_digest(params: dict) -> str:
 
 
 def _finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
-              mode: str, seed: int, device):
+              mode: str, engine, seed: int, device):
     """Stage 2: federated fine-tune from ``params`` over an iid partition
     of the clients' reduced local dataset."""
     parts = iid_partition(max(len(ds), fed.num_clients * 8),
@@ -59,7 +61,7 @@ def _finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
             for k in range(fed.num_clients)]
     fleet = Fleet.from_lists(build_fleet(fed.num_clients), data)
     run = simulator.run_async if mode == "async" else simulator.run_sync
-    return run(params, cfg, fed, fleet, engine="loop", device=device)
+    return run(params, cfg, fed, fleet, engine=engine, device=device)
 
 
 def _scratch_init(cfg: ModelConfig, seed: int, device) -> dict:
@@ -76,7 +78,7 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
                  clients: int = 4, epochs: int = 4, batch: int = 4,
                  kd_steps: int = 8, teacher_steps: int = 8,
                  kd_lr: float = 0.01, kd_epoch_len: int | None = None,
-                 kd_kernel: str = "cuda", engine: str = "loop",
+                 kd_kernel: str = "cuda", engine: str = "scan",
                  codistill: bool = False, compare_scratch: bool = False,
                  eval_steps: int = 4, seed: int = 0, device=None):
     """Run KD compression then federated fine-tuning (``mode`` "async" or
@@ -87,9 +89,10 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     """
     if mode not in ("async", "sync"):
         raise ValueError(f"mode must be 'async' or 'sync', got {mode!r}")
-    if engine != "loop":
+    if EngineSpec.from_str(engine) in (EngineSpec.SHARD, EngineSpec.HIER):
         raise NotImplementedError(
-            f"engine={engine!r}: the batched engine is ROADMAP Queue 1 item 7")
+            f"engine={engine!r}: the sharded and hierarchical rounds are "
+            "ROADMAP Queue 1 item 13")
     if codistill:
         raise NotImplementedError(
             "codistill: CodistillFleet is ROADMAP Queue 1 item 4")
@@ -100,6 +103,7 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
         cfg, tcfg = cfg.reduced(), tcfg.reduced()
     t0 = time.time()
     report = {"arch": cfg.name, "teacher": tcfg.name, "mode": mode,
+              "engine": EngineSpec.from_str(engine).value,
               "kd_kernel": kd_kernel, "seed": seed, "device": str(device)}
 
     # ---- stage 1: server-side KD over the full dataset ----------------
@@ -122,7 +126,8 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     # programs as the server's, so KD transfer is real
     fed = FedConfig(num_clients=clients, global_epochs=epochs, seed=seed)
     ds = make_dataset_for(cfg, small=True, seed=seed)
-    res = _finetune(params, cfg, fed, ds, batch, mode, seed, device)
+    res = _finetune(params, cfg, fed, ds, batch, mode, engine, seed,
+                    device)
     params = res.params
     held_out = list(ds.batches(batch, eval_steps, seed=777))
     report["stage2"] = {"final_loss": res.final_loss,
@@ -134,7 +139,7 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     if compare_scratch:
         # the same fine-tune from a random init: the KD baseline
         sres = _finetune(_scratch_init(cfg, seed, device), cfg, fed, ds,
-                         batch, mode, seed, device)
+                         batch, mode, engine, seed, device)
         report["scratch"] = {
             "final_loss": sres.final_loss,
             "accuracy": distill.evaluate(sres.params, cfg, held_out)}
@@ -158,6 +163,11 @@ def main(argv=None):
                     help="KD steps per loss read-back (default: whole stage)")
     ap.add_argument("--kd-kernel", choices=list(distill.KD_KERNELS),
                     default="cuda")
+    ap.add_argument("--engine", choices=["scan", "loop", "shard"],
+                    default="scan",
+                    help="stage 2's client execution: the batched engines "
+                         "(CUDA graphs on the card) or the per-iteration "
+                         "loop; shard is ROADMAP Queue 1 item 13")
     ap.add_argument("--compare-scratch", action="store_true",
                     help="also fine-tune from a random init and report it")
     ap.add_argument("--device", default=None,
@@ -172,8 +182,8 @@ def main(argv=None):
               batch=args.batch, kd_steps=args.kd_steps,
               teacher_steps=args.teacher_steps, kd_lr=args.kd_lr,
               kd_epoch_len=args.kd_epoch_len, kd_kernel=args.kd_kernel,
-              compare_scratch=args.compare_scratch, seed=args.seed,
-              device=args.device)
+              engine=args.engine, compare_scratch=args.compare_scratch,
+              seed=args.seed, device=args.device)
     if args.smoke:
         kw.update(reduced=True, clients=2, epochs=2, batch=2,
                   kd_steps=4, teacher_steps=2, eval_steps=2)

@@ -10,7 +10,7 @@ unless ``--device cpu`` is given, and prints one JSON result line last.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode sync \
-        --epochs 8 --reduced --device cpu
+        --epochs 8 --reduced --device cpu [--engine scan|loop]
     PYTHONPATH=src python -m repro_torch.launch.train --mode central \
         --steps 20 --reduced --device cpu
 """
@@ -26,14 +26,13 @@ from repro_torch.checkpoint import save_params
 from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
 from repro_torch.core.fedasync import make_client_step
-from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
+from repro_torch.core.fleet import JETSON_FLEET_HMDB51, EngineSpec, Fleet
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.optim import trainable_mask
 from repro_torch.types import DistillConfig, FedConfig
 
-ENGINES = ("scan", "loop", "shard", "hier")
 ALGORITHMS = ("fedprox", "lowrank", "scaffold")
 
 
@@ -44,10 +43,11 @@ def build_fleet(n: int):
 
 
 def _refuse_unported(args) -> None:
-    if args.engine != "loop":
+    if EngineSpec.from_str(args.engine) in (EngineSpec.SHARD,
+                                            EngineSpec.HIER):
         raise NotImplementedError(
-            f"--engine {args.engine}: the batched engines are ROADMAP "
-            "Queue 1 item 7")
+            f"--engine {args.engine}: the sharded and hierarchical rounds "
+            "are ROADMAP Queue 1 item 13")
     if args.algorithm != "fedprox":
         raise NotImplementedError(
             f"--algorithm {args.algorithm}: the FedAlgorithm layer is "
@@ -82,9 +82,11 @@ def main(argv=None):
     ap.add_argument("--theta", type=float, default=0.01)
     ap.add_argument("--trainable", choices=["all", "last_layer"],
                     default="all")
-    ap.add_argument("--engine", choices=ENGINES, default="loop",
-                    help="client execution; the port has the per-iteration "
-                         "loop only")
+    ap.add_argument("--engine", choices=[e.value for e in EngineSpec],
+                    default="scan",
+                    help="client execution: the batched engines (CUDA "
+                         "graphs on the card) or the per-iteration loop, the "
+                         "oracle; shard and hier are ROADMAP Queue 1 item 13")
     ap.add_argument("--algorithm", choices=ALGORITHMS, default="fedprox",
                     help="federated algorithm; the port has the paper's "
                          "proximal local SGD only")
@@ -160,10 +162,12 @@ def main(argv=None):
         fleet = Fleet.from_lists(build_fleet(args.clients), data)
         if args.mode == "async":
             res = simulator.run_async(params, cfg, fed, fleet,
+                                      engine=args.engine,
                                       window=args.async_window,
                                       device=device)
         else:
-            res = simulator.run_sync(params, cfg, fed, fleet, device=device)
+            res = simulator.run_sync(params, cfg, fed, fleet,
+                                     engine=args.engine, device=device)
         params = res.params
         print(f"  virtual wall-clock {res.wall_clock_s:.0f}s "
               f"final loss {res.final_loss:.4f}")

@@ -1,0 +1,203 @@
+"""The batched engines and the captured KD epoch on the card: each replayed
+CUDA graph against the same function run eagerly on the card (TF32 off;
+1e-5 * (1 + |eager|)), no host sync inside a replay, one capture per round
+shape, the KD kernels run H times by each replayed epoch (the profiler's
+device events; the wrappers count the eager run and the capture, not the
+replays), outputs that outlive the next replay, and a capture that fails
+raising. Needs an
+NVIDIA GPU and nvcc; elsewhere every test skips with a reason. Imports no
+JAX:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_engines.py
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config
+from repro_torch.core import distill, fed_engine, fedasync
+from repro_torch.data import SyntheticActionDataset, stack_batches
+from repro_torch.device import batch_to
+from repro_torch.kernels import kd_loss
+from repro_torch.models import registry
+from repro_torch.optim import trainable_mask
+from repro_torch.types import DistillConfig, FedConfig
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5      # |replay - eager| <= TOL * (1 + |eager|)
+FED = FedConfig(num_clients=3, local_iters_min=1, local_iters_max=3,
+                lr=0.01)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def _close(got: dict, want: dict):
+    for k in want:
+        g, w = got[k].float(), want[k].float()
+        assert bool(((g - w).abs() <= TOL * (1 + w.abs())).all()), k
+
+
+def _setup(device, seed=0):
+    cfg = get_config("resnet3d-18").reduced()
+    params = registry.init_params(torch.Generator().manual_seed(seed), cfg,
+                                  device)
+    ds = SyntheticActionDataset(num_classes=8, samples_per_class=8, seed=1)
+    stacks = [stack_batches(ds.batches(2, 3, seed=k)) for k in range(3)]
+    padded, _ = fed_engine.pad_client_batches(stacks)
+    return cfg, params, ds, padded
+
+
+def test_replayed_round_equals_eager(cuda):
+    cfg, params, _, padded = _setup(cuda)
+    iters = np.asarray([3, 1, 2], np.int32)
+    run = fed_engine.ClientRun(cfg, FED)
+    mask = trainable_mask(params, FED.trainable)
+    want = run._clients(params, batch_to(padded, cuda), mask,
+                        torch.as_tensor(iters, device=cuda))
+    for _ in range(3):                 # eager, capture and replay, replay
+        got = run.run_batch(params, padded, iters)
+        _close(got[0], want[0])
+        np.testing.assert_array_equal(torch.isnan(got[1]).cpu(),
+                                      torch.isnan(want[1]).cpu())
+        _close({"l": got[1].nan_to_num()}, {"l": want[1].nan_to_num()})
+    sync = fed_engine.SyncRound(cfg, FED)
+    weights = np.asarray([0.2, 0.3, 0.5], np.float32)
+    want = sync._rnd_padded(params, batch_to(padded, cuda),
+                            torch.as_tensor(weights, device=cuda),
+                            torch.as_tensor(iters, device=cuda), mask)
+    for _ in range(3):
+        got = sync(params, padded, weights=weights, iters=iters)
+        _close(got[0], want[0])
+    assert run._graphs.num_captured == sync._graphs.num_captured == 1
+
+
+def test_one_capture_per_round_shape_and_no_host_sync(cuda):
+    cfg, params, _, padded = _setup(cuda)
+    run = fed_engine.ClientRun(cfg, FED)
+    mix = fedasync.make_batched_server_update(FED)
+    for _ in range(2):                 # eager, then the capture
+        run.run_batch(params, padded, np.asarray([3, 3, 3], np.int32))
+        mix(params, [0.5, 0.25], params, params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for draw in ([1, 2, 3], [2, 2, 1]):
+            run.run_batch(params, padded, np.asarray(draw, np.int32))
+        mix(params, [0.1, 0.2], params, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert run.num_compiled == 1 and run._graphs.num_captured == 1
+
+
+def test_outputs_outlive_the_next_replay(cuda):
+    """Two dispatches through one graph after its capture: the first
+    w_new still equals its eager run once the second replay wrote the
+    graph's memory."""
+    cfg, params, ds, _ = _setup(cuda)
+    run = fed_engine.ClientRun(cfg, FED)
+    mask = trainable_mask(params, FED.trainable)
+    a, b, c = (stack_batches(ds.batches(2, 2, seed=s)) for s in (7, 8, 9))
+    run(params, c)                     # eager; a's call captures
+    w_a, _ = run(params, a)
+    w_b, _ = run(params, b)
+    want, _ = run._run(params, batch_to(a, cuda), mask)
+    _close(w_a, want)
+    assert any(not torch.equal(w_a[k], w_b[k]) for k in w_a)
+
+
+def _kd_device_launches(fn) -> dict:
+    """``fn()``'s KD forward and backward kernels, from the profiler's
+    device events (a replayed graph's kernels are listed one by one)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "kd_loss" in e.name]
+    return out, {"fwd": sum("bwd" not in n for n in names),
+                 "bwd": sum("bwd" in n for n in names)}
+
+
+def test_replayed_kd_epoch_equals_eager_and_counts_h_launches(cuda):
+    """The KD epoch replayed as one graph equals the eager epoch on the
+    card (the backward kernel, launched from autograd's device thread, is
+    in the graph: the student's update needs its ds). The wrappers count
+    H launches of each kernel in the first, eager call and H more in the
+    capture, none in a replay; the card runs each kernel H times a call,
+    replays included."""
+    tcfg = get_config("resnet3d-34").reduced()
+    scfg = get_config("resnet3d-18").reduced()
+    gen = torch.Generator().manual_seed(0)
+    teacher = registry.init_params(gen, tcfg, cuda)
+    student = registry.init_params(gen, scfg, cuda)
+    ds = SyntheticActionDataset(num_classes=8, samples_per_class=8, seed=1)
+    H = 4
+    stacked = stack_batches(ds.batches(2, H, seed=3))
+    engine = distill.DistillEngine(tcfg, scfg, DistillConfig(lr=0.01))
+    state = engine.opt.init(student)
+    want = engine._epoch(teacher, student, state["mom"],
+                         batch_to(stacked, cuda))
+    for i, counted in enumerate((H, H, 0, 0)):   # eager, capture, replays
+        f0 = kd_loss.kd_loss_fused.launches
+        b0 = kd_loss.kd_loss_fused_bwd.launches
+        if i == 3:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if i in (0, 2):            # eager and a replay, traced
+                (p, st, losses), ran = _kd_device_launches(
+                    lambda: engine.epoch(teacher, student, state, stacked))
+                assert ran == {"fwd": H, "bwd": H}
+            else:                      # the capture; a replay, guarded
+                p, st, losses = engine.epoch(teacher, student, state,
+                                             stacked)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert kd_loss.kd_loss_fused.launches - f0 == counted
+        assert kd_loss.kd_loss_fused_bwd.launches - b0 == counted
+        _close(p, want[0])
+        _close(st["mom"], want[1])
+        _close({"l": losses}, {"l": want[2]})
+    assert engine._graphs.num_captured == 1
+
+
+_FAILING_CAPTURE = """
+import torch
+from repro_torch.core.compile_cache import GraphCache
+cache = GraphCache()
+x = torch.ones(4, device="cuda")
+cache.call("sync", lambda t: t * float(t.sum()), (x,))   # eager
+try:
+    cache.call("sync", lambda t: t * float(t.sum()), (x,))
+except RuntimeError as e:
+    print("raised", cache.num_captured)
+"""
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A host read inside the function cannot be captured: the second
+    call, which captures, raises, and nothing runs eagerly in the graph's
+    place (in a process of its own: a failed capture may leave the card's
+    stream unusable)."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _FAILING_CAPTURE],
+                         env={**os.environ, "PYTHONPATH": str(src)},
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.split() == ["raised", "0"], out.stderr

@@ -126,7 +126,7 @@ def test_run_async_matches_reference_loop(setup, window, per_round, jitter):
     tres = tsim.run_async(
         tp, tc, tf, Fleet.from_lists(JETSON_FLEET_HMDB51,
                                      _loaders(TLoader, TDS)),
-        window=window, jitter=jitter, eval_every=2,
+        engine="loop", window=window, jitter=jitter, eval_every=2,
         eval_fn=lambda t, now, p: tevals.append((t, now)), device="cpu")
     assert tevals == jevals and len(tevals) >= 2
     assert tres.wall_clock_s == jres.wall_clock_s
@@ -163,9 +163,11 @@ def test_run_async_rejects_unported_paths(setup):
     _, tc, _, tp = setup
     fleet = Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS))
     tf = TFed(**FED)
-    for kw in ({"engine": "scan"}, {"algorithm": "scaffold"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsim.run_async(tp, tc, tf, fleet, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsim.run_async(tp, tc, tf, fleet, device="cpu", algorithm="scaffold")
+    # the async path has no fleet-wide round to shard, as in the reference
+    with pytest.raises(ValueError, match="not supported here"):
+        tsim.run_async(tp, tc, tf, fleet, device="cpu", engine="shard")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsim.run_async(tp, tc, dataclasses.replace(tf, compress_bits=8),
                        fleet, device="cpu")

@@ -96,11 +96,13 @@ def test_fedavg_round_loop_matches_reference(setup):
     assert [len(x) for x in tl] == [len(x) for x in jl] == [2, 2]
     np.testing.assert_allclose(np.ravel(tl), np.ravel(jl), rtol=1e-4)
     assert_params_close(jw, tw, rtol=1e-4, atol=1e-6)
-    # the one engine ported routes to the loop; the others are refused
+    # engine="loop" routes to the loop; the multi-device engines and the
+    # algorithm layer are refused
     rw, rl = tfedavg.fedavg_round(tp, [iter(b) for b in batches], tc,
                                   TFed(**FED), engine="loop")
     assert rl == tl and all(torch.equal(rw[k], tw[k]) for k in tw)
-    for kw, item in (({"engine": "scan"}, "item 7"),
+    for kw, item in (({"engine": "shard"}, "item 13"),
+                     ({"engine": "hier"}, "item 13"),
                      ({"algorithm": "scaffold"}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tfedavg.fedavg_round(tp, batches, tc, TFed(**FED), **kw)
@@ -125,7 +127,7 @@ def test_run_sync_matches_reference_loop(setup, per_round, jitter):
     tres = tsim.run_sync(
         tp, tc, TFed(**FED, clients_per_round=per_round),
         Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS)),
-        jitter=jitter, eval_every=2,
+        engine="loop", jitter=jitter, eval_every=2,
         eval_fn=lambda r, now, p: tevals.append((r, now)), device="cpu")
     assert len(tres.history) == (4 if per_round else 2)
     assert tevals == jevals
@@ -140,7 +142,8 @@ def test_run_sync_matches_reference_loop(setup, per_round, jitter):
 def test_run_sync_rejects_unported_paths(setup):
     _, tc, _, tp = setup
     fleet = Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS))
-    for kw, item in (({"engine": "scan"}, "item 7"),
+    for kw, item in (({"engine": "shard"}, "item 13"),
+                     ({"engine": "hier"}, "item 13"),
                      ({"algorithm": "scaffold"}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tsim.run_sync(tp, tc, TFed(**FED), fleet, device="cpu", **kw)

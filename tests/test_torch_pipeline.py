@@ -120,7 +120,7 @@ def test_cli_smoke_prints_report(capsys):
     assert np.isfinite(report["stage2"]["final_loss"])
 
 
-@pytest.mark.parametrize("kw", [{"engine": "scan"}, {"codistill": True}])
+@pytest.mark.parametrize("kw", [{"engine": "shard"}, {"codistill": True}])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.run_pipeline(device="cpu", **kw)

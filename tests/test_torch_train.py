@@ -67,7 +67,7 @@ def test_train_main_matches_reference(mode, init, monkeypatch, capsys):
         assert got["virtual_wall_s"] == want["virtual_wall_s"]
 
 
-@pytest.mark.parametrize("flag,item", [(["--engine", "scan"], "item 7"),
+@pytest.mark.parametrize("flag,item", [(["--engine", "shard"], "item 13"),
                                        (["--algorithm", "scaffold"], "item 8"),
                                        (["--population", "8"], "item 9")])
 def test_unported_flags_raise(flag, item):
