@@ -24,6 +24,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1e-3, virtual clock exact, params within 1e-3 * (1 + |cpu|) (the
    card's run on ``loop`` too), one forward and one backward KD kernel a
    KD step on the card by the profiler's device events, none on the CPU;
+   beside them the stage-1 params card vs CPU, and for sync the run again
+   on fresh stage-1 engines and stage 2 alone from the CPU's stage 1
+   (cuDNN deterministic and free), then stage 1's eager epoch against a
+   replayed one, card against card;
 5. the main path at full width: ResNet3D-34 -> 18 KD (400 classes) then
    the four-Jetson async fine-tune on ``scan``, the first run of its
    engines in the process, with every kernel's launches counted; the
@@ -53,6 +57,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    algorithms (``captured``); then fresh engines report one program and
    one capture per round shape over three H^k draws, and replay under
    ``torch.cuda.set_sync_debug_mode("error")`` (``engines``);
+6b. the federated-algorithm layer at the main path's full width
+   (``algorithms``): ``run_async`` with SCAFFOLD, LowRankSubmodel and
+   FedProx at ``compress_bits`` 8 and 4, ``run_sync`` with SCAFFOLD and
+   LowRankSubmodel, each on ``scan`` and ``loop`` with TF32 off and cuDNN
+   deterministic (clocks equal, params within 1e-6 * (1 + |loop|), wall
+   times); fresh engines' program shapes and captures per round shape
+   over three H^k draws and four capacities, replayed with host syncs
+   made errors (a second ``engines`` line; LowRank's round is two
+   graphs, its SVD eagerly between them); one full-width update's int8,
+   int4 and LowRank wire bytes against the formula; the reduced SCAFFOLD
+   run with int8 updates on the card against the CPU;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
    extent of 131072 keys among them, the SSD step also on the decode
@@ -87,8 +102,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     kernels listed;
 13. the trainer (``repro_torch.launch.train``) at full width on
     the card: ``--mode central`` for 8 steps, and ``--mode sync
-    --distill-first --engine scan`` (16 teacher and 16 KD steps, then two
-    sync rounds),
+    --distill-first --engine scan --algorithm scaffold`` (16 teacher and
+    16 KD steps, then two sync rounds),
     each result line printed, its losses finite, the KD launches counted
     (16 of each on the distill-first run, none on the central one);
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
@@ -405,24 +420,72 @@ class _Exact:
         torch.backends.cudnn.deterministic = False
 
 
-def _pipeline_card_vs_cpu(mode: str, **extra) -> None:
-    """The reduced pipeline in ``mode`` on the card and on the CPU."""
-    from repro_torch.launch.pipeline import run_pipeline
+def _drop_stage1_engines() -> None:
+    """Forget the memoized KD and teacher-pretrain engines (and so their
+    graphs): the next pipeline's stage 1 runs on fresh ones."""
+    from repro_torch.core import fed_engine
+    for key in [k for k in fed_engine._ENGINE_CACHE
+                if k[0] in ("distill", "scratch")]:
+        del fed_engine._ENGINE_CACHE[key]
+
+
+def _pipeline_card_vs_cpu(mode: str, **extra) -> list:
+    """The reduced pipeline in ``mode`` on the card and on the CPU, with
+    the stage-1 params of each run against the CPU's; for ``sync`` once
+    more on the card with the stage-1 engines dropped first (a fresh
+    engine runs its first epoch eagerly), and stage 2 alone on the card
+    from the CPU's stage-1 params. Returns the stage-1 params of the
+    card's first run and of the CPU's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import pipeline
+    from repro_torch.data import make_dataset_for
+    from repro_torch.types import FedConfig
+    s1: list = []      # the stage-1 params of each pipeline run, on the CPU
+
+    def keep(params):
+        s1.append({k: v.detach().cpu().clone() for k, v in params.items()})
     kw = dict(reduced=True, mode=mode, clients=2, epochs=2, batch=2,
-              kd_steps=4, teacher_steps=2, seed=0, engine="scan", **extra)
+              kd_steps=4, teacher_steps=2, seed=0, engine="scan",
+              on_stage1=keep, **extra)
+    fresh = {}
     with _Exact():
-        (gpu, gp), ran = _traced_kd(lambda: run_pipeline(device="cuda",
-                                                         **kw))
+        (gpu, gp), ran = _traced_kd(lambda: pipeline.run_pipeline(
+            device="cuda", **kw))
         _expect_launches(f"reduced {mode} pipeline on the card", ran,
                          kw["kd_steps"])
         _zero_kd_launches()
-        cpu, cp = run_pipeline(device="cpu", **kw)
+        cpu, cp = pipeline.run_pipeline(device="cpu", **kw)
         _expect_launches(f"reduced {mode} pipeline on the CPU",
                          _kd_launches(), 0)
-        (_, lp), ran_loop = _traced_kd(lambda: run_pipeline(
+        (_, lp), ran_loop = _traced_kd(lambda: pipeline.run_pipeline(
             device="cuda", **{**kw, "engine": "loop"}))
         _expect_launches(f"reduced {mode} pipeline on the card, loop",
                          ran_loop, kw["kd_steps"])
+        if mode == "sync":
+            _drop_stage1_engines()
+            _zero_kd_launches()
+            (_, fp), ran_fresh = _traced_kd(lambda: pipeline.run_pipeline(
+                device="cuda", **kw))
+            _expect_launches(f"reduced {mode} pipeline on the card, fresh "
+                             "stage-1 engines", ran_fresh, kw["kd_steps"])
+            fresh["kd_host_launches_fresh_engines"] = _kd_launches()
+            fresh["param_rel_err_fresh_stage1_engines"] = _rel_err(
+                {k: v.cpu() for k, v in fp.items()}, cp)
+            cfg = get_config("resnet3d-18").reduced()
+            fed = FedConfig(num_clients=kw["clients"],
+                            global_epochs=kw["epochs"], seed=kw["seed"])
+            ds = make_dataset_for(cfg, small=True, seed=kw["seed"])
+            stage2 = {}
+            for cudnn in ("deterministic", "free"):
+                torch.backends.cudnn.deterministic = cudnn == "deterministic"
+                res = pipeline.finetune(
+                    {k: v.cuda() for k, v in s1[1].items()}, cfg, fed, ds,
+                    kw["batch"], mode, "scan", kw["seed"], "cuda")
+                stage2[cudnn] = _rel_err(
+                    {k: v.cpu() for k, v in res.params.items()}, cp)
+            torch.backends.cudnn.deterministic = True
+            fresh["param_rel_err_stage2_alone_from_cpu_stage1"] = stage2
     a, b = _all_losses(gpu), _all_losses(cpu)
     if len(a) != len(b) or not all(
             math.isclose(x, y, rel_tol=1e-3) for x, y in zip(a, b)):
@@ -434,18 +497,31 @@ def _pipeline_card_vs_cpu(mode: str, **extra) -> None:
     if max(perr, perr_loop) > 1e-3:
         raise AssertionError(f"{mode}: card vs CPU params differ: {perr} "
                              f"(card on loop: {perr_loop})")
+    stage1 = {"card": _rel_err(s1[0], s1[1]),
+              "card_on_loop": _rel_err(s1[2], s1[1])}
+    if mode == "sync":
+        stage1["card_fresh_engines"] = _rel_err(s1[3], s1[1])
+        stage1["fresh_vs_shared_on_card"] = _rel_err(s1[3], s1[0])
     print(json.dumps({"phase": "cpu_vs_card", "mode": mode,
                       "engine": kw["engine"], **extra,
                       "losses_card": a, "losses_cpu": b,
                       "param_rel_err": perr,
                       "param_rel_err_card_on_loop": perr_loop,
+                      "stage1_param_rel_err": stage1, **fresh,
                       "kd_kernels_ran_on_card": ran,
                       "virtual_wall_s": gpu["stage2"]["virtual_wall_s"]}))
+    return [s1[0], s1[1]]
 
 
 def phase_cpu_vs_card():
-    _pipeline_card_vs_cpu("async")
-    _pipeline_card_vs_cpu("sync", compare_scratch=True)
+    """Phase 4: async, then sync with the scratch baseline; then the
+    stage-1 params of the async run's card (its KD epoch the engine's
+    first, eager) against the sync run's (a replay), card against card."""
+    a_card, a_cpu = _pipeline_card_vs_cpu("async")
+    s_card, s_cpu = _pipeline_card_vs_cpu("sync", compare_scratch=True)
+    print(json.dumps({"phase": "cpu_vs_card_stage1",
+                      "eager_vs_replay_on_card": _rel_err(s_card, a_card),
+                      "cpu_async_vs_cpu_sync": _rel_err(s_cpu, a_cpu)}))
 
 
 # scan vs loop, replay vs eager, vmap vs sequential clients on the card,
@@ -630,14 +706,15 @@ def _train(argv: list) -> dict:
 
 def phase_train(kernels: list) -> None:
     """The trainer at full width (ResNet3D-18, 400 classes) on the
-    card: central fine-tuning for 8 steps, then sync FedAvg on four Jetsons
-    after ``--distill-first`` (16 teacher and 16 KD steps from
-    ResNet3D-34), traced; finite losses, the KD kernels' host launches
+    card: central fine-tuning for 8 steps, then sync FedAvg with SCAFFOLD
+    on four Jetsons after ``--distill-first`` (16 teacher and 16 KD steps
+    from ResNet3D-34), traced; finite losses, the KD kernels' host launches
     counted around each run and, on the traced one, the launches the card
     ran."""
     runs = {"central": ["--mode", "central", "--steps", "8"],
             "sync_distill_first": ["--mode", "sync", "--distill-first",
-                                   "--epochs", "8", "--engine", "scan"]}
+                                   "--epochs", "8", "--engine", "scan",
+                                   "--algorithm", "scaffold"]}
     for name, argv in runs.items():
         _zero_kd_launches()
         if name == "central":
@@ -827,7 +904,7 @@ def phase_captured(kernels: list) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import RESNET18, RESNET34
-    from repro_torch.core import distill, fed_engine, fedavg
+    from repro_torch.core import algorithms, distill, fed_engine, fedavg
     from repro_torch.core.compile_cache import GraphCache
     from repro_torch.data import SyntheticActionDataset, stack_batches
     from repro_torch.device import batch_to
@@ -935,9 +1012,12 @@ def phase_captured(kernels: list) -> None:
         def vg(p, b):
             grads, loss = grad_and_value(lambda q: run._task_loss(q, b))(p)
             return loss, grads
-        ctx = fed_engine.StepCtx(vg, run.opt, params, mask, fed)
-        return vmap(lambda s, n: run._scan(ctx, params, s, n))(stacked,
-                                                               iters)
+        ctx = algorithms.StepCtx(vg, run.opt, params, mask, (), fed)
+
+        def one(s, n):
+            w, _, losses = run._scan(ctx, params, s, n)
+            return w, losses
+        return vmap(one)(stacked, iters)
 
     def sequential():
         return run.run_batch(student, padded, iters, mask=mask)
@@ -1057,6 +1137,249 @@ def phase_engines() -> None:
         "replayed_without_host_sync": list(calls),
         "main_path_engines": {name: [e.num_compiled, e._graphs.num_captured]
                               for name, e in main.items()}}))
+
+
+# the algorithm layer's runs at full width: (mode, algorithm, compress_bits)
+ALG_RUNS = (("async", "scaffold", 0), ("async", "lowrank", 0),
+            ("async", None, 8), ("async", None, 4),
+            ("sync", "scaffold", 0), ("sync", "lowrank", 0))
+
+
+def _jetson_fleet(cfg, fed, batch: int, seed: int = 0):
+    """The four-Jetson fleet of ``launch/pipeline.py``'s stage 2: each
+    client a loader over its iid part of the clients' reduced dataset."""
+    from repro_torch.core.fleet import Fleet
+    from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
+    from repro_torch.launch.train import build_fleet
+    ds = make_dataset_for(cfg, small=True, seed=seed)
+    parts = iid_partition(max(len(ds), fed.num_clients * 8),
+                          fed.num_clients, seed=seed)
+    return Fleet.from_lists(build_fleet(fed.num_clients), [
+        BatchLoader(ds, batch, steps=fed.local_iters_max, seed=k,
+                    indices=parts[k]) for k in range(fed.num_clients)])
+
+
+def _wire_bytes(shapes: dict, bits: int, cap=None) -> int:
+    """One update's wire bytes from its leaves' shapes alone: dense f32,
+    or each array's int8 / packed-int4 payload and its 4-byte scale; with
+    ``cap`` each matrix leaf (both sides ≥ 4) ships its rank-r factors,
+    r = ceil(cap · min side) in f32 arithmetic, clipped to [1, min side]."""
+    import numpy as np
+
+    def payload(n):
+        if not bits:
+            return 4 * n
+        return (n if bits == 8 else (n + 1) // 2) + 4
+    total = 0
+    for shape in shapes.values():
+        if cap is not None and len(shape) == 2 and min(shape) >= 4:
+            side = min(shape)
+            r = max(1, min(side, math.ceil(float(np.float32(cap)) * side)))
+            total += payload(shape[0] * r) + payload(r) + payload(r * shape[1])
+        else:
+            total += payload(math.prod(shape))
+    return total
+
+
+def phase_algorithms() -> None:
+    """The federated-algorithm layer at the main path's full width
+    (ResNet3D-18, 400 classes, the four Jetsons, batch 4, 4x16x16 clips),
+    in an ``_Exact`` block: ``run_async`` with SCAFFOLD, with
+    LowRankSubmodel, and with FedProx at ``compress_bits`` 8 and 4 (4
+    global epochs), ``run_sync`` with SCAFFOLD and LowRankSubmodel (2
+    rounds), each on ``scan`` and ``loop``: virtual clocks equal, params
+    within ``ENGINE_TOL``, each run's wall time. Fresh engines for each
+    stateful algorithm, over three H^k draws and the fleet's four
+    capacities: program shapes and captures per round shape, then a
+    replay of each graph under ``torch.cuda.set_sync_debug_mode("error")``
+    (the LowRank round is two graphs, the SVD eagerly between them: the
+    ``engines`` line). The wire: int8, int4 and LowRank bytes of one
+    full-width update against ``_wire_bytes``. Last, the reduced
+    ``run_async`` with SCAFFOLD at ``compress_bits`` 8 on the card
+    against the CPU, at 1e-3 · (1 + |cpu|)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RESNET18, get_config
+    from repro_torch.core import algorithms, compression, fed_engine
+    from repro_torch.core import simulator
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.models import registry
+    from repro_torch.models.resnet3d import param_shapes
+    from repro_torch.optim import trainable_mask
+    from repro_torch.types import FedConfig
+    t_phase = time.perf_counter()
+    params0 = registry.init_params(torch.Generator().manual_seed(3),
+                                   RESNET18, "cuda")
+    runs = {}
+    with _Exact():
+        for mode, alg, bits in ALG_RUNS:
+            fed = FedConfig(global_epochs=4 if mode == "async" else 8,
+                            compress_bits=bits)
+            sim = simulator.run_async if mode == "async" \
+                else simulator.run_sync
+            out, wall = {}, {}
+            for engine in ("scan", "loop"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[engine] = sim(params0, RESNET18, fed,
+                                  _jetson_fleet(RESNET18, fed, 4),
+                                  engine=engine, algorithm=alg,
+                                  device="cuda")
+                torch.cuda.synchronize()
+                wall[engine] = time.perf_counter() - t0
+            scan, loop = out["scan"], out["loop"]
+            name = f"{mode}_{alg or 'fedprox'}" + (f"_int{bits}" if bits
+                                                    else "")
+            if (scan.wall_clock_s != loop.wall_clock_s
+                    or scan.staleness_hist != loop.staleness_hist):
+                raise AssertionError(f"{name}: virtual clocks differ")
+            if not all(math.isfinite(h[2]) for h in scan.history):
+                raise AssertionError(f"{name}: losses {scan.history}")
+            err = _rel_err(scan.params, loop.params)
+            if err > ENGINE_TOL:
+                raise AssertionError(f"{name}: scan vs loop params {err}")
+            runs[name] = {"virtual_wall_s": scan.wall_clock_s,
+                          "final_loss": scan.final_loss,
+                          "param_rel_err_scan_vs_loop": err,
+                          "real_wall_s": wall}
+
+    # fresh engines: program shapes and captures, over three H^k draws
+    fed = FedConfig()
+    student = registry.init_params(torch.Generator().manual_seed(1),
+                                   RESNET18, "cuda")
+    ds = make_dataset_for(RESNET18, small=True, seed=0)
+    stacks = [stack_batches(ds.batches(4, fed.local_iters_max, seed=k))
+              for k in range(4)]
+    burst, _ = fed_engine.pad_client_batches(stacks)
+    draws = [np.asarray(d, np.int32) for d in ([3, 1, 2, 3], [1, 1, 2, 3],
+                                               [2, 3, 3, 1])]
+    weights = np.full(4, 0.25, np.float32)
+    mask = trainable_mask(student, fed.trainable)
+    fleet = _jetson_fleet(RESNET18, fed, 4)
+    shapes, synced = {}, {}
+    for name, alg in (("scaffold", algorithms.Scaffold()),
+                      ("lowrank", algorithms.LowRankSubmodel())):
+        alg.bind_fleet(fleet)
+        if name == "lowrank":
+            caps = [alg.capacity_for(k) for k in range(4)]
+        client = fed_engine.ClientRun(RESNET18, fed, algorithm=alg)
+        rnd = fed_engine.SyncRound(RESNET18, fed, algorithm=alg)
+        ctx = alg.ctx_for(student)
+        states = alg.stacked_states(student, range(4))
+        for i in range(3):
+            client.run_batch(student, burst, draws[i], server_ctx=ctx,
+                             states=states)
+            rnd(student, burst, weights=weights, iters=draws[i],
+                server_ctx=ctx, states=states)
+        shapes[name] = {
+            "client_run": [client.num_compiled, client._graphs.num_captured],
+            "sync_round": [rnd.num_compiled, rnd._graphs.num_captured]}
+        want = {"client_run": [1, 1],
+                "sync_round": [1, 1] if alg.prepare_in_graph else [2, 2]}
+        if shapes[name] != want:
+            raise AssertionError(f"{name}: [program shapes, captures] "
+                                 f"{shapes[name]}, expected {want}")
+        if not alg.prepare_in_graph:
+            w_news, new_states, msgs, _ = rnd.client_half(
+                student, burst, mask, draws[0], ctx, states)
+            w_eff = alg.reduce_prepare(w_news, student, new_states, ctx)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            client.run_batch(student, burst, draws[0], server_ctx=ctx,
+                             states=states)
+            if alg.prepare_in_graph:
+                rnd(student, burst, weights=weights, iters=draws[0],
+                    server_ctx=ctx, states=states)
+                synced[name] = ["client_run", "sync_round"]
+            else:
+                rnd.client_half(student, burst, mask, draws[0], ctx, states)
+                rnd.fold(w_eff, student, weights, msgs, ctx)
+                synced[name] = ["client_run", "sync_round.client_half",
+                                "sync_round.fold"]
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if [client.num_compiled, rnd.num_compiled] != [
+                want["client_run"][0], want["sync_round"][0]]:
+            raise AssertionError(f"{name}: a replay captured anew")
+    print(json.dumps({
+        "phase": "engines", "algorithms": shapes, "h_draws":
+        [d.tolist() for d in draws],
+        "lowrank_capacities": caps,
+        "replayed_without_host_sync": synced,
+        "lowrank_sync_round": "two graphs, the client half and the fold; "
+                              "reduce_prepare's torch.linalg.svd runs "
+                              "eagerly on the card between them (cuSOLVER's "
+                              "status is read on the host: no capture)"}))
+
+    # the wire at full width: one update's bytes against the formula
+    shapes_ = param_shapes(RESNET18)
+    n_params = sum(math.prod(v) for v in shapes_.values())
+    w_new = {k: v + 1e-3 * torch.randn(
+        v.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+        device="cuda") for k, v in params0.items()}
+    wire = {"params": n_params, "leaves": len(shapes_),
+            "base_bytes": 4 * n_params}
+    for bits in (8, 4):
+        upd = compression.quantize_delta(w_new, params0, bits)
+        want = _wire_bytes(shapes_, bits)
+        if (upd.wire_bytes, upd.base_bytes) != (want, 4 * n_params):
+            raise AssertionError(f"int{bits} wire {upd.wire_bytes} / "
+                                 f"{upd.base_bytes}, formula {want}")
+        # |deq - w| <= scale / 2, beside the f32 roundings of the delta
+        # and of the reconstruction
+        deq = compression.dequantize_delta(upd, params0)
+        eps = torch.finfo(torch.float32).eps
+        worst = max(float(((deq[k] - w_new[k]).abs()
+                           / upd.scale[k]).max()) for k in w_new)
+        if any(bool(((deq[k] - w_new[k]).abs() - upd.scale[k] / 2
+                     > 4 * eps * (params0[k].abs() + w_new[k].abs())).any())
+               for k in w_new):
+            raise AssertionError(f"int{bits}: error {worst} quanta")
+        wire[f"int{bits}"] = {"wire_bytes": upd.wire_bytes,
+                              "compression_ratio":
+                              compression.compression_ratio(upd),
+                              "max_err_in_quanta": worst}
+    lowrank = algorithms.LowRankSubmodel()
+    cap = torch.tensor(0.25, device="cuda")
+    for bits in (0, 8, 4):
+        upd = lowrank.encode(w_new, cap, params0,
+                             FedConfig(compress_bits=bits))
+        want = _wire_bytes(shapes_, bits, cap=0.25)
+        if upd.wire_bytes != want or upd.base_bytes != 4 * n_params:
+            raise AssertionError(f"lowrank int{bits}: wire "
+                                 f"{upd.wire_bytes}, formula {want}")
+        wire[f"lowrank_cap0.25_bits{bits}"] = {
+            "wire_bytes": upd.wire_bytes, "ranks": [r for r in
+                                                    upd.meta["ranks"] if r],
+            "compression_ratio": upd.base_bytes / upd.wire_bytes}
+
+    # the reduced SCAFFOLD run with int8 updates, card against CPU
+    cfg = get_config("resnet3d-18").reduced()
+    fed = FedConfig(global_epochs=4, compress_bits=8)
+    p_cpu = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+    with _Exact():
+        card = simulator.run_async(p_cpu, cfg, fed, _jetson_fleet(cfg, fed,
+                                                                  2),
+                                   algorithm="scaffold", device="cuda")
+    cpu = simulator.run_async(p_cpu, cfg, fed, _jetson_fleet(cfg, fed, 2),
+                              algorithm="scaffold", device="cpu")
+    if card.wall_clock_s != cpu.wall_clock_s:
+        raise AssertionError("scaffold int8: card vs CPU clocks differ")
+    cerr = _rel_err({k: v.cpu() for k, v in card.params.items()},
+                    cpu.params)
+    if cerr > 1e-3:
+        raise AssertionError(f"scaffold int8: card vs CPU params {cerr}")
+    print(json.dumps({
+        "phase": "algorithms", "card": _card_line(), "tol": ENGINE_TOL,
+        "runs": runs, "wire": wire,
+        "reduced_scaffold_int8_card_vs_cpu": {
+            "param_rel_err": cerr, "virtual_wall_s": card.wall_clock_s,
+            "final_loss": {"card": card.final_loss,
+                           "cpu": cpu.final_loss}},
+        "phase_s": time.perf_counter() - t_phase}))
 
 
 # ---------------------------------------------------------------------------
@@ -2255,6 +2578,7 @@ def main(argv=None) -> int:
     phase_step_times()
     phase_captured(kernels)
     phase_engines()
+    phase_algorithms()
     serve_kernels = phase_decode_kernels()
     phase_serve_card_vs_cpu()
     phase_serve_full_width(serve_kernels, args.seed)

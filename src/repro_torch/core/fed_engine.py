@@ -32,31 +32,32 @@ activations, which ``torch.func.grad`` refuses.
 the engines never write into a caller's tensors either way (the batch
 stacks are copied into the graph's inputs, the params are read).
 
-``algorithm=None`` is FedProx, the paper's proximal local SGD; the
-``FedAlgorithm`` layer is ROADMAP Queue 1 item 8, and the step is shaped
-(``StepCtx``, ``fedprox_step``) so that its ``client_step`` can take the
-step's place. The sharded and hierarchical rounds are item 13. The loop
-stays as the parity oracle.
+What a step, a client's close and the round's fold compute is the
+algorithm's (``core/algorithms.py``): ``algorithm=None`` is ``FedProx``,
+the paper's proximal local SGD, whose calls return ``(w_new, losses)``
+exactly as before the layer. A stateful algorithm (``Scaffold``,
+``LowRankSubmodel``) threads a per-client state through the steps and
+returns ``(w_new, new_state, msg, losses)`` from a client call and
+``(new_global, new_server_ctx, new_states, losses)`` from a round; its
+states and server context are graph inputs, so one graph per round shape
+serves every client and round. The sharded and hierarchical rounds are
+ROADMAP Queue 1 item 13. The loop stays as the parity oracle.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import trees
+from repro_torch.core import algorithms
 from repro_torch.core.compile_cache import GraphCache
 from repro_torch.device import batch_to, params_device
 from repro_torch.models import registry
-from repro_torch.optim import (Optimizer, apply_mask, proximal_grad, sgd,
-                               trainable_mask, value_and_grad)
+from repro_torch.optim import sgd, trainable_mask, value_and_grad
 from repro_torch.types import FedConfig, ModelConfig
-
-
-def _check_algorithm(algorithm) -> None:
-    if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
 
 
 def _leaves(stack: dict) -> list:
@@ -153,40 +154,17 @@ def _pad_H(fed: FedConfig, client_stacks) -> int:
                max((_batch_len(s) for s in client_stacks if s), default=0))
 
 
-def _index(tree: dict, i) -> dict:
-    return {k: v[i] for k, v in tree.items()}
-
-
 # ---------------------------------------------------------------------------
-# The local step
+# The local runs
 # ---------------------------------------------------------------------------
-
-class StepCtx(NamedTuple):
-    """What a local step reads besides its carry and batch (the
-    reference's ``algorithms.StepCtx`` without the server context)."""
-    value_and_grad: object      # (params, batch) -> (loss, grads)
-    opt: Optimizer
-    anchor: dict                # the received global model
-    mask: dict                  # trainable mask, per leaf
-    fed: FedConfig
-
-
-def fedprox_step(ctx: StepCtx, carry, batch):
-    """One proximal local SGD iteration, exactly
-    ``fedasync.make_client_step``'s: gradients, the proximal term, the
-    trainable mask, then SGD. ``carry`` is (params, opt_state); returns
-    (new_carry, loss)."""
-    params, opt_state = carry
-    loss, grads = ctx.value_and_grad(params, batch)
-    grads = proximal_grad(grads, params, ctx.anchor, ctx.fed.prox_theta)
-    grads = apply_mask(grads, ctx.mask)
-    return ctx.opt.update(grads, opt_state, params), loss
-
 
 def _where(active, new, old):
     """``new`` where ``active`` (a 0-d bool tensor), else ``old``, over
     the carry's dicts and tuples; other leaves (the step count) from
-    ``new``."""
+    ``new``, and a subtree the step passed through unchanged (an
+    algorithm's state) as it is."""
+    if new is old:
+        return new
     if isinstance(new, dict):
         return {k: _where(active, new[k], old[k]) for k in new}
     if isinstance(new, (list, tuple)):
@@ -210,14 +188,19 @@ class ClientRun:
     aggregation: the async simulator runs every dispatch through it,
     padded to ``fed.local_iters_max``; ``SyncRound`` adds the weighted
     average). One graph per (m, H_max) burst shape.
+
+    A stateful algorithm's calls take ``server_ctx`` and the client
+    state(s) from the caller's instance, and return ``(w_new, new_state,
+    msg, losses)``, stacked on the client axis from ``run_batch``.
     """
 
     def __init__(self, cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
                  algorithm=None):
-        _check_algorithm(algorithm)
         self.cfg = cfg
         self.fed = fed
         self.loss_kwargs = dict(loss_kwargs or {})
+        self.algorithm = (algorithm if algorithm is not None
+                          else algorithms.FedProx())
         self.opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
         self._graphs = GraphCache()
 
@@ -225,48 +208,89 @@ class ClientRun:
         return registry.loss_fn(params, self.cfg, batch,
                                 **self.loss_kwargs)[0]
 
-    def _ctx(self, anchor, mask) -> StepCtx:
+    def _ctx(self, anchor, mask, server_ctx=()) -> algorithms.StepCtx:
         def vg(p, b):
             return value_and_grad(lambda q: self._task_loss(q, b), p)
-        return StepCtx(vg, self.opt, anchor, mask, self.fed)
+        return algorithms.StepCtx(vg, self.opt, anchor, mask, server_ctx,
+                                  self.fed)
 
-    def _scan(self, ctx: StepCtx, params_global, stacked, n_iters=None):
-        """H steps over ``stacked`` from ``params_global`` with a fresh
-        optimizer state; with ``n_iters`` (a 0-d int tensor) the steps
-        from index ``n_iters`` on leave the carry unchanged and emit
-        NaN."""
+    def _scan(self, ctx, params_global, stacked, n_iters=None, state=()):
+        """H steps of ``self.algorithm`` over ``stacked`` from
+        ``params_global`` with a fresh optimizer state; with ``n_iters``
+        (a 0-d int tensor) the steps from index ``n_iters`` on leave the
+        carry unchanged and emit NaN. Returns (w, state, losses)."""
         stacked = batch_to(stacked, params_device(params_global))
-        carry = (params_global, self.opt.init(params_global))
+        carry = (params_global, self.opt.init(params_global), state)
         losses = []
         for i in range(_batch_len(stacked)):
-            new, loss = fedprox_step(ctx, carry, _index(stacked, i))
+            new, loss = self.algorithm.client_step(ctx, carry,
+                                                   trees.index(stacked, i))
             if n_iters is not None:
                 active = i < n_iters
                 new = _where(active, new, carry)
                 loss = torch.where(active, loss, math.nan)
             carry = new
             losses.append(loss)
-        return carry[0], torch.stack(losses)
+        return carry[0], carry[2], torch.stack(losses)
 
-    def _run(self, params_global, stacked, mask):
-        return self._scan(self._ctx(params_global, mask), params_global,
-                          stacked)
+    def _run(self, params_global, stacked, mask, server_ctx=(), state=()):
+        w_new, state_f, losses = self._scan(
+            self._ctx(params_global, mask, server_ctx), params_global,
+            stacked, state=state)
+        if not self.algorithm.stateful:
+            return w_new, losses
+        n = torch.full((), len(losses), dtype=torch.int32,
+                       device=losses.device)
+        w_new, new_state, msg = self.algorithm.client_finalize(
+            w_new, params_global, state_f, n, server_ctx, self.fed)
+        return w_new, new_state, msg, losses
 
-    def _clients(self, params_global, stacked_clients, mask, iters=None):
-        """Every client's scan from the same anchor, one after another:
-        (w_news, losses) with a leading client axis. ``iters`` (an (n,)
+    def _clients(self, params_global, stacked_clients, mask, iters=None,
+                 server_ctx=(), states=()):
+        """Every client's run from the same anchor, one after another:
+        (w_news, losses) with a leading client axis, and for a stateful
+        algorithm (w_news, new_states, msgs, losses). ``iters`` (an (n,)
         int tensor) masks each client's steps."""
+        alg = self.algorithm
         device = params_device(params_global)
         stacked_clients = batch_to(stacked_clients, device)
+        n = _batch_len(stacked_clients)
         if iters is not None:
             iters = torch.as_tensor(iters, device=device)
-        ctx = self._ctx(params_global, mask)
-        outs = [self._scan(ctx, params_global, _index(stacked_clients, c),
-                           None if iters is None else iters[c])
-                for c in range(_batch_len(stacked_clients))]
-        return ({k: torch.stack([w[k] for w, _ in outs])
-                 for k in params_global},
-                torch.stack([l for _, l in outs]))
+        ctx = self._ctx(params_global, mask, server_ctx)
+        outs = []
+        for c in range(n):
+            n_c = None if iters is None else iters[c]
+            if not alg.stateful:
+                w, _, losses = self._scan(ctx, params_global,
+                                          trees.index(stacked_clients, c), n_c)
+                outs.append((w, losses))
+                continue
+            w, state_f, losses = self._scan(
+                ctx, params_global, trees.index(stacked_clients, c), n_c,
+                trees.index(states, c))
+            if n_c is None:
+                n_c = torch.full((), len(losses), dtype=torch.int32,
+                                 device=device)
+            outs.append((*alg.client_finalize(w, params_global, state_f, n_c,
+                                              server_ctx, self.fed),
+                         losses))
+        return tuple(trees.stack(list(col)) for col in zip(*outs))
+
+    def _alg_inputs(self, server_ctx, state_or_states):
+        """The (server_ctx, state) pair of a call: ``()`` for a stateless
+        algorithm. A stateful one's come from the caller's instance
+        (``ctx_for``, ``state_for`` / ``stacked_states``): the memoized
+        engine may be shared with other equal-keyed instances, so it
+        holds no state of its own and raises when they are missing."""
+        if not self.algorithm.stateful:
+            return (), ()
+        if server_ctx is None or state_or_states is None:
+            raise ValueError(
+                f"{self.algorithm.name}: a stateful algorithm's engine "
+                "calls take server_ctx and the client state(s) from the "
+                "caller's instance")
+        return server_ctx, state_or_states
 
     @property
     def num_compiled(self) -> int:
@@ -274,19 +298,26 @@ class ClientRun:
         per (n_clients, H_max) on the padded one, whatever the H^k."""
         return self._graphs.num_compiled
 
-    def __call__(self, params_global, stacked, mask=None, donate=False):
+    def __call__(self, params_global, stacked, mask=None, donate=False,
+                 server_ctx=None, state=None):
+        """Stateful algorithms take ``server_ctx`` and ``state`` and
+        return ``(w_new, new_state, msg, losses)``."""
         if mask is None:
             mask = trainable_mask(params_global, self.fed.trainable)
+        server_ctx, state = self._alg_inputs(server_ctx, state)
         return self._graphs.call("run", self._run,
-                                 (params_global, stacked, mask))
+                                 (params_global, stacked, mask, server_ctx,
+                                  state))
 
     def run_batch(self, params_global, client_stacks, iters=None, mask=None,
-                  donate=None):
+                  donate=None, server_ctx=None, states=None):
         """``client_stacks``: a sequence of per-client batch stacks
         (padded here by ``pad_client_batches``) or a client-stacked dict
         with (n_clients, H_max, ...) leaves plus ``iters``. Returns
         ``(w_news, losses)`` with leading client axes; loss rows are NaN
-        beyond each client's H^k."""
+        beyond each client's H^k. A stateful algorithm also takes
+        ``server_ctx`` and the per-client ``states`` stacked on the client
+        axis, and returns ``(w_news, new_states, msgs, losses)``."""
         if isinstance(client_stacks, (list, tuple)):
             client_stacks, lens = pad_client_batches(
                 client_stacks, H_max=_pad_H(self.fed, client_stacks))
@@ -296,29 +327,36 @@ class ClientRun:
             iters = _full_iters(client_stacks)
         if mask is None:
             mask = trainable_mask(params_global, self.fed.trainable)
+        server_ctx, states = self._alg_inputs(server_ctx, states)
         return self._graphs.call(
             "batch", self._clients,
             (params_global, client_stacks, mask,
-             np.asarray(iters, np.int32)))
+             np.asarray(iters, np.int32), server_ctx, states))
 
-    def unstack(self, stacked: dict, n: int) -> tuple:
-        """Split a client-stacked dict (leaves (n, ...)) into n per-client
-        dicts of views: no copy and no launch (the engine's outputs are
+    def unstack(self, stacked, n: int) -> tuple:
+        """Split a client-stacked tree (leaves (n, ...)) into n per-client
+        trees of views: no copy and no launch (the engine's outputs are
         already out of the graph's memory)."""
-        return tuple(_index(stacked, j) for j in range(n))
+        return tuple(trees.index(stacked, j) for j in range(n))
 
 
 _ENGINE_CACHE: dict = {}
 _ENGINE_CACHE_MAX = 32      # FIFO-bounded: engines hold captured graphs
 
 
-def _engine_key(kind, cfg: ModelConfig, fed: FedConfig, loss_kwargs):
+def _engine_key(kind, cfg: ModelConfig, fed: FedConfig, loss_kwargs,
+                algorithm=None):
     """Cache key over the fields that shape the client program. Server-
     side knobs (mixing_beta, staleness_a, ...) do not: two sweeps that
-    differ only there share engines."""
+    differ only there share engines. The algorithm enters through
+    ``cache_key()``: every FedProx caller shares one engine, every
+    Scaffold instance another (their per-client state lives on the
+    caller's instance and enters through the calls' arguments)."""
     lk = tuple(sorted((loss_kwargs or {}).items()))
+    ak = (algorithm.cache_key() if algorithm is not None
+          else algorithms.FedProx().cache_key())
     key = (kind, cfg, fed.lr, fed.momentum, fed.weight_decay,
-           fed.prox_theta, fed.trainable, lk, "fedprox")
+           fed.prox_theta, fed.trainable, lk, ak)
     try:
         hash(key)
     except TypeError:
@@ -344,13 +382,22 @@ def cached_engine(key, build):
     return _ENGINE_CACHE[key]
 
 
+def _algorithm(algorithm):
+    return (None if algorithm is None
+            else algorithms.make_algorithm(algorithm))
+
+
 def make_client_run(cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
                     algorithm=None) -> ClientRun:
     """The engine replacing the per-iteration step loop, memoized on the
-    client-relevant config fields so repeated runs reuse their graphs."""
-    _check_algorithm(algorithm)
-    return cached_engine(_engine_key("client", cfg, fed, loss_kwargs),
-                         lambda: ClientRun(cfg, fed, loss_kwargs))
+    client-relevant config fields and the algorithm's ``cache_key`` so
+    repeated runs reuse their graphs. A stateful algorithm's calls take
+    ``server_ctx`` and the states from the caller's instance: the
+    memoized engine may be bound to another equal-keyed instance."""
+    algorithm = _algorithm(algorithm)
+    return cached_engine(
+        _engine_key("client", cfg, fed, loss_kwargs, algorithm),
+        lambda: ClientRun(cfg, fed, loss_kwargs, algorithm=algorithm))
 
 
 def _weighted_params(w_news: dict, weights, params_global: dict) -> dict:
@@ -370,6 +417,13 @@ class SyncRound:
     H^k differ) or a client-stacked dict with leading (n_clients, H)
     axes. With ``iters`` the padded masked round runs: NaN losses past
     each client's budget, one graph per round shape whatever the H^k.
+
+    With a stateful algorithm the round is the client half, the
+    algorithm's ``reduce_prepare``, the weighted fold, the weighted sum
+    of the clients' msgs and ``reduce_finish``, all in the one call (or
+    two calls around an eager prepare that a capture refuses,
+    ``_split_round``), and it returns ``(new_global, new_server_ctx,
+    new_states, losses)``.
     """
 
     def __init__(self, cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
@@ -378,25 +432,48 @@ class SyncRound:
         # clients share one step
         self.client = make_client_run(cfg, fed, loss_kwargs,
                                       algorithm=algorithm)
+        self.algorithm = self.client.algorithm
         self.fed = fed
         self._graphs = GraphCache()
 
-    def _rnd(self, params_global, stacked_clients, weights, mask):
-        w_news, losses = self.client._clients(params_global,
-                                              stacked_clients, mask)
-        return self._average(w_news, weights, params_global), losses
-
-    def _rnd_padded(self, params_global, stacked_clients, weights, iters,
-                    mask):
-        w_news, losses = self.client._clients(params_global, stacked_clients,
-                                              mask, iters)
-        return self._average(w_news, weights, params_global), losses
-
-    @staticmethod
-    def _average(w_news, weights, params_global):
+    def _fold(self, w_eff, params_global, weights, msgs, server_ctx):
+        """A stateful round's fold: the weighted average, the weighted sum
+        of the msgs and ``reduce_finish``: (new_global, new_ctx)."""
         weights = torch.as_tensor(weights,
                                   device=params_device(params_global))
-        return _weighted_params(w_news, weights, params_global)
+        with torch.no_grad():
+            avg = _weighted_params(w_eff, weights, params_global)
+            msg_sum = algorithms.weighted_state_sum(msgs, weights)
+            return self.algorithm.reduce_finish(avg, msg_sum, server_ctx,
+                                                params_global)
+
+    def _reduce(self, out, params_global, weights, server_ctx):
+        """The round's server half: prepare, weighted fold, finish."""
+        alg = self.algorithm
+        if not alg.stateful:
+            w_news, losses = out
+            weights = torch.as_tensor(weights,
+                                      device=params_device(params_global))
+            return _weighted_params(w_news, weights, params_global), losses
+        w_news, new_states, msgs, losses = out
+        with torch.no_grad():
+            w_eff = alg.reduce_prepare(w_news, params_global, new_states,
+                                       server_ctx)
+        new_global, new_ctx = self._fold(w_eff, params_global, weights,
+                                         msgs, server_ctx)
+        return new_global, new_ctx, new_states, losses
+
+    def _rnd(self, params_global, stacked_clients, weights, mask,
+             server_ctx=(), states=()):
+        out = self.client._clients(params_global, stacked_clients, mask,
+                                   None, server_ctx, states)
+        return self._reduce(out, params_global, weights, server_ctx)
+
+    def _rnd_padded(self, params_global, stacked_clients, weights, iters,
+                    mask, server_ctx=(), states=()):
+        out = self.client._clients(params_global, stacked_clients, mask,
+                                   iters, server_ctx, states)
+        return self._reduce(out, params_global, weights, server_ctx)
 
     @property
     def num_compiled(self) -> int:
@@ -423,26 +500,65 @@ class SyncRound:
 
     def __call__(self, params_global, client_stacks, weights=None,
                  mask=None, iters=None, donate=None,
-                 donate_params: bool = False):
+                 donate_params: bool = False, server_ctx=None, states=None):
         client_stacks, weights, mask, iters = self._prep(
             params_global, client_stacks, weights, mask, iters)
+        server_ctx, states = self.client._alg_inputs(server_ctx, states)
+        if self.algorithm.stateful and not self.algorithm.prepare_in_graph:
+            return self._split_round(params_global, client_stacks, weights,
+                                     mask, iters, server_ctx, states)
         if iters is None:
             return self._graphs.call(
                 "rnd", self._rnd,
-                (params_global, client_stacks, weights, mask))
+                (params_global, client_stacks, weights, mask, server_ctx,
+                 states))
         return self._graphs.call(
             "pad", self._rnd_padded,
             (params_global, client_stacks, weights,
-             np.asarray(iters, np.int32), mask))
+             np.asarray(iters, np.int32), mask, server_ctx, states))
+
+
+    def client_half(self, params_global, stacked_clients, mask, iters,
+                    server_ctx, states):
+        """A split round's first call (one graph per round shape): every
+        client's run, ``(w_news, new_states, msgs, losses)``."""
+        return self._graphs.call(
+            "clients", self.client._clients,
+            (params_global, stacked_clients, mask,
+             None if iters is None else np.asarray(iters, np.int32),
+             server_ctx, states))
+
+    def fold(self, w_eff, params_global, weights, msgs, server_ctx):
+        """A split round's last call (one graph per round shape)."""
+        return self._graphs.call(
+            "fold", self._fold, (w_eff, params_global, weights, msgs,
+                                 server_ctx))
+
+    def _split_round(self, params_global, stacked_clients, weights, mask,
+                     iters, server_ctx, states):
+        """The round of an algorithm whose ``reduce_prepare`` cannot be
+        captured (``LowRankSubmodel``: ``torch.linalg.svd`` on the card
+        reads cuSOLVER's status back to the host): the client half and the
+        fold are a graph each, and the prepare runs eagerly between them,
+        on the params' device."""
+        w_news, new_states, msgs, losses = self.client_half(
+            params_global, stacked_clients, mask, iters, server_ctx, states)
+        with torch.no_grad():
+            w_eff = self.algorithm.reduce_prepare(w_news, params_global,
+                                                  new_states, server_ctx)
+        new_global, new_ctx = self.fold(w_eff, params_global, weights, msgs,
+                                        server_ctx)
+        return new_global, new_ctx, new_states, losses
 
 
 def make_sync_round(cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
                     algorithm=None) -> SyncRound:
     """The round engine replacing fedavg's per-client loop, memoized like
     ``make_client_run``."""
-    _check_algorithm(algorithm)
-    return cached_engine(_engine_key("sync", cfg, fed, loss_kwargs),
-                         lambda: SyncRound(cfg, fed, loss_kwargs))
+    algorithm = _algorithm(algorithm)
+    return cached_engine(
+        _engine_key("sync", cfg, fed, loss_kwargs, algorithm),
+        lambda: SyncRound(cfg, fed, loss_kwargs, algorithm=algorithm))
 
 
 def _multi_device(what: str) -> NotImplementedError:

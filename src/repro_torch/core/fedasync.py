@@ -1,9 +1,10 @@
 """Asynchronous federated optimization (paper Algorithm 1).
 
 Port of ``repro/core/fedasync.py``: the server's mix, one receive at a
-time or a group in one call (``make_batched_server_update``), and the
-client's per-iteration loop, kept as the oracle of the batched engines
-(``core/fed_engine.py``).
+time or a group in one call (``make_batched_server_update``; for a
+stateful algorithm ``_alg_mix_fns``, which carries the server context
+along), and the client's per-iteration loop, kept as the oracle of the
+batched engines (``core/fed_engine.py``).
 
 Server: on receiving (w_new, τ) from any client at global epoch t,
     β_t = β · s(t - τ),   s(x) = (1 + x)^{-a}        (paper §V-C)
@@ -14,6 +15,7 @@ SGD iterations on g_{w_t}(w; d) = l(w; d) + (θ/2)||w - w_t||².
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -84,6 +86,12 @@ def _mix_many(params: dict, betas, *w_news) -> dict:
                         (params, np.asarray(betas, np.float32)) + w_news)
 
 
+def make_server_update(fed: FedConfig):
+    """The single-receive mix ``(w, w_new, β_t) -> w``: config-independent,
+    one function for every FedConfig."""
+    return _mix
+
+
 def make_batched_server_update(fed: FedConfig):
     """The fused mix of a group of receives: ``(w, βs, *w_news) -> w``, the
     m mixes in order in one call, with no host read between them; replayed
@@ -112,13 +120,66 @@ def server_receive(state: ServerState, w_new, tau: int,
                        t=state.t + 1, total_updates=state.total_updates + 1)
 
 
+# per-algorithm mixes, memoized by cache_key(): the graphs of each
+# algorithm's group mixes key on its own entry name
+_ALG_MIX_FNS: dict = {}
+
+
+def _alg_mix_fns(algorithm):
+    """``(mix, mix_many)`` of a stateful algorithm: m receives applied in
+    order, each ``algorithm.mix`` over ``(params, server_ctx)``, as one
+    call (one CUDA graph per group size m on the card; ``mix`` is the
+    group of one). ``mix_many(params, ctx, betas, *w_news, *msgs)``
+    returns ``(params, ctx)``."""
+    key = algorithm.cache_key()
+    if key in _ALG_MIX_FNS:
+        return _ALG_MIX_FNS[key]
+
+    def mix_many_impl(params, ctx, betas, *wm):
+        m = len(wm) // 2
+        betas = torch.as_tensor(betas, device=params_device(params))
+        for i in range(m):
+            params, ctx = algorithm.mix(params, ctx, wm[i], wm[m + i],
+                                        betas[i])
+        return params, ctx
+
+    def mix_many(params, ctx, betas, *wm):
+        return _GRAPHS.call(("alg_mix_many",) + key, mix_many_impl,
+                            (params, ctx, np.asarray(betas, np.float32))
+                            + tuple(wm))
+
+    def mix(params, ctx, w_new, msg, beta_t):
+        return mix_many(params, ctx, [beta_t], w_new, msg)
+
+    _ALG_MIX_FNS[key] = (mix, mix_many)
+    return mix, mix_many
+
+
 def server_receive_many(state: ServerState, updates, fed: FedConfig,
-                        mix_many=None):
+                        mix_many=None, algorithm=None, server_ctx=None):
     """Apply a group of receives ``[(w_new, τ), ...]`` in order: m chained
     ``server_receive`` calls. A singleton stays on the scalar mix (so
     ``window=0`` is the event-by-event loop); a group of m ≥ 2 goes to
     ``mix_many`` (default ``make_batched_server_update(fed)``) as one
-    call. Returns ``(new_state, stalenesses, betas)``."""
+    call. Returns ``(new_state, stalenesses, betas)``.
+
+    With a stateful ``algorithm`` the updates are ``(w_new, msg, τ)``
+    triples, the mixes are ``algorithm.mix`` carrying ``server_ctx``
+    (default the instance's) along, every group one call, and the return
+    is ``(new_state, new_ctx, stalenesses, betas)``."""
+    if algorithm is not None and algorithm.stateful:
+        if server_ctx is None:
+            server_ctx = algorithm.ctx_for(state.params)
+        _, amix_many = _alg_mix_fns(algorithm)
+        stals, betas = group_mixing_weights(
+            fed, state.t, [tau for _, _, tau in updates])
+        params, new_ctx = amix_many(
+            state.params, server_ctx, betas, *[w for w, _, _ in updates],
+            *[m for _, m, _ in updates])
+        return (ServerState(params=params, t=state.t + len(updates),
+                            total_updates=(state.total_updates
+                                           + len(updates))),
+                new_ctx, stals, betas)
     stals, betas = group_mixing_weights(fed, state.t,
                                         [tau for _, tau in updates])
     if len(updates) == 1:
@@ -153,6 +214,13 @@ def make_client_step(cfg: ModelConfig, fed: FedConfig):
         return params, opt_state, loss
 
     return step, opt
+
+
+@functools.lru_cache(maxsize=16)
+def cached_client_step(cfg: ModelConfig, fed: FedConfig):
+    """Memoized ``make_client_step``: repeated simulator runs reuse one
+    step instead of building a closure per run."""
+    return make_client_step(cfg, fed)
 
 
 def client_update(params_global, t: int, batches, cfg: ModelConfig,

@@ -11,8 +11,15 @@ call (one CUDA graph replay per round shape on the card). Clients with
 different batch counts H^k, including zero (out of data), pad to H_max
 and run the masked round; only batch shapes that disagree drop to the
 per-client fallback (``_ragged_fallback``). ``fedavg_round_loop`` is the
-per-client, per-iteration loop, kept as the parity oracle. The
-``algorithm=`` layer is ROADMAP Queue 1 item 8.
+per-client, per-iteration loop, kept as the parity oracle.
+
+``algorithm=``: a ``core.algorithms.FedAlgorithm`` or its name; ``None``
+(and ``FedProx``) is the paper's round. A stateful algorithm's per-client
+states and server context live on the caller's instance, keyed by
+``client_ids`` (default ``range(n_clients)``): the round engine gets them
+as inputs (``_alg_round_io``) and its outputs are committed back
+(``_alg_round_commit``); the loop oracle runs
+``algorithms.client_update_loop`` and ``algorithms.server_reduce``.
 """
 from __future__ import annotations
 
@@ -22,8 +29,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import fed_engine
-from repro_torch.core.fedasync import make_client_step
+from repro_torch.core import algorithms, fed_engine
+from repro_torch.core.fedasync import cached_client_step, make_client_step
 from repro_torch.data import stack_batches
 from repro_torch.optim import trainable_mask
 from repro_torch.types import FedConfig, ModelConfig
@@ -51,17 +58,48 @@ def _client_weights(n: int, data_sizes: Sequence[int] | None):
     return s / s.sum()
 
 
+def _alg_round_io(algorithm, params_global, n, client_ids):
+    """The caller's instance supplies a stateful algorithm's round inputs
+    (the memoized engine may be bound to another, equal-keyed instance).
+    Returns (ids, engine-call keywords); ids is None when stateless."""
+    if algorithm is None or not algorithm.stateful:
+        return None, {}
+    ids = list(client_ids) if client_ids is not None else list(range(n))
+    return ids, {"server_ctx": algorithm.ctx_for(params_global),
+                 "states": algorithm.stacked_states(params_global, ids)}
+
+
+def _alg_round_commit(algorithm, ids, out):
+    """Unpack a round engine's output, committing a stateful algorithm's
+    new context and states to the caller's instance. Returns
+    (new_global, losses)."""
+    if ids is None:
+        return out
+    new_global, new_ctx, new_states, losses = out
+    algorithm.set_ctx(new_ctx)
+    algorithm.store_states(ids, new_states)
+    return new_global, losses
+
+
 def fedavg_round_loop(params_global, client_batches: Sequence,
                       cfg: ModelConfig, fed: FedConfig, step=None, opt=None,
                       mask=None, data_sizes: Sequence[int] | None = None,
-                      algorithm=None):
+                      algorithm=None,
+                      client_ids: Sequence[int] | None = None):
     """One round as a per-client, per-iteration loop: each client starts
     from ``params_global`` with a fresh optimizer state and runs up to
     ``fed.local_iters_max`` steps (one host read of the loss each).
-    Returns (new_global_params, per_client_losses)."""
+    Returns (new_global_params, per_client_losses). A stateful algorithm
+    goes through ``algorithms.client_update_loop`` and ``server_reduce``;
+    a stateless one keeps the plain step."""
     if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+        algorithm = algorithms.make_algorithm(algorithm)
+        if algorithm.stateful:
+            client_lists = [list(itertools.islice(b, fed.local_iters_max))
+                            for b in client_batches]
+            return _ragged_fallback(params_global, client_lists, cfg, fed,
+                                    None, mask, data_sizes, algorithm,
+                                    client_ids)
     if step is None:
         step, opt = make_client_step(cfg, fed)
     if mask is None:
@@ -85,7 +123,8 @@ def fedavg_round_loop(params_global, client_batches: Sequence,
 def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
                  fed: FedConfig, engine=None, mask=None,
                  data_sizes: Sequence[int] | None = None,
-                 donate_params: bool = False, algorithm=None):
+                 donate_params: bool = False, algorithm=None,
+                 client_ids: Sequence[int] | None = None):
     """One synchronous round as one batched call.
 
     ``client_batches``: per-client iterables of batches; each is taken to
@@ -100,17 +139,20 @@ def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
     default), or an ``fleet.EngineSpec`` / its string ("loop" routes to
     ``fedavg_round_loop``; "shard" and "hier" are ROADMAP Queue 1 item
     13). ``donate_params`` is the reference's keyword; the port never
-    writes into ``params_global``.
+    writes into ``params_global``. ``algorithm`` / ``client_ids``: see
+    the module's docstring.
     """
     if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+        algorithm = algorithms.make_algorithm(algorithm)
     if engine is not None and not isinstance(engine, fed_engine.SyncRound):
         from repro_torch.core.fleet import EngineSpec
-        engine = EngineSpec.from_str(engine).build_sync(cfg, fed)
+        engine = EngineSpec.from_str(engine).build_sync(
+            cfg, fed, algorithm=algorithm)
         if engine is None:                  # EngineSpec.LOOP
             return fedavg_round_loop(params_global, client_batches, cfg,
-                                     fed, mask=mask, data_sizes=data_sizes)
+                                     fed, mask=mask, data_sizes=data_sizes,
+                                     algorithm=algorithm,
+                                     client_ids=client_ids)
     # materialize up to H batches per client first: iterators may be
     # generators, so raggedness must be detected before anything is lost
     client_lists = [list(itertools.islice(b, fed.local_iters_max))
@@ -119,21 +161,27 @@ def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
     counts = [len(bl) for bl in client_lists]
     if client_lists and len(sigs) == 1:
         if engine is None:
-            engine = fed_engine.make_sync_round(cfg, fed)
+            engine = fed_engine.make_sync_round(cfg, fed,
+                                                algorithm=algorithm)
         if min(counts) == max(counts) > 0:
             # straight to (n_clients, H, ...): one host copy
             stacked = {k: np.stack([[b[k] for b in bl]
                                     for bl in client_lists])
                        for k in client_lists[0][0]}
-            new_global, losses = engine(
+            ids, alg_kw = _alg_round_io(algorithm, params_global,
+                                        len(client_lists), client_ids)
+            out = engine(
                 params_global, stacked,
                 weights=_client_weights(len(client_lists), data_sizes),
-                mask=mask, donate=True, donate_params=donate_params)
+                mask=mask, donate=True, donate_params=donate_params,
+                **alg_kw)
+            new_global, losses = _alg_round_commit(algorithm, ids, out)
             return new_global, losses.cpu().numpy().tolist()
         return _padded_round(params_global, client_lists, cfg, fed, engine,
-                             mask, data_sizes, donate_params)
+                             mask, data_sizes, donate_params, algorithm,
+                             client_ids)
     return _ragged_fallback(params_global, client_lists, cfg, fed, engine,
-                            mask, data_sizes)
+                            mask, data_sizes, algorithm, client_ids)
 
 
 def _batch_sig(b):
@@ -142,7 +190,8 @@ def _batch_sig(b):
 
 
 def _padded_round(params_global, client_lists, cfg, fed, engine, mask,
-                  data_sizes, donate_params=False):
+                  data_sizes, donate_params=False, algorithm=None,
+                  client_ids=None):
     """Heterogeneous-H round as one padded masked call: batches written
     straight into one zero-initialized (n_clients, H_max, ...) array per
     key, the true H^k as the mask. Empty clients run zero steps and add
@@ -159,25 +208,44 @@ def _padded_round(params_global, client_lists, cfg, fed, engine, mask,
                 out[c, i] = b[k]
         stacked[k] = out
     if engine is None:
-        engine = fed_engine.make_sync_round(cfg, fed)
-    new_global, losses = engine(params_global, stacked,
-                                weights=_client_weights(n, data_sizes),
-                                mask=mask, iters=iters, donate=True,
-                                donate_params=donate_params)
+        engine = fed_engine.make_sync_round(cfg, fed, algorithm=algorithm)
+    ids, alg_kw = _alg_round_io(algorithm, params_global, n, client_ids)
+    out = engine(params_global, stacked,
+                 weights=_client_weights(n, data_sizes), mask=mask,
+                 iters=iters, donate=True, donate_params=donate_params,
+                 **alg_kw)
+    new_global, losses = _alg_round_commit(algorithm, ids, out)
     losses = losses.cpu().numpy()
     return new_global, [[float(x) for x in row[:h]]
                         for row, h in zip(losses, iters)]
 
 
 def _ragged_fallback(params_global, client_lists, cfg, fed, engine, mask,
-                     data_sizes, algorithm=None):
+                     data_sizes, algorithm=None, client_ids=None):
     """Per-client runs and the weighted average when no batched call can
     form (batch shapes disagree): stackable clients run on the client
     engine, ragged ones on the per-iteration step loop, empty ones return
-    the global model."""
-    if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
+    the global model. A stateful algorithm runs every client on the
+    algorithm-aware loop oracle and folds with ``server_reduce``."""
+    if algorithm is not None and algorithm.stateful:
+        ids = list(client_ids) if client_ids is not None \
+            else list(range(len(client_lists)))
+        if mask is None:
+            mask = trainable_mask(params_global, fed.trainable)
+        ctx = algorithm.ctx_for(params_global)
+        w_news, states, msgs, losses = [], [], [], []
+        for k, bl in zip(ids, client_lists):
+            w, st, msg, ls = algorithms.client_update_loop(
+                params_global, bl, cfg, fed, algorithm, client_id=k,
+                mask=mask, server_ctx=ctx)
+            w_news.append(w)
+            states.append(st)
+            msgs.append(msg)
+            losses.append(ls)
+        new_global, _ = algorithms.server_reduce(
+            algorithm, params_global, w_news, states, msgs,
+            _client_weights(len(ids), data_sizes), server_ctx=ctx)
+        return new_global, losses
     # the round engine's client (and its graphs) when one was given
     run = engine.client if engine is not None \
         else fed_engine.make_client_run(cfg, fed)
@@ -194,7 +262,7 @@ def _ragged_fallback(params_global, client_lists, cfg, fed, engine, mask,
         except ValueError:                  # ragged shapes within client
             s = None
         if s is None:
-            step, opt = make_client_step(cfg, fed)
+            step, opt = cached_client_step(cfg, fed)
             params = params_global
             opt_state = opt.init(params)
             cl = []

@@ -159,6 +159,21 @@ class Fleet:
             self._iters_cache[key] = H
         return int(self._iters_cache[key][k])
 
+    def capacity(self, k: int, lo: float = 0.5, hi: float = 1.0) -> float:
+        """Relative compute capacity of client k in [lo, hi] by device
+        speed rank, the ``iters`` rule's continuous twin (fastest device
+        ``hi``, slowest ``lo``); ``algorithms.LowRankSubmodel`` scales its
+        per-client budget by it."""
+        key = ("capacity", lo, hi)
+        if key not in self._iters_cache:
+            order = np.argsort([p.epoch_seconds for p in self._profiles])
+            caps = np.empty(self.population, np.float64)
+            for rank, j in enumerate(order):
+                frac = rank / max(self.population - 1, 1)
+                caps[int(j)] = hi - frac * (hi - lo)
+            self._iters_cache[key] = caps
+        return float(self._iters_cache[key][k])
+
     def release(self, ks) -> None:
         """Resident fleets hold every client for the run: nothing to drop."""
 

@@ -11,9 +11,12 @@ updates. The clock is host-side numpy drawn in the reference's order, so
 ``wall_clock_s``, the staleness and group histograms and the trace equal
 the reference's exactly, on either engine.
 
-Still to be ported: ``algorithm=`` (ROADMAP Queue 1 item 8), compressed
-updates (item 6), streaming fleets (item 9) and the sharded and
-hierarchical engines (item 13).
+``algorithm=`` (``core/algorithms.py``: FedProx, Scaffold,
+LowRankSubmodel) runs on both engines and both modes, and
+``fed.compress_bits`` sends every async update through the int8 / int4
+wire codec (``core/compression.py``), per dispatch and outside any graph.
+Still to be ported: streaming fleets (ROADMAP Queue 1 item 9) and the
+sharded and hierarchical engines (item 13).
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.core import fed_engine, fedasync, fedavg
+from repro_torch.core import algorithms, fed_engine, fedasync, fedavg
 from repro_torch.core.fedasync import ServerState
 from repro_torch.core.fleet import (ASYNC_ENGINES, SYNC_ENGINES,
                                     DeviceProfile, EngineSpec, Fleet)
@@ -129,15 +133,21 @@ class Scheduler:
         return group
 
 
-def _check_ported(engine, allowed, algorithm, fleet) -> EngineSpec:
+def _bound_algorithm(algorithm, fleet):
+    """The run's algorithm instance (a name builds one; None is
+    ``FedProx``), bound to ``fleet``."""
+    alg = algorithms.make_algorithm(
+        "fedprox" if algorithm is None else algorithm)
+    alg.bind_fleet(fleet)
+    return alg
+
+
+def _check_ported(engine, allowed, fleet) -> EngineSpec:
     espec = EngineSpec.from_str(engine, allowed=allowed)
     if espec in (EngineSpec.SHARD, EngineSpec.HIER):
         raise NotImplementedError(
             f"engine={espec.value!r}: the sharded and hierarchical rounds "
             "are ROADMAP Queue 1 item 13")
-    if algorithm is not None:
-        raise NotImplementedError(
-            "algorithm=: the FedAlgorithm layer is ROADMAP Queue 1 item 8")
     if not isinstance(fleet, Fleet):
         raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
                         "FleetSpec populations are ROADMAP Queue 1 item 9")
@@ -163,23 +173,29 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     burst of concurrent ones (the kickoff, and with ``window`` > 0 each
     group's re-dispatches), as one ``run_batch`` padded to
     ``fed.local_iters_max`` with one host read of the losses; on the card
-    each burst size is one CUDA graph whatever the H^k. ``"loop"`` is the per-iteration oracle
-    (``fedasync.client_update``). The virtual clock is the same on both.
+    each burst size is one CUDA graph whatever the H^k. ``"loop"`` is the
+    per-iteration oracle (``algorithms.client_update_loop``). The
+    virtual clock is the same on both.
+
+    ``algorithm``: a ``core.algorithms.FedAlgorithm`` or its name; None
+    is ``FedProx``, the paper's step. A stateful algorithm threads each
+    client's state through its runs, sends ``(w_new, msg)`` over the wire
+    and mixes with ``algorithm.mix`` (which also moves the server
+    context). Updates go through the algorithm's codec (FedProx's is the
+    int8 / int4 delta round trip) when ``fed.compress_bits`` is set or
+    the algorithm asks for it (``wire_always``): per dispatch, after the
+    engine's call.
     """
-    espec = _check_ported(engine, ASYNC_ENGINES, algorithm, fleet)
-    if fed.compress_bits:
-        raise NotImplementedError(
-            "fed.compress_bits: compressed updates are ROADMAP Queue 1 "
-            "item 6")
+    espec = _check_ported(engine, ASYNC_ENGINES, fleet)
     fleet.check(fed)
+    alg = _bound_algorithm(algorithm, fleet)
+    stateful = alg.stateful
     device = resolve_device(device)
     params0 = {k: v.to(device) for k, v in params0.items()}
     rng = np.random.default_rng(fed.seed)
     sample_rng = np.random.default_rng((fed.seed, 0xA51C))
     if espec is EngineSpec.SCAN:
-        run = fed_engine.make_client_run(cfg, fed)
-    else:
-        step, opt = fedasync.make_client_step(cfg, fed)
+        run = fed_engine.make_client_run(cfg, fed, algorithm=alg)
     mask = trainable_mask(params0, fed.trainable)
     mix_many = fedasync.make_batched_server_update(fed)
     server = ServerState(params=params0, t=0)
@@ -193,38 +209,76 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     staleness_hist: dict = {}
     group_hist: dict = {}
 
+    def _empty_result(k):
+        """Out-of-data client: the unchanged global goes back; a stateful
+        algorithm still closes the run at zero iterations, so its msg
+        (SCAFFOLD's Δc = 0, the low-rank capacity) is well formed."""
+        if not stateful:
+            return (server.params, [])
+        w, st, msg = alg.client_finalize(
+            server.params, server.params, alg.state_for(k, server.params),
+            torch.zeros((), dtype=torch.int32, device=device),
+            alg.ctx_for(server.params), fed)
+        alg.store_state(k, st)
+        return ((w, msg), [])
+
     def _run_clients(ks) -> dict:
         """{k: (w_new, losses)} for clients ``ks`` from the current server
-        model. On the scan engine every dispatch, lone or a burst, is one
+        model, w_new being ``(w_new, msg)`` for a stateful algorithm. On
+        the scan engine every dispatch, lone or a burst, is one
         ``run_batch`` padded to ``fed.local_iters_max``, so one program
         per burst size covers every H^k; clients whose batch shapes
         differ run as bursts of their own."""
         results = {}
         if espec is EngineSpec.LOOP:
             for k in ks:
-                w_new, _, losses = fedasync.client_update(
-                    server.params, server.t, fleet.data(k)(), cfg, fed,
-                    step=step, opt=opt, mask=mask, num_iters=H[k])
-                results[k] = (w_new, losses)
+                w_new, _, msg, losses = algorithms.client_update_loop(
+                    server.params, fleet.data(k)(), cfg, fed, alg,
+                    client_id=k, num_iters=H[k], mask=mask,
+                    server_ctx=alg.ctx_for(server.params))
+                results[k] = ((w_new, msg) if stateful else w_new, losses)
             return results
         bursts: dict = {}
         for k in ks:
             stack = stack_batches(fleet.data(k)(), limit=H[k])
             if stack is None:                        # client out of data
-                results[k] = (server.params, [])
+                results[k] = _empty_result(k)
             else:
                 bursts.setdefault(fed_engine.stack_shapes(stack),
                                   []).append((k, stack))
         for burst in bursts.values():
+            ids = [k for k, _ in burst]
             padded, iters = fed_engine.pad_client_batches(
                 [stack for _, stack in burst], H_max=fed.local_iters_max)
-            w_news, loss_arr = run.run_batch(server.params, padded, iters,
-                                             mask=mask, donate=True)
+            if stateful:
+                w_news, new_states, msgs, loss_arr = run.run_batch(
+                    server.params, padded, iters, mask=mask, donate=True,
+                    server_ctx=alg.ctx_for(server.params),
+                    states=alg.stacked_states(server.params, ids))
+                outs = run.unstack((w_news, new_states, msgs), len(ids))
+            else:
+                w_news, loss_arr = run.run_batch(server.params, padded,
+                                                 iters, mask=mask,
+                                                 donate=True)
+                outs = run.unstack(w_news, len(ids))
             la = loss_arr.cpu().numpy()              # one host read
-            for j, ((k, _), w) in enumerate(zip(burst, run.unstack(
-                    w_news, len(burst)))):
-                results[k] = (w, [float(la[j, iters[j] - 1])])
+            for j, (k, out) in enumerate(zip(ids, outs)):
+                if stateful:
+                    w, st, msg = out
+                    alg.store_state(k, st)
+                    out = (w, msg)
+                results[k] = (out, [float(la[j, iters[j] - 1])])
         return results
+
+    def _wire(w_new):
+        """What the server receives of ``w_new``: through the algorithm's
+        codec, decoded against the model handed out."""
+        if not (fed.compress_bits or alg.wire_always):
+            return w_new
+        w, msg = w_new if stateful else (w_new, ())
+        w, msg = alg.decode(alg.encode(w, msg, server.params, fed),
+                            server.params, fed)
+        return (w, msg) if stateful else w
 
     def dispatch(ks, now: float):
         tau = server.t
@@ -239,7 +293,7 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
             w_new, losses = results[k]
             dt = _client_time(fleet.profile(k), H[k], iters_per_epoch, rng,
                               jitter)
-            sched.push(now + dt, k, w_new, tau,
+            sched.push(now + dt, k, _wire(w_new), tau,
                        losses[-1] if losses else math.nan)
             trace.append(TraceEvent(now, "dispatch", k, tau))
 
@@ -254,9 +308,16 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
         group = sched.pop_window(server.t, fed.max_staleness,
                                  fed.global_epochs - server.t)
         t0 = server.t
-        server, stals, betas = fedasync.server_receive_many(
-            server, [(w_new, tau) for _, _, w_new, tau, _ in group], fed,
-            mix_many=mix_many)
+        if stateful:
+            server, new_ctx, stals, betas = fedasync.server_receive_many(
+                server, [(w, msg, tau)
+                         for _, _, (w, msg), tau, _ in group], fed,
+                algorithm=alg, server_ctx=alg.ctx_for(server.params))
+            alg.set_ctx(new_ctx)
+        else:
+            server, stals, betas = fedasync.server_receive_many(
+                server, [(w_new, tau) for _, _, w_new, tau, _ in group],
+                fed, mix_many=mix_many)
         for i, ((ft, k, _, _, loss), st, bt) in enumerate(
                 zip(group, stals, betas)):
             now = ft
@@ -307,18 +368,23 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     ``engine="scan"`` (default) runs every round as one ``SyncRound``
     call (a CUDA graph replay on the card); ``"loop"`` is the per-client
     oracle; ``"shard"`` and ``"hier"`` are ROADMAP Queue 1 item 13.
+
+    ``algorithm``: a ``core.algorithms.FedAlgorithm`` or its name; None
+    is ``FedProx``, the paper's round. A stateful algorithm keeps each client's
+    state on the instance across rounds, keyed by the sampled ids.
     """
-    espec = _check_ported(engine, SYNC_ENGINES, algorithm, fleet)
+    espec = _check_ported(engine, SYNC_ENGINES, fleet)
     fleet.check(fed)
+    alg = _bound_algorithm(algorithm, fleet)
     device = resolve_device(device)
     params = {k: v.to(device) for k, v in params0.items()}
     rng = np.random.default_rng(fed.seed)
     sample_rng = np.random.default_rng((fed.seed, 0x5A3D))
     if espec is EngineSpec.LOOP:
-        step, opt = fedasync.make_client_step(cfg, fed)
+        step, opt = fedasync.cached_client_step(cfg, fed)
         round_engine = None
     else:
-        round_engine = espec.build_sync(cfg, fed)
+        round_engine = espec.build_sync(cfg, fed, algorithm=alg)
     mask = trainable_mask(params, fed.trainable)
     now = 0.0
     history, trace = [], []
@@ -333,10 +399,11 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
         if round_engine is not None:
             params, losses = fedavg.fedavg_round(
                 params, batches, cfg, fed, engine=round_engine, mask=mask,
-                donate_params=True)
+                donate_params=True, algorithm=alg, client_ids=ids)
         else:
             params, losses = fedavg.fedavg_round_loop(
-                params, batches, cfg, fed, step=step, opt=opt, mask=mask)
+                params, batches, cfg, fed, step=step, opt=opt, mask=mask,
+                algorithm=alg, client_ids=ids)
         dt = max(_client_time(fleet.profile(k), fed.local_iters_max,
                               iters_per_epoch, rng, jitter)
                  for k in ids)

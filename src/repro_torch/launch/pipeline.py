@@ -50,10 +50,11 @@ def params_digest(params: dict) -> str:
     return h.hexdigest()
 
 
-def _finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
-              mode: str, engine, seed: int, device):
-    """Stage 2: federated fine-tune from ``params`` over an iid partition
-    of the clients' reduced local dataset."""
+def finetune(params, cfg: ModelConfig, fed: FedConfig, ds, batch: int,
+             mode: str, engine, seed: int, device):
+    """Stage 2 alone: federated fine-tune from ``params`` over an iid
+    partition of the clients' reduced local dataset ``ds``, in ``mode``
+    "async" or "sync". Returns the simulator's ``SimResult``."""
     parts = iid_partition(max(len(ds), fed.num_clients * 8),
                           fed.num_clients, seed=seed)
     data = [BatchLoader(ds, batch, steps=fed.local_iters_max,
@@ -80,12 +81,15 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
                  kd_lr: float = 0.01, kd_epoch_len: int | None = None,
                  kd_kernel: str = "cuda", engine: str = "scan",
                  codistill: bool = False, compare_scratch: bool = False,
-                 eval_steps: int = 4, seed: int = 0, device=None):
+                 eval_steps: int = 4, seed: int = 0, device=None,
+                 on_stage1=None):
     """Run KD compression then federated fine-tuning (``mode`` "async" or
     "sync").
 
     Returns ``(report, params)``: a JSON-serialisable dict and the
-    fine-tuned student's params.
+    fine-tuned student's params. ``on_stage1``, if given, is called with
+    stage 1's params before stage 2 starts, so a caller can hold the two
+    stages apart (stage 2 alone is ``finetune``).
     """
     if mode not in ("async", "sync"):
         raise ValueError(f"mode must be 'async' or 'sync', got {mode!r}")
@@ -120,13 +124,15 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
          "accuracy": s.accuracy, "steps": len(s.losses),
          "wall_s": s.wall_time_s} for s in stages]}
     report["stage1"]["digest"] = params_digest(params)
+    if on_stage1 is not None:
+        on_stage1(params)
 
     # ---- stage 2: federated fine-tune on the clients' reduced data ----
     # same seed as stage 1: the clients' dataset draws the same class
     # programs as the server's, so KD transfer is real
     fed = FedConfig(num_clients=clients, global_epochs=epochs, seed=seed)
     ds = make_dataset_for(cfg, small=True, seed=seed)
-    res = _finetune(params, cfg, fed, ds, batch, mode, engine, seed,
+    res = finetune(params, cfg, fed, ds, batch, mode, engine, seed,
                     device)
     params = res.params
     held_out = list(ds.batches(batch, eval_steps, seed=777))
@@ -138,8 +144,8 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
 
     if compare_scratch:
         # the same fine-tune from a random init: the KD baseline
-        sres = _finetune(_scratch_init(cfg, seed, device), cfg, fed, ds,
-                         batch, mode, engine, seed, device)
+        sres = finetune(_scratch_init(cfg, seed, device), cfg, fed, ds,
+                        batch, mode, engine, seed, device)
         report["scratch"] = {
             "final_loss": sres.final_loss,
             "accuracy": distill.evaluate(sres.params, cfg, held_out)}

@@ -8,9 +8,15 @@ server with no clients (``--mode central``), from a random init or, with
 (``launch/pipeline.py`` runs both stages in full). Runs on the card
 unless ``--device cpu`` is given, and prints one JSON result line last.
 
+``--algorithm`` picks the federated algorithm (``core/algorithms.py``):
+the paper's proximal local SGD (``fedprox``, the default), SCAFFOLD's
+control variates (``scaffold``) or capacity-scaled low-rank / masked
+submodel updates (``lowrank``), on either engine and mode.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode sync \
-        --epochs 8 --reduced --device cpu [--engine scan|loop]
+        --epochs 8 --reduced --device cpu [--engine scan|loop] \
+        [--algorithm fedprox|scaffold|lowrank]
     PYTHONPATH=src python -m repro_torch.launch.train --mode central \
         --steps 20 --reduced --device cpu
 """
@@ -25,6 +31,7 @@ import torch
 from repro_torch.checkpoint import save_params
 from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
+from repro_torch.core.algorithms import ALGORITHMS
 from repro_torch.core.fedasync import make_client_step
 from repro_torch.core.fleet import JETSON_FLEET_HMDB51, EngineSpec, Fleet
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
@@ -32,9 +39,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.optim import trainable_mask
 from repro_torch.types import DistillConfig, FedConfig
-
-ALGORITHMS = ("fedprox", "lowrank", "scaffold")
-
 
 def build_fleet(n: int):
     """n Jetson profiles, cycling through the paper's four device types."""
@@ -48,10 +52,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--engine {args.engine}: the sharded and hierarchical rounds "
             "are ROADMAP Queue 1 item 13")
-    if args.algorithm != "fedprox":
-        raise NotImplementedError(
-            f"--algorithm {args.algorithm}: the FedAlgorithm layer is "
-            "ROADMAP Queue 1 item 8")
     if args.population:
         raise NotImplementedError(
             "--population: streaming FleetSpec populations are ROADMAP "
@@ -87,9 +87,13 @@ def main(argv=None):
                     help="client execution: the batched engines (CUDA "
                          "graphs on the card) or the per-iteration loop, the "
                          "oracle; shard and hier are ROADMAP Queue 1 item 13")
-    ap.add_argument("--algorithm", choices=ALGORITHMS, default="fedprox",
-                    help="federated algorithm; the port has the paper's "
-                         "proximal local SGD only")
+    ap.add_argument("--algorithm", choices=sorted(ALGORITHMS),
+                    default="fedprox",
+                    help="federated algorithm (core/algorithms.py): "
+                         "'fedprox' is the paper's proximal local SGD, "
+                         "'scaffold' adds SCAFFOLD's control variates, "
+                         "'lowrank' ships capacity-scaled low-rank / masked "
+                         "submodel updates")
     ap.add_argument("--async-window", type=float, default=0.0,
                     help="staleness-bounded micro-batching window W in "
                          "virtual seconds (async mode); 0 = event by event")
@@ -164,10 +168,13 @@ def main(argv=None):
             res = simulator.run_async(params, cfg, fed, fleet,
                                       engine=args.engine,
                                       window=args.async_window,
+                                      algorithm=args.algorithm,
                                       device=device)
         else:
             res = simulator.run_sync(params, cfg, fed, fleet,
-                                     engine=args.engine, device=device)
+                                     engine=args.engine,
+                                     algorithm=args.algorithm,
+                                     device=device)
         params = res.params
         print(f"  virtual wall-clock {res.wall_clock_s:.0f}s "
               f"final loss {res.final_loss:.4f}")

@@ -199,6 +199,11 @@ class FedConfig:
     clients_per_round: int = 0        # 0 = whole population in flight
     seed: int = 0
 
+    @property
+    def imbalance_ratio(self) -> float:
+        """λ = H_max / H_min (the convergence bound's imbalance ratio)."""
+        return self.local_iters_max / max(1, self.local_iters_min)
+
 
 @dataclass(frozen=True)
 class DistillConfig:

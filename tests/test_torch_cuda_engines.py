@@ -4,7 +4,10 @@ CUDA graph against the same function run eagerly on the card (TF32 off;
 shape, the KD kernels run H times by each replayed epoch (the profiler's
 device events; the wrappers count the eager run and the capture, not the
 replays), outputs that outlive the next replay, and a capture that fails
-raising. Needs an
+raising; the algorithm layer's stateful rounds (SCAFFOLD replayed against
+its eager run, one capture per round shape over H^k draws and mixed
+LowRank capacities, no host sync in their replays, LowRank's SVD refused
+by a capture and run between the round's two graphs). Needs an
 NVIDIA GPU and nvcc; elsewhere every test skips with a reason. Imports no
 JAX:
 
@@ -21,7 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
-from repro_torch.core import distill, fed_engine, fedasync
+from repro_torch.core import algorithms, distill, fed_engine, fedasync
 from repro_torch.data import SyntheticActionDataset, stack_batches
 from repro_torch.device import batch_to
 from repro_torch.kernels import kd_loss
@@ -201,3 +204,123 @@ def test_a_capture_that_fails_raises(cuda):
                          env={**os.environ, "PYTHONPATH": str(src)},
                          capture_output=True, text=True, timeout=300)
     assert out.stdout.split() == ["raised", "0"], out.stderr
+
+
+def _stateful(alg, params, n=3):
+    alg.bind_fleet(None)
+    return alg.ctx_for(params), alg.stacked_states(params, range(n))
+
+
+def test_replayed_scaffold_round_equals_eager(cuda):
+    """A SCAFFOLD round (the client half, the variate update, the weighted
+    fold and the server context's update in one graph) replayed against
+    the same round run eagerly, cuDNN deterministic: params, context and
+    states."""
+    cfg, params, _, padded = _setup(cuda)
+    iters = np.asarray([3, 1, 2], np.int32)
+    weights = np.asarray([0.2, 0.3, 0.5], np.float32)
+    alg = algorithms.Scaffold()
+    ctx, states = _stateful(alg, params)
+    sync = fed_engine.SyncRound(cfg, FED, algorithm=alg)
+    mask = trainable_mask(params, FED.trainable)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = sync._rnd_padded(params, batch_to(padded, cuda), weights,
+                                torch.as_tensor(iters, device=cuda), mask,
+                                ctx, states)
+        for _ in range(3):             # eager, capture and replay, replay
+            got = sync(params, padded, weights=weights, iters=iters,
+                       server_ctx=ctx, states=states)
+            _close(got[0], want[0])
+            _close(got[1], want[1])
+            for k in want[2]:
+                _close({k: got[2][k]}, {k: want[2][k]})
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert sync._graphs.num_captured == 1
+    assert float(sum(v.abs().sum() for v in got[1].values())) > 0
+
+
+def test_stateful_rounds_capture_once_per_shape_without_host_sync(cuda):
+    """Three H^k draws and the LowRank clients' mixed capacities share one
+    graph per round shape (two for the LowRank round, whose SVD runs
+    between them); a replay of each reads nothing back to the host."""
+    cfg, params, _, padded = _setup(cuda)
+    weights = np.asarray([0.2, 0.3, 0.5], np.float32)
+    mask = trainable_mask(params, FED.trainable)
+    draws = [np.asarray(d, np.int32) for d in ([3, 1, 2], [1, 1, 3],
+                                               [2, 3, 3])]
+    for alg, n_round in ((algorithms.Scaffold(), 1),
+                         (algorithms.LowRankSubmodel(), 2)):
+        ctx, states = _stateful(alg, params)
+        if isinstance(alg, algorithms.LowRankSubmodel):
+            for k, cap in enumerate((0.2, 0.5, 1.0)):
+                alg.set_capacity(k, cap)
+            alg.reset()
+            ctx, states = _stateful(alg, params)
+            np.testing.assert_array_equal(states["cap"].cpu().numpy(),
+                                          np.float32([0.2, 0.5, 1.0]))
+        run = fed_engine.ClientRun(cfg, FED, algorithm=alg)
+        sync = fed_engine.SyncRound(cfg, FED, algorithm=alg)
+        for d in draws:
+            run.run_batch(params, padded, d, server_ctx=ctx, states=states)
+            sync(params, padded, weights=weights, iters=d, server_ctx=ctx,
+                 states=states)
+        assert [run.num_compiled, run._graphs.num_captured] == [1, 1]
+        assert [sync.num_compiled, sync._graphs.num_captured] == \
+            [n_round, n_round]
+        if n_round == 2:
+            w, st, msgs, _ = sync.client_half(params, padded, mask,
+                                              draws[0], ctx, states)
+            w_eff = alg.reduce_prepare(w, params, st, ctx)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run.run_batch(params, padded, draws[1], server_ctx=ctx,
+                          states=states)
+            if n_round == 1:
+                sync(params, padded, weights=weights, iters=draws[1],
+                     server_ctx=ctx, states=states)
+            else:
+                sync.client_half(params, padded, mask, draws[1], ctx, states)
+                sync.fold(w_eff, params, weights, msgs, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sync._graphs.num_captured == n_round
+
+
+_SVD_CAPTURE = """
+import torch
+from repro_torch.core.algorithms import LowRankSubmodel
+from repro_torch.core.compile_cache import GraphCache
+alg = LowRankSubmodel()
+anchor = {"fc/w": torch.randn(512, 400, device="cuda")}
+w = {"fc/w": anchor["fc/w"][None] + 1e-3 * torch.randn(2, 512, 400,
+                                                      device="cuda")}
+states = {"cap": torch.tensor([0.25, 0.5], device="cuda")}
+cache = GraphCache()
+args = (w, anchor, states, ())
+cache.call("prepare", alg.reduce_prepare, args)           # eager
+try:
+    cache.call("prepare", alg.reduce_prepare, args)       # the capture
+    print("captured", cache.num_captured)
+except RuntimeError as e:
+    print("raised", cache.num_captured)
+"""
+
+
+def test_lowrank_svd_capture_raises_and_never_falls_back(cuda):
+    """LowRank's reduce_prepare (``torch.linalg.svd`` of each client's
+    ``fc/w`` delta) captured: either it captures, or the capture raises
+    and nothing runs in the graph's place; the algorithm declares which,
+    and the sync round splits around the prepare only when it must (in a
+    process of its own: a failed capture may leave the stream unusable)."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _SVD_CAPTURE],
+                         env={**os.environ, "PYTHONPATH": str(src)},
+                         capture_output=True, text=True, timeout=300)
+    if algorithms.LowRankSubmodel.prepare_in_graph:
+        assert out.stdout.split() == ["captured", "1"], out.stderr
+    else:
+        assert out.stdout.split() == ["raised", "0"], out.stderr

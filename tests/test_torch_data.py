@@ -8,6 +8,7 @@ pytest.importorskip("torch")
 
 import repro.configs as jcfg
 import repro.data as jdata
+import repro.data.partition as jpart
 import repro.types as jtypes
 import repro_torch.configs as tcfg
 import repro_torch.data as tdata
@@ -74,3 +75,29 @@ def test_iid_partition_equal(n, k):
     for a, b in zip(jdata.iid_partition(n, k, seed=2),
                     tdata.iid_partition(n, k, seed=2)):
         assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("n,k", [(64, 4), (37, 5), (8, 8)])
+def test_iid_shard_equal_to_reference_and_partition(n, k):
+    """One client's shard, as the reference draws it and as the whole
+    partition's k-th list, byte for byte (and with a shared permutation)."""
+    import numpy as np
+    perm = np.random.default_rng(2).permutation(n)
+    for c in range(k):
+        got = tdata.iid_shard(n, k, c, seed=2)
+        assert got.tobytes() == jpart.iid_shard(n, k, c, seed=2).tobytes()
+        assert got.tobytes() == tdata.iid_partition(n, k, seed=2)[c].tobytes()
+        assert tdata.iid_shard(n, k, c, perm=perm).tobytes() == got.tobytes()
+    with pytest.raises(ValueError, match="outside"):
+        tdata.iid_shard(n, k, k)
+
+
+@pytest.mark.parametrize("alpha,clients", [(0.5, 4), (0.1, 3), (100.0, 6)])
+def test_dirichlet_partition_equal(alpha, clients):
+    """The non-IID split the algorithm tests draw, byte for byte."""
+    import numpy as np
+    labels = np.random.default_rng(1).integers(0, 8, 200)
+    got = tdata.dirichlet_partition(labels, clients, alpha=alpha, seed=4)
+    want = jdata.dirichlet_partition(labels, clients, alpha=alpha, seed=4)
+    assert [p.tobytes() for p in got] == [p.tobytes() for p in want]
+    assert sorted(np.concatenate(got).tolist()) == list(range(200))

@@ -6,7 +6,9 @@ jitter) and ``run_sync`` on the four-Jetson fleet against the port's own
 loop (losses rtol 1e-4, params rtol and atol 1e-5) and against the
 reference's ``engine="scan"`` runs on the same numpy data and JAX-
 initialised params (losses and params rtol 1e-3); the virtual clock, the
-staleness and group histograms and the trace exactly, on both. The sync
+staleness and group histograms and the trace exactly, on both; then
+``run_async`` with compressed updates (``fed.compress_bits`` 8 and 4) at
+the reference's own test shape and tolerance. The sync
 runs use lr 0.01, as ``tests/test_torch_fedavg.py`` does: at 0.05 the
 second sync round is ill-conditioned (a 1e-7 perturbation of the
 reference's own init moves a weight by 1.3e-4; PERF.md §6). Then
@@ -128,6 +130,46 @@ def test_run_sync_scan_matches_loop_and_reference(setup, per_round, jitter):
     np.testing.assert_allclose([h[2] for h in scan.history],
                                [h[2] for h in ref.history], rtol=1e-3)
     assert_params_close(ref.params, scan.params, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_run_async_compressed_matches_loop_and_reference(bits):
+    """``fed.compress_bits``: every dispatch's delta through the int8 /
+    int4 round trip, at the reference's own test shape
+    (``tests/test_fed_engine.py``: its tiny dense LM, lr 0.01): ``scan``
+    against ``loop`` and against the reference's ``scan`` at the
+    reference's tolerance for compressed runs (losses and params rtol
+    1e-3, atol 1e-4), the clock and histograms exactly."""
+    from repro.data import SyntheticLMDataset
+    from repro.types import ModelConfig as JModel
+    from repro_torch.types import ModelConfig as TModel
+    tiny = dict(name="engine-test-tiny", family="dense", num_layers=1,
+                d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
+                vocab_size=64)
+    fed = dict(num_clients=4, global_epochs=6, local_iters_min=1,
+               local_iters_max=3, lr=0.01, compress_bits=bits)
+    jc, tc = JModel(**tiny), TModel(**tiny)
+    jp, flat = jax_params_both(jc, jax.random.PRNGKey(0))
+    tp = port_params(flat, tc)
+    ds = SyntheticLMDataset(vocab=64, seq_len=8, seed=0)
+
+    def loaders(Loader):
+        return [Loader(ds, 2, steps=4, seed=k) for k in range(4)]
+    scan, loop = (tsim.run_async(tp, tc, TFed(**fed), Fleet.from_lists(
+        JETSON_FLEET_HMDB51, loaders(TLoader)), engine=e, device="cpu")
+        for e in ("scan", "loop"))
+    ref = jsim.run_async(jp, jc, JFed(**fed), JFleet.from_lists(
+        JETSON_FLEET_HMDB51, loaders(JLoader)), engine="scan")
+    for other in (loop, ref):
+        _same_clock(scan, other)
+        np.testing.assert_allclose([h[2] for h in scan.history],
+                                   [h[2] for h in other.history],
+                                   rtol=1e-3, atol=1e-4)
+    for k in loop.params:
+        np.testing.assert_allclose(scan.params[k].numpy(),
+                                   loop.params[k].numpy(), rtol=1e-3,
+                                   atol=1e-4, err_msg=k)
+    assert_params_close(ref.params, scan.params, rtol=1e-3, atol=1e-4)
 
 
 def test_pipeline_defaults_to_scan_and_equals_loop():

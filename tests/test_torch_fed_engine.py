@@ -309,8 +309,27 @@ def test_engine_spec_and_memo():
     for spec in (EngineSpec.SHARD, EngineSpec.HIER):
         with pytest.raises(NotImplementedError, match="item 13"):
             spec.build_sync(cfg, fed)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfe.make_client_run(cfg, fed, algorithm="scaffold")
+    # a stateful algorithm gets its own engine, whose call equals the
+    # algorithm-aware loop oracle
+    from repro_torch.core import algorithms as talg
+    scaffold = tfe.make_client_run(cfg, fed, algorithm="scaffold")
+    assert isinstance(scaffold.algorithm, talg.Scaffold)
+    assert tfe.make_client_run(cfg, fed, algorithm=talg.Scaffold()) is \
+        scaffold
+    from repro_torch.models import registry as treg
+    ds = JDS(num_classes=8, samples_per_class=8, seed=1)
+    tp = treg.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    bl = list(ds.batches(2, fed.local_iters_max, seed=3))
+    alg = talg.Scaffold()
+    w, st, msg, losses = scaffold(tp, stack_batches(bl),
+                                  server_ctx=alg.ctx_for(tp),
+                                  state=alg.state_for(0, tp))
+    lw, lst, lmsg, ll = talg.client_update_loop(tp, bl, cfg, fed, alg)
+    np.testing.assert_allclose(losses.numpy(), ll, rtol=1e-4)
+    for k in tp:
+        for a, b in ((w, lw), (st, lst), (msg, lmsg)):
+            np.testing.assert_allclose(a[k].numpy(), b[k].numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
     # server-side knobs share an engine; client-side ones do not
     run = tfe.make_client_run(cfg, fed)
     assert tfe.make_client_run(cfg, TFed(**FED, mixing_beta=0.3)) is run

@@ -159,17 +159,53 @@ def test_scheduler_pop_window_matches_reference(policy, rng):
     assert len(b) == 0 and a.max_inflight == b.max_inflight
 
 
+# the two calls this file's refusal test made before the algorithm layer
+# and the wire codec were ported now run: SCAFFOLD against the reference's
+# loop oracle (losses and params rtol 1e-3), the int8 wire against the
+# port's own loop (a delta within an ulp of a rounding boundary codes one
+# quantum apart in the two packages, 8.1e-4 on ``fc/w`` at this lr, so the
+# compressed run is held against the reference at the reference's own
+# test shape, ``tests/test_torch_engine_sim.py``); the clock exactly
+@pytest.mark.parametrize("algorithm,bits", [("scaffold", 0), (None, 8)])
+def test_run_async_algorithm_and_compression_match_their_oracle(
+        setup, algorithm, bits):
+    jc, tc, jp, tp = setup
+    from repro.core.algorithms import make_algorithm
+    runs = [tsim.run_async(
+        tp, tc, TFed(**FED, compress_bits=bits),
+        Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS)),
+        device="cpu", algorithm=algorithm, engine=engine)
+        for engine in (("scan", "loop") if bits else ("scan",))]
+    if not bits:
+        runs.append(jsim.run_async(
+            jp, jc, JFed(**FED),
+            JFleet.from_lists(JETSON_FLEET_HMDB51, _loaders(JLoader, JDS)),
+            engine="loop", algorithm=make_algorithm(algorithm)))
+    tres, oracle = runs
+    assert tres.wall_clock_s == oracle.wall_clock_s
+    assert tres.staleness_hist == oracle.staleness_hist
+    assert _trace_key(tres) == _trace_key(oracle)
+    np.testing.assert_allclose([h[2] for h in tres.history],
+                               [h[2] for h in oracle.history], rtol=1e-3)
+    if bits:
+        for k in oracle.params:
+            np.testing.assert_allclose(tres.params[k].numpy(),
+                                       oracle.params[k].numpy(), rtol=1e-3,
+                                       atol=1e-4, err_msg=k)
+    else:
+        assert_params_close(oracle.params, tres.params, rtol=1e-3,
+                            atol=1e-5)
+
+
 def test_run_async_rejects_unported_paths(setup):
     _, tc, _, tp = setup
     fleet = Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS))
     tf = TFed(**FED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_async(tp, tc, tf, fleet, device="cpu", algorithm="scaffold")
     # the async path has no fleet-wide round to shard, as in the reference
     with pytest.raises(ValueError, match="not supported here"):
         tsim.run_async(tp, tc, tf, fleet, device="cpu", engine="shard")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_async(tp, tc, dataclasses.replace(tf, compress_bits=8),
+    with pytest.raises(ValueError, match="unsupported wire width"):
+        tsim.run_async(tp, tc, dataclasses.replace(tf, compress_bits=3),
                        fleet, device="cpu")
     with pytest.raises(TypeError):
         tsim.run_async(tp, tc, tf, list(JETSON_FLEET_HMDB51), device="cpu")

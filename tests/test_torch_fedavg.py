@@ -96,16 +96,32 @@ def test_fedavg_round_loop_matches_reference(setup):
     assert [len(x) for x in tl] == [len(x) for x in jl] == [2, 2]
     np.testing.assert_allclose(np.ravel(tl), np.ravel(jl), rtol=1e-4)
     assert_params_close(jw, tw, rtol=1e-4, atol=1e-6)
-    # engine="loop" routes to the loop; the multi-device engines and the
-    # algorithm layer are refused
+    # engine="loop" routes to the loop; the multi-device engines are
+    # refused
     rw, rl = tfedavg.fedavg_round(tp, [iter(b) for b in batches], tc,
                                   TFed(**FED), engine="loop")
     assert rl == tl and all(torch.equal(rw[k], tw[k]) for k in tw)
     for kw, item in (({"engine": "shard"}, "item 13"),
-                     ({"engine": "hier"}, "item 13"),
-                     ({"algorithm": "scaffold"}, "item 8")):
+                     ({"engine": "hier"}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             tfedavg.fedavg_round(tp, batches, tc, TFed(**FED), **kw)
+    # the algorithm layer runs: a SCAFFOLD round on the batched engine
+    # against the port's loop oracle and the reference's
+    from repro.core.algorithms import Scaffold as JScaffold
+    from repro_torch.core.algorithms import Scaffold
+    jsc, tsc, lsc = JScaffold(), Scaffold(), Scaffold()
+    jw, jl = jfedavg.fedavg_round_loop(jp, [iter(b) for b in batches], jc,
+                                       JFed(**FED), algorithm=jsc)
+    sw, sl = tfedavg.fedavg_round(tp, [iter(b) for b in batches], tc,
+                                  TFed(**FED), algorithm="scaffold")
+    lw, ll = tfedavg.fedavg_round_loop(tp, [iter(b) for b in batches], tc,
+                                       TFed(**FED), algorithm=lsc)
+    np.testing.assert_allclose(np.ravel(sl), np.ravel(ll), rtol=1e-4)
+    np.testing.assert_allclose(np.ravel(sl), np.ravel(jl), rtol=1e-4)
+    assert_params_close(jw, sw, rtol=1e-4, atol=1e-5)
+    assert_params_close(jw, lw, rtol=1e-4, atol=1e-5)
+    assert_params_close(jsc.ctx_for(jp), lsc.ctx_for(tp), rtol=1e-4,
+                        atol=1e-5)
 
 
 def _trace_key(res):
@@ -139,12 +155,33 @@ def test_run_sync_matches_reference_loop(setup, per_round, jitter):
     assert_params_close(jres.params, tres.params, rtol=1e-3, atol=1e-5)
 
 
+@pytest.mark.parametrize("algorithm", ["scaffold", "lowrank"])
+def test_run_sync_algorithm_matches_reference_loop(setup, algorithm):
+    """``run_sync(algorithm=)``, refused before the algorithm layer was
+    ported, on the batched engine against the reference's loop oracle
+    (the clock exactly; losses rtol 1e-3, params rtol 1e-3 atol 1e-4)."""
+    jc, tc, jp, tp = setup
+    from repro.core.algorithms import make_algorithm
+    jres = jsim.run_sync(
+        jp, jc, JFed(**FED),
+        JFleet.from_lists(JETSON_FLEET_HMDB51, _loaders(JLoader, JDS)),
+        engine="loop", algorithm=make_algorithm(algorithm))
+    tres = tsim.run_sync(
+        tp, tc, TFed(**FED),
+        Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS)),
+        algorithm=algorithm, device="cpu")
+    assert tres.wall_clock_s == jres.wall_clock_s
+    assert _trace_key(tres) == _trace_key(jres)
+    np.testing.assert_allclose([h[2] for h in tres.history],
+                               [h[2] for h in jres.history], rtol=1e-3)
+    assert_params_close(jres.params, tres.params, rtol=1e-3, atol=1e-4)
+
+
 def test_run_sync_rejects_unported_paths(setup):
     _, tc, _, tp = setup
     fleet = Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS))
     for kw, item in (({"engine": "shard"}, "item 13"),
-                     ({"engine": "hier"}, "item 13"),
-                     ({"algorithm": "scaffold"}, "item 8")):
+                     ({"engine": "hier"}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             tsim.run_sync(tp, tc, TFed(**FED), fleet, device="cpu", **kw)
     with pytest.raises(TypeError):

@@ -112,6 +112,29 @@ def test_pipeline_is_bit_reproducible_and_kernel_path_agrees(monkeypatch):
                                    atol=1e-6)
 
 
+def test_stage1_hook_and_stage2_alone_reproduce_the_pipeline():
+    """``on_stage1`` hands out the params the report's stage-1 digest is
+    of, and ``finetune`` from them alone gives the pipeline's params bit
+    for bit, in both modes."""
+    from repro_torch.configs import get_config as tget
+    from repro_torch.data import make_dataset_for
+    from repro_torch.types import FedConfig
+    cfg = tget("resnet3d-18").reduced()
+    fed = FedConfig(num_clients=KW["clients"], global_epochs=KW["epochs"],
+                    seed=KW["seed"])
+    ds = make_dataset_for(cfg, small=True, seed=KW["seed"])
+    for mode in ("async", "sync"):
+        seen = []
+        rep, params = tpipe.run_pipeline(device="cpu", mode=mode,
+                                         on_stage1=seen.append, **KW)
+        assert len(seen) == 1
+        assert tpipe.params_digest(seen[0]) == rep["stage1"]["digest"]
+        res = tpipe.finetune(seen[0], cfg, fed, ds, KW["batch"], mode,
+                             "scan", KW["seed"], "cpu")
+        assert tpipe.params_digest(res.params) == rep["params_digest"]
+        assert res.wall_clock_s == rep["stage2"]["virtual_wall_s"]
+
+
 def test_cli_smoke_prints_report(capsys):
     assert tpipe.main(["--smoke", "--device", "cpu"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

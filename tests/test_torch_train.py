@@ -67,8 +67,31 @@ def test_train_main_matches_reference(mode, init, monkeypatch, capsys):
         assert got["virtual_wall_s"] == want["virtual_wall_s"]
 
 
+# --algorithm, refused before the algorithm layer was ported, now runs
+# on both modes and engines, against the reference's trainer on its loop
+@pytest.mark.parametrize("mode,algorithm,engine", [
+    ("async", "scaffold", "scan"), ("sync", "lowrank", "scan"),
+    ("sync", "scaffold", "loop")])
+def test_algorithm_flag_matches_reference(mode, algorithm, engine, init,
+                                          monkeypatch, capsys):
+    jc, tc, jp, flat = init
+    argv = ["--mode", mode, "--algorithm", algorithm] + ARGS
+    monkeypatch.setattr(jreg, "init_params", lambda key, cfg: jp)
+    assert jtrain.main(["--engine", "loop"] + argv) == 0
+    want = _result(capsys)
+    monkeypatch.setattr(
+        treg, "init_params", lambda gen, cfg, device, dtype=None:
+        params_from_jax(flat, cfg, device=device))
+    assert ttrain.main(["--engine", engine, "--device", "cpu"] + argv) == 0
+    got = _result(capsys)
+    assert set(got) == set(want)
+    assert got["algorithm"] == algorithm
+    assert got["virtual_wall_s"] == want["virtual_wall_s"]
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"],
+                               rtol=1e-3)
+
+
 @pytest.mark.parametrize("flag,item", [(["--engine", "shard"], "item 13"),
-                                       (["--algorithm", "scaffold"], "item 8"),
                                        (["--population", "8"], "item 9")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
