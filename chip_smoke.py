@@ -68,6 +68,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    graphs, its SVD eagerly between them); one full-width update's int8,
    int4 and LowRank wire bytes against the formula; the reduced SCAFFOLD
    run with int8 updates on the card against the CPU;
+6c. codistillation at full width (``codistill``): ``run_pipeline(
+   codistill=True)`` with ResNet3D-34 and -18 as peers, then the async
+   fine-tune, traced (16 launches of each KD kernel on the card and 16
+   counted on the host); a replayed round against its eager run in
+   ``_Exact``, bit for bit; the reduced codistill pipeline and a round
+   at budgets [4, 2] card against CPU; the chain-time model of the two
+   reference chains;
+6d. streamed populations (``population``): ``launch.train --population
+   1000000 --clients-per-round 4`` at full width, async and sync, one
+   process each; ``run_async`` / ``run_sync`` on a 10^6-client
+   ``FleetSpec`` twice each: clients held at once (<= 4), the in-flight
+   bound, captures that do not grow with the clients drawn; 8 clients
+   streamed against their materialized twin in ``_Exact``, bit for bit;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
    extent of 131072 keys among them, the SSD step also on the decode
@@ -108,6 +121,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
     (16 of each on the distill-first run, none on the central one);
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
     math): the reduction must reach 35%.
+
+Every trace opens with a pause and launches of its own, which the
+profiler may lose in place of the traced calls' first launches, and
+counts only the device events that the traced calls launched; a kernel
+timed alone must show one kernel a call (the SSD scan its three) with
+none of its launches lost.
 
 Prints the card's line first, and at the end one ``{"kernels": [...]}``
 line, the card's line again, and last ``{"ok": true, "device": {...}}``.
@@ -387,15 +406,8 @@ def _traced_kd(fn) -> tuple:
     profiler's device events: a replayed graph's kernels are listed one
     by one, where the wrappers' counts see only eager launches and
     captures."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "kd_loss" in e.name]
+    out, events, _, _ = _trace(fn)
+    names = [e.name() for e in events if "kd_loss" in e.name()]
     return out, {"kd_loss": sum("bwd" not in n for n in names),
                  "kd_loss_bwd": sum("bwd" in n for n in names)}
 
@@ -748,39 +760,89 @@ def phase_analytic_speedup() -> None:
     print(json.dumps({"phase": "analytic_speedup", **out}))
 
 
+TRACE_WINDOW = "chip_smoke.traced_calls"
+TRACE_PAD = 512         # one-element adds launched before and after the calls
+TRACE_PAUSE_S = 0.05
+_WORK_APIS = ("LaunchKernel", "LaunchCooperativeKernel", "GraphLaunch",
+              "Memcpy", "Memset")
+
+
+def _trace(fn, steps: int = 1) -> tuple:
+    """``steps`` calls of ``fn`` under torch.profiler: the last call's
+    result, the device events (kernels, copies) that these calls
+    launched, their host wall ms, and ``lost``: how many of the calls'
+    launches (``calls``) and of the opening pad's (``pad``) have no
+    device event in the trace (nor has a launch made while a stream is
+    captured).
+
+    On the H100 the profiler loses the device events of a trace's first
+    launches, none in a young process and tens late in this script, and
+    now and then every event of a trace's first milliseconds. So each
+    trace opens with a pause and ``TRACE_PAD`` launches of its own,
+    closes with the same, and keeps only the device events whose launch
+    (CUDA correlation id) lies inside the calls' span, marked by a
+    ``record_function``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def pad():
+        time.sleep(TRACE_PAUSE_S)
+        for _ in range(TRACE_PAD):
+            cell.add_(1.0)
+        torch.cuda.synchronize()
+    cell = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad()
+        with record_function(TRACE_WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                out = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        pad()
+    events = prof.profiler.kineto_results.events()
+    span = next(e for e in events if e.name() == TRACE_WINDOW
+                and e.device_type() == DeviceType.CPU)
+    apis = [e for e in events if e.device_type() == DeviceType.CPU
+            and e.name().startswith("cu")]
+    inside = {e.correlation_id() for e in apis
+              if span.start_ns() <= e.start_ns() <= span.end_ns()}
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA
+               and e.name() != TRACE_WINDOW]
+    seen = {e.correlation_id() for e in on_card}
+    lost = [e for e in apis if e.correlation_id() not in seen
+            and any(w in e.name() for w in _WORK_APIS)]
+    return (out, [e for e in on_card if e.correlation_id() in inside],
+            wall_ms,
+            {"calls": sum(e.correlation_id() in inside for e in lost),
+             "pad": sum(e.start_ns() < span.start_ns() for e in lost)})
+
+
 def _profile(fn, steps: int = 3, top: int = 6, match: tuple = ()) -> dict:
-    """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler).
+    """Device time by kernel over ``steps`` calls of ``fn`` (``_trace``).
     Only device-side events (kernels, copies) are summed: an operator's
     own row repeats its kernels' time. The profiler's overhead lengthens
     the wall time, so the busy share is a floor. Kernels whose name holds
     one of ``match`` are listed with their calls a step under
-    ``matched``. The trace may drop a few events (on the H100, three in
-    some traces of 50 calls), which lowers the per-step sum; for
-    ``steps`` identical calls ``device_ms_per_call`` is each kernel's mean
-    time times its launches a call, which a dropped event leaves
-    unbiased."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev = (getattr(e, "self_device_time_total", 0)
-               or getattr(e, "self_cuda_time_total", 0))
-        if dev:
-            rows.append((dev / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+    ``matched``. ``dropped_launches`` counts the calls' launches that the
+    trace lost all the same, ``pad_launches_lost`` the opening pad's
+    that it lost in their place; for ``steps`` identical calls
+    ``device_ms_per_call`` is each kernel's mean time times its launches
+    a call, which a lost event leaves unbiased."""
+    _, events, wall_ms, lost = _trace(fn, steps)
+    by_name = {}
+    for e in events:
+        ms, count = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    rows = sorted(((ms, k, c) for k, (ms, c) in by_name.items()),
+                  reverse=True)
     if not rows:
-        return {"device_time": "not measured (no device events traced)"}
+        return {"device_time": "not measured (no device events traced)",
+                "dropped_launches": lost["calls"],
+                "pad_launches_lost": lost["pad"]}
     busy_ms = sum(r[0] for r in rows)
     matched = {k[:90]: c / steps for _, k, c in rows
                if any(m in k for m in match)}
@@ -791,6 +853,8 @@ def _profile(fn, steps: int = 3, top: int = 6, match: tuple = ()) -> dict:
             "device_busy_share": busy_ms / wall_ms,
             "kernels_per_step": sum(r[2] for r in rows) / steps,
             "distinct_kernels": len(rows),
+            "dropped_launches": lost["calls"],
+            "pad_launches_lost": lost["pad"],
             "top": [{"kernel": k[:90], "ms_per_step": d / steps,
                      "calls_per_step": c / steps} for d, k, c in rows[:top]],
             **({"matched": matched} if match else {})}
@@ -1383,6 +1447,278 @@ def phase_algorithms() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Codistillation and streamed populations
+# ---------------------------------------------------------------------------
+
+CODISTILL_STEPS = 8     # the pipeline's default: 2 rounds of 4 steps
+
+
+def _codistill_losses(report) -> list:
+    return ([x for r in report["stage1"]["losses"] for m in r for x in m]
+            + report["stage2"]["losses"])
+
+
+def _nan_equal(a, b) -> bool:
+    import torch
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def phase_codistill(kernels: list) -> None:
+    """Stage 1 by codistillation at full width: ``run_pipeline(
+    codistill=True)`` with ResNet3D-34 and ResNet3D-18 as the two members
+    (400 classes, batch 4, 2 rounds of 4 KD steps), then the four-Jetson
+    async fine-tune on ``scan``, traced: 2 members × 4 steps × 2 rounds =
+    16 launches of each KD kernel on the card, and 16 of each counted on
+    the host (round 1 eager, round 2's capture; its replay counts
+    nothing). Then, in an ``_Exact`` block, a full-width round replayed
+    against the same round run eagerly (a fresh graph cache), bit for
+    bit, each call's wall ms beside the same round's at PyTorch's
+    defaults (eager, captured, three replays); the reduced codistill
+    pipeline card against CPU (losses rtol
+    1e-3, params within 1e-3 · (1 + |cpu|), clocks equal) and a reduced
+    round at budgets [4, 2] card against CPU (the NaN pattern exactly).
+    Last, the analytic chain-time model of the two reference chains (host
+    math)."""
+    import torch
+    from repro_torch.configs import RESNET18, RESNET26, RESNET34
+    from repro_torch.core import distill
+    from repro_torch.core.compile_cache import GraphCache
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.launch.pipeline import run_pipeline
+    from repro_torch.types import DistillConfig
+    t_phase = time.perf_counter()
+    _zero_kd_launches()
+    t0 = time.perf_counter()
+    (report, _), ran = _traced_kd(lambda: run_pipeline(
+        arch="resnet3d-18", teacher="resnet3d-34", reduced=False,
+        codistill=True, mode="async", engine="scan", clients=4, batch=4,
+        kd_steps=CODISTILL_STEPS, device="cuda"))
+    wall = time.perf_counter() - t0
+    host = _kd_launches()
+    _expect_launches("full-width codistill pipeline on the card", ran,
+                     2 * CODISTILL_STEPS)
+    _expect_launches("full-width codistill pipeline, host", host,
+                     2 * CODISTILL_STEPS)
+    losses = _codistill_losses(report)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"codistill: non-finite losses {losses}")
+    for k in kernels:
+        if k["name"] in ran:
+            k["launches_by_path"]["codistill_pipeline"] = {
+                "host": host[k["name"]], "card": ran[k["name"]]}
+
+    # a replayed full-width round against its eager run, card against card
+    dcfg = DistillConfig(lr=0.01)
+    clips = make_dataset_for(RESNET18, small=False, seed=0)
+    p1, p2 = (stack_batches(clips.batches(4, 4, seed=s)) for s in (5, 6))
+
+    def fleet(cfgs, device):
+        return distill.CodistillFleet(cfgs, dcfg).init(
+            torch.Generator().manual_seed(0), device)
+    with _Exact():
+        a, b = fleet([RESNET34, RESNET18], "cuda"), fleet(
+            [RESNET34, RESNET18], "cuda")
+        a.round(p1)
+        b.round(p1)
+        t0 = time.perf_counter()
+        got = a.round(p2, iters=[4, 2])           # captured, then replayed
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        b._graphs = GraphCache()
+        t0 = time.perf_counter()
+        want = b.round(p2, iters=[4, 2])          # eagerly
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        perr = max(_rel_err(a.member_params(i), b.member_params(i))
+                   for i in range(2))
+        t0 = time.perf_counter()
+        a.round(p1)                               # a replay alone
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+    if not _nan_equal(got, want) or perr != 0.0:
+        raise AssertionError(f"codistill: replayed round vs eager: params "
+                             f"{perr}, losses\n{got}\n{want}")
+    captures = [a.num_compiled, a._graphs.num_captured]
+    if captures != [4, 4]:
+        raise AssertionError(f"codistill [signatures, captures] {captures}")
+
+    # the same full-width round at PyTorch's defaults (cuDNN TF32 on, free
+    # to pick its algorithms): eager, captured, then three replays
+    d = fleet([RESNET34, RESNET18], "cuda")
+    default_ms = []
+    for probe in (p1, p2, p1, p2, p1):
+        t0 = time.perf_counter()
+        d.round(probe)
+        torch.cuda.synchronize()
+        default_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # the reduced pipeline and a budgeted round, card against CPU
+    kw = dict(reduced=True, codistill=True, mode="async", clients=2,
+              epochs=2, batch=2, kd_steps=CODISTILL_STEPS, seed=0,
+              engine="scan")
+    small = [RESNET34.reduced(), RESNET18.reduced()]
+    probe = stack_batches(make_dataset_for(small[1], small=False, seed=0)
+                          .batches(2, 4, seed=7))
+    with _Exact():
+        gpu, gp = run_pipeline(device="cuda", **kw)
+        cpu, cp = run_pipeline(device="cpu", **kw)
+        nan_card = fleet(small, "cuda").round(probe, iters=[4, 2]).cpu()
+    nan_cpu = fleet(small, "cpu").round(probe, iters=[4, 2])
+    la, lb = _codistill_losses(gpu), _codistill_losses(cpu)
+    if len(la) != len(lb) or not all(
+            math.isclose(x, y, rel_tol=1e-3) for x, y in zip(la, lb)):
+        raise AssertionError(f"codistill card vs CPU losses:\n{la}\n{lb}")
+    if gpu["stage2"]["virtual_wall_s"] != cpu["stage2"]["virtual_wall_s"]:
+        raise AssertionError("codistill card vs CPU: clocks differ")
+    cerr = _rel_err({k: v.cpu() for k, v in gp.items()}, cp)
+    if cerr > 1e-3:
+        raise AssertionError(f"codistill card vs CPU params {cerr}")
+    if not torch.equal(nan_card.isnan(), nan_cpu.isnan()) \
+            or not nan_card[1, 2:].isnan().all():
+        raise AssertionError(f"codistill NaN pattern:\n{nan_card}\n"
+                             f"{nan_cpu}")
+    live = ~nan_cpu.isnan()
+    nerr = float(((nan_card[live] - nan_cpu[live]).abs()
+                  / nan_cpu[live].abs()).max())
+    if nerr > 1e-3:
+        raise AssertionError(f"codistill budgeted round card vs CPU {nerr}")
+    chains = {
+        " -> ".join(c.name for c in chain):
+        distill.chain_time_model(chain, dataset_items=1e6, epochs=200)
+        for chain in ([RESNET34, RESNET18], [RESNET34, RESNET26, RESNET18])}
+    print(json.dumps({
+        "phase": "codistill", "card": _card_line(), "report": report,
+        "wall_s": wall, "num_compiled": report["stage1"]["compiles"],
+        "kd_host_launches": host, "kd_kernels_ran_on_card": ran,
+        "replay_vs_eager_exact": {"param_rel_err": perr,
+                                  "losses_equal": True,
+                                  "signatures_and_captures": captures,
+                                  "round_ms": {"captured": replay_ms,
+                                               "eager": eager_ms,
+                                               "replay": warm_ms}},
+        "round_ms_default_flags": {"eager": default_ms[0],
+                                   "captured": default_ms[1],
+                                   "replays": default_ms[2:]},
+        "reduced_card_vs_cpu": {"losses_card": la, "losses_cpu": lb,
+                                "param_rel_err": cerr,
+                                "budgeted_round_loss_rel_err": nerr,
+                                "nan_pattern": nan_card.isnan().tolist()},
+        "chain_time_model": chains,
+        "phase_s": time.perf_counter() - t_phase}))
+
+
+POPULATION = 10**6
+POPULATION_M = 4
+
+
+def phase_population() -> None:
+    """Streamed populations at full width (ResNet3D-18, 400 classes):
+    ``python -m repro_torch.launch.train --population 1000000
+    --clients-per-round 4 --engine scan`` in async and sync mode, one
+    process each, each result line printed; then ``run_async`` and
+    ``run_sync`` on a ``FleetSpec`` of 10^6 clients, m = 4, twice each (8
+    and 24 global epochs): the most clients held at once (<= m), the
+    in-flight bound, the clients drawn, and the engines' [signatures,
+    captures], which must not grow with the clients drawn; last, a
+    population of 8 streamed against its ``materialize()``d twin in an
+    ``_Exact`` block, sync and async: params bit for bit, histories
+    equal."""
+    import torch
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import fed_engine, simulator
+    from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet, FleetSpec
+    from repro_torch.data import make_dataset_for
+    from repro_torch.models import registry
+    from repro_torch.types import FedConfig
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    for mode in ("async", "sync"):
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--mode",
+                mode, "--population", str(POPULATION), "--clients-per-round",
+                str(POPULATION_M), "--engine", "scan", "--device", "cuda"]
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, env=env, cwd=ROOT, text=True,
+                             capture_output=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"{argv}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        if not math.isfinite(res["final_loss"]):
+            raise AssertionError(f"train --population {mode}: {res}")
+        print(json.dumps({"phase": "population_train", "mode": mode,
+                          "argv": argv[3:], "result": res,
+                          "process_s": time.perf_counter() - t0}))
+
+    ds = make_dataset_for(RESNET18, small=True, seed=1)
+    params = registry.init_params(torch.Generator().manual_seed(0),
+                                  RESNET18, "cuda")
+    engines = {"async": lambda fed: fed_engine.make_client_run(
+                   RESNET18, fed, algorithm="fedprox"),
+               "sync": lambda fed: fed_engine.make_sync_round(
+                   RESNET18, fed, algorithm="fedprox")}
+    runs = {}
+    for mode, run in (("async", simulator.run_async),
+                      ("sync", simulator.run_sync)):
+        runs[mode] = []
+        for epochs in (8, 24):
+            fed = FedConfig(num_clients=POPULATION, global_epochs=epochs,
+                            clients_per_round=POPULATION_M, seed=0)
+            fleet = Fleet.from_spec(FleetSpec(
+                population=POPULATION, profiles=JETSON_FLEET_HMDB51,
+                dataset=ds, batch_size=4, steps=fed.local_iters_max,
+                seed=0, partition="shared"))
+            t0 = time.perf_counter()
+            res = run(params, RESNET18, fed, fleet, device="cuda")
+            wall = time.perf_counter() - t0
+            eng = engines[mode](fed)
+            runs[mode].append({
+                "global_epochs": epochs, "wall_s": wall,
+                "max_resident": fleet.max_resident,
+                "resident_at_end": fleet.resident,
+                "max_inflight": res.max_inflight,
+                "clients_drawn": len(fleet._visits),
+                "visits": sum(fleet._visits.values()),
+                "final_loss": res.final_loss,
+                "virtual_wall_s": res.wall_clock_s,
+                "signatures_and_captures": [eng.num_compiled,
+                                            eng._graphs.num_captured]})
+            if fleet.max_resident > POPULATION_M or not math.isfinite(
+                    res.final_loss) or res.max_inflight > POPULATION_M:
+                raise AssertionError(f"population {mode}: {runs[mode]}")
+        first, second = runs[mode]
+        if first["signatures_and_captures"] != \
+                second["signatures_and_captures"] \
+                or second["clients_drawn"] <= first["clients_drawn"]:
+            raise AssertionError(f"population {mode}: captures grew with "
+                                 f"the clients drawn: {runs[mode]}")
+
+    # eight clients streamed against their materialized twin
+    spec = FleetSpec(population=8, profiles=JETSON_FLEET_HMDB51, dataset=ds,
+                     batch_size=4, steps=2, seed=3, partition="iid")
+    fed = FedConfig(num_clients=8, global_epochs=8, clients_per_round=2,
+                    seed=5)
+    twin = {}
+    with _Exact():
+        for mode, run in (("async", simulator.run_async),
+                          ("sync", simulator.run_sync)):
+            a = run(params, RESNET18, fed, Fleet.from_spec(spec),
+                    device="cuda")
+            b = run(params, RESNET18, fed,
+                    Fleet.from_spec(spec).materialize(), device="cuda")
+            err = _rel_err(a.params, b.params)
+            if err != 0.0 or a.history != b.history:
+                raise AssertionError(f"{mode}: streamed vs materialized "
+                                     f"{err}")
+            twin[mode] = {"param_rel_err": err, "history_equal": True,
+                          "virtual_wall_s": a.wall_clock_s}
+    print(json.dumps({"phase": "population", "card": _card_line(),
+                      "population": POPULATION, "m": POPULATION_M,
+                      "runs": runs, "streamed_vs_materialized": twin,
+                      "phase_s": time.perf_counter() - t_phase}))
+
+
+# ---------------------------------------------------------------------------
 # Serving: the decode kernels, the reduced path card vs CPU, full width
 # ---------------------------------------------------------------------------
 
@@ -1484,6 +1820,8 @@ def _time_kernel(fn, plain) -> dict:
             "traced_ms_per_step": dev.get("device_ms_per_step"),
             "kernels_per_call": dev.get("kernels_per_step"),
             "distinct_kernels": dev.get("distinct_kernels"),
+            "dropped_launches": dev["dropped_launches"],
+            "pad_launches_lost": dev["pad_launches_lost"],
             "plain_kernels": pdev.get("kernels_per_step")}
 
 
@@ -1715,13 +2053,14 @@ def phase_host_profile() -> None:
 
 
 def _one_kernel(name: str, row: dict) -> None:
-    """Fails unless the profiler saw one kernel, about once a call (the
-    trace may drop an event or two of the 50 calls)."""
-    if row["kernels_per_call"] is None or row["distinct_kernels"] != 1 \
-            or round(row["kernels_per_call"]) != 1:
+    """Fails unless a whole trace of the 50 calls saw one kernel, once a
+    call."""
+    if row["dropped_launches"] or row["distinct_kernels"] != 1 \
+            or row["kernels_per_call"] != 1:
         raise AssertionError(
             f"{name}: {row['distinct_kernels']} distinct kernels, "
-            f"{row['kernels_per_call']} a call, not one launch")
+            f"{row['kernels_per_call']} a call ({row['dropped_launches']} "
+            "launches lost by the trace), not one launch")
 
 
 def _time_decode_kernels(worst: dict) -> list:
@@ -2291,6 +2630,8 @@ def _time_scoring_kernels(worst: dict) -> list:
         folded = _time_kernel(lambda: ops.swa_attention(q, k, v, w),
                               lambda: ref.swa_attention_ref(q, k, v, w))
         row["folded_entry"] = {**folded, **_swa_bound(q, k, w)}
+        _one_kernel(f"swa_attention {HYMBA_GQA} w={w}", row)
+        _one_kernel(f"swa_attention {HYMBA_SWA} w={w}", folded)
         rows[w] = row
     # Gemma3-12B's shape: each timed call held against its plain version
     qg, kg, vg = _gqa_inputs(*GEMMA_GQA, "f32", seed=2)
@@ -2329,14 +2670,13 @@ def _time_scoring_kernels(worst: dict) -> list:
     args = _scan_inputs(B, S_, H, P, N, "f32", seed=3)
     row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
                        lambda: ref.ssd_scan_ref(*args, chunk))
-    # the trace may drop a few of its events: the three passes are three
-    # distinct kernels, about three launches a call
-    if row["kernels_per_call"] is not None and (
-            row["distinct_kernels"] != 3
-            or round(row["kernels_per_call"]) != 3):
+    # the three passes are three distinct kernels, three launches a call
+    if row["dropped_launches"] or row["distinct_kernels"] != 3 \
+            or row["kernels_per_call"] != 3:
         raise AssertionError(
             f"ssd_scan launched {row['distinct_kernels']} distinct kernels, "
-            f"{row['kernels_per_call']} a call, not its three passes")
+            f"{row['kernels_per_call']} a call ({row['dropped_launches']} "
+            "launches lost by the trace), not its three passes")
     out.append({"name": "ssd_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:100",
@@ -2579,6 +2919,8 @@ def main(argv=None) -> int:
     phase_captured(kernels)
     phase_engines()
     phase_algorithms()
+    phase_codistill(kernels)
+    phase_population()
     serve_kernels = phase_decode_kernels()
     phase_serve_card_vs_cpu()
     phase_serve_full_width(serve_kernels, args.seed)

@@ -14,12 +14,21 @@ of the reference's ``lax.scan`` epoch; on the CPU the same steps eagerly.
 The fused KD loss is the hand-written CUDA kernel by default
 (``kd_kernel="cuda"``; inside the graph its forward and its backward are
 graph nodes, the backward captured from autograd's device thread);
-``"eager"`` is the plain torch version. Codistillation and the analytic
-chain-time model are still to be ported (ROADMAP Queue 1 item 4).
+``"eager"`` is the plain torch version.
+
+``CodistillFleet`` trains m peers of heterogeneous capacity on a shared
+probe stream, each distilling from the mean of its peers' round-start
+logits. Members sharing a ModelConfig form a group; on the card a
+group's round-start logits are one CUDA graph and its masked KD run of
+H steps another, the members one after another inside it, each with its
+budget H^k a tensor input, so the graphs scale with the architectures,
+not the members or the budgets. ``chain_time_model`` is the analytic
+wall time of a teacher -> TA* -> student chain (host math).
 """
 from __future__ import annotations
 
 import functools
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -27,6 +36,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trees
 from repro_torch.core import fed_engine
 from repro_torch.core.compile_cache import GraphCache
 from repro_torch.data import stack_batches
@@ -337,3 +347,229 @@ def run_chain(chain: Sequence[ModelConfig], dcfg: DistillConfig,
         prev_params, prev_cfg = state["params"], scfg
 
     return prev_params, results
+
+
+# ---------------------------------------------------------------------------
+# Codistillation across heterogeneous capacities
+# ---------------------------------------------------------------------------
+
+class CodistillFleet:
+    """m peers of heterogeneous capacity co-training on a shared probe
+    stream. Each round: (1) every member's logits on the round's probe
+    stack, once (one call a group); (2) each member's masked KD run
+    against the mean of its *peers'* round-start logits (teacher signals
+    one round stale: that is the algorithm). Members sharing a
+    ModelConfig run in one call, one after another, with per-member
+    budgets H^k as an int32 tensor input: steps past a member's budget
+    leave its params and momentum unchanged and emit NaN, and still run
+    the KD kernels, so one graph covers every budget draw.
+
+    The members' params and momenta live on the fleet; ``round`` moves
+    them and returns the member-major (m, H) loss tensor.
+    """
+
+    def __init__(self, cfgs: Sequence[ModelConfig], dcfg: DistillConfig,
+                 kd_kernel: str = "cuda", clip_norm: float = 1.0):
+        if len(cfgs) < 2:
+            raise ValueError("codistillation needs >= 2 members")
+        _check_kernel(kd_kernel)
+        for other in cfgs[1:]:
+            _check_widths(cfgs[0], other)
+        fam0 = _probe_family(cfgs[0])
+        for c in cfgs[1:]:
+            if _probe_family(c) != fam0:
+                raise ValueError(
+                    "codistillation members must share a probe batch "
+                    f"format: {cfgs[0].family} vs {c.family}")
+        self.cfgs = tuple(cfgs)
+        self.dcfg = dcfg
+        self.kd_kernel = kd_kernel
+        self.clip_norm = clip_norm
+        self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
+        groups: dict = {}                  # cfg -> member indices
+        for i, c in enumerate(cfgs):
+            groups.setdefault(c, []).append(i)
+        self.groups = [(c, tuple(idx)) for c, idx in groups.items()]
+        self._params = [None] * len(self.groups)   # a param dict a member
+        self._mom = [None] * len(self.groups)      # a momentum dict a member
+        self._graphs = GraphCache()
+
+    @property
+    def num_members(self) -> int:
+        return len(self.cfgs)
+
+    @property
+    def num_compiled(self) -> int:
+        """Distinct (group, program, shape) signatures run."""
+        return self._graphs.num_compiled
+
+    def init(self, gen: torch.Generator, device=None):
+        """Every member's params from ``gen``, group by group in member
+        order, on ``device`` (default: the card)."""
+        device = resolve_device(device)
+        for gi, (cfg, idx) in enumerate(self.groups):
+            self._params[gi] = [registry.init_params(gen, cfg, device)
+                                for _ in idx]
+            self._mom[gi] = [self.opt.init(p)["mom"]
+                             for p in self._params[gi]]
+        return self
+
+    def member_params(self, i: int) -> dict:
+        for gi, (_, idx) in enumerate(self.groups):
+            if i in idx:
+                return self._params[gi][idx.index(i)]
+        raise IndexError(i)
+
+    # -- the captured calls -----------------------------------------------
+    @torch.no_grad()
+    def _group_logits(self, cfg, members, stacked):
+        """(m_g, H, ...logits) of the group's members on the probe."""
+        stacked = batch_to(stacked, params_device(members[0]))
+        H = fed_engine._batch_len(stacked)
+        return torch.stack([
+            torch.stack([registry.logits_fn(p, cfg, trees.index(stacked, h))
+                         for h in range(H)])
+            for p in members])
+
+    def _group_kd(self, cfg, n_total, members, moms, stacked, iters,
+                  sum_logits, own_logits):
+        """The group's masked KD runs: member j's teacher is
+        (Σ_all - own_j) / (n - 1); steps from index ``iters[j]`` on keep
+        its carry and emit NaN. Returns (params, momenta, losses (m_g, H))."""
+        device = params_device(members[0])
+        stacked = batch_to(stacked, device)
+        iters = torch.as_tensor(iters, device=device)
+        H = fed_engine._batch_len(stacked)
+        out_p, out_m, out_l = [], [], []
+        for j, (params, mom) in enumerate(zip(members, moms)):
+            teacher_seq = (sum_logits - own_logits[j]) / (n_total - 1.0)
+            losses = []
+            for i in range(H):
+                batch = trees.index(stacked, i)
+
+                def loss_of(p, batch=batch, t=teacher_seq[i]):
+                    return kd_loss(registry.logits_fn(p, cfg, batch), t,
+                                   batch["labels"], self.dcfg.alpha,
+                                   temperature=self.dcfg.temperature,
+                                   kd_kernel=self.kd_kernel)
+
+                loss, grads = value_and_grad(loss_of, params)
+                grads = clip_by_global_norm(grads, self.clip_norm)
+                new_p, new_st = self.opt.update(grads, {"mom": mom,
+                                                        "step": 0}, params)
+                active = i < iters[j]
+                params, mom = fed_engine._where(
+                    active, (new_p, new_st["mom"]), (params, mom))
+                losses.append(torch.where(active, loss, math.nan))
+            out_p.append(params)
+            out_m.append(mom)
+            out_l.append(torch.stack(losses))
+        return out_p, out_m, torch.stack(out_l)
+
+    def round(self, stacked_probe, iters=None):
+        """One codistillation round over a probe stack (leaves (H, B, ...)).
+
+        ``iters``: (m,) per-member budgets (default: all run the full H).
+        Warm rounds at a fixed (H, batch) shape add no signature, whatever
+        the budgets. Returns the member-major (m, H) loss tensor.
+        """
+        H = fed_engine._batch_len(stacked_probe)
+        m = self.num_members
+        if iters is None:
+            iters = np.full((m,), H, np.int32)
+        iters = np.asarray(iters, np.int32)
+        if iters.shape != (m,):
+            raise ValueError(f"iters must be ({m},), got {iters.shape}")
+
+        # (1) round-start logits, one call a group
+        group_logits = [
+            self._graphs.call(("logits", gi),
+                              functools.partial(self._group_logits, cfg),
+                              (self._params[gi], stacked_probe))
+            for gi, (cfg, _) in enumerate(self.groups)]
+
+        # (2) the peers' sum in the reference's order (members within a
+        # group, then the groups), then each group's masked KD runs
+        sum_logits = functools.reduce(
+            torch.add, [gl.sum(dim=0) for gl in group_logits])
+        losses = [None] * m
+        for gi, (cfg, idx) in enumerate(self.groups):
+            self._params[gi], self._mom[gi], g_losses = self._graphs.call(
+                ("kd", gi), functools.partial(self._group_kd, cfg, m),
+                (self._params[gi], self._mom[gi], stacked_probe,
+                 iters[list(idx)], sum_logits, group_logits[gi]))
+            for j, i in enumerate(idx):
+                losses[i] = g_losses[j]
+        return torch.stack(losses)
+
+
+def _probe_family(cfg: ModelConfig) -> str:
+    """Probe-batch format class: members must agree to share batches."""
+    if cfg.family == "resnet3d":
+        return "clips"
+    if cfg.family in registry.ENCDEC_FAMILIES:
+        return "src+tokens"
+    return "tokens"
+
+
+def run_codistill(cfgs: Sequence[ModelConfig], dcfg: DistillConfig,
+                  train_batches: Callable[[], list], eval_batches: list,
+                  rounds: int, steps_per_round: int, iters=None,
+                  seed: int = 0, kd_kernel: str = "cuda", device=None):
+    """``rounds`` codistillation rounds of ``steps_per_round`` probe
+    batches each, a fresh pass over ``train_batches()`` when it runs dry;
+    one host read of each round's losses. Returns ``(fleet, {"losses":
+    (rounds, m, H) float array, "accuracy": [m]})``."""
+    fleet = CodistillFleet(cfgs, dcfg, kd_kernel=kd_kernel).init(
+        torch.Generator().manual_seed(seed), device)
+    it = iter(train_batches())
+    history = []
+    for _ in range(rounds):
+        stacked = stack_batches(it, limit=steps_per_round)
+        if stacked is None:
+            it = iter(train_batches())      # fresh pass over the stream
+            stacked = stack_batches(it, limit=steps_per_round)
+            if stacked is None:
+                break
+        history.append(fleet.round(stacked, iters=iters).cpu().numpy())
+    accs = [evaluate(fleet.member_params(i), cfgs[i], eval_batches)
+            for i in range(len(cfgs))]
+    return fleet, {"losses": np.asarray(history), "accuracy": accs}
+
+
+# ---------------------------------------------------------------------------
+# Analytic chain-time model (Table I's shape at full scale; host math)
+# ---------------------------------------------------------------------------
+
+def _fwd_flops_per_item(cfg: ModelConfig) -> float:
+    """Forward FLOPs per clip or token: 2·MACs for a CNN (its convolutions
+    reuse their weights across positions), 2·params otherwise."""
+    if cfg.family == "resnet3d":
+        from repro_torch.models.resnet3d import macs_per_clip
+        return 2.0 * macs_per_clip(cfg)
+    return 2.0 * cfg.param_count()
+
+
+def stage_flops(teacher: ModelConfig, student: ModelConfig,
+                tokens_or_clips: float) -> float:
+    """FLOPs of one KD stage: teacher fwd + student fwd/bwd (3x fwd)."""
+    return (_fwd_flops_per_item(teacher) + 3 * _fwd_flops_per_item(student)) \
+        * tokens_or_clips
+
+
+def chain_time_model(chain: Sequence[ModelConfig], dataset_items: float,
+                     epochs: int, device_flops: float = 125e12,
+                     mfu: float = 0.15) -> dict:
+    """Predicted wall time per stage and in total (seconds): each stage's
+    FLOPs over ``device_flops`` × ``mfu``. The defaults model the paper's
+    V100 server (125 TFLOP/s tensor peak at a CNN-typical 15%
+    utilization). Gives Table I's shape (time grows with each TA while
+    accuracy saturates) and its order of magnitude."""
+    out = {"stages": [], "total_s": 0.0}
+    for t, s in zip(chain[:-1], chain[1:]):
+        fl = stage_flops(t, s, dataset_items * epochs)
+        sec = fl / (device_flops * mfu)
+        out["stages"].append({"teacher": t.name, "student": s.name,
+                              "flops": fl, "seconds": sec})
+        out["total_s"] += sec
+    return out

@@ -15,15 +15,17 @@ the reference's exactly, on either engine.
 LowRankSubmodel) runs on both engines and both modes, and
 ``fed.compress_bits`` sends every async update through the int8 / int4
 wire codec (``core/compression.py``), per dispatch and outside any graph.
-Still to be ported: streaming fleets (ROADMAP Queue 1 item 9) and the
-sharded and hierarchical engines (item 13).
+Both entry points take a ``Fleet`` or a ``FleetSpec`` (``Fleet.resolve``):
+a streamed population of any size holds only its sampled (sync) or
+in-flight (async) clients. Still to be ported: the sharded and
+hierarchical engines (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
 import heapq
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -142,19 +144,17 @@ def _bound_algorithm(algorithm, fleet):
     return alg
 
 
-def _check_ported(engine, allowed, fleet) -> EngineSpec:
+def _check_ported(engine, allowed) -> EngineSpec:
     espec = EngineSpec.from_str(engine, allowed=allowed)
     if espec in (EngineSpec.SHARD, EngineSpec.HIER):
         raise NotImplementedError(
             f"engine={espec.value!r}: the sharded and hierarchical rounds "
             "are ROADMAP Queue 1 item 13")
-    if not isinstance(fleet, Fleet):
-        raise TypeError("fleet must be a Fleet (Fleet.from_lists); streaming "
-                        "FleetSpec populations are ROADMAP Queue 1 item 9")
     return espec
 
 
-def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
+def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet,
+              client_data: Optional[Sequence[Callable[[], Iterable]]] = None,
               iters_per_epoch: int = 1, jitter: float = 0.0,
               eval_fn: Optional[Callable] = None, eval_every: int = 10,
               engine="scan", window: float = 0.0,
@@ -168,6 +168,11 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     (``fedasync.server_receive_many``, a group of m ≥ 2 in one call).
     ``fed.clients_per_round`` > 0 keeps that many clients in flight,
     sampling replacements from the rest of the population.
+
+    ``fleet`` is a ``Fleet`` or a ``FleetSpec`` (streamed: a finished
+    client's state is released when it leaves the in-flight set); the
+    deprecated (profiles, ``client_data``) sequence pair still works
+    with a warning (``Fleet.resolve``).
 
     ``engine="scan"`` (default) runs every dispatch, a lone one or a
     burst of concurrent ones (the kickoff, and with ``window`` > 0 each
@@ -186,8 +191,8 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     the algorithm asks for it (``wire_always``): per dispatch, after the
     engine's call.
     """
-    espec = _check_ported(engine, ASYNC_ENGINES, fleet)
-    fleet.check(fed)
+    fleet = Fleet.resolve(fleet, client_data, fed)
+    espec = _check_ported(engine, ASYNC_ENGINES)
     alg = _bound_algorithm(algorithm, fleet)
     stateful = alg.stateful
     device = resolve_device(device)
@@ -343,6 +348,8 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
                 dispatch(finished, now)
         else:
             inflight.difference_update(finished)
+            if m_inflight < fleet.population:
+                fleet.release(finished)
 
     return SimResult(wall_clock_s=now, history=history, trace=trace,
                      params=server.params, staleness_hist=staleness_hist,
@@ -353,15 +360,19 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
 # Synchronous FedAvg baseline
 # ---------------------------------------------------------------------------
 
-def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
+def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet,
+             client_data: Optional[Sequence[Callable[[], Iterable]]] = None,
              iters_per_epoch: int = 1, jitter: float = 0.0,
              eval_fn: Optional[Callable] = None, eval_every: int = 10,
              engine="scan", algorithm=None, device=None) -> SimResult:
     """Virtual-clock synchronous FedAvg: each round costs the slowest of
     its clients' ``fed.local_iters_max`` local iterations.
 
+    ``fleet`` is a ``Fleet`` or a ``FleetSpec``, or the deprecated
+    (profiles, ``client_data``) pair, as for ``run_async``.
     ``fed.clients_per_round`` = m > 0 draws m clients a round uniformly
-    without replacement and releases them after it; a round then stands
+    without replacement and releases them after it (a streamed fleet
+    holds O(m) clients whatever its population); a round then stands
     for m global epochs, so ``rounds = max(global_epochs // m, 1)``. 0
     runs the whole population every round.
 
@@ -373,8 +384,8 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet: Fleet,
     is ``FedProx``, the paper's round. A stateful algorithm keeps each client's
     state on the instance across rounds, keyed by the sampled ids.
     """
-    espec = _check_ported(engine, SYNC_ENGINES, fleet)
-    fleet.check(fed)
+    fleet = Fleet.resolve(fleet, client_data, fed)
+    espec = _check_ported(engine, SYNC_ENGINES)
     alg = _bound_algorithm(algorithm, fleet)
     device = resolve_device(device)
     params = {k: v.to(device) for k, v in params0.items()}

@@ -8,9 +8,12 @@ asynchronously by Algorithm 1 (``simulator.run_async``) or synchronously
 by FedAvg (``simulator.run_sync``). Both stages run on the batched
 engines by default (``engine="scan"``: the KD epochs and the client runs
 replayed as CUDA graphs on the card); ``engine="loop"`` runs stage 2 on
-the per-iteration oracle. ``compare_scratch`` also fine-tunes a random
-init of the student the same way: the KD-vs-scratch comparison. Runs on
-the card unless ``--device cpu`` is given.
+the per-iteration oracle. ``codistill`` replaces stage 1's teacher ->
+student chain by codistillation (``distill.run_codistill``): the teacher
+and the student train together, each from the other's round-start
+logits, and the student goes on to stage 2. ``compare_scratch`` also
+fine-tunes a random init of the student the same way: the KD-vs-scratch
+comparison. Runs on the card unless ``--device cpu`` is given.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke
@@ -18,6 +21,8 @@ Usage:
         --teacher resnet3d-34 --kd-steps 8 --teacher-steps 2
     PYTHONPATH=src python -m repro_torch.launch.pipeline --reduced \
         --mode sync --compare-scratch --device cpu --engine loop
+    PYTHONPATH=src python -m repro_torch.launch.pipeline --reduced \
+        --codistill --device cpu
 """
 from __future__ import annotations
 
@@ -97,9 +102,6 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
         raise NotImplementedError(
             f"engine={engine!r}: the sharded and hierarchical rounds are "
             "ROADMAP Queue 1 item 13")
-    if codistill:
-        raise NotImplementedError(
-            "codistill: CodistillFleet is ROADMAP Queue 1 item 4")
     device = resolve_device(device)
     cfg = get_config(arch)
     tcfg = get_config(teacher)
@@ -115,14 +117,29 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     loader = BatchLoader(big, batch, steps=kd_steps, seed=seed)
     kd_eval = list(big.batches(batch, eval_steps, seed=999))
     dcfg = DistillConfig(lr=kd_lr, chain=(tcfg.name, cfg.name))
-    params, stages = distill.run_chain(
-        [tcfg, cfg], dcfg, loader, kd_eval, steps_per_stage=kd_steps,
-        seed=seed, kd_kernel=kd_kernel, trained_teacher_steps=teacher_steps,
-        epoch_len=kd_epoch_len, device=device)
-    report["stage1"] = {"codistill": False, "stages": [
-        {"teacher": s.teacher, "student": s.student, "losses": s.losses,
-         "accuracy": s.accuracy, "steps": len(s.losses),
-         "wall_s": s.wall_time_s} for s in stages]}
+    if codistill:
+        t1 = time.time()
+        fleet, co = distill.run_codistill(
+            [tcfg, cfg], dcfg, loader, kd_eval,
+            rounds=max(1, kd_steps // 4), steps_per_round=min(4, kd_steps),
+            seed=seed, kd_kernel=kd_kernel, device=device)
+        params = fleet.member_params(1)       # the deployable student
+        report["stage1"] = {"codistill": True,
+                            "accuracy": co["accuracy"],
+                            "rounds": int(co["losses"].shape[0]),
+                            "losses": co["losses"].tolist(),
+                            "compiles": fleet.num_compiled,
+                            "wall_s": time.time() - t1}
+    else:
+        params, stages = distill.run_chain(
+            [tcfg, cfg], dcfg, loader, kd_eval, steps_per_stage=kd_steps,
+            seed=seed, kd_kernel=kd_kernel,
+            trained_teacher_steps=teacher_steps, epoch_len=kd_epoch_len,
+            device=device)
+        report["stage1"] = {"codistill": False, "stages": [
+            {"teacher": s.teacher, "student": s.student, "losses": s.losses,
+             "accuracy": s.accuracy, "steps": len(s.losses),
+             "wall_s": s.wall_time_s} for s in stages]}
     report["stage1"]["digest"] = params_digest(params)
     if on_stage1 is not None:
         on_stage1(params)
@@ -174,6 +191,10 @@ def main(argv=None):
                     help="stage 2's client execution: the batched engines "
                          "(CUDA graphs on the card) or the per-iteration "
                          "loop; shard is ROADMAP Queue 1 item 13")
+    ap.add_argument("--codistill", action="store_true",
+                    help="stage 1 by codistillation (the teacher and the "
+                         "student as peers) instead of the teacher -> "
+                         "student chain")
     ap.add_argument("--compare-scratch", action="store_true",
                     help="also fine-tune from a random init and report it")
     ap.add_argument("--device", default=None,
@@ -188,7 +209,8 @@ def main(argv=None):
               batch=args.batch, kd_steps=args.kd_steps,
               teacher_steps=args.teacher_steps, kd_lr=args.kd_lr,
               kd_epoch_len=args.kd_epoch_len, kd_kernel=args.kd_kernel,
-              engine=args.engine, compare_scratch=args.compare_scratch,
+              engine=args.engine, codistill=args.codistill,
+              compare_scratch=args.compare_scratch,
               seed=args.seed, device=args.device)
     if args.smoke:
         kw.update(reduced=True, clients=2, epochs=2, batch=2,

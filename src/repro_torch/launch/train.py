@@ -1,7 +1,10 @@
 """Trainer: the paper's stage 2 and its two baselines.
 
 Port of ``repro/launch/train.py`` on a resident fleet of ``--clients``
-Jetsons: federated fine-tuning asynchronously (Algorithm 1, ``--mode
+Jetsons, or with ``--population N`` on a streamed fleet of N clients
+drawn from the four Jetson types (``core/fleet.py::FleetSpec``; with
+``--clients-per-round m`` only the m sampled or in-flight clients are
+ever held): federated fine-tuning asynchronously (Algorithm 1, ``--mode
 async``), synchronously (FedAvg, ``--mode sync``), or centrally on the
 server with no clients (``--mode central``), from a random init or, with
 ``--distill-first``, from a short teacher -> student KD stage
@@ -19,6 +22,8 @@ Usage:
         [--algorithm fedprox|scaffold|lowrank]
     PYTHONPATH=src python -m repro_torch.launch.train --mode central \
         --steps 20 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --mode async \
+        --population 1000000 --clients-per-round 4 --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
 from repro_torch.core.algorithms import ALGORITHMS
 from repro_torch.core.fedasync import make_client_step
-from repro_torch.core.fleet import JETSON_FLEET_HMDB51, EngineSpec, Fleet
+from repro_torch.core.fleet import (JETSON_FLEET_HMDB51, EngineSpec, Fleet,
+                                    FleetSpec)
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
@@ -52,10 +58,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--engine {args.engine}: the sharded and hierarchical rounds "
             "are ROADMAP Queue 1 item 13")
-    if args.population:
-        raise NotImplementedError(
-            "--population: streaming FleetSpec populations are ROADMAP "
-            "Queue 1 item 9")
 
 
 def main(argv=None):
@@ -70,8 +72,9 @@ def main(argv=None):
                     help="steps (central mode)")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--population", type=int, default=0,
-                    help="streaming fleet population (not ported: only 0, "
-                         "the resident fleet of --clients devices)")
+                    help="streaming fleet population; clients materialize "
+                         "only when sampled (0 = the resident fleet of "
+                         "--clients devices)")
     ap.add_argument("--clients-per-round", type=int, default=0,
                     help="sync draws m clients a round, async keeps m in "
                          "flight; 0 = the whole fleet")
@@ -135,7 +138,8 @@ def main(argv=None):
             print(f"  KD {st.teacher} -> {st.student}: "
                   f"acc={st.accuracy:.3f} ({st.wall_time_s:.1f}s)")
 
-    fed = FedConfig(num_clients=args.clients, global_epochs=args.epochs,
+    population = args.population or args.clients
+    fed = FedConfig(num_clients=population, global_epochs=args.epochs,
                     mixing_beta=args.beta, staleness_a=args.a,
                     prox_theta=args.theta, lr=args.lr,
                     trainable=args.trainable,
@@ -158,12 +162,19 @@ def main(argv=None):
         result = {"mode": "central", "final_loss": float(loss),
                   "wall_s": time.time() - t0}
     else:
-        parts = iid_partition(max(len(ds), args.clients * 8), args.clients,
-                              seed=args.seed)
-        data = [BatchLoader(ds, args.batch, steps=fed.local_iters_max,
-                            seed=k, indices=parts[k])
-                for k in range(args.clients)]
-        fleet = Fleet.from_lists(build_fleet(args.clients), data)
+        if args.population:
+            fleet = Fleet.from_spec(FleetSpec(
+                population=population, profiles=JETSON_FLEET_HMDB51,
+                dataset=ds, batch_size=args.batch,
+                steps=fed.local_iters_max, seed=args.seed,
+                partition="shared"))
+        else:
+            parts = iid_partition(max(len(ds), args.clients * 8),
+                                  args.clients, seed=args.seed)
+            data = [BatchLoader(ds, args.batch, steps=fed.local_iters_max,
+                                seed=k, indices=parts[k])
+                    for k in range(args.clients)]
+            fleet = Fleet.from_lists(build_fleet(args.clients), data)
         if args.mode == "async":
             res = simulator.run_async(params, cfg, fed, fleet,
                                       engine=args.engine,

@@ -19,6 +19,7 @@ from repro_torch.models import lm, resnet3d
 from repro_torch.types import ModelConfig
 
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+ENCDEC_FAMILIES = ("encdec", "audio")    # the reference's; not ported
 
 
 def _unported(cfg: ModelConfig, what: str):

@@ -165,3 +165,11 @@ def macs_per_clip(cfg: ModelConfig, frames: int = CLIP_FRAMES,
                 macs += vox * cin * c_out
         c_in = c_out
     return float(macs)
+
+
+def input_shape(cfg: ModelConfig, batch: int):
+    """NDHWC clip batch shape a config is built for: 4x16x16 for the
+    reduced configs, the paper's 8x112x112 otherwise."""
+    if "reduced" in cfg.name:
+        return (batch, 4, 16, 16, 3)
+    return (batch, CLIP_FRAMES, CLIP_SIZE, CLIP_SIZE, 3)

@@ -7,7 +7,11 @@ replays), outputs that outlive the next replay, and a capture that fails
 raising; the algorithm layer's stateful rounds (SCAFFOLD replayed against
 its eager run, one capture per round shape over H^k draws and mixed
 LowRank capacities, no host sync in their replays, LowRank's SVD refused
-by a capture and run between the round's two graphs). Needs an
+by a capture and run between the round's two graphs); a codistillation
+round replayed against its eager run (cuDNN deterministic: bit for bit)
+with 2 × H launches of each KD kernel on the card, budgets that change
+across rounds capturing nothing new, and a streamed fleet of 8 clients
+against its materialized twin, sync and async, bit for bit. Needs an
 NVIDIA GPU and nvcc; elsewhere every test skips with a reason. Imports no
 JAX:
 
@@ -24,7 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
-from repro_torch.core import algorithms, distill, fed_engine, fedasync
+from repro_torch.core import (algorithms, distill, fed_engine, fedasync,
+                              simulator)
+from repro_torch.core.compile_cache import GraphCache
+from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet, FleetSpec
 from repro_torch.data import SyntheticActionDataset, stack_batches
 from repro_torch.device import batch_to
 from repro_torch.kernels import kd_loss
@@ -324,3 +331,104 @@ def test_lowrank_svd_capture_raises_and_never_falls_back(cuda):
         assert out.stdout.split() == ["captured", "1"], out.stderr
     else:
         assert out.stdout.split() == ["raised", "0"], out.stderr
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms inside the block (TF32 is off in
+    the ``cuda`` fixture): a computation repeated on the card, eagerly or
+    replayed, gives the same bits."""
+
+    def __enter__(self):
+        self.det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.det
+
+
+def _codistill_fleet(device):
+    cfgs = [get_config("resnet3d-34").reduced(),
+            get_config("resnet3d-18").reduced()]
+    return distill.CodistillFleet(cfgs, DistillConfig(lr=0.01)).init(
+        torch.Generator().manual_seed(0), device)
+
+
+def _probes(n, H=4):
+    ds = SyntheticActionDataset(num_classes=8, samples_per_class=8, seed=1)
+    return [stack_batches(ds.batches(2, H, seed=10 + i)) for i in range(n)]
+
+
+def test_replayed_codistill_round_equals_eager(cuda):
+    """Two fleets from one init: the first runs its second round through
+    the graphs captured then (the capture runs nothing; the replay
+    does), the second runs it eagerly (a fresh graph cache). Losses, NaN
+    pattern and every member's params equal bit for bit. A later replay
+    runs 2 members × H steps of each KD kernel on the card, none of them
+    launched from the host; the capture counted them once."""
+    H = 4
+    p1, p2 = _probes(2, H)
+    with _Deterministic():
+        a, b = _codistill_fleet(cuda), _codistill_fleet(cuda)
+        a.round(p1)
+        b.round(p1)
+        f0 = kd_loss.kd_loss_fused.launches
+        got = a.round(p2, iters=[4, 2])
+        assert kd_loss.kd_loss_fused.launches - f0 == 2 * H
+        b._graphs = GraphCache()
+        want = b.round(p2, iters=[4, 2])
+        for i in range(2):
+            for k, v in b.member_params(i).items():
+                assert torch.equal(a.member_params(i)[k], v), k
+        f0 = kd_loss.kd_loss_fused_bwd.launches
+        _, ran = _kd_device_launches(lambda: a.round(p1))
+    assert kd_loss.kd_loss_fused_bwd.launches == f0
+    assert ran == {"fwd": 2 * H, "bwd": 2 * H}
+    assert bool(got[1, 2:].isnan().all())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert a._graphs.num_captured == 4
+
+
+def test_codistill_budgets_make_no_new_capture(cuda):
+    """Budget vectors that change from round to round are inputs of the
+    KD graphs: after the capture no round adds a signature or a graph,
+    and a replayed round reads nothing back to the host."""
+    fleet = _codistill_fleet(cuda)
+    probes = _probes(2)
+    fleet.round(probes[0], iters=[4, 4])
+    fleet.round(probes[1], iters=[3, 1])
+    assert [fleet.num_compiled, fleet._graphs.num_captured] == [4, 4]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for draw in ([1, 2], [2, 4], [4, 3]):
+            losses = fleet.round(probes[0], iters=draw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [fleet.num_compiled, fleet._graphs.num_captured] == [4, 4]
+    assert bool(losses[1, 3:].isnan().all())
+    assert bool(losses[0].isfinite().all())
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_streamed_run_equals_materialized_on_the_card(mode, cuda):
+    """A population of 8, two clients a round or in flight, streamed and
+    materialized: the same params bit for bit and the same history."""
+    cfg = get_config("resnet3d-18").reduced()
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  cuda)
+    ds = SyntheticActionDataset(num_classes=8, samples_per_class=8, seed=1)
+    spec = FleetSpec(population=8, profiles=JETSON_FLEET_HMDB51, dataset=ds,
+                     batch_size=2, steps=2, seed=3, partition="iid")
+    fed = FedConfig(num_clients=8, global_epochs=8, local_iters_min=1,
+                    local_iters_max=2, lr=0.05, clients_per_round=2, seed=5)
+    run = simulator.run_sync if mode == "sync" else simulator.run_async
+    with _Deterministic():
+        streamed = Fleet.from_spec(spec)
+        a = run(params, cfg, fed, streamed, device=cuda)
+        b = run(params, cfg, fed, Fleet.from_spec(spec).materialize(),
+                device=cuda)
+    assert a.history == b.history
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    assert streamed.max_resident <= 2

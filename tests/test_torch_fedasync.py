@@ -207,7 +207,9 @@ def test_run_async_rejects_unported_paths(setup):
     with pytest.raises(ValueError, match="unsupported wire width"):
         tsim.run_async(tp, tc, dataclasses.replace(tf, compress_bits=3),
                        fleet, device="cpu")
-    with pytest.raises(TypeError):
+    # profiles without their loaders: Fleet.resolve's refusal, as in the
+    # reference
+    with pytest.raises(ValueError, match="legacy"):
         tsim.run_async(tp, tc, tf, list(JETSON_FLEET_HMDB51), device="cpu")
     with pytest.raises(ValueError, match="num_clients"):
         tsim.run_async(tp, tc, dataclasses.replace(tf, num_clients=3), fleet,

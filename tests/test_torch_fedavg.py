@@ -184,7 +184,7 @@ def test_run_sync_rejects_unported_paths(setup):
                      ({"engine": "hier"}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             tsim.run_sync(tp, tc, TFed(**FED), fleet, device="cpu", **kw)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="legacy"):
         tsim.run_sync(tp, tc, TFed(**FED), list(JETSON_FLEET_HMDB51),
                       device="cpu")
     with pytest.raises(ValueError, match="num_clients"):

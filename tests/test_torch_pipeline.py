@@ -143,7 +143,7 @@ def test_cli_smoke_prints_report(capsys):
     assert np.isfinite(report["stage2"]["final_loss"])
 
 
-@pytest.mark.parametrize("kw", [{"engine": "shard"}, {"codistill": True}])
+@pytest.mark.parametrize("kw", [{"engine": "shard"}])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.run_pipeline(device="cpu", **kw)

@@ -22,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for must in ("repro_torch.core.fed_engine", "repro_torch.core.algorithms",
              "repro_torch.core.compression", "repro_torch.core.convergence",
-             "repro_torch.trees"):
+             "repro_torch.trees", "repro_torch.core.fleet",
+             "repro_torch.core.distill"):
     assert must in names, (must, names)
 for name in names:
     importlib.import_module(name)

@@ -91,11 +91,22 @@ def test_algorithm_flag_matches_reference(mode, algorithm, engine, init,
                                rtol=1e-3)
 
 
-@pytest.mark.parametrize("flag,item", [(["--engine", "shard"], "item 13"),
-                                       (["--population", "8"], "item 9")])
+@pytest.mark.parametrize("flag,item", [(["--engine", "shard"], "item 13")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS + flag)
+
+
+# --population, refused before streaming fleets were ported: a streamed
+# fleet of 64 clients, 4 a round (sync) or in flight (async)
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_population_flag_runs(mode, capsys):
+    assert ttrain.main(["--mode", mode, "--population", "64",
+                        "--clients-per-round", "4", "--device", "cpu"]
+                       + ARGS) == 0
+    res = _result(capsys)
+    assert res["mode"] == mode
+    assert np.isfinite(res["final_loss"]) and res["virtual_wall_s"] > 0
 
 
 def test_sync_after_distill_first_on_the_port(tmp_path, capsys):
