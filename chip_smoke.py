@@ -119,6 +119,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
     16 KD steps, then two sync rounds),
     each result line printed, its losses finite, the KD launches counted
     (16 of each on the distill-first run, none on the central one);
+13b. the LM training slice (``lm_train``): ``launch.steps.make_train_step``
+    on Hymba-1.5B at full width (bf16 compute, remat), 4 steps of B 2 x S
+    2048 synthesised tokens, each step's ms, the peak device memory; the
+    same step on the reduced Hymba at f32 compute, card against CPU;
+    Mamba2-130M distilled into itself at full width (one eager and one
+    replayed KD epoch of 4 steps of 4 x 64 tokens: kernels 1 and 1b at
+    R = 256, V = 50280, 4 + 4 on the card by the profiler, replay against
+    eager bit for bit); kernels 1 and 1b alone at (256, 50280) and (256,
+    32001) against their plain versions and timed beside their bounds;
+    ``run_async`` on Mamba2-130M at full width on ``scan`` and ``loop``, bit
+    for bit; ``launch.train --arch mamba2-130m --reduced`` central and
+    async;
+13c. single-batch serving (``lm_serve``): ``launch.serve`` without
+    ``--continuous`` on Hymba-1.5B at full width (prefill and decode ms);
+    the ring decode and the unrolled window-sliced decode against the
+    uniform decode past the window: tokens equal, logits within
+    1e-3 * (1 + |uniform|), and the serve steps' tokens equal;
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
     math): the reduction must reach 35%.
 
@@ -2882,6 +2899,498 @@ def phase_score_full_width(kernels: list, seed: int) -> None:
                                           match=COPY_KERNELS)}))
 
 
+# ---------------------------------------------------------------------------
+# The LM training and single-batch serving slice
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_STEPS = 4
+LM_TRAIN_SHAPE = (2, 2048)       # B x S; SHAPES["train_4k"] is 256 x 4096
+# reduced train step, card vs CPU at f32 (TF32 off): max |param err| and
+# max relative loss err, the limits of tests/test_torch_cuda_lm.py
+LM_TRAIN_TOL = {"params": 1e-5, "losses": 1e-5}
+LM_KD = (4, 4, 64)               # H steps of B x S: R = 256 rows
+LM_KD_SHAPES = ((256, 50280), (256, 32001))     # mamba2-130m, hymba-1.5b
+# kernels 1 / 1b at the LM shapes: forward |err| <= fwd * |plain|,
+# backward |err| <= bwd * (the size of ds's terms), ``_lm_kd_check``;
+# about 3x the largest measured on an H100 (1.6e-7 and 1.8e-6)
+LM_KD_RTOL = {"fwd": 5e-7, "bwd": 5e-6}
+LM_SERVE_PROMPT = 1536           # past Hymba's window of 1024
+LM_SERVE_TOKENS = 8
+
+
+class _SynthLoader:
+    """A client's data as ``registry.synth_batch`` draws it: each call a
+    new local epoch of ``steps`` (B, S) batches at the config's
+    vocabulary, seeded by (seed, epoch), as numpy for the engines."""
+
+    def __init__(self, cfg, batch: int, seq: int, steps: int, seed: int):
+        self.cfg, self.steps, self.seed, self._epoch = cfg, steps, seed, 0
+        from repro_torch.types import ShapeConfig
+        self.shape = ShapeConfig("train", seq_len=seq, global_batch=batch,
+                                 kind="train")
+
+    def __call__(self):
+        import numpy as np
+        from repro_torch.models import registry
+        self._epoch += 1
+        rng = np.random.default_rng((self.seed, self._epoch))
+        for _ in range(self.steps):
+            yield {k: v.numpy() for k, v in registry.synth_batch(
+                rng, self.cfg, self.shape, device="cpu").items()}
+
+
+def _err_over(got, want, scale) -> float:
+    """max |got - want| / scale, elementwise; where scale is 0 the kernel
+    must match exactly (inf otherwise)."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    zero = torch.zeros((), device=diff.device)
+    inf = torch.full((), math.inf, device=diff.device)
+    return float(torch.where(scale > 0, diff / scale.clamp(min=1e-38),
+                             torch.where(diff > 0, inf, zero)).max())
+
+
+def _lm_kd_cases(R, V):
+    """The inputs kernels 1 and 1b are held at for one LM shape (T = 1, as
+    the KD epoch runs them): (name, s, t, labels, alpha, valid, g).
+    ``mixed``: independent N(0, 1) logits, alpha 0.5, three rows masked,
+    a row cotangent of stride 1 (the squared error is ~V, so the CE half
+    is ~1e-4 of the loss here); ``ce``: alpha 1, so the loss and ds are the
+    CE half alone; ``near``: the teacher the student plus N(0, 0.01^2)
+    noise, alpha 0.5, so the two halves of the loss are of one size. The
+    last two have no mask and the stride-0 cotangent of a mean, as the
+    epoch's call."""
+    import torch
+    s, t, lab = _kd_inputs(R, V, torch.float32, seed=V)
+    valid = torch.ones(R, device="cuda")
+    valid[-3:] = 0.0
+    g = torch.full((R,), 1.0 / R, device="cuda")
+    g0 = torch.full((1,), 1.0 / R, device="cuda").expand(R)
+    noise = torch.randn(R, V, generator=torch.Generator().manual_seed(V + 1))
+    near = s + 0.01 * noise.to("cuda")
+    return [("mixed", s, t, lab, 0.5, valid, g),
+            ("ce", s, t, lab, 1.0, None, g0),
+            ("near", s, near, lab, 0.5, None, g0)]
+
+
+def _lm_kd_check(s, t, lab, alpha, valid, g) -> dict:
+    """Kernels 1 and 1b against their plain versions on one input.
+
+    The forward's error is relative to the plain loss on live rows (masked
+    rows must be exactly 0). The backward's is relative, elementwise, to
+    the size of ds's two terms, alpha |g (p - y)| + (1 - alpha) |2 g (s -
+    t)| (dt's: the second), not to 1 + |ds|: ds is ~1/R, so an absolute
+    floor would pass any CE half. Both backward calls are held, with dt and
+    without."""
+    import torch
+    from repro_torch.kernels import kd_loss, ref
+    got = kd_loss.kd_loss_fused(s, t, lab, alpha, 1.0, valid=valid)
+    want = ref.kd_loss_ref(s, t, lab, alpha, 1.0, valid=valid)
+    out = {"fwd_max_abs_err": float((got - want).abs().max()),
+           "fwd_rel_err": _err_over(got, want, want.abs())}
+    lse = torch.empty(s.shape[0], device="cuda")
+    kd_loss._fused_fwd(s, t, lab, alpha, 1.0, valid, lse)
+    want_ds, want_dt = kd_loss.kd_loss_rows_bwd(s, t, lab, valid, g, alpha,
+                                                1.0)
+    ce = kd_loss.kd_loss_rows_bwd(s, t, lab, valid, g, 1.0, 1.0)[0].abs()
+    sq = kd_loss.kd_loss_rows_bwd(s, t, lab, valid, g, 0.0, 1.0)[0].abs()
+    scale = alpha * ce + (1.0 - alpha) * sq
+    abs_err, rel_err = 0.0, 0.0
+    for need_dt in (True, False):
+        ds, dt = kd_loss.kd_loss_fused_bwd(s, t, lab, valid, g, lse, alpha,
+                                           1.0, need_dt=need_dt)
+        pairs = [(ds, want_ds, scale)]
+        if need_dt:
+            pairs.append((dt, want_dt, (1.0 - alpha) * sq))
+        elif dt is not None:
+            raise AssertionError("kd_loss_fused_bwd wrote dt unasked")
+        for a, b, sc in pairs:
+            abs_err = max(abs_err, float((a - b).abs().max()))
+            rel_err = max(rel_err, _err_over(a, b, sc))
+    out.update(bwd_max_abs_err=abs_err, bwd_rel_err=rel_err)
+    return out
+
+
+def _lm_kd_kernel_rows(kernels: list) -> None:
+    """Kernels 1 and 1b alone at R = 256 rows of the LM vocabularies, f32:
+    against their plain versions on ``_lm_kd_cases`` within
+    ``LM_KD_RTOL``, then timed as ``_time_kernel`` times them beside their
+    bound (bytes at 3.35 TB/s): recorded on the two KD rows of ``kernels``
+    under ``lm_shapes``."""
+    import torch
+    from repro_torch.kernels import kd_loss, ref
+    for R, V in LM_KD_SHAPES:
+        cases, checks = _lm_kd_cases(R, V), {}
+        for name, *case in cases:
+            checks[name] = _lm_kd_check(*case)
+            print(json.dumps({"phase": "lm_kd_kernel_check", "R": R, "V": V,
+                              "case": name, "rtol": LM_KD_RTOL,
+                              **checks[name]}))
+        err_f = max(c["fwd_max_abs_err"] for c in checks.values())
+        err_b = max(c["bwd_max_abs_err"] for c in checks.values())
+        bad = {n: c for n, c in checks.items()
+               if c["fwd_rel_err"] > LM_KD_RTOL["fwd"]
+               or c["bwd_rel_err"] > LM_KD_RTOL["bwd"]}
+        if bad:
+            raise AssertionError(f"KD kernels at ({R}, {V}): {bad}")
+        _, s, t, lab, _, _, g = cases[0]
+        lse = torch.empty(R, device="cuda")
+        # timed as the KD step calls them: no mask, the backward without dt
+        fwd = _time_kernel(
+            lambda: kd_loss._fused_fwd(s, t, lab, 0.5, 1.0, None, lse),
+            lambda: ref.kd_loss_ref(s, t, lab, 0.5))
+        bwd = _time_kernel(
+            lambda: kd_loss.kd_loss_fused_bwd(s, t, lab, None, g, lse, 0.5,
+                                              1.0, need_dt=False),
+            lambda: kd_loss.kd_loss_rows_bwd(s, t, lab, None, g, 0.5, 1.0))
+        _one_kernel(f"kd_loss ({R}, {V})", fwd)
+        _one_kernel(f"kd_loss_bwd ({R}, {V})", bwd)
+        for name, row, nbytes, ops, err in (
+                ("kd_loss", fwd, 2 * R * V * 4 + 3 * R * 4, 7 * R * V, err_f),
+                ("kd_loss_bwd", bwd, 3 * R * V * 4 + 3 * R * 4, 8 * R * V,
+                 err_b)):
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_FLOPS * 1e3
+            out = {**row, "max_abs_err": err, "library_ms": None,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations"}
+            print(json.dumps({"phase": "lm_kd_kernel_time", "name": name,
+                              "R": R, "V": V, **out}))
+            for k in kernels:
+                if k["name"] == name:
+                    k.setdefault("lm_shapes", {})[f"{R}x{V}"] = out
+
+
+def _lm_line(report: dict, part: str) -> None:
+    """One part of an LM phase, printed as soon as it has passed."""
+    print(json.dumps({"phase": "lm_train", "part": part,
+                      "card": report["card"], **report[part]}))
+
+
+def phase_lm_train(kernels: list) -> None:
+    """The LM training slice on the card.
+
+    (a) ``launch.steps.make_train_step`` on Hymba-1.5B at full width (f32
+    params, bf16 compute, remat), ``LM_TRAIN_STEPS`` steps of B x S =
+    ``LM_TRAIN_SHAPE`` tokens from ``registry.synth_batch``: each step's
+    ms by CUDA events, the peak device memory, finite losses; (b) the
+    same step at Hymba's reduced config and f32 compute, card against CPU
+    in ``_Exact``; (c) LM distillation at full width, Mamba2-130M into
+    Mamba2-130M (``make_distill_engine``), one eager and one replayed
+    epoch of H x B x S = ``LM_KD``: kernels 1 and 1b at R = 256, V =
+    50280, H of each on the card by the profiler in each, replay against
+    eager bit for bit in ``_Exact``; (d) kernels 1 and 1b alone at
+    ``LM_KD_SHAPES``, against their plain versions and timed; (e)
+    ``run_async`` on Mamba2-130M at full width, four Jetsons x 4 global
+    epochs, each client's data ``synth_batch`` batches of 4 x 64 tokens, on
+    ``scan`` and ``loop`` in ``_Exact``: params bit for bit, clocks equal,
+    the engine's [signatures, captures]; (f) ``launch.train --arch
+    mamba2-130m --reduced`` in ``--mode central`` and ``async`` (the
+    Markov token stream at vocabulary 512)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import distill, fed_engine, simulator
+    from repro_torch.core.fleet import Fleet
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_fleet
+    from repro_torch.models import registry
+    from repro_torch.types import DistillConfig, FedConfig, ShapeConfig
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"phase": "lm_train", "card": _card_line()}
+
+    # (a) the train step at full width
+    cfg = get_config("hymba-1.5b")
+    B, S = LM_TRAIN_SHAPE
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(0)
+    batches = [registry.synth_batch(rng, cfg, shape, device="cuda")
+               for _ in range(LM_TRAIN_STEPS)]
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    step, opt = steps.make_train_step(cfg, FedConfig())
+    state, anchor = opt.init(params), dict(params)
+    step_ms, losses = [], []
+    for b in batches:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, state, loss = step(params, state, anchor, b)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms.append(t0.elapsed_time(t1))
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hymba-1.5b train step: losses {losses}")
+    report["train_step_full_width"] = {
+        "arch": cfg.name, "batch": B, "seq_len": S,
+        "params": sum(v.numel() for v in params.values()),
+        "compute": "bf16", "step_ms": step_ms, "losses": losses,
+        # the part's own peak: params, batches, optimizer state and the
+        # steps' work, above what earlier phases still held
+        "peak_gb": (torch.cuda.max_memory_allocated() - held_before)
+        / 2 ** 30, "held_before_gb": held_before / 2 ** 30}
+    _lm_line(report, "train_step_full_width")
+    del params, state, anchor, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) reduced, f32 compute, card vs CPU
+    rcfg = cfg.reduced()
+    rng = np.random.default_rng(1)
+    rb = [registry.synth_batch(rng, rcfg, ShapeConfig("t", 64, 2, "train"),
+                               device="cpu") for _ in range(3)]
+    out = {}
+    with _Exact():
+        for dev in ("cpu", "cuda"):
+            p = registry.init_params(torch.Generator().manual_seed(0), rcfg,
+                                     "cpu")
+            p = {k: v.to(dev) for k, v in p.items()}
+            st_, op = steps.make_train_step(rcfg, FedConfig(lr=0.05),
+                                            loss_kwargs={"dtype": None})
+            ost, anc, ls = op.init(p), dict(p), []
+            for b in rb:
+                p, ost, l = st_(p, ost, anc, b)
+                ls.append(float(l))
+            out[dev] = (p, ls)
+    cpu_p, cpu_l = out["cpu"]
+    card_p = {k: v.cpu() for k, v in out["cuda"][0].items()}
+    p_err = max(float((card_p[k] - cpu_p[k]).abs().max()) for k in cpu_p)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][1], cpu_l))
+    if p_err > LM_TRAIN_TOL["params"] or l_err > LM_TRAIN_TOL["losses"]:
+        raise AssertionError(f"reduced train step card vs CPU: params "
+                             f"{p_err}, losses {l_err}")
+    report["train_step_reduced_card_vs_cpu"] = {
+        "param_max_abs_err": p_err, "loss_rel_err": l_err,
+        "tol": LM_TRAIN_TOL}
+    _lm_line(report, "train_step_reduced_card_vs_cpu")
+
+    # (c) LM distillation at full width through kernels 1 and 1b
+    mcfg = get_config("mamba2-130m")
+    H, KB, KS = LM_KD
+    dcfg = DistillConfig(lr=0.01, chain=(mcfg.name, mcfg.name))
+    loader = _SynthLoader(mcfg, KB, KS, H, seed=2)
+    stacked = {k: np.stack([b[k] for b in loader()])
+               for k in ("tokens", "labels")}
+    teacher = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(1), mcfg, "cuda")
+    student = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(2), mcfg, "cuda")
+    engine = distill.make_distill_engine(mcfg, mcfg, dcfg)
+    opt_state = engine.opt.init(student)
+    on_card = {k: torch.as_tensor(v, device="cuda")
+               for k, v in stacked.items()}
+    kd = {}
+    with _Exact():
+        _zero_kd_launches()
+        want, ran_eager = _traced_kd(lambda: engine._epoch(
+            teacher, student, opt_state["mom"], on_card))
+        host_eager = _kd_launches()
+        runs = []
+        for _ in range(3):             # eager, capture, replay
+            _zero_kd_launches()
+            out_, ran = _traced_kd(lambda: engine.epoch(
+                teacher, student, opt_state, stacked))
+            runs.append((out_, ran, _kd_launches()))
+    err = max(_rel_err(o[0], want[0]) for o, _, _ in runs)
+    l_equal = all(torch.equal(o[2], want[2]) for o, _, _ in runs)
+    _expect_launches("LM KD epoch, eager: host", host_eager, H)
+    _expect_launches("LM KD epoch, eager: card", ran_eager, H)
+    _expect_launches("LM KD epoch, replay: card", runs[2][1], H)
+    _expect_launches("LM KD epoch, replay: host", runs[2][2], 0)
+    if err != 0.0 or not l_equal:
+        raise AssertionError(f"LM KD epoch replay vs eager: {err}")
+    if not all(math.isfinite(x) for x in want[2].tolist()):
+        raise AssertionError(f"LM KD epoch losses {want[2].tolist()}")
+    kd.update(arch=mcfg.name, H=H, batch=KB, seq_len=KS, rows=KB * KS,
+              vocab=mcfg.vocab_size, replay_vs_eager=err,
+              losses=want[2].tolist(),
+              kd_launches={"eager": {"host": host_eager, "card": ran_eager},
+                           "capture": {"host": runs[1][2],
+                                       "card": runs[1][1]},
+                           "replay": {"host": runs[2][2],
+                                      "card": runs[2][1]}},
+              signatures_and_captures=[engine.num_compiled,
+                                       engine._graphs.num_captured])
+    engine.epoch(teacher, student, opt_state, stacked)     # default switches
+    kd["replay_ms_per_epoch"] = _wall_ms(
+        lambda: engine.epoch(teacher, student, opt_state, stacked))
+    report["lm_kd_epoch"] = kd
+    _lm_line(report, "lm_kd_epoch")
+    for k in kernels:
+        if k["name"] in ran_eager:
+            k.setdefault("launches_by_path", {})["lm_kd_epoch"] = {
+                "eager_host": host_eager[k["name"]],
+                "eager_card": ran_eager[k["name"]],
+                "replay_host": runs[2][2][k["name"]],
+                "replay_card": runs[2][1][k["name"]]}
+    del teacher, student, opt_state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) kernels 1 and 1b alone at the LM vocabularies
+    _lm_kd_kernel_rows(kernels)
+
+    # (e) run_async at full width, scan against loop
+    fed = FedConfig(num_clients=4, global_epochs=4)
+    params0 = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(3), mcfg, "cuda")
+    res, wall = {}, {}
+    with _Exact():
+        for eng in ("scan", "loop"):
+            fleet = Fleet.from_lists(build_fleet(4), [
+                _SynthLoader(mcfg, 4, 64, fed.local_iters_max, seed=k)
+                for k in range(4)])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[eng] = simulator.run_async(params0, mcfg, fed, fleet,
+                                           engine=eng, device="cuda")
+            torch.cuda.synchronize()
+            wall[eng] = time.perf_counter() - t0
+    a_err = _rel_err(res["scan"].params, res["loop"].params)
+    if (res["scan"].wall_clock_s != res["loop"].wall_clock_s
+            or res["scan"].staleness_hist != res["loop"].staleness_hist
+            or a_err != 0.0 or not math.isfinite(res["scan"].final_loss)):
+        raise AssertionError(f"mamba2-130m run_async scan vs loop: {a_err}")
+    eng = fed_engine.make_client_run(mcfg, fed, algorithm="fedprox")
+    report["lm_async_full_width"] = {
+        "arch": mcfg.name, "clients": 4, "global_epochs": 4,
+        "virtual_wall_s": res["scan"].wall_clock_s,
+        "final_loss": res["scan"].final_loss, "scan_vs_loop": a_err,
+        "real_wall_s": wall,
+        "signatures_and_captures": [eng.num_compiled,
+                                    eng._graphs.num_captured]}
+    _lm_line(report, "lm_async_full_width")
+    del params0, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the trainer on the reduced Mamba2 and its Markov token stream
+    report["train_cli"] = {}
+    for mode, extra in (("central", ["--steps", "8"]),
+                        ("async", ["--epochs", "4"])):
+        t0 = time.perf_counter()
+        r = _train(["--arch", "mamba2-130m", "--reduced", "--mode", mode,
+                    "--device", "cuda"] + extra)
+        if not math.isfinite(r["final_loss"]):
+            raise AssertionError(f"train mamba2-130m {mode}: {r}")
+        report["train_cli"][mode] = {"result": r,
+                                     "call_s": time.perf_counter() - t0}
+    _lm_line(report, "train_cli")
+    print(json.dumps({"phase": "lm_train", "card": report["card"],
+                      "phase_s": time.perf_counter() - t_phase}))
+
+
+def phase_lm_serve(seed: int) -> None:
+    """Single-batch serving at full width (Hymba-1.5B, f32): ``python -m
+    repro_torch.launch.serve --arch hymba-1.5b --batch 4 --prompt-len 32
+    --gen 16``, the static path, its prefill and decode ms; then, from one
+    prefill of ``LM_SERVE_PROMPT`` tokens (past the window), the ring
+    decode (``to_ring_cache``, ``decode_step_ring``) and the unrolled
+    window-sliced decode against the uniform decode for
+    ``LM_SERVE_TOKENS`` tokens: greedy tokens equal, logits within
+    1e-3 * (1 + |uniform|); and ``steps.make_serve_step`` in the three
+    variants giving the same tokens."""
+    import contextlib
+    import io
+    import re
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm, registry
+    from repro_torch.types import ShapeConfig
+    t_phase = time.perf_counter()
+    report = {"phase": "lm_serve", "card": _card_line()}
+    argv = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "32",
+            "--gen", "16", "--seed", str(seed), "--device", "cuda"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    text = buf.getvalue()
+    if rc != 0 or "sample generations" not in text:
+        raise AssertionError(f"serve {argv}: exit {rc}\n{text}")
+    ms = dict(re.findall(r"^(prefill|decode):\s+([0-9.]+) ms", text, re.M))
+    report["serve_cli"] = {"argv": argv,
+                           "prefill_ms": float(ms["prefill"]),
+                           "decode_ms": float(ms["decode"]),
+                           "decode_ms_per_token": float(ms["decode"]) / 15,
+                           "call_s": time.perf_counter() - t0}
+
+    cfg = get_config("hymba-1.5b")
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    P, T = LM_SERVE_PROMPT, LM_SERVE_TOKENS
+    toks = registry.synth_batch(
+        np.random.default_rng(seed), cfg,
+        ShapeConfig("serve", seq_len=P, global_batch=2, kind="decode"),
+        device="cuda")["tokens"]
+    with torch.no_grad():
+        cache = registry.init_cache(cfg, 2, P + T, torch.float32, "cuda")
+        logits, cache = registry.prefill(params, cfg, {"tokens": toks},
+                                         cache, q_chunk=512)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    base = {k: v.clone() for k, v in cache.items()}
+    caches = {"uniform": cache, "ring": lm.to_ring_cache(cfg, base, P),
+              "sliced": {k: v.clone() for k, v in base.items()}}
+    if caches["ring"]["k_win"].shape[2] != cfg.sliding_window:
+        raise AssertionError("the ring cache holds no W-slot rings")
+    decode = {
+        "uniform": lambda t, c, p: lm.decode_step(params, cfg, t, c, p),
+        "ring": lambda t, c, p: lm.decode_step_ring(params, cfg, t, c, p),
+        "sliced": lambda t, c, p: lm.decode_step(
+            params, cfg, t, c, p, unroll=True, window_slice=True)}
+    tok = {k: first for k in decode}
+    gen = {k: [] for k in decode}
+    errs = {"ring": 0.0, "sliced": 0.0}
+    with torch.no_grad():
+        for i in range(T):
+            lg = {}
+            for k, fn in decode.items():
+                lg[k], caches[k] = fn(tok[k], caches[k], P + i)
+                tok[k] = torch.argmax(lg[k], dim=-1).to(torch.int32)
+                gen[k].append(tok[k].cpu().tolist())
+            for k in errs:
+                errs[k] = max(errs[k], _logits_close(
+                    f"{k} decode vs uniform, token {i}", lg[k],
+                    lg["uniform"]))
+    if gen["ring"] != gen["uniform"] or gen["sliced"] != gen["uniform"]:
+        raise AssertionError(f"decode tokens differ: {gen}")
+    # the serve steps, greedy, from the same prefill
+    variants = {"uniform": (steps.make_serve_step(cfg), base),
+                "ring": (steps.make_serve_step(cfg, ring=True),
+                         lm.to_ring_cache(cfg, base, P)),
+                "sliced": (steps.make_serve_step(cfg, unroll=True,
+                                                 window_slice=True),
+                           {k: v.clone() for k, v in base.items()})}
+    for name, (step, c) in variants.items():
+        t, got = first, []
+        t0 = time.perf_counter()
+        for i in range(T):
+            t, c = step(params, t, c, P + i)
+            got.append(t.cpu().tolist())
+        report.setdefault("serve_step_ms", {})[name] = \
+            (time.perf_counter() - t0) / T * 1e3
+        if got != gen["uniform"]:
+            raise AssertionError(f"make_serve_step({name}) tokens {got}")
+    report["decode_variants"] = {
+        "prompt": P, "tokens": T, "batch": 2,
+        "logit_rel_err_vs_uniform": errs, "tokens_equal": True,
+        "ring_cache_mb": sum(v.numel() * v.element_size()
+                             for v in caches["ring"].values()) / 2 ** 20,
+        "uniform_cache_mb": sum(v.numel() * v.element_size()
+                                for v in base.values()) / 2 ** 20}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
@@ -2929,6 +3438,8 @@ def main(argv=None) -> int:
     phase_scoring_card_vs_cpu(args.seed)
     phase_score_full_width(score_kernels, args.seed)
     phase_train(kernels)
+    phase_lm_train(kernels)
+    phase_lm_serve(args.seed)
     phase_analytic_speedup()
     kernels += score_kernels
 

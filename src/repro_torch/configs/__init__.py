@@ -1,10 +1,12 @@
-"""Config registry of the port: the paper's 3-D ResNets and the LM
-configs the serving path runs.
+"""Config registry of the port: the paper's 3-D ResNets, the LM configs
+the port runs, the assigned architecture list and the four input shapes.
 
-``hymba-1.5b`` is the serving slice's model (every decode kernel runs on
-it); ``gemma3-12b`` (the serve CLI's default arch) and ``mamba2-130m`` are
-data only here, for the dense and pure-SSM families of the CPU tests. The
-other assigned LM configs arrive with their families (ROADMAP Queue 1).
+``hymba-1.5b`` is the serving and LM-training slices' model (every decode
+kernel runs on it); ``gemma3-12b`` (the serve CLI's default arch) and
+``mamba2-130m`` give the dense and pure-SSM families. ``list_archs()``
+returns the reference's ten assigned ids; the seven whose families or
+files are not ported yet raise in ``get_config`` (ROADMAP Queue 1 item
+11).
 """
 from __future__ import annotations
 
@@ -12,10 +14,31 @@ from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.resnet3d import RESNET18, RESNET26, RESNET34
-from repro_torch.types import ModelConfig
+from repro_torch.types import ModelConfig, ShapeConfig
 
 _REGISTRY = {c.name: c for c in (_gemma3, _hymba, _mamba2,
                                   RESNET18, RESNET26, RESNET34)}
+
+# The 10 assigned architecture ids (order of the assignment sheet).
+ASSIGNED_ARCHS = (
+    "llama4-scout-17b-a16e",
+    "grok-1-314b",
+    "seamless-m4t-large-v2",
+    "gemma3-12b",
+    "internlm2-20b",
+    "minitron-4b",
+    "h2o-danube-3-4b",
+    "hymba-1.5b",
+    "mamba2-130m",
+    "paligemma-3b",
+)
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    seq_len=4_096,   global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32_768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  seq_len=32_768,  global_batch=128, kind="decode"),
+    "long_500k":   ShapeConfig("long_500k",   seq_len=524_288, global_batch=1,   kind="decode"),
+}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -27,4 +50,21 @@ def get_config(name: str) -> ModelConfig:
             "(the other LM configs: ROADMAP Queue 1 item 11)") from None
 
 
-__all__ = ["RESNET18", "RESNET26", "RESNET34", "get_config"]
+def list_archs() -> list[str]:
+    return list(ASSIGNED_ARCHS)
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is in the dry-run matrix; (ok, reason_if_not).
+    long_500k needs sub-quadratic attention."""
+    if cfg.family == "resnet3d":
+        if shape.kind != "train":
+            return False, "resnet3d: clip classifier, no autoregressive decode"
+        return True, ""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k decode skipped per DESIGN.md"
+    return True, ""
+
+
+__all__ = ["RESNET18", "RESNET26", "RESNET34", "ASSIGNED_ARCHS", "SHAPES",
+           "get_config", "list_archs", "shape_supported"]

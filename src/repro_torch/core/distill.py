@@ -44,6 +44,7 @@ from repro_torch.device import batch_to, params_device, resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models import registry
 from repro_torch.optim import sgd, value_and_grad
+from repro_torch.optim.optimizers import require_constant_lr
 from repro_torch.types import DistillConfig, ModelConfig
 
 KD_KERNELS = ("cuda", "eager")
@@ -142,6 +143,7 @@ class DistillEngine:
         self.kd_kernel = kd_kernel
         self.use_teacher_targets = use_teacher_targets
         self.clip_norm = clip_norm
+        require_constant_lr(dcfg.lr, "DistillEngine")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         self._graphs = GraphCache()
 
@@ -193,6 +195,7 @@ class ScratchRun:
         self.cfg = cfg
         self.dcfg = dcfg
         self.clip_norm = clip_norm
+        require_constant_lr(dcfg.lr, "ScratchRun")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         self._graphs = GraphCache()
 
@@ -245,14 +248,19 @@ def make_scratch_run(cfg: ModelConfig, dcfg: DistillConfig,
 # Evaluation
 # ---------------------------------------------------------------------------
 
+def _predict(params, batch, *, cfg: ModelConfig) -> torch.Tensor:
+    return torch.argmax(registry.logits_fn(params, cfg, batch), dim=-1)
+
+
 @torch.no_grad()
 def evaluate(params, cfg: ModelConfig, batches) -> float:
-    """Top-1 accuracy over batches; one device-to-host copy per batch."""
+    """Top-1 accuracy over batches (per clip for resnet3d, per token for
+    the LM families); one device-to-host copy per batch."""
     device = params_device(params)
     hits = tot = 0
     for batch in batches:
-        logits = registry.logits_fn(params, cfg, batch_to(batch, device))
-        pred = logits.argmax(dim=-1).cpu().numpy()
+        pred = _predict(params, batch_to(batch, device), cfg=cfg)
+        pred = pred.cpu().numpy()
         hits += int(np.sum(pred == np.asarray(batch["labels"])))
         tot += int(np.prod(np.shape(batch["labels"])))
     return hits / max(tot, 1)
@@ -385,6 +393,7 @@ class CodistillFleet:
         self.dcfg = dcfg
         self.kd_kernel = kd_kernel
         self.clip_norm = clip_norm
+        require_constant_lr(dcfg.lr, "CodistillFleet")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         groups: dict = {}                  # cfg -> member indices
         for i, c in enumerate(cfgs):

@@ -57,6 +57,7 @@ from repro_torch.core.compile_cache import GraphCache
 from repro_torch.device import batch_to, params_device
 from repro_torch.models import registry
 from repro_torch.optim import sgd, trainable_mask, value_and_grad
+from repro_torch.optim.optimizers import require_constant_lr
 from repro_torch.types import FedConfig, ModelConfig
 
 
@@ -201,6 +202,7 @@ class ClientRun:
         self.loss_kwargs = dict(loss_kwargs or {})
         self.algorithm = (algorithm if algorithm is not None
                           else algorithms.FedProx())
+        require_constant_lr(fed.lr, "ClientRun")
         self.opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
         self._graphs = GraphCache()
 

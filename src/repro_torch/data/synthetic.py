@@ -1,10 +1,12 @@
-"""Synthetic action-clip dataset standing in for Kinetics / HMDB51.
+"""Synthetic datasets standing in for Kinetics / HMDB51 and for LM text.
 
-A numpy copy of ``repro/data/synthetic.py``: each class has a latent
-motion program (direction, speed, width, texture) rendering clips of a
-moving Gaussian blob over structured noise. Draws happen in the reference's
-exact order, so both packages yield byte-identical batches from one seed
-(pinned by ``tests/test_torch_data.py``).
+A numpy copy of ``repro/data/synthetic.py``: each action class has a
+latent motion program (direction, speed, width, texture) rendering clips
+of a moving Gaussian blob over structured noise; the LM dataset is an
+order-1 Markov chain over the config's vocabulary. Draws happen in the
+reference's exact order, so both packages yield byte-identical batches
+from one seed (pinned by ``tests/test_torch_data.py`` and
+``tests/test_torch_lm_data.py``).
 """
 from __future__ import annotations
 
@@ -69,6 +71,44 @@ class SyntheticActionDataset:
                    "labels": labels.astype(np.int32)}
 
 
+@dataclass
+class SyntheticLMDataset:
+    """Order-1 Markov chain token stream with class-like modes.
+
+    The transition matrix is V x V float64 on the host, as the
+    reference's: 20 GB at mamba2-130m's vocabulary, so full-width LM
+    batches come from ``registry.synth_batch`` instead (ROADMAP Queue 3).
+    It has no ``__len__``: ``launch/train.py`` gives its clients no shard.
+    """
+    vocab: int
+    seq_len: int
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        raw = rng.dirichlet(np.full(self.vocab, 0.05), size=self.vocab)
+        self.T = raw / raw.sum(axis=1, keepdims=True)
+
+    def sample(self, rng: np.random.Generator, batch: int) -> np.ndarray:
+        out = np.empty((batch, self.seq_len + 1), np.int64)
+        out[:, 0] = rng.integers(0, self.vocab, size=batch)
+        for i in range(self.seq_len):
+            probs = self.T[out[:, i]]
+            cum = probs.cumsum(axis=1)
+            u = rng.random((batch, 1))
+            out[:, i + 1] = (u > cum).sum(axis=1)
+        return out
+
+    def batches(self, batch_size: int, steps: int, seed=0, indices=None):
+        """Yields dicts {tokens (B, S) i32, labels (B, S) i32}, the labels
+        the tokens shifted by one."""
+        rng = np.random.default_rng((self.seed, seed))
+        for _ in range(steps):
+            toks = self.sample(rng, batch_size)
+            yield {"tokens": toks[:, :-1].astype(np.int32),
+                   "labels": toks[:, 1:].astype(np.int32)}
+
+
 def stack_batches(batches, limit: int | None = None):
     """Stack an iterable of dict batches into one dict with leading axis H
     (at most ``limit`` batches; None when the iterable is empty)."""
@@ -79,19 +119,20 @@ def stack_batches(batches, limit: int | None = None):
 
 
 def make_dataset_for(cfg, *, small: bool = True, seed: int = 0):
-    """Dataset stand-in for a resnet3d config.
+    """Dataset stand-in appropriate for a model family.
 
     small=True  -> HMDB51-like (few samples, noisy; clients' fine-tune data)
     small=False -> Kinetics-like (many samples; server-side distillation)
+    LM families -> the Markov token stream at the config's vocabulary,
+    64 tokens a row.
 
     Like the reference, clips are always 4x16x16 whatever the config's
     input shape (ROADMAP Queue 3 records this quirk).
     """
-    if cfg.family != "resnet3d":
-        raise NotImplementedError(
-            "the LM dataset comes with the LM stack (ROADMAP Queue 1 item 11)")
-    return SyntheticActionDataset(
-        num_classes=min(cfg.num_classes, 16 if small else 32),
-        samples_per_class=8 if small else 64,
-        noise=0.5 if small else 0.3,
-        seed=seed)
+    if cfg.family == "resnet3d":
+        return SyntheticActionDataset(
+            num_classes=min(cfg.num_classes, 16 if small else 32),
+            samples_per_class=8 if small else 64,
+            noise=0.5 if small else 0.3,
+            seed=seed)
+    return SyntheticLMDataset(vocab=cfg.vocab_size, seq_len=64, seed=seed)

@@ -1,19 +1,25 @@
-"""Continuous-batching serving driver (port of ``repro/launch/serve.py``,
-its ``--continuous`` path).
+"""Serving driver (port of ``repro/launch/serve.py``): a static batch
+prefilled and decoded greedily, or, with ``--continuous``, a mixed-length
+request stream.
 
-A mixed-length request stream is served by the slot-based continuous
-batcher (``core/serving.py``): bucketed prefill (``--prefill-buckets``
-sets the smallest bucket; 0 = per-request-length prefill) and
-per-layer-kind decode (``--decode-mode ring``: SWA ring buffers and
-ladder-bucketed K-extents; ``uniform`` streams the full cache, the parity
-oracle). Runs on the card unless ``--device cpu`` is given; the ring
-decode runs the CUDA kernels there (``--decode-kernel cuda``).
+The static path synthesises ``--batch`` prompts of ``--prompt-len``
+tokens (``registry.synth_batch``), prefills an f32 uniform cache and
+decodes ``--gen`` tokens one step at a time (``registry.decode_step``,
+eager attends), printing the prefill and decode times.
+
+``--continuous`` serves through the slot-based continuous batcher
+(``core/serving.py``): bucketed prefill (``--prefill-buckets`` sets the
+smallest bucket; 0 = per-request-length prefill) and per-layer-kind
+decode (``--decode-mode ring``: SWA ring buffers and ladder-bucketed
+K-extents; ``uniform`` streams the full cache, the parity oracle); the
+ring decode runs the CUDA kernels on the card (``--decode-kernel cuda``).
+
+Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --reduced --device cpu [--batch 4 --prompt-len 32 --gen 16]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --continuous --device cpu
-
-The reference's static-batch path (without ``--continuous``) is ROADMAP
-Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -28,6 +34,12 @@ from repro_torch.core.serving import (DECODE_KERNELS, DECODE_MODES,
                                       ContinuousBatcher)
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.types import ShapeConfig
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def serve_continuous(cfg, args) -> int:
@@ -47,8 +59,7 @@ def serve_continuous(cfg, args) -> int:
                    max_new=args.gen)
     t0 = time.perf_counter()
     done = srv.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     dt = time.perf_counter() - t0
     toks = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests ({len(set(map(int, lengths)))} "
@@ -65,19 +76,70 @@ def serve_continuous(cfg, args) -> int:
     return 0
 
 
+@torch.no_grad()
+def generate(params, cfg, tokens, max_len: int, gen: int):
+    """Prefill ``tokens`` (B, P) into an f32 uniform cache of ``max_len``
+    positions, then ``gen - 1`` greedy decode steps. Returns the (B, gen)
+    int32 tokens (numpy) and the prefill and decode seconds."""
+    device = tokens.device
+    B, P = tokens.shape
+    cache = registry.init_cache(cfg, B, max_len, torch.float32, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = registry.prefill(params, cfg, {"tokens": tokens}, cache,
+                                     q_chunk=min(1024, P))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    start_pos = P + cfg.prefix_len
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = registry.decode_step(params, cfg, tok, cache,
+                                             start_pos + i)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return torch.stack(out, dim=1).cpu().numpy(), t_prefill, t_decode
+
+
+def serve_static(cfg, args) -> int:
+    device = resolve_device(args.device)
+    print(f"serving {cfg.name} ({cfg.family}) batch={args.batch}")
+    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = registry.init_params(gen, cfg, device)
+    # the prompt batch from the registry's spec (its text length is
+    # S - prefix_len, so ask for prompt + prefix)
+    shape = ShapeConfig(name="serve", global_batch=args.batch,
+                        seq_len=args.prompt_len + cfg.prefix_len,
+                        kind="decode")
+    batch = registry.synth_batch(rng, cfg, shape, act_dtype=torch.float32,
+                                 device=device)
+    toks, t_prefill, t_decode = generate(
+        params, cfg, batch["tokens"], args.prompt_len + args.gen, args.gen)
+    print(f"prefill: {t_prefill*1e3:.1f} ms "
+          f"({args.batch * args.prompt_len / max(t_prefill, 1e-9):.0f} tok/s)")
+    print(f"decode:  {t_decode*1e3:.1f} ms "
+          f"({args.batch * (args.gen - 1) / max(t_decode, 1e-9):.1f} tok/s, "
+          f"{t_decode / max(args.gen - 1, 1) * 1e3:.1f} ms/step)")
+    print(f"sample generations (first 8 token ids):\n{toks[:, :8]}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-12b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
-                    help="decode slots")
+                    help="batch size; decode slots in --continuous mode")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching over a "
-                         "mixed-length request stream (the only path the "
-                         "port has)")
+                         "mixed-length request stream")
     ap.add_argument("--requests", type=int, default=16,
                     help="stream size in --continuous mode")
     ap.add_argument("--prefill-buckets", type=int, default=8,
@@ -101,10 +163,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     if cfg.family == "resnet3d":
         raise SystemExit("resnet3d is a clip classifier; use pipeline.py")
-    if not args.continuous:
-        raise SystemExit("the port serves with --continuous only; the "
-                         "static-batch path is ROADMAP Queue 1 item 12")
-    return serve_continuous(cfg, args)
+    if args.continuous:
+        return serve_continuous(cfg, args)
+    return serve_static(cfg, args)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ server with no clients (``--mode central``), from a random init or, with
 (``launch/pipeline.py`` runs both stages in full). Runs on the card
 unless ``--device cpu`` is given, and prints one JSON result line last.
 
+``--arch`` takes the LM configs too (``mamba2-130m``, ``hymba-1.5b``,
+``gemma3-12b``): their clients read the Markov token stream of
+``data.SyntheticLMDataset`` at the config's vocabulary, which has no
+length, so no client gets a shard. Its transition matrix is V x V on the
+host, so pass ``--reduced`` (vocabulary 512) there; ``--distill-first``
+stays resnet3d-only, as the reference's.
+
 ``--algorithm`` picks the federated algorithm (``core/algorithms.py``):
 the paper's proximal local SGD (``fedprox``, the default), SCAFFOLD's
 control variates (``scaffold``) or capacity-scaled low-rank / masked
@@ -24,6 +31,8 @@ Usage:
         --steps 20 --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --mode async \
         --population 1000000 --clients-per-round 4 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --mode central --steps 50 --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -170,7 +179,8 @@ def main(argv=None):
                 partition="shared"))
         else:
             parts = iid_partition(max(len(ds), args.clients * 8),
-                                  args.clients, seed=args.seed)
+                                  args.clients, seed=args.seed) \
+                if hasattr(ds, "__len__") else [None] * args.clients
             data = [BatchLoader(ds, args.batch, steps=fed.local_iters_max,
                                 seed=k, indices=parts[k])
                     for k in range(args.clients)]

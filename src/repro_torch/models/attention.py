@@ -203,13 +203,20 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
 
 def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
                  cache=None, cache_index=None, q_chunk: int = 1024,
-                 k_extent: int = 0, kernel: str = "eager"):
+                 cache_slice_window: int = 0, k_extent: int = 0,
+                 kernel: str = "eager"):
     """One attention layer (params already per-layer, no leading L).
 
     cache: optional {"k": (B, S_max, KV, D), "v": ...}, written in place
     at ``cache_index``: an int (prefill from 0) or a (B,) int32 tensor
     (decode, one token per row at its own position). Returns
     (out, cache).
+
+    ``cache_slice_window`` (decode only): attend against the last
+    ``cache_slice_window`` cache positions up to each row's own (a
+    per-row slice) instead of the whole buffer, so an SWA layer reads
+    O(window) of its cache a step. The slice holds every key the window
+    lets the query see, so the attend equals the unsliced one.
 
     ``k_extent`` (decode only): attend against the first ``k_extent``
     cache positions instead of all S_max. With ``k_extent >= pos + 1`` on
@@ -242,15 +249,25 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
         cv[:, idx:idx + Sq] = v.to(cv.dtype)
     S_max = ck.shape[1]
     sliced = bool(k_extent) and k_extent < S_max
+    w_slice = cache_slice_window
     if kernel == "cuda":
-        if Sq != 1 or not isinstance(idx, torch.Tensor):
+        if Sq != 1 or not isinstance(idx, torch.Tensor) or w_slice:
             raise ValueError("kernel='cuda' is the decode attend: one token "
-                             "a row at (B,) positions")
+                             "a row at (B,) positions, without "
+                             "cache_slice_window")
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         o = ops.extent_decode_attend(q[:, 0].reshape(B, KV, H // KV, hd),
                                      ck, cv, idx, window,
                                      k_extent if sliced else S_max)
         out = o.reshape(B, 1, H, hd)
+    elif w_slice and w_slice < S_max:        # decode: (B,) positions
+        start = torch.clamp(idx + Sq - w_slice, 0, S_max - w_slice)
+        take = start[:, None] + torch.arange(w_slice, device=ck.device)
+        rows = _row_ids(idx)[:, None]
+        ks, vs = ck[rows, take], cv[rows, take]
+        out = gqa_attention(q, ks, vs, window=window, causal=causal,
+                            q_offset=idx, k_offset=start, k_len=idx + Sq,
+                            q_chunk=q_chunk)
     else:
         ks, vs = (ck[:, :k_extent], cv[:, :k_extent]) if sliced else (ck, cv)
         out = gqa_attention(q, ks, vs, window=window, causal=causal,

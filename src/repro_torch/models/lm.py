@@ -15,9 +15,10 @@ scalar, and its attention kernel needs a static one.
 
 Decode positions are per-row ``(B,)`` int32 tensors (the reference
 decodes at one scalar position and ``vmap``s over the serving slots).
-Caches are updated in place and returned. Not ported yet (ROADMAP Queue 1
-item 11): ``decode_step_ring`` and ``to_ring_cache``; the moe / vlm
-families.
+Caches are updated in place and returned. The ring layout
+(``init_ring_cache``, ``to_ring_cache``) is decoded by
+``decode_step_grouped`` and ``decode_step_ring``. Not ported yet (ROADMAP
+Queue 1 item 11): the moe / vlm families.
 """
 from __future__ import annotations
 
@@ -141,7 +142,8 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 
 def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
            cache=None, pos=None, q_chunk: int = 1024, k_extent: int = 0,
-           seq_lens=None, kernel: str = "eager"):
+           seq_lens=None, kernel: str = "eager",
+           cache_slice_window: int = 0):
     """One layer. mode: 'train' | 'prefill' | 'decode'. Returns (x,
     new_cache); 'train' takes no cache and returns None for it.
 
@@ -154,7 +156,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     attention entries being the cache views written in place and the SSM
     entries new tensors (but for the SSM state of a CUDA-kernel decode,
     also updated in place). ``k_extent`` bounds a uniform-cache decode's
-    attend (``attn_forward``). ``kernel`` ("eager" or "cuda") picks the
+    attend, ``cache_slice_window`` slices it to the last positions
+    (``attn_forward``). ``kernel`` ("eager" or "cuda") picks the
     scoring kernels in 'train' mode and the decode kernels in 'decode';
     prefill runs eager.
     """
@@ -185,7 +188,8 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
         return attn_mod.attn_forward(
             lp["attn"], h, cfg=cfg, window=window, positions=positions,
             cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
-            q_chunk=q_chunk, k_extent=k_extent, kernel=kern)
+            q_chunk=q_chunk, cache_slice_window=cache_slice_window,
+            k_extent=k_extent, kernel=kern)
 
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
@@ -372,6 +376,47 @@ def ring_source_positions(last, W: int) -> torch.Tensor:
     return last - (last - torch.arange(W, device=last.device)) % W
 
 
+def to_ring_cache(cfg: ModelConfig, cache: dict, pos) -> dict:
+    """A uniform cache filled up to ``pos`` exclusive (an int, or a (B,)
+    tensor of each row's) in the ring layout of ``init_ring_cache``: the
+    global layers' buffers, and for the SWA layers W-slot rings, slot s
+    holding the latest position p ≡ s (mod W). A new cache; the uniform
+    one is left as it is."""
+    out = {}
+    gl, wl = global_layer_ids(cfg), swa_layer_ids(cfg)
+    if "k" in cache:
+        ck, cv = cache["k"], cache["v"]
+        if gl:
+            out["k"], out["v"] = ck[gl], cv[gl]
+        if wl:
+            S = ck.shape[2]
+            W = min(cfg.sliding_window, S)
+            take = ring_source_positions(pos - 1, W).clamp(0, S - 1)
+            take = take.to(ck.device)
+            if take.dim() == 1:
+                out["k_win"], out["v_win"] = ck[wl][:, :, take], \
+                    cv[wl][:, :, take]
+            else:                  # (B, W): each row's own slots
+                rows = torch.arange(take.shape[0], device=ck.device)[:, None]
+                out["k_win"] = ck[wl][:, rows, take]
+                out["v_win"] = cv[wl][:, rows, take]
+    for key in ("ssm_state", "conv_state"):
+        if key in cache:
+            out[key] = cache[key].clone()
+    return out
+
+
+def decode_step_ring(params, cfg: ModelConfig, token, cache, pos,
+                     dtype=None):
+    """One decode step against a ring cache (``to_ring_cache`` /
+    ``init_ring_cache``): SWA layers attend against their W-slot rings,
+    full-attention layers against their whole buffer. Eager attends, as
+    the reference's, which takes no kernel switch; it is
+    ``decode_step_grouped`` with no K-extent. Matches ``decode_step``
+    numerically."""
+    return decode_step_grouped(params, cfg, token, cache, pos, dtype=dtype)
+
+
 def _kind_runs(cfg: ModelConfig):
     """Contiguous same-kind layer runs, in layer order:
     ``[("swa" | "full", [layer ids]), ...]``."""
@@ -478,21 +523,30 @@ def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
+                unroll: bool = False, window_slice: bool = False,
                 decode_kernel: str = "eager"):
     """One autoregressive step against a uniform cache (the oracle).
 
     token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
     Returns (logits (B, V), cache).
+
+    The layers always run as a Python loop, each window a Python int, so
+    ``unroll`` only selects the reference's unrolled semantics: with
+    ``window_slice`` every SWA layer attends against the last ``window``
+    positions of its cache (``attn_forward(cache_slice_window=)``), O(window)
+    of cache read a step instead of O(S_max). ``decode_kernel="cuda"``
+    refuses the slice, as the reference's fused attend does.
     """
     x = _embed_token(params, cfg, token, dtype)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
     for i in range(cfg.num_layers):
         cl = {key: val[i] for key, val in cache.items()}
-        x, nc = _layer(cfg, layer_params(params, i), x,
-                       cfg.window_for_layer(i), positions, "decode",
-                       cache=cl, pos=pos, q_chunk=1,
-                       kernel=decode_kernel)
+        w = cfg.window_for_layer(i)
+        csw = w if (unroll and window_slice and w > 0) else 0
+        x, nc = _layer(cfg, layer_params(params, i), x, w, positions,
+                       "decode", cache=cl, pos=pos, q_chunk=1,
+                       kernel=decode_kernel, cache_slice_window=csw)
         for key, val in nc.items():
             _store(cache, key, i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -8,15 +8,20 @@ branch and the LM branch (dense / ssm / hybrid).
     logit_width(cfg)                     -> KD compatibility width
     init_cache / init_ring_cache / prefill / decode_step /
     decode_step_grouped                  -> LM serving
+    batch_spec(cfg, shape)               -> meta tensors of a batch
+    decode_spec(cfg, shape)              -> meta (token, cache, pos)
+    synth_batch(rng, cfg, shape)         -> a random batch (numpy draws)
 
 The moe, encdec, vlm and audio families are ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import lm, resnet3d
-from repro_torch.types import ModelConfig
+from repro_torch.types import ModelConfig, ShapeConfig
 
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 ENCDEC_FAMILIES = ("encdec", "audio")    # the reference's; not ported
@@ -99,3 +104,63 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos, **kw):
         raise ValueError(f"{cfg.family}: no grouped ring decode")
     _lm(cfg, "decode_step_grouped")
     return lm.decode_step_grouped(params, cfg, token, cache, pos, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input specs / synthetic batches
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """A tensor with a shape and a dtype and no storage: PyTorch's
+    counterpart of ``jax.ShapeDtypeStruct``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig,
+               act_dtype=torch.bfloat16) -> dict:
+    """Meta tensors of a *training/prefill* batch (no allocation), in the
+    reference's key order."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "resnet3d":
+        return {"clips": _spec(resnet3d.input_shape(cfg, B), act_dtype),
+                "labels": _spec((B,), torch.int32)}
+    if cfg.family in ENCDEC_FAMILIES:
+        raise _unported(cfg, "batch_spec")
+    spec = {}
+    text = S
+    if cfg.prefix_len:
+        text = S - cfg.prefix_len
+        spec["prefix_embeds"] = _spec((B, cfg.prefix_len, cfg.d_model),
+                                      act_dtype)
+    spec["tokens"] = _spec((B, text), torch.int32)
+    spec["labels"] = _spec((B, text), torch.int32)
+    return spec
+
+
+def decode_spec(cfg: ModelConfig, shape: ShapeConfig,
+                cache_dtype=torch.bfloat16):
+    """Meta tensors of one serve step: (token (B,), cache, pos). The
+    port's decode positions are per row, so ``pos`` is (B,) int32 where
+    the reference's is a scalar."""
+    B, S = shape.global_batch, shape.seq_len
+    return (_spec((B,), torch.int32),
+            init_cache(cfg, B, S, cache_dtype, device="meta"),
+            _spec((B,), torch.int32))
+
+
+def synth_batch(rng: np.random.Generator, cfg: ModelConfig,
+                shape: ShapeConfig, act_dtype=torch.float32,
+                device=None) -> dict:
+    """A random batch matching ``batch_spec``, drawn from ``rng`` in the
+    spec's key order exactly as the reference draws it (ints uniform over
+    the logit width, floats standard normal in f32), on ``device`` (the
+    card unless the CPU is named)."""
+    device = resolve_device(device)
+    out = {}
+    for k, s in batch_spec(cfg, shape, act_dtype).items():
+        if s.dtype == torch.int32:
+            a = rng.integers(0, logit_width(cfg), s.shape, dtype=np.int32)
+        else:
+            a = rng.standard_normal(s.shape, dtype=np.float32)
+        out[k] = torch.from_numpy(a).to(device=device, dtype=s.dtype)
+    return out

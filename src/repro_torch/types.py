@@ -181,6 +181,19 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape: sequence length, global batch and kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+@dataclass(frozen=True)
 class FedConfig:
     """Hyperparameters of the paper's Algorithm 1 (+ FedAvg baseline)."""
     num_clients: int = 4

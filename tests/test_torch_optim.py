@@ -1,5 +1,8 @@
 """Port optimizers vs the reference: SGD with momentum and decay, the
-proximal term and the trainable mask, over three steps (atol 1e-6)."""
+proximal term and the trainable mask, over three steps (atol 1e-6);
+AdamW and scheduled / Nesterov SGD over five steps (rtol 1e-6); the
+schedules within one f32 ulp over steps 0..200; a scheduled lr's step a
+tensor on the params' device, refused by the batched engines."""
 import numpy as np
 import pytest
 
@@ -11,10 +14,13 @@ import jax.numpy as jnp
 from repro.checkpoint.ckpt import _flatten
 from repro.configs import get_config
 from repro.models import registry as jreg
-from repro.optim import (apply_mask as japply, proximal_grad as jprox,
-                         sgd as jsgd, trainable_mask as jmask)
-from repro_torch.optim import (apply_mask, proximal_grad, sgd,
+from repro.optim import (adamw as jadamw, apply_mask as japply,
+                         proximal_grad as jprox, sgd as jsgd,
+                         trainable_mask as jmask)
+from repro.optim import schedules as jsched
+from repro_torch.optim import (adamw, apply_mask, proximal_grad, sgd,
                                trainable_mask)
+from repro_torch.optim import schedules as tsched
 
 SHAPES = {"stem/w": (4, 3), "stages/0/0/w1": (5,), "fc/w": (3, 2),
           "fc/b": (2,)}
@@ -83,3 +89,91 @@ def test_trainable_mask_rejects_unknown_mode():
 def test_proximal_zero_theta_is_identity(rng):
     g = {k: torch.tensor(v) for k, v in _tree(rng).items()}
     assert proximal_grad(g, g, g, 0.0) is g
+
+
+_SCHED = {"constant": (jsched.constant(0.05), tsched.constant(0.05)),
+          "cosine": (jsched.cosine(0.05, 150, warmup=20),
+                     tsched.cosine(0.05, 150, warmup=20)),
+          "inverse_sqrt": (jsched.inverse_sqrt(0.05, warmup=30),
+                           tsched.inverse_sqrt(0.05, warmup=30))}
+
+
+@pytest.mark.parametrize("name", sorted(_SCHED))
+def test_schedules_within_one_ulp(name):
+    jf, tf = _SCHED[name]
+    steps = np.arange(201, dtype=np.int32)
+    want = np.array([np.float32(jf(jnp.int32(i))) for i in steps])
+    got = tf(torch.tensor(steps)).numpy()
+    assert got.dtype == np.float32
+    got = np.broadcast_to(got, want.shape)    # constant ignores the step
+    ulp = np.spacing(np.abs(want).astype(np.float32))
+    assert np.all(np.abs(got - want) <= ulp), np.max(np.abs(got - want) / ulp)
+
+
+def _run_both(jo, to, rng, steps=5):
+    p0 = _tree(rng)
+    grads = [_tree(rng) for _ in range(steps)]
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.tensor(v) for k, v in p0.items()}
+    js, ts = jo.init(jp), to.init(tp)
+    for g in grads:
+        jp, js = jo.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        tp, ts = to.update({k: torch.tensor(v) for k, v in g.items()}, ts,
+                           tp)
+    for k in SHAPES:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=0, err_msg=k)
+    return js, ts
+
+
+@pytest.mark.parametrize("lr,wd", [("float", 0.0), ("float", 0.01),
+                                   ("cosine", 0.01)])
+def test_adamw_five_steps_match(lr, wd, rng):
+    jl, tl = (0.01, 0.01) if lr == "float" else (
+        jsched.cosine(0.01, 8, warmup=2), tsched.cosine(0.01, 8, warmup=2))
+    js, ts = _run_both(jadamw(jl, weight_decay=wd),
+                       adamw(tl, weight_decay=wd), rng)
+    assert int(ts["step"]) == int(js["step"]) == 5
+    for k in SHAPES:
+        np.testing.assert_allclose(ts["v"][k].numpy(), np.asarray(js["v"][k]),
+                                   rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("nesterov,sched", [(True, "cosine"),
+                                            (False, "inverse_sqrt")])
+def test_scheduled_sgd_five_steps_match(nesterov, sched, rng):
+    jf, tf = _SCHED[sched]
+    js, ts = _run_both(jsgd(jf, 0.9, 1e-3, nesterov=nesterov),
+                       sgd(tf, 0.9, 1e-3, nesterov=nesterov), rng)
+    assert int(ts["step"]) == int(js["step"]) == 5
+
+
+def test_step_is_a_device_tensor_only_for_a_schedule():
+    params = {"w": torch.zeros(3)}
+    assert sgd(0.1, 0.9).init(params)["step"] == 0          # host int
+    for opt in (sgd(tsched.cosine(0.1, 10), 0.9), adamw(0.1)):
+        st = opt.init(params)["step"]
+        assert isinstance(st, torch.Tensor) and st.dim() == 0
+        assert st.dtype == torch.int32 and st.device == params["w"].device
+    # a constant rate keeps the old path's arithmetic, bit for bit
+    g = {"w": torch.tensor([0.3, -1.0, 2.0])}
+    a, _ = sgd(0.1, 0.9).update(g, sgd(0.1, 0.9).init(params), params)
+    b, _ = sgd(tsched.constant(0.1), 0.9).update(
+        g, sgd(tsched.constant(0.1), 0.9).init(params), params)
+    assert torch.equal(a["w"], b["w"])
+
+
+def test_engines_refuse_a_scheduled_lr():
+    import dataclasses
+    from repro_torch.configs import get_config as tget
+    from repro_torch.core import distill, fed_engine
+    from repro_torch.types import DistillConfig, FedConfig
+    cfg = tget("resnet3d-18").reduced()
+    sched = tsched.cosine(0.01, 10)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        fed_engine.ClientRun(cfg, dataclasses.replace(FedConfig(), lr=sched))
+    dcfg = dataclasses.replace(DistillConfig(), lr=sched)
+    for make in (lambda: distill.DistillEngine(cfg, cfg, dcfg),
+                 lambda: distill.ScratchRun(cfg, dcfg)):
+        with pytest.raises(NotImplementedError, match="item 2"):
+            make()

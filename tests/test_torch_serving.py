@@ -235,8 +235,14 @@ def test_serve_cli_on_cpu(capsys):
     assert "served 5 requests" in out and "kernel cuda" in out
     assert (decode_attend.ring_decode_attend.launches,
             ssd_decode.ssd_decode_step.launches) == before
+    # without --continuous: the static-batch path, ported since; a clip
+    # classifier is still refused
+    assert serve.main(["--arch", "hymba-1.5b", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "8",
+                       "--gen", "3"]) == 0
+    assert "sample generations" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "hymba-1.5b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "resnet3d-18", "--reduced", "--device", "cpu"])
     cfg = dataclasses.replace(tcfg.get_config("hymba-1.5b").reduced(),
                               prefix_len=4)
     with pytest.raises(ValueError, match="prefix"):

@@ -1,6 +1,8 @@
 """The port's trainer and checkpoints against the reference.
 
-``repro_torch.launch.train.main`` in each mode (async, sync, central) vs
+``repro_torch.launch.train.main`` in each mode (async, sync, central), on
+the reduced ResNet3D-18 and on the reduced Mamba2-130M (the LM data path:
+the Markov token stream, no client shards), vs
 ``repro.launch.train.main(["--engine", "loop", ...])`` on the same init
 (JAX-initialised, converted) and the same numpy data: ``final_loss`` rtol
 1e-3, ``virtual_wall_s`` exactly, the result line's keys equal. A
@@ -35,29 +37,43 @@ ARGS = ["--arch", "resnet3d-18", "--reduced", "--clients", "2", "--batch",
         "2", "--epochs", "4", "--steps", "4", "--seed", "0"]
 
 
+_INITS: dict = {}
+
+
+def _init(arch: str):
+    """One reference init of ``arch`` (reduced) for both trainers."""
+    if arch not in _INITS:
+        jc, tc = jget(arch).reduced(), tget(arch).reduced()
+        jp, flat = jax_params_both(jc, jax.random.PRNGKey(0))
+        _INITS[arch] = (jc, tc, jp, flat)
+    return _INITS[arch]
+
+
 @pytest.fixture(scope="module")
 def init():
-    jc, tc = jget("resnet3d-18").reduced(), tget("resnet3d-18").reduced()
-    jp, flat = jax_params_both(jc, jax.random.PRNGKey(0))
-    return jc, tc, jp, flat
+    return _init("resnet3d-18")
 
 
 def _result(capsys) -> dict:
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+# the LM config runs the Markov token stream (no client shards); the
+# reference's own second usage line
+@pytest.mark.parametrize("arch", ["resnet3d-18", "mamba2-130m"])
 @pytest.mark.parametrize("mode", ["async", "sync", "central"])
-def test_train_main_matches_reference(mode, init, monkeypatch, capsys):
-    jc, tc, jp, flat = init
+def test_train_main_matches_reference(mode, arch, monkeypatch, capsys):
+    jc, tc, jp, flat = _init(arch)
+    args = ARGS[:1] + [arch] + ARGS[2:]
     # both trainers draw their init from the seed: hand each the same
     # JAX-initialised params (the reference's own, jitted)
     monkeypatch.setattr(jreg, "init_params", lambda key, cfg: jp)
-    assert jtrain.main(["--engine", "loop", "--mode", mode] + ARGS) == 0
+    assert jtrain.main(["--engine", "loop", "--mode", mode] + args) == 0
     want = _result(capsys)
     monkeypatch.setattr(
         treg, "init_params", lambda gen, cfg, device, dtype=None:
         params_from_jax(flat, cfg, device=device))
-    assert ttrain.main(["--mode", mode, "--device", "cpu"] + ARGS) == 0
+    assert ttrain.main(["--mode", mode, "--device", "cpu"] + args) == 0
     got = _result(capsys)
     assert set(got) == set(want)
     assert got["mode"] == mode
