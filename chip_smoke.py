@@ -83,12 +83,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    streamed against their materialized twin in ``_Exact``, bit for bit;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
-   extent of 131072 keys among them, the SSD step also on the decode
+   extent of 131072 keys among them, the other configs' decode shapes
+   too (h2o-danube's ring at D 120, W 4096; llama4-scout's, grok-1's and
+   paligemma's extents), the SSD step also on the decode
    step's own views with its state written in place; then timed at
    Hymba-1.5B's full-width decode shape beside their bound and
    ``scaled_dot_product_attention`` (the SSD step on contiguous operands
-   and on the path's views in place), each timed call held against its
-   plain version and each kernel's launches a call measured (one);
+   and on the path's views in place), and the ring and extent kernels at
+   the other configs' shapes, each timed call held against its plain
+   version and each kernel's launches a call measured (one);
 8. the reduced Hymba serving path on the card against the CPU (TF32 off):
    identical tokens, prefill and decode logits to rtol 1e-3;
 9. the serving path at full width: Hymba-1.5B, f32, four slots, eight
@@ -99,8 +102,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 10. the scoring kernels (sliding-window attention through its folded and
     its GQA entry, SSD chunk scan) against their plain versions on the
     card, f32 and bf16, Gemma3-12B's GQA shape at head dim 240 among
-    them, then timed at Hymba-1.5B's full-width scoring shapes (the
-    attention also at Gemma3-12B's) beside their bounds (for the attention
+    them, and h2o-danube's (D 120), llama4-scout's and grok-1's (D 128)
+    and paligemma's (D 256, one kv head), each also timed, then timed at
+    Hymba-1.5B's full-width scoring shapes (the attention also at
+    Gemma3-12B's) beside their bounds (for the attention
     at the f32 FMA rate and as 3xTF32 on the tensor cores) and, for the
     attention, ``scaled_dot_product_attention`` with the band mask;
 11. the reduced Hymba, Mamba2 and Gemma3 scoring forward
@@ -136,6 +141,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the ring decode and the unrolled window-sliced decode against the
     uniform decode past the window: tokens equal, logits within
     1e-3 * (1 + |uniform|), and the serve steps' tokens equal;
+13d. the rest of the LM stack (``lm_families``): the seven other configs
+    reduced, card against CPU; then at their configs' widths, one model
+    at a time: h2o-danube-3-4b (24 layers, head dim 120) and
+    llama4-scout-17b-a16e (4 of 48 layers, top-1 MoE with capacity)
+    scored and served through the continuous batcher, grok-1-314b (2 of
+    64 layers, top-2 MoE) scored, paligemma-3b (18 layers, the patch
+    prefix, one kv head) scored, decoded through the extent kernel and
+    served by ``serve.py``, seamless-m4t-large-v2 (24 + 24 layers)
+    served by ``serve.py``: kernels against eager (logits 1e-3 (1 +
+    |ref|), losses 1e-4), the kernel decode's greedy tokens against the
+    eager decode fed the same tokens, each model's time and peak GB; the
+    ``kernels`` rows of phases 7 and 10 at these shapes take their
+    launches from here;
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
     math): the reduction must reach 35%.
 
@@ -1749,6 +1767,18 @@ HYMBA_ATTEND = (4, 5, 5, 64)
 HYMBA_SSD = (4, 50, 64, 16)
 # one row of Hymba's attend heads over 131072 cache positions
 LONG_EXTENT, LONG_KEYS = (1, 5, 5, 64), 131072
+# the rest of the LM stack's decode shapes (phase lm_families), (B, KV, G,
+# D), each row's positions, the keys: h2o-danube-3-4b's ring (every layer
+# SWA, W 4096) at the positions its batcher's first decode tick reads;
+# llama4-scout's extent at its batcher's deepest rung (max_len 1024);
+# paligemma-3b's extent (one kv head of 8) over its static decode's
+# 256 + 32 + 16 positions
+FAMILY_DECODE = {
+    "h2o-danube-3-4b": ("ring", (4, 8, 4, 120), (1515, 1115, 528, 115),
+                        4096),
+    "llama4-scout-17b-a16e": ("extent", (4, 8, 5, 128), (528, 115, 48, 16),
+                              1024),
+    "paligemma-3b": ("extent", (2, 1, 8, 256), (303, 303), 304)}
 
 
 def _dt(name):
@@ -1853,9 +1883,11 @@ def phase_decode_kernels() -> list:
     cases = 0
     for qn, kvn in DECODE_COMBOS:
         tol = SERVE_TOL["bf16" if "bf16" in (qn, kvn) else "f32"]
-        for si, (B, KV, G, D) in enumerate(((4, 5, 5, 64), (4, 8, 2, 240),
-                                            (3, 2, 3, 16))):
-            for W in (1, 17, 1024):
+        for si, (B, KV, G, D) in enumerate((
+                (4, 5, 5, 64), (4, 8, 2, 240), (3, 2, 3, 16),
+                *(shape for _, shape, _, _ in FAMILY_DECODE.values()),
+                (1, 8, 6, 128))):                      # grok-1's heads
+            for W in (1, 17, 1024) + ((4096,) if D == 120 else ()):
                 q, k, v = _attend_inputs(B, KV, G, D, W, _dt(qn), _dt(kvn),
                                          seed=si * 10 + W)
                 # per-row positions: rings not yet full and wrapped ones
@@ -1938,7 +1970,7 @@ def phase_decode_kernels() -> list:
             cases += 1
     print(json.dumps({"phase": "decode_kernels", "cases": cases,
                       "max_abs_err": worst}))
-    return _time_decode_kernels(worst)
+    return _time_decode_kernels(worst) + _time_family_decode()
 
 
 def _ssd_inputs(B, H, P, N, x_dt, s_dt, seed):
@@ -2168,6 +2200,50 @@ def _time_decode_kernels(worst: dict) -> list:
     return out
 
 
+def _time_family_decode() -> list:
+    """The ring and extent kernels at each ``FAMILY_DECODE`` shape, f32:
+    held against their plain versions, timed beside their bounds and SDPA;
+    one row an arch, whose launches the ``lm_families`` phase fills in."""
+    import torch
+    from repro_torch.kernels import decode_attend as da
+    from repro_torch.kernels import ref
+    out = []
+    for arch, (kind, shape, rows, L) in FAMILY_DECODE.items():
+        q, k, v = _attend_inputs(*shape, L, torch.float32, torch.float32,
+                                 seed=L)
+        pos = torch.tensor(rows, dtype=torch.int32, device="cuda")
+        window = L if kind == "ring" else 0
+        if kind == "ring":
+            fn = lambda: da.ring_decode_attend(q, k, v, pos, window)
+            plain = lambda: ref.ring_decode_attend_ref(q, k, v, pos, window)
+            vis = _ring_visible(pos, L, window)
+            name, line, extent = "ring_decode_attend", 173, {"W": L}
+        else:
+            fn = lambda: da.extent_decode_attend(q, k, v, pos, 0, L)
+            plain = lambda: ref.extent_decode_attend_ref(q, k, v, pos, 0, L)
+            vis = _extent_visible(pos, L, 0)
+            name, line, extent = ("extent_decode_attend", 221,
+                                  {"S_max": L, "k_ext": L})
+        err = _check_close(f"{name} timed {arch} {shape} pos={rows}", fn(),
+                           plain(), SERVE_TOL["f32"])
+        row = _time_kernel(fn, plain)
+        _one_kernel(f"{name} {arch}", row)
+        bound, by = _attend_bound(q, k, vis)
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
+                    "replaces": f"src/repro/kernels/swa_attention.py:{line}",
+                    "arch": arch,
+                    "shape": {"B_KV_G_D": shape, **extent, "pos": list(rows),
+                              "dtype": "float32"},
+                    "max_abs_err": err, **row, "bound_ms": bound,
+                    "bound_by": by, "library_ms": _sdpa_ms(q, k, vis),
+                    "library": "F.scaled_dot_product_attention, boolean "
+                               "mask"})
+    for k_ in out:
+        print(json.dumps({"phase": "decode_kernel_time", **k_}))
+    return out
+
+
 def _decode_launches() -> dict:
     from repro_torch.kernels import decode_attend, ssd_decode
     return {"ring_decode_attend": decode_attend.ring_decode_attend.launches,
@@ -2351,7 +2427,8 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
             f"{len(srv.buckets)} or decode {srv.decode_compiles} > "
             f"{len(srv.decode_buckets)}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if "arch" not in k:            # the other configs' rows: lm_families
+            k["launches"] = launches[k["name"]]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # generate_single launches no kernel; share of requests it agrees with
@@ -2424,6 +2501,16 @@ HYMBA_GQA = (SCORE_B, SCORE_S, 25, 5, 64)
 # dim 240 (d_model 3840), one sequence of 2048, window 1024 on five layers
 # of six
 GEMMA_GQA = (1, SCORE_S, 16, 8, 240)
+# the rest of the LM stack's scoring shapes (phase lm_families): h2o-danube-
+# 3-4b's 32 heads over 8 of dim 120 (3840 / 32) at S 4096, window 4096;
+# llama4-scout's 40 over 8 of 128 and grok-1's 48 over 8 of 128 at S 2048,
+# full attention; paligemma-3b's 8 heads over one of 256, B 2 x S 2048
+# (the 256-token patch prefix included), full attention. {arch: (B, S, H,
+# KV, D), window}
+FAMILY_GQA = {"h2o-danube-3-4b": ((1, 4096, 32, 8, 120), 4096),
+              "llama4-scout-17b-a16e": ((1, SCORE_S, 40, 8, 128), SCORE_S),
+              "grok-1-314b": ((1, SCORE_S, 48, 8, 128), SCORE_S),
+              "paligemma-3b": ((2, SCORE_S, 8, 1, 256), SCORE_S)}
 HYMBA_SWA = (SCORE_B * 25, SCORE_S, 64)
 HYMBA_SCAN = (SCORE_B, SCORE_S, 50, 64, 16, 128)
 # the reference's sweep (tests/test_kernels.py), Hymba's and Mamba2-130m's
@@ -2555,9 +2642,11 @@ def phase_scoring_kernels() -> list:
                             f"swa gqa {dn} S={S} D={D} G={G} w={w}", got,
                             want, tol))
                         cases += 1
-        # the GQA entry at the main path's own shape and windows, and at
-        # Gemma3-12B's (head dim 240)
-        for shape in (HYMBA_GQA, GEMMA_GQA):
+        # the GQA entry at the main path's own shape and windows, at
+        # Gemma3-12B's (head dim 240) and at the other configs' (head dims
+        # 120, 128 at G 5 and 6, 256 with one kv head)
+        for shape in (HYMBA_GQA, GEMMA_GQA,
+                      *(sh for sh, _ in FAMILY_GQA.values())):
             B, S, H, KV, D = shape
             q, k, v = _gqa_inputs(B, S, H, KV, D, dn, seed=5)
             for w in (1024, S):
@@ -2609,7 +2698,7 @@ def phase_scoring_kernels() -> list:
             worst_f32 = dict(worst)
     print(json.dumps({"phase": "scoring_kernels", "cases": cases,
                       "max_abs_err": worst, "max_abs_err_f32": worst_f32}))
-    return _time_scoring_kernels(worst)
+    return _time_scoring_kernels(worst) + _time_family_scoring()
 
 
 def _time_gqa_entry(q, k, v, w: int, folded: tuple) -> dict:
@@ -2707,6 +2796,41 @@ def _time_scoring_kernels(worst: dict) -> list:
     return out
 
 
+def _time_family_scoring() -> list:
+    """Kernel 5's GQA entry at each ``FAMILY_GQA`` shape, f32, its window:
+    held against its plain version, timed beside its bounds and SDPA; one
+    row an arch, whose launches the ``lm_families`` phase fills in."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = []
+    for arch, (shape, w) in FAMILY_GQA.items():
+        q, k, v = _gqa_inputs(*shape, "f32", seed=11)
+        B, S, H, KV, D = shape
+        err = _check_close(f"swa gqa timed {arch} {shape} w={w}",
+                           ops.swa_attention_gqa(q, k, v, w),
+                           ref.swa_attention_gqa_ref(q, k, v, w),
+                           SCORE_TOL["f32"])
+        folded = tuple(torch.repeat_interleave(t, H // t.shape[2], dim=2)
+                       .transpose(1, 2).reshape(B * H, S, D).contiguous()
+                       for t in (q, k, v))
+        row = _time_gqa_entry(q, k, v, w, folded)
+        _one_kernel(f"swa_attention {arch} {shape}", row)
+        out.append({"name": "swa_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+                    "replaces": "src/repro/kernels/swa_attention.py:256",
+                    "arch": arch,
+                    "shape": {"B_S_H_KV_D": shape, "window": w,
+                              "dtype": "float32",
+                              "entry": "swa_attention_gqa"},
+                    "max_abs_err": err, **row,
+                    "library": "F.scaled_dot_product_attention on the "
+                               "folded heads, boolean band mask"})
+        del q, k, v, folded
+    for k_ in out:
+        print(json.dumps({"phase": "scoring_kernel_time", **k_}))
+    return out
+
+
 def _score_launches() -> dict:
     from repro_torch.kernels import ssd_scan, swa_attention
     return {"swa_attention": swa_attention.swa_attention.launches,
@@ -2734,7 +2858,8 @@ def _per_forward(cfg) -> dict:
     """Kernel launches one scoring forward makes: one attend per attention
     layer, one scan per SSM layer."""
     return {"swa_attention": 0 if cfg.family == "ssm" else cfg.num_layers,
-            "ssd_scan": cfg.num_layers if cfg.family != "dense" else 0}
+            "ssd_scan": (cfg.num_layers if cfg.family in ("ssm", "hybrid")
+                         else 0)}
 
 
 def _score(params, cfg, batch, kernel: str):
@@ -2811,7 +2936,9 @@ def _score_kernels_vs_eager(params, cfg, batch, what: str) -> dict:
     if not (bool(torch.isfinite(logits_k).all())
             and math.isfinite(float(loss_k))):
         raise AssertionError(f"non-finite {what}")
-    shape = (*batch["tokens"].shape, cfg.vocab_size)
+    B, T = batch["tokens"].shape
+    prefix = cfg.prefix_len if "prefix_embeds" in batch else 0
+    shape = (B, T + prefix, cfg.vocab_size)
     if tuple(logits_k.shape) != shape:
         raise AssertionError(f"{what}: logits shape "
                              f"{tuple(logits_k.shape)}, want {shape}")
@@ -2869,7 +2996,8 @@ def phase_score_full_width(kernels: list, seed: int) -> None:
     batch = _score_batch(cfg, SCORE_B, SCORE_S, seed, "cuda")
     res = _score_kernels_vs_eager(params, cfg, batch, "full-width scoring")
     for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
+        if "arch" not in k:            # the other configs' rows: lm_families
+            k["launches"] = res["launches"][k["name"]]
 
     def forward(kernel):
         def run():
@@ -3391,6 +3519,443 @@ def phase_lm_serve(seed: int) -> None:
     print(json.dumps(report))
 
 
+# ---------------------------------------------------------------------------
+# The rest of the LM stack: the moe, vlm and encdec families and the other
+# dense configs, scored and served at their configs' widths
+# ---------------------------------------------------------------------------
+
+# {arch: (layers kept (None: all), B, S)}: S counts paligemma's prefix
+FAMILY_SCORE = {"h2o-danube-3-4b": (None, 1, 4096),
+                "llama4-scout-17b-a16e": (4, 1, SCORE_S),
+                "grok-1-314b": (2, 1, SCORE_S),
+                "paligemma-3b": (None, 2, SCORE_S)}
+# the batchers' request streams: prompt lengths, 16 new tokens each
+H2O_PROMPTS = (1, 7, 100, 513, 1100, 1500)
+LLAMA4_PROMPTS = (1, 33, 100, 513)
+FAMILY_TOKENS = 16
+SEAMLESS_FRAMES = 512
+
+
+def _release_engines() -> float:
+    """Forget every memoized engine and the async mix's graphs, which
+    earlier phases leave holding their captured graphs' memory pools (the
+    runs below need the card's memory: up to ~54 GB a model). Returns the
+    GiB still allocated after."""
+    import gc
+    import torch
+    from repro_torch.core import compile_cache, fed_engine, fedasync
+    fed_engine._ENGINE_CACHE.clear()
+    fedasync._GRAPHS = compile_cache.GraphCache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _family_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    keep = FAMILY_SCORE.get(arch, (None,))[0]
+    return cfg if keep is None else dataclasses.replace(cfg,
+                                                        num_layers=keep)
+
+
+def _family_params(cfg, seed: int):
+    import torch
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    torch.cuda.synchronize()
+    return params, {"params": sum(v.numel() for v in params.values()),
+                    "weights_gb": sum(v.numel() * v.element_size()
+                                      for v in params.values()) / 1e9,
+                    "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "init_s": time.perf_counter() - t0}
+
+
+def _free(*objs) -> None:
+    import gc
+    import torch
+    for o in objs:
+        if isinstance(o, dict):
+            o.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _family_batch(cfg, B: int, S: int, seed: int):
+    """B sequences of S positions: the registry's synthesised batch (a
+    VLM's S includes its patch prefix), labels the next tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.types import ShapeConfig
+    batch = registry.synth_batch(np.random.default_rng(seed), cfg,
+                                 ShapeConfig("score", seq_len=S,
+                                             global_batch=B, kind="train"),
+                                 device="cuda")
+    toks = batch["tokens"].long()
+    batch["tokens"] = toks
+    batch["labels"] = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1],
+                                                              -100)], dim=1)
+    return batch
+
+
+def _greedy_ties(what: str, want, lk, le) -> int:
+    """The kernel decode's logits ``lk`` and the eager decode's ``le`` (n,
+    V) at one step, fed the same tokens, against the kernel run's own
+    greedy tokens ``want`` (n,): the kernel decode picks them again, and
+    so does the eager decode unless the eager logits of ``want`` are
+    within twice the two decodes' difference (that row's max) of the
+    eager maximum, a tie that no exact comparison decides. Returns the
+    ties."""
+    import torch
+    want = torch.as_tensor(want, device=lk.device).long()
+    if not torch.equal(lk.argmax(dim=-1), want):
+        raise AssertionError(f"{what}: the kernel decode, replayed, picks "
+                             f"{lk.argmax(dim=-1).tolist()} not "
+                             f"{want.tolist()}")
+    te = le.argmax(dim=-1)
+    diff = (lk - le).abs().max(dim=-1).values
+    gap = le.max(dim=-1).values - le.gather(-1, want[:, None])[:, 0]
+    if bool(((te != want) & (gap > 2 * diff)).any()):
+        raise AssertionError(f"{what}: eager picks {te.tolist()}, the "
+                             f"kernels {want.tolist()} (gap {gap.tolist()}, "
+                             f"difference {diff.tolist()})")
+    return int((te != want).sum())
+
+
+def _family_serve(params, cfg, prompts, max_len: int, seed: int) -> dict:
+    """The continuous batcher in ring mode on the CUDA decode kernels
+    (counts zeroed just before, read just after). Then each admitted group
+    again, the kernel decode and the eager decode fed the kernel run's
+    tokens tick by tick (``_forced_ticks``): logits within
+    1e-3 (1 + |eager|), the same greedy tokens (``_greedy_ties``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    rng = np.random.default_rng(seed)
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in prompts]
+    kw = dict(max_slots=4, max_len=max_len, min_bucket=8,
+              decode_mode="ring")
+    _zero_decode_launches()
+    t0 = time.perf_counter()
+    srv, toks = _serve(params, cfg, reqs, FAMILY_TOKENS,
+                       decode_kernel="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _decode_launches()
+    _free(srv.cache)
+    ticks = srv._steps
+    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
+            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
+            "ssd_decode_step": 0}
+    if launches != want or any(len(t) != FAMILY_TOKENS
+                               for t in toks.values()):
+        raise AssertionError(f"{cfg.name} serve launches {launches}, want "
+                             f"{want} ({ticks} ticks); tokens {toks}")
+    # every request asks for as many tokens, so the slots free together
+    # and the groups are admitted in order, max_slots at a time
+    errs, ties = [], 0
+    for g0 in range(0, len(reqs), kw["max_slots"]):
+        ids = range(g0, min(g0 + kw["max_slots"], len(reqs)))
+        forced = np.zeros((FAMILY_TOKENS - 1, kw["max_slots"]), np.int32)
+        for j, rid in enumerate(ids):
+            forced[:, j] = toks[rid][:-1]
+        logits = {}
+        for kern in ("cuda", "eager"):
+            adm = _admitted(params, cfg, [reqs[r] for r in ids],
+                            decode_kernel=kern, **kw)
+            logits[kern] = _forced_ticks(adm, forced, "ring")
+            _free(adm.cache)
+        n = len(ids)
+        for t, (lk, le) in enumerate(zip(logits["cuda"], logits["eager"])):
+            what = f"{cfg.name} requests {list(ids)} tick {t}"
+            errs.append(_logits_close(what, lk[:n], le[:n]))
+            ties += _greedy_ties(what, [toks[r][t + 1] for r in ids],
+                                 lk[:n], le[:n])
+    n_tok = sum(len(t) for t in toks.values())
+    return {"prompts": list(prompts), "max_len": max_len,
+            "decode_ticks": ticks, "launches": launches,
+            "forced_logits_rel_err_vs_eager": max(errs),
+            "greedy_ties_vs_eager": ties, "real_wall_s": wall,
+            "gen_tok_per_s": n_tok / wall,
+            "prefill_compiles": srv.prefill_compiles,
+            "decode_compiles": srv.decode_compiles,
+            "bucket_hist": {str(k): v for k, v in srv.bucket_hist.items()}}
+
+
+def _family_reduced_card_vs_cpu() -> dict:
+    """The seven configs reduced (h2o-danube also at d_model 480: head dim
+    120) scored on the card (kernel 5; the encoder-decoder eagerly) and on
+    the CPU (the plain versions), in ``_Exact``: logits within
+    1e-4 (1 + |cpu|), loss within 1e-4 relative."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.types import ShapeConfig
+    out = {}
+    with _Exact():
+        for arch in ("internlm2-20b", "h2o-danube-3-4b", "minitron-4b",
+                     "paligemma-3b", "llama4-scout-17b-a16e", "grok-1-314b",
+                     "seamless-m4t-large-v2", "h2o-danube-3-4b@480"):
+            name, _, d = arch.partition("@")
+            cfg = get_config(name).reduced(d_model=int(d or 256))
+            cpu = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                       "cpu")
+            card = {k: v.cuda() for k, v in cpu.items()}
+            batch = registry.synth_batch(
+                np.random.default_rng(1), cfg,
+                ShapeConfig("s", seq_len=256, global_batch=2, kind="train"),
+                device="cpu")
+            kernel = "eager" if cfg.is_encdec else "cuda"
+            res = {}
+            for dev, params in (("cuda", card), ("cpu", cpu)):
+                b = {k: v.to(dev) for k, v in batch.items()}
+                with torch.no_grad():
+                    loss, m = registry.loss_fn(params, cfg, b, kernel=kernel)
+                    logits = registry.logits_fn(params, cfg, b,
+                                                kernel=kernel)
+                res[dev] = (float(loss), float(m["aux"]), logits)
+            loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(
+                res["cpu"][0])
+            aux_err = abs(res["cuda"][1] - res["cpu"][1]) / max(
+                abs(res["cpu"][1]), 1e-30)
+            if loss_err > 1e-4 or aux_err > 1e-4:
+                raise AssertionError(f"{arch} reduced: loss {loss_err}, aux "
+                                     f"{aux_err} card vs CPU")
+            out[arch] = {"head_dim": cfg.head_dim, "loss_rel_err": loss_err,
+                         "aux_rel_err": aux_err if cfg.moe else None,
+                         "logits_rel_err": _logits_close(
+                             f"{arch} reduced logits", res["cuda"][2],
+                             res["cpu"][2], rtol=1e-4)}
+    return out
+
+
+def _family_rows(rows: list, arch: str, launches: dict) -> None:
+    for r in rows:
+        if r.get("arch") == arch:
+            r["launches"] = launches[r["name"]]
+
+
+def phase_lm_families(seed: int = 0, rows: list = ()) -> None:
+    """The moe, vlm and encdec families and the other dense configs at
+    their configs' widths, random f32 weights from ``seed`` on the card,
+    one model at a time (each freed before the next; its init, time and
+    peak GB printed):
+
+    - h2o-danube-3-4b, all 24 layers: scored (B 1 x S 4096, kernel 5 at
+      head dim 120, 24 launches a forward) kernels against eager; then the
+      continuous batcher (4 slots, W 4096 rings, six requests of 1-1500
+      prompt tokens): the ring kernel 24 times a tick (``_family_serve``);
+    - llama4-scout-17b-a16e, its first 4 of 48 layers: scored (B 1 x S
+      2048: capacity routing at C 160, kernel 5 at G 5), then served (four
+      requests, max_len 1024, dropless routing, the extent kernel 4 times
+      a tick);
+    - grok-1-314b, its first 2 of 64 layers: scored (top-2 routing at C
+      640, kernel 5 at G 6);
+    - paligemma-3b, all 18 layers: scored (B 2 x S 2048 with the 256-patch
+      prefix, kernel 5 at D 256 over one kv head); 16 decode steps from a
+      prefilled prefix batch through the extent kernel against the uniform
+      eager decode fed the same tokens; then ``serve.py`` (B 2, prompt 32,
+      16 tokens);
+    - seamless-m4t-large-v2, 24 + 24 layers: ``serve.py`` (B 2, 512 source
+      frames, 16 tokens), eager; its decode steps again, fed its tokens,
+      against the teacher-forced decoder on the same source.
+
+    Scoring: logits within 1e-3 (1 + |eager|), the loss within 1e-4
+    relative. Decoding: logits within 1e-3 (1 + |ref|) and the same greedy
+    picks but for ties within the two runs' difference (``_greedy_ties``,
+    counted). Before them, the seven reduced configs card against CPU.
+    Without ``rows`` (the phase alone), no kernel row is filled in.
+    ``rows`` are the kernel rows of these shapes (``_time_family_scoring``,
+    ``_time_family_decode``); their launches are set from these runs."""
+    import contextlib
+    import io
+    import re
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, registry
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.types import ShapeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    held = {"held_before_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "held_after_release_gib": _release_engines()}
+    report = {"phase": "lm_families", "card": _card_line(),
+              "reduced_card_vs_cpu": _family_reduced_card_vs_cpu()}
+    print(json.dumps({"phase": "lm_families", "part": "reduced_card_vs_cpu",
+                      **held, **report["reduced_card_vs_cpu"]}))
+    score_launches = {}
+
+    def score(arch):
+        cfg = _family_cfg(arch)
+        _, B, S = FAMILY_SCORE[arch]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, info = _family_params(cfg, seed)
+        batch = _family_batch(cfg, B, S, seed)
+        res = _score_kernels_vs_eager(params, cfg, batch,
+                                      f"{arch} scoring")
+        score_launches[arch] = res["launches"]
+        info.update(res, layers=cfg.num_layers, batch=[B, S],
+                    head_dim=cfg.head_dim)
+        return cfg, params, info, t0
+
+    def done(info, t0, arch):
+        torch.cuda.synchronize()
+        info["model_s"] = time.perf_counter() - t0
+        # since the scoring began (its weights included), serving too
+        info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(json.dumps({"phase": "lm_families", "arch": arch,
+                          "card": report["card"], **info}))
+        return info
+
+    def cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv + ["--seed", str(seed), "--device", "cuda"])
+        text = buf.getvalue()
+        if rc != 0 or "sample generations" not in text:
+            raise AssertionError(f"serve {argv}: exit {rc}\n{text}")
+        ms = dict(re.findall(r"^(prefill|decode):\s+([0-9.]+) ms", text,
+                             re.M))
+        return {"argv": argv, "prefill_ms": float(ms["prefill"]),
+                "decode_ms": float(ms["decode"]),
+                "call_s": time.perf_counter() - t0}
+
+    # h2o-danube-3-4b: kernel 5 at D 120, the ring kernel at W 4096
+    cfg, params, info, t0 = score("h2o-danube-3-4b")
+    info["serve"] = _family_serve(params, cfg, H2O_PROMPTS, 4096, seed)
+    _family_rows(rows, "h2o-danube-3-4b",
+                 {**score_launches["h2o-danube-3-4b"],
+                  **info["serve"]["launches"]})
+    _free(params)
+    report["h2o-danube-3-4b"] = done(info, t0, "h2o-danube-3-4b")
+
+    # llama4-scout: capacity routing in scoring, dropless serving
+    cfg, params, info, t0 = score("llama4-scout-17b-a16e")
+    info["capacity"] = moe_mod.capacity(math.prod(info["batch"]), cfg.moe)
+    info["serve"] = _family_serve(params, cfg, LLAMA4_PROMPTS, 1024, seed)
+    _family_rows(rows, "llama4-scout-17b-a16e",
+                 {**score_launches["llama4-scout-17b-a16e"],
+                  **info["serve"]["launches"]})
+    _free(params)
+    report["llama4-scout-17b-a16e"] = done(info, t0, "llama4-scout-17b-a16e")
+
+    # grok-1: top-2 capacity routing
+    cfg, params, info, t0 = score("grok-1-314b")
+    info["capacity"] = moe_mod.capacity(math.prod(info["batch"]), cfg.moe)
+    _family_rows(rows, "grok-1-314b", score_launches["grok-1-314b"])
+    _free(params)
+    report["grok-1-314b"] = done(info, t0, "grok-1-314b")
+
+    # paligemma-3b: the prefix, kernel 5 at KV 1, the extent kernel at G 8
+    cfg, params, info, t0 = score("paligemma-3b")
+    P = 32
+    batch = _family_batch(cfg, 2, P + cfg.prefix_len, seed + 1)
+    max_len = cfg.prefix_len + P + FAMILY_TOKENS
+    pre = {"tokens": batch["tokens"], "prefix_embeds": batch["prefix_embeds"]}
+    with torch.no_grad():
+        cache = registry.init_cache(cfg, 2, max_len, torch.float32, "cuda")
+        logits, cache = registry.prefill(params, cfg, pre, cache,
+                                         q_chunk=cfg.prefix_len + P)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        ring = lm.to_ring_cache(cfg, cache, cfg.prefix_len + P)
+        # the extent kernel's decode, the uniform eager decode fed its tokens
+        tok, errs, ties = first, [], 0
+        _zero_decode_launches()
+        for i in range(FAMILY_TOKENS):
+            p = cfg.prefix_len + P + i
+            lk, ring = registry.decode_step_grouped(
+                params, cfg, tok, ring, p, k_ext=max_len,
+                decode_kernel="cuda")
+            le, cache = registry.decode_step(params, cfg, tok, cache, p)
+            what = f"paligemma decode step {i}"
+            errs.append(_logits_close(what, lk, le))
+            tok = torch.argmax(lk, dim=-1).to(torch.int32)
+            ties += _greedy_ties(what, tok, lk, le)
+        dec_launches = _decode_launches()
+    if dec_launches["extent_decode_attend"] != FAMILY_TOKENS * \
+            cfg.num_layers:
+        raise AssertionError(f"paligemma decode launches {dec_launches}")
+    info["decode_steps"] = {"prefix": cfg.prefix_len, "prompt": P,
+                            "tokens": FAMILY_TOKENS, "launches": dec_launches,
+                            "greedy_ties_vs_eager": ties,
+                            "logits_rel_err_vs_eager": max(errs)}
+    _family_rows(rows, "paligemma-3b",
+                 {**score_launches["paligemma-3b"], **dec_launches})
+    _free(params, cache, ring)
+    info["serve_cli"] = cli(["--arch", "paligemma-3b", "--batch", "2",
+                             "--prompt-len", str(P), "--gen",
+                             str(FAMILY_TOKENS)])
+    report["paligemma-3b"] = done(info, t0, "paligemma-3b")
+
+    # seamless-m4t-large-v2: the encoder-decoder through serve.py, eager;
+    # the CLI's params and source rebuilt from the seed to check its tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    argv = ["--arch", "seamless-m4t-large-v2", "--batch", "2",
+            "--prompt-len", str(SEAMLESS_FRAMES), "--gen", str(FAMILY_TOKENS)]
+    info = {"serve_cli": cli(argv)}
+    cfg = _family_cfg("seamless-m4t-large-v2")
+    params, pinfo = _family_params(cfg, seed)
+    info.update(pinfo)
+    batch = registry.synth_batch(          # the CLI's draws from its seed
+        np.random.default_rng(seed), cfg,
+        ShapeConfig("serve", seq_len=SEAMLESS_FRAMES, global_batch=2,
+                    kind="decode"), device="cuda")
+    max_len = SEAMLESS_FRAMES + FAMILY_TOKENS
+    toks, _, _ = serve.generate(params, cfg, batch, max_len, FAMILY_TOKENS)
+    if toks.shape != (2, FAMILY_TOKENS) or (toks[:, 0] != 0).any():
+        raise AssertionError(f"seamless generation {toks}")
+    # its decode steps again, fed its tokens, against the teacher-forced
+    # decoder over the same tokens
+    src = {"src_embeds": batch["src_embeds"]}
+    forced_toks = torch.from_numpy(toks).cuda()
+    errs, ties = [], 0
+    with torch.no_grad():
+        forced = registry.logits_fn(params, cfg, {
+            **src, "tokens": forced_toks[:, :-1]})
+        cache = registry.prefill(params, cfg, src, registry.init_cache(
+            cfg, 2, max_len, torch.float32, "cuda"))
+        for t in range(FAMILY_TOKENS - 1):
+            lk, cache = registry.decode_step(params, cfg, forced_toks[:, t],
+                                             cache, t)
+            what = f"seamless decode step {t}"
+            errs.append(_logits_close(what, lk, forced[:, t]))
+            ties += _greedy_ties(what, forced_toks[:, t + 1], lk,
+                                 forced[:, t])
+    if not bool(torch.isfinite(forced).all()):
+        raise AssertionError("seamless: non-finite logits")
+    info.update(layers=[cfg.num_encoder_layers, cfg.num_layers],
+                logits_rel_err_vs_teacher_forced=max(errs),
+                greedy_ties_vs_teacher_forced=ties,
+                sample=toks[:, :8].tolist())
+    _free(cache)
+    _free(params)
+    report["seamless-m4t-large-v2"] = done(info, t0, "seamless-m4t-large-v2")
+
+    for r in rows:
+        if not r.get("launches"):
+            raise AssertionError(f"{r['name']} {r['arch']}: no launch on "
+                                 "its path")
+    print(json.dumps({"phase": "lm_families", "part": "summary",
+                      "phase_s": time.perf_counter() - t_phase,
+                      "peak_gb": {a: report[a]["peak_gb"] for a in report
+                                  if isinstance(report[a], dict)
+                                  and "peak_gb" in report[a]},
+                      "model_s": {a: report[a]["model_s"] for a in report
+                                  if isinstance(report[a], dict)
+                                  and "model_s" in report[a]}}))
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
@@ -3440,6 +4005,8 @@ def main(argv=None) -> int:
     phase_train(kernels)
     phase_lm_train(kernels)
     phase_lm_serve(args.seed)
+    phase_lm_families(args.seed, [k for k in serve_kernels + score_kernels
+                                  if "arch" in k])
     phase_analytic_speedup()
     kernels += score_kernels
 

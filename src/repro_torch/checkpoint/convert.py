@@ -2,19 +2,21 @@
 
 Both sides key parameters by the '/'-joined paths that
 ``repro/checkpoint/ckpt.py::_flatten`` writes (``stem/w``,
-``stages/2/0/w1``, ``fc/b``, ``layers/attn/wq``, ``layers/ssm/in_proj``
-...). Conv weights are DHWIO in the reference and OIDHW here; ``fc/w``
-keeps its (C, classes) meaning; 1-D leaves are unchanged. The LM's einsum
-weights keep their (d_in, d_out) layout, so an LM conversion is a
-shape-checked copy. This is how the parity tests hand the port JAX-initialised
-weights, and how the port reads an npz checkpoint saved by the reference.
+``stages/2/0/w1``, ``fc/b``, ``layers/attn/wq``, ``layers/ssm/in_proj``,
+``layers/moe/router``, ``dec_layers/xattn/wk``, ``enc_norm`` ...). Conv
+weights are DHWIO in the reference and OIDHW here; ``fc/w`` keeps its
+(C, classes) meaning; 1-D leaves are unchanged. The LM's einsum weights
+keep their (d_in, d_out) layout (the MoE experts' (L, E, d_in, d_out)),
+so an LM or encoder-decoder conversion is a shape-checked copy. This is
+how the parity tests hand the port JAX-initialised weights, and how the
+port reads an npz checkpoint saved by the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import lm, resnet3d
+from repro_torch.models import encdec, lm, resnet3d
 from repro_torch.types import ModelConfig
 
 _DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
@@ -24,6 +26,8 @@ _OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
 def _shapes(cfg: ModelConfig) -> dict:
     if cfg.family == "resnet3d":
         return resnet3d.param_shapes(cfg)
+    if cfg.is_encdec:
+        return encdec.param_shapes(cfg)
     return lm.param_shapes(cfg)
 
 

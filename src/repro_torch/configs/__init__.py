@@ -1,23 +1,31 @@
-"""Config registry of the port: the paper's 3-D ResNets, the LM configs
-the port runs, the assigned architecture list and the four input shapes.
+"""Config registry of the port: the paper's 3-D ResNets, the ten
+assigned LM configs and the four input shapes.
 
 ``hymba-1.5b`` is the serving and LM-training slices' model (every decode
-kernel runs on it); ``gemma3-12b`` (the serve CLI's default arch) and
-``mamba2-130m`` give the dense and pure-SSM families. ``list_archs()``
-returns the reference's ten assigned ids; the seven whose families or
-files are not ported yet raise in ``get_config`` (ROADMAP Queue 1 item
-11).
+kernel runs on it); ``gemma3-12b`` (the serve CLI's default arch),
+``internlm2-20b``, ``h2o-danube-3-4b`` and ``minitron-4b`` are dense,
+``mamba2-130m`` pure SSM, ``llama4-scout-17b-a16e`` and ``grok-1-314b``
+MoE, ``paligemma-3b`` a patch-prefix VLM and ``seamless-m4t-large-v2``
+the encoder-decoder.
 """
 from __future__ import annotations
 
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
+from repro_torch.configs.grok_1_314b import CONFIG as _grok1
+from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube3
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
+from repro_torch.configs.internlm2_20b import CONFIG as _internlm2
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+from repro_torch.configs.minitron_4b import CONFIG as _minitron
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
 from repro_torch.configs.resnet3d import RESNET18, RESNET26, RESNET34
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
 from repro_torch.types import ModelConfig, ShapeConfig
 
-_REGISTRY = {c.name: c for c in (_gemma3, _hymba, _mamba2,
-                                  RESNET18, RESNET26, RESNET34)}
+_REGISTRY = {c.name: c for c in (
+    _llama4, _grok1, _seamless, _gemma3, _internlm2, _minitron, _danube3,
+    _hymba, _mamba2, _paligemma, RESNET18, RESNET26, RESNET34)}
 
 # The 10 assigned architecture ids (order of the assignment sheet).
 ASSIGNED_ARCHS = (
@@ -45,9 +53,8 @@ def get_config(name: str) -> ModelConfig:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(
-            f"unknown arch {name!r}; the port knows {sorted(_REGISTRY)} "
-            "(the other LM configs: ROADMAP Queue 1 item 11)") from None
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_REGISTRY)}") from None
 
 
 def list_archs() -> list[str]:

@@ -17,16 +17,19 @@
 // h / G in place, from the row strides H * D and KV * D, so the caller
 // neither repeats K and V over the query groups nor folds the heads. The
 // folded (BH, S, D) entry is the same kernel with B = BH and H = KV = 1.
-// D in {64, 128, 240, 256}; q/k/v f32 or bf16 (one dtype), out in that
-// dtype; f32 inside.
+// D in {64, 120, 128, 240, 256}; q/k/v f32 or bf16 (one dtype), out in
+// that dtype; f32 inside.
 //
-// D = 240 (gemma3-12b: d_model 3840 over 16 heads) is an instantiation of
-// its own, not a zero-pad to 256: wgmma.m64nNk8 takes N = 240 (a multiple
-// of 8) for P V, Q K^T steps through D in 8-wide slices (30 of them), and a
-// 240-float row is 60 16-byte chunks, so the tiles, the core-matrix planes
-// and the GQA read in place stay as at D = 256, with its 16-key tiles. Only
-// the copy and staging loops gain a bound check, since 16 rows of 60 (or,
-// in bf16, 30) chunks are not a multiple of the block's 128 threads.
+// D = 240 (gemma3-12b: d_model 3840 over 16 heads) and D = 120
+// (h2o-danube-3-4b: 3840 over 32) are instantiations of their own, not a
+// zero-pad to 256 or 128: wgmma.m64nNk8 takes N = 240 or 120 (multiples of
+// 8) for P V, Q K^T steps through D in 8-wide slices (30 or 15 of them),
+// and a row is 60 or 30 16-byte chunks (30 or 15 in bf16), so the tiles,
+// the core-matrix planes and the GQA read in place stay as at D = 256 and
+// 128, with their 16-key tiles. Only the copy and staging loops need a
+// bound check, since 16 rows of those chunks are not a multiple of the
+// block's 128 threads; a head's offset h D stays a multiple of 16 bytes
+// (480 bytes at D = 120 in f32, 240 in bf16).
 //
 // Design. One block, one warpgroup (four warps, 16 query rows each), per
 // (b, h, 64-row query tile). The block visits only the key tiles (32 keys
@@ -98,7 +101,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // keys of a tile: 32 at D = 64, 16 above, so that a block's buffers fit
-// three blocks an SM at D = 64, two at 128 and one at 240 and 256
+// three blocks an SM at D = 64, two at 120 and 128 and one at 240 and 256
 template <int D>
 __host__ __device__ constexpr int key_tile() { return D == 64 ? 32 : 16; }
 
@@ -434,6 +437,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
 #define ARGS q, k, v, out, B, S, H, KV, window, scale, st
   switch (D) {
     case 64: return launch_t<T, 64>(ARGS);
+    case 120: return launch_t<T, 120>(ARGS);
     case 128: return launch_t<T, 128>(ARGS);
     case 240: return launch_t<T, 240>(ARGS);
     case 256: return launch_t<T, 256>(ARGS);

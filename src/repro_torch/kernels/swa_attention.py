@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 240, 256)   # the kernel's; the plain version takes any
+HEAD_DIMS = (64, 120, 128, 240, 256)   # the kernel's; the plain version any
 
 
 @functools.cache

@@ -3,9 +3,11 @@ prefilled and decoded greedily, or, with ``--continuous``, a mixed-length
 request stream.
 
 The static path synthesises ``--batch`` prompts of ``--prompt-len``
-tokens (``registry.synth_batch``), prefills an f32 uniform cache and
-decodes ``--gen`` tokens one step at a time (``registry.decode_step``,
-eager attends), printing the prefill and decode times.
+tokens (``registry.synth_batch``: a VLM's patch prefix too; for the
+encoder-decoder, ``--prompt-len`` source frames and BOS 0 as the first
+target token), prefills an f32 uniform cache and decodes ``--gen`` tokens
+one step at a time (``registry.decode_step``, eager attends), printing
+the prefill and decode times.
 
 ``--continuous`` serves through the slot-based continuous batcher
 (``core/serving.py``): bucketed prefill (``--prefill-buckets`` sets the
@@ -77,21 +79,46 @@ def serve_continuous(cfg, args) -> int:
 
 
 @torch.no_grad()
-def generate(params, cfg, tokens, max_len: int, gen: int):
-    """Prefill ``tokens`` (B, P) into an f32 uniform cache of ``max_len``
-    positions, then ``gen - 1`` greedy decode steps. Returns the (B, gen)
-    int32 tokens (numpy) and the prefill and decode seconds."""
-    device = tokens.device
-    B, P = tokens.shape
-    cache = registry.init_cache(cfg, B, max_len, torch.float32, device)
+def generate(params, cfg, batch, max_len: int, gen: int):
+    """Greedy generation from a static batch: ``batch`` is a (B, P) token
+    tensor, or a ``synth_batch`` dict (with ``prefix_embeds`` for a VLM;
+    an encoder-decoder reads only ``src_embeds``). An LM prefills an f32
+    uniform cache of ``max_len`` positions (and a VLM's prefix) and takes
+    its first token from the prefill; an encoder-decoder encodes the
+    source (a cache of ``max_len`` source frames,
+    ``registry.ENCDEC_TGT_LEN`` target positions) and starts from BOS 0
+    at position 0. Then ``gen - 1`` greedy decode steps. Returns the
+    (B, gen) int32 tokens (numpy) and the prefill and decode seconds."""
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    if cfg.is_encdec:
+        batch = {"src_embeds": batch["src_embeds"]}
+    else:
+        batch = {k: v for k, v in batch.items() if k != "labels"}
+    first = next(iter(batch.values()))
+    device, B = first.device, first.shape[0]
+    # a VLM's prefix takes cache positions too (the reference's cache
+    # leaves them out: ROADMAP Queue 3)
+    prefix = cfg.prefix_len if "prefix_embeds" in batch else 0
+    cache = registry.init_cache(cfg, B, max_len + prefix, torch.float32,
+                                device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = registry.prefill(params, cfg, {"tokens": tokens}, cache,
-                                     q_chunk=min(1024, P))
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if cfg.is_encdec:
+        cache = registry.prefill(params, cfg, batch, cache)
+        tok = torch.zeros(B, dtype=torch.int32, device=device)     # BOS
+        start_pos = 0
+    else:
+        # the query chunk spans the prefix too (the reference's is the
+        # prompt alone, which need not divide prefix + prompt: ROADMAP
+        # Queue 3); chunking splits query rows only, so the logits are
+        # the same
+        start_pos = batch["tokens"].shape[1] + prefix
+        logits, cache = registry.prefill(params, cfg, batch, cache,
+                                         q_chunk=min(1024, start_pos))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)
     t_prefill = time.perf_counter() - t0
-    start_pos = P + cfg.prefix_len
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
@@ -111,14 +138,15 @@ def serve_static(cfg, args) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = registry.init_params(gen, cfg, device)
     # the prompt batch from the registry's spec (its text length is
-    # S - prefix_len, so ask for prompt + prefix)
+    # S - prefix_len, so ask for prompt + prefix; an encoder-decoder's
+    # source is S frames)
     shape = ShapeConfig(name="serve", global_batch=args.batch,
                         seq_len=args.prompt_len + cfg.prefix_len,
                         kind="decode")
     batch = registry.synth_batch(rng, cfg, shape, act_dtype=torch.float32,
                                  device=device)
     toks, t_prefill, t_decode = generate(
-        params, cfg, batch["tokens"], args.prompt_len + args.gen, args.gen)
+        params, cfg, batch, args.prompt_len + args.gen, args.gen)
     print(f"prefill: {t_prefill*1e3:.1f} ms "
           f"({args.batch * args.prompt_len / max(t_prefill, 1e-9):.0f} tok/s)")
     print(f"decode:  {t_decode*1e3:.1f} ms "

@@ -11,12 +11,16 @@ server with no clients (``--mode central``), from a random init or, with
 (``launch/pipeline.py`` runs both stages in full). Runs on the card
 unless ``--device cpu`` is given, and prints one JSON result line last.
 
-``--arch`` takes the LM configs too (``mamba2-130m``, ``hymba-1.5b``,
-``gemma3-12b``): their clients read the Markov token stream of
+``--arch`` takes the decoder-only LM configs too (``mamba2-130m``,
+``hymba-1.5b``, ``gemma3-12b``, the moe ``llama4-scout-17b-a16e`` and
+``grok-1-314b``, ``paligemma-3b`` without its patch prefix, and the other
+dense ones): their clients read the Markov token stream of
 ``data.SyntheticLMDataset`` at the config's vocabulary, which has no
 length, so no client gets a shard. Its transition matrix is V x V on the
 host, so pass ``--reduced`` (vocabulary 512) there; ``--distill-first``
-stays resnet3d-only, as the reference's.
+stays resnet3d-only, as the reference's. The encoder-decoder
+(``seamless-m4t-large-v2``) is refused: the stream carries no source
+frames for its encoder, and the reference's trainer fails there too.
 
 ``--algorithm`` picks the federated algorithm (``core/algorithms.py``):
 the paper's proximal local SGD (``fedprox``, the default), SCAFFOLD's
@@ -126,6 +130,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec:
+        # the reference fails here too, at its first loss (ROADMAP Queue 3)
+        raise ValueError(
+            f"{cfg.name}: make_dataset_for yields token streams with no "
+            "src_embeds, which the encoder-decoder's loss reads")
     print(f"arch={cfg.name} family={cfg.family} mode={args.mode}")
 
     params = registry.init_params(torch.Generator().manual_seed(args.seed),

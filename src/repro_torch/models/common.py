@@ -15,20 +15,22 @@ from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(stddev: float = 0.02):
-    """N(0, stddev²), drawn from ``gen`` on the generator's device."""
+    """N(0, stddev²), drawn from ``gen`` on the generator's device (scaled
+    in place: a full-width weight is allocated once)."""
     def init(gen: torch.Generator, shape, dtype=torch.float32):
-        return (stddev * torch.randn(shape, generator=gen,
-                                     device=gen.device)).to(dtype)
+        return torch.randn(shape, generator=gen,
+                           device=gen.device).mul_(stddev).to(dtype)
     return init
 
 
 def fan_in_init():
-    """N(0, 1/fan_in) with fan_in = shape[-2] (shape[-1] for 1-D)."""
+    """N(0, 1/fan_in) with fan_in = shape[-2] (shape[-1] for 1-D), scaled
+    in place."""
     def init(gen: torch.Generator, shape, dtype=torch.float32):
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(fan_in)
-        return (std * torch.randn(shape, generator=gen,
-                                  device=gen.device)).to(dtype)
+        return torch.randn(shape, generator=gen,
+                           device=gen.device).mul_(std).to(dtype)
     return init
 
 

@@ -1,6 +1,7 @@
-"""Decoder-only LM for the dense / ssm / hybrid families: params, the
-scoring forward (``forward_hidden``, ``loss_fn``, ``logits_fn``), bucketed
-prefill and KV/SSM-cache decode (port of ``repro/models/lm.py``).
+"""Decoder-only LM for the dense / moe / ssm / hybrid / vlm families:
+params, the scoring forward (``forward_hidden``, ``loss_fn``,
+``logits_fn``), bucketed prefill and KV/SSM-cache decode (port of
+``repro/models/lm.py``).
 
 Params are a flat dict keyed by the reference checkpoint's paths
 (``embed``, ``layers/attn/wq``, ``layers/ssm/in_proj``, ``final_norm``
@@ -17,8 +18,14 @@ Decode positions are per-row ``(B,)`` int32 tensors (the reference
 decodes at one scalar position and ``vmap``s over the serving slots).
 Caches are updated in place and returned. The ring layout
 (``init_ring_cache``, ``to_ring_cache``) is decoded by
-``decode_step_grouped`` and ``decode_step_ring``. Not ported yet (ROADMAP
-Queue 1 item 11): the moe / vlm families.
+``decode_step_grouped`` and ``decode_step_ring``.
+
+The moe family's FFN is ``models/moe.py``: capacity routing in the
+scoring and training forward (mode "train"), dropless routing in prefill
+and decode, its switch-style aux loss summed over the layers into
+``loss_fn``'s loss. The vlm family prepends a prefix of patch embeddings
+(``prefix_embeds``) to the token embeddings and attends it causally, as
+the reference's forward does.
 """
 from __future__ import annotations
 
@@ -28,18 +35,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import chunked_lm_loss, normal_init, rms_norm
 from repro_torch.types import ModelConfig
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.family}: the port's LM covers {FAMILIES} so far "
-            "(moe / vlm: ROADMAP Queue 1 item 11)")
+        raise ValueError(f"{cfg.family}: not a decoder-only LM family "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -58,13 +65,18 @@ def param_shapes(cfg: ModelConfig) -> dict:
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     s = {"embed": (V, d), "final_norm": (d,), "layers/ln1": (L, d)}
     if cfg.family != "ssm":
-        H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         s.update({"layers/ln2": (L, d),
                   "layers/attn/wq": (L, d, H * hd),
                   "layers/attn/wk": (L, d, KV * hd),
                   "layers/attn/wv": (L, d, KV * hd),
-                  "layers/attn/wo": (L, H * hd, d),
-                  "layers/mlp/wg": (L, d, f), "layers/mlp/wi": (L, d, f),
+                  "layers/attn/wo": (L, H * hd, d)})
+    if cfg.family == "moe":
+        s.update({f"layers/moe/{k}": v for k, v in moe_mod.param_shapes(
+            d, cfg.d_ff, cfg.moe, L).items()})
+    elif cfg.family != "ssm":
+        f = cfg.d_ff
+        s.update({"layers/mlp/wg": (L, d, f), "layers/mlp/wi": (L, d, f),
                   "layers/mlp/wo": (L, f, d)})
     if cfg.family in ("ssm", "hybrid"):
         di, nh, conv_dim = ssm_mod.dims(d, cfg.ssm)
@@ -97,6 +109,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None,
     if cfg.family != "ssm":
         layers["ln2"] = zeros(L, d)
         layers["attn"] = attn_mod.init_attn_params(gen, cfg, L, dtype)
+    if cfg.family == "moe":
+        layers["moe"] = moe_mod.init_moe_params(gen, d, cfg.d_ff, cfg.moe, L,
+                                                dtype)
+    elif cfg.family != "ssm":
         layers["mlp"] = mlp_mod.init_mlp_params(gen, d, cfg.d_ff, L, dtype)
     if cfg.family in ("ssm", "hybrid"):
         layers["ssm"] = ssm_mod.init_ssm_params(gen, d, cfg.ssm, L, dtype)
@@ -115,12 +131,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None,
     return {k: v.to(device) for k, v in flat.items()}
 
 
-def layer_params(params: dict, i: int) -> dict:
+def layer_params(params: dict, i: int, stack: str = "layers") -> dict:
     """Layer ``i``'s params as the nested dict the layer body reads
-    (``{"ln1": ..., "attn": {"wq": ...}, ...}``), views into the stacks."""
+    (``{"ln1": ..., "attn": {"wq": ...}, ...}``), views into the stacks
+    keyed ``<stack>/...`` (the encoder-decoder's are ``enc_layers`` and
+    ``dec_layers``)."""
     out: dict = {}
     for k, v in params.items():
-        if not k.startswith("layers/"):
+        if not k.startswith(stack + "/"):
             continue
         parts = k.split("/")[1:]
         node = out
@@ -144,8 +162,10 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
            cache=None, pos=None, q_chunk: int = 1024, k_extent: int = 0,
            seq_lens=None, kernel: str = "eager",
            cache_slice_window: int = 0):
-    """One layer. mode: 'train' | 'prefill' | 'decode'. Returns (x,
-    new_cache); 'train' takes no cache and returns None for it.
+    """One layer. mode: 'train' | 'prefill' | 'decode'. Returns (x, aux,
+    new_cache): ``aux`` the MoE layer's load-balance loss (None for the
+    other families); 'train' takes no cache and returns None for it. The
+    MoE FFN routes with capacity in 'train' and dropless otherwise.
 
     ``seq_lens`` (B,) marks right-padded bucketed-prefill rows: attention
     needs no mask (pad keys sit at positions the causal mask already
@@ -191,11 +211,12 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
             q_chunk=q_chunk, cache_slice_window=cache_slice_window,
             k_extent=k_extent, kernel=kern)
 
+    aux = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, (st, cs) = run_ssm(h)
-        return x + out, None if train else {"ssm_state": st,
-                                            "conv_state": cs}
+        return x + out, aux, None if train else {"ssm_state": st,
+                                                 "conv_state": cs}
 
     if cfg.family == "hybrid":
         a, ac = run_attn(h)
@@ -209,7 +230,12 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
         a, new_cache = run_attn(h)
         x = x + a
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act), new_cache
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg.moe, cfg.act,
+                                     dropless=not train)
+    else:
+        y = mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
+    return x + y, aux, new_cache
 
 
 def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
@@ -250,12 +276,14 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     each a layer; they have no backward, so that path scores under
     ``torch.no_grad()``. ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``) when autograd records. Sequence
-    parallelism (``act_pspec``) and MoE routing (``moe_ctx``) are not
-    ported (ROADMAP Queue 1 items 11 and 13).
+    parallelism (``act_pspec``) and the sharded MoE dispatch
+    (``moe_ctx``) are not ported: they need a device mesh (ROADMAP Queue
+    1 item 13). The MoE layers' aux losses are summed in layer order into
+    ``aux_loss`` (an f32 zero for the other families).
     """
     if act_pspec is not None or moe_ctx is not None:
-        raise NotImplementedError("act_pspec / moe_ctx are not ported yet "
-                                  "(ROADMAP Queue 1 items 11 and 13)")
+        raise NotImplementedError("act_pspec / moe_ctx need a device mesh, "
+                                  "not ported yet (ROADMAP Queue 1 item 13)")
     _check_family(cfg)
     attn_mod.check_kernel(kernel)
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
@@ -264,14 +292,17 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     def body(x, lp, window):
         return _layer(cfg, lp, x, window, positions, "train",
-                      q_chunk=q_chunk, kernel=kernel)[0]
+                      q_chunk=q_chunk, kernel=kernel)[:2]
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         lp, window = layer_params(params, i), cfg.window_for_layer(i)
-        x = (checkpoint(body, x, lp, window, use_reentrant=False) if remat
-             else body(x, lp, window))
+        x, a = (checkpoint(body, x, lp, window, use_reentrant=False) if remat
+                else body(x, lp, window))
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
@@ -478,9 +509,9 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
             if has_ssm:
                 cl["ssm_state"] = cache["ssm_state"][i]
                 cl["conv_state"] = cache["conv_state"][i]
-            x, nc = _layer(cfg, layer_params(params, i), x, win, positions,
-                           "decode", cache=cl, pos=pos, q_chunk=1,
-                           k_extent=ext, kernel=decode_kernel)
+            x, _, nc = _layer(cfg, layer_params(params, i), x, win,
+                              positions, "decode", cache=cl, pos=pos,
+                              q_chunk=1, k_extent=ext, kernel=decode_kernel)
             for key, val in nc.items():
                 _store(cache, key, j if key in keys else i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -509,9 +540,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.num_layers):
         cl = {key: val[i] for key, val in cache.items()}
-        x, nc = _layer(cfg, layer_params(params, i), x,
-                       cfg.window_for_layer(i), positions, "prefill",
-                       cache=cl, q_chunk=q_chunk, seq_lens=seq_lens)
+        x, _, nc = _layer(cfg, layer_params(params, i), x,
+                          cfg.window_for_layer(i), positions, "prefill",
+                          cache=cl, q_chunk=q_chunk, seq_lens=seq_lens)
         for key, val in nc.items():
             _store(cache, key, i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -544,9 +575,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
         cl = {key: val[i] for key, val in cache.items()}
         w = cfg.window_for_layer(i)
         csw = w if (unroll and window_slice and w > 0) else 0
-        x, nc = _layer(cfg, layer_params(params, i), x, w, positions,
-                       "decode", cache=cl, pos=pos, q_chunk=1,
-                       kernel=decode_kernel, cache_slice_window=csw)
+        x, _, nc = _layer(cfg, layer_params(params, i), x, w, positions,
+                          "decode", cache=cl, pos=pos, q_chunk=1,
+                          kernel=decode_kernel, cache_slice_window=csw)
         for key, val in nc.items():
             _store(cache, key, i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

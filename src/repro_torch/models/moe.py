@@ -1,0 +1,153 @@
+"""Token-choice top-k MoE with capacity (port of ``repro/models/moe.py``).
+
+The local dispatch: each token's k expert picks get a slot in an
+(E, C, d) buffer, in token-major order; a pick past an expert's capacity
+C goes to a drop bin (row E·C of the flat buffer), which is sliced off and
+never read. The three expert products are batched over E (plain matrix
+products, outside any kernel); the combine gathers each pick's output back,
+zeroes the dropped ones and sums the k picks with their renormalised
+router weights.
+
+The reference's distributed path (``moe_ctx``: the dispatch and combine
+inside ``shard_map`` over the data axes) needs a device mesh, which is
+ROADMAP Queue 1 item 13; given a ``moe_ctx``, ``moe_forward`` raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import activation, fan_in_init
+from repro_torch.types import MoEConfig
+
+
+def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
+                    moe: MoEConfig, num_layers: int,
+                    dtype=torch.float32) -> dict:
+    init = fan_in_init()
+    L, E = num_layers, moe.num_experts
+    p = {
+        "router": init(gen, (L, d_model, E), dtype),
+        "wg": init(gen, (L, E, d_model, d_ff), dtype),
+        "wi": init(gen, (L, E, d_model, d_ff), dtype),
+        "wo": init(gen, (L, E, d_ff, d_model), dtype),
+    }
+    if moe.shared_expert:
+        p["shared_wg"] = init(gen, (L, d_model, d_ff), dtype)
+        p["shared_wi"] = init(gen, (L, d_model, d_ff), dtype)
+        p["shared_wo"] = init(gen, (L, d_ff, d_model), dtype)
+    return p
+
+
+def param_shapes(d_model: int, d_ff: int, moe: MoEConfig,
+                 num_layers: int) -> dict:
+    """The MoE block's keys (under ``layers/moe/``) and shapes."""
+    L, E, d, f = num_layers, moe.num_experts, d_model, d_ff
+    s = {"router": (L, d, E), "wg": (L, E, d, f), "wi": (L, E, d, f),
+         "wo": (L, E, f, d)}
+    if moe.shared_expert:
+        s.update({"shared_wg": (L, d, f), "shared_wi": (L, d, f),
+                  "shared_wo": (L, f, d)})
+    return s
+
+
+def capacity(num_tokens: int, moe: MoEConfig) -> int:
+    return int(math.ceil(num_tokens / moe.num_experts
+                         * moe.capacity_factor * moe.top_k))
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, in descending
+    order, the lower index first among equal values (a stable sort;
+    ``torch.topk`` promises no order on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(router_w, xt, moe: MoEConfig, C: int):
+    """Local routing of xt (T, d). Returns (weights (T, k) f32, slot
+    (T·k,), keep (T·k,), frac (E,), mean_p (E,), expert_idx (T, k)).
+
+    The router logits are computed in x's dtype and the softmax in f32.
+    Pick j of token t (flat index t·k + j, token-major) takes the next
+    free position of its expert; ``keep`` is that position < C, and a
+    kept pick's slot is expert·C + position, a dropped one's the drop bin
+    E·C. ``frac`` counts the top-1 picks only (the switch-style aux)."""
+    E, k = moe.num_experts, moe.top_k
+    T = xt.shape[0]
+    logits = torch.matmul(xt, router_w.to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, expert_idx = top_k(probs, k)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    e_flat = expert_idx.reshape(T * k)
+    onehot = F.one_hot(e_flat, E)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1
+    keep = pos < C
+    slot = torch.where(keep, e_flat * C + torch.clamp(pos, max=C - 1),
+                       E * C)
+    frac = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
+    mean_p = probs.mean(dim=0)
+    return weights, slot, keep, frac, mean_p, expert_idx
+
+
+def dispatch(x_rep: torch.Tensor, slot: torch.Tensor, E: int,
+             C: int) -> torch.Tensor:
+    """(T·k, d) token copies -> (E, C, d). Only dropped picks share an
+    index (the drop bin, row E·C), which is sliced off: the rows kept are
+    each written once, so the scatter is deterministic where it is read."""
+    d = x_rep.shape[-1]
+    buf = x_rep.new_zeros((E * C + 1, d)).index_put((slot,), x_rep)
+    return buf[:E * C].reshape(E, C, d)
+
+
+def combine(out_e, slot, keep, weights, T: int, k: int) -> torch.Tensor:
+    d = out_e.shape[-1]
+    out_pad = torch.cat([out_e.reshape(-1, d), out_e.new_zeros((1, d))])
+    g = out_pad[slot] * keep[:, None].to(out_e.dtype)
+    return torch.sum(g.reshape(T, k, d)
+                     * weights.reshape(T, k, 1).to(out_e.dtype), dim=1)
+
+
+def expert_ffn(p: dict, eb: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated FFN of every expert on its (C, d) rows: three (E, ·, ·)
+    batched products."""
+    dt = eb.dtype
+    g = torch.bmm(eb, p["wg"].to(dt))
+    h = torch.bmm(eb, p["wi"].to(dt))
+    return torch.bmm(activation(act)(g) * h, p["wo"].to(dt))
+
+
+def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
+                moe_ctx=None, dropless: bool = False):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
+
+    ``dropless=True`` (prefill and decode) sizes the capacity at C = T:
+    top-k picks distinct experts, so no expert gets more than T picks and
+    no token is dropped. Each token's output then depends on its own
+    router logits only, so a batched or padded prefill gives every token
+    what it gets alone. Training and scoring (``dropless=False``) drop
+    picks past C = ceil(T / E · capacity_factor · k).
+    """
+    if moe_ctx is not None:
+        raise NotImplementedError(
+            "moe_ctx (the sharded MoE dispatch) needs a device mesh: "
+            "ROADMAP Queue 1 item 13")
+    B, S, d = x.shape
+    T = B * S
+    E, k = moe.num_experts, moe.top_k
+    xt = x.reshape(T, d)
+    C = T if dropless else capacity(T, moe)
+    weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
+    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
+    out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+    out = out.reshape(B, S, d)
+    if moe.shared_expert:
+        dt = x.dtype
+        g = torch.matmul(x, p["shared_wg"].to(dt))
+        h = torch.matmul(x, p["shared_wi"].to(dt))
+        out = out + torch.matmul(activation(act)(g) * h,
+                                 p["shared_wo"].to(dt))
+    aux = E * torch.sum(frac * mean_p) * moe.router_aux_weight
+    return out, aux

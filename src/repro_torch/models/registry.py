@@ -1,5 +1,6 @@
 """Family dispatch (port of ``repro/models/registry.py``): the resnet3d
-branch and the LM branch (dense / ssm / hybrid).
+branch, the decoder-only LM branch (dense / moe / ssm / hybrid / vlm) and
+the encoder-decoder branch (encdec / audio).
 
     init_params(gen, cfg, device, dtype) -> flat param dict
     loss_fn(params, cfg, batch, **kw)    -> (loss, metrics)
@@ -7,12 +8,10 @@ branch and the LM branch (dense / ssm / hybrid).
                                             (B, classes)
     logit_width(cfg)                     -> KD compatibility width
     init_cache / init_ring_cache / prefill / decode_step /
-    decode_step_grouped                  -> LM serving
+    decode_step_grouped                  -> serving
     batch_spec(cfg, shape)               -> meta tensors of a batch
     decode_spec(cfg, shape)              -> meta (token, cache, pos)
     synth_batch(rng, cfg, shape)         -> a random batch (numpy draws)
-
-The moe, encdec, vlm and audio families are ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -20,46 +19,51 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, resnet3d
+from repro_torch.models import encdec, lm, resnet3d
 from repro_torch.types import ModelConfig, ShapeConfig
 
-LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-ENCDEC_FAMILIES = ("encdec", "audio")    # the reference's; not ported
+LM_FAMILIES = lm.FAMILIES
+ENCDEC_FAMILIES = ("encdec", "audio")
 
-
-def _unported(cfg: ModelConfig, what: str):
-    return NotImplementedError(
-        f"{cfg.family}: {what} is not ported yet (ROADMAP Queue 1 item 11)")
-
-
-def _lm(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in lm.FAMILIES:
-        raise _unported(cfg, what)
+# Decoder-side target length of the encoder-decoder's serving shapes: a
+# shape's seq_len measures the source; the decoder cache is bounded
+# separately.
+ENCDEC_TGT_LEN = 1024
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device,
                 dtype=torch.float32) -> dict:
+    if cfg.family in LM_FAMILIES:
+        return lm.init_params(gen, cfg, device, dtype)
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.init_params(gen, cfg, device, dtype)
     if cfg.family == "resnet3d":
         return resnet3d.init_params(gen, cfg, device, dtype)
-    _lm(cfg, "init_params")
-    return lm.init_params(gen, cfg, device, dtype)
+    raise ValueError(cfg.family)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    """LM: next-token CE of ``batch`` (tokens, labels); ``kernel="cuda"``
-    scores through the hand-written kernels."""
+    """LM: next-token CE of ``batch`` (tokens, labels; the MoE aux loss
+    added); ``kernel="cuda"`` scores the decoder-only families through the
+    hand-written kernels."""
+    if cfg.family in LM_FAMILIES:
+        return lm.loss_fn(params, cfg, batch, **kw)
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.loss_fn(params, cfg, batch, **kw)
     if cfg.family == "resnet3d":
         return resnet3d.loss_fn(params, cfg, batch, **kw)
-    _lm(cfg, "loss_fn")
-    return lm.loss_fn(params, cfg, batch, **kw)
+    raise ValueError(cfg.family)
 
 
 def logits_fn(params, cfg: ModelConfig, batch: dict, **kw):
+    if cfg.family in LM_FAMILIES:
+        return lm.logits_fn(params, cfg, batch["tokens"],
+                            batch.get("prefix_embeds"), **kw)
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.logits_fn(params, cfg, batch, **kw)
     if cfg.family == "resnet3d":
         return resnet3d.logits_fn(params, cfg, batch, **kw)
-    _lm(cfg, "logits_fn")
-    return lm.logits_fn(params, cfg, batch["tokens"],
-                        batch.get("prefix_embeds"), **kw)
+    raise ValueError(cfg.family)
 
 
 def logit_width(cfg: ModelConfig) -> int:
@@ -70,10 +74,14 @@ def logit_width(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    if cfg.family == "resnet3d":
-        raise ValueError(f"{cfg.family}: no autoregressive cache")
-    _lm(cfg, "init_cache")
-    return lm.init_cache(cfg, batch, seq_len, dtype, device)
+    """LM: a uniform cache of ``seq_len`` positions; encoder-decoder: a
+    source of ``seq_len`` frames and ``ENCDEC_TGT_LEN`` target positions."""
+    if cfg.family in LM_FAMILIES:
+        return lm.init_cache(cfg, batch, seq_len, dtype, device)
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.init_cache(cfg, batch, seq_len, ENCDEC_TGT_LEN, dtype,
+                                 device)
+    raise ValueError(f"{cfg.family}: no autoregressive cache")
 
 
 def init_ring_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -82,19 +90,29 @@ def init_ring_cache(cfg: ModelConfig, batch: int, seq_len: int,
     ``seq_len`` buffers for full-attention layers (LM families only)."""
     if cfg.family not in LM_FAMILIES:
         raise ValueError(f"{cfg.family}: no ring decode cache")
-    _lm(cfg, "init_ring_cache")
     return lm.init_ring_cache(cfg, batch, seq_len, dtype, device)
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache, **kw):
-    _lm(cfg, "prefill")
-    return lm.prefill(params, cfg, batch["tokens"], cache,
-                      batch.get("prefix_embeds"), **kw)
+    """LM: (last logits, cache); encoder-decoder: the cache with the
+    source's cross-attention K/V (bucketed ``lengths=`` is LM-only)."""
+    if cfg.family in LM_FAMILIES:
+        return lm.prefill(params, cfg, batch["tokens"], cache,
+                          batch.get("prefix_embeds"), **kw)
+    if cfg.family in ENCDEC_FAMILIES:
+        if kw.pop("lengths", None) is not None:
+            raise ValueError(
+                f"{cfg.family}: bucketed prefill (lengths=) is LM-only")
+        return encdec.prefill(params, cfg, batch["src_embeds"], cache, **kw)
+    raise ValueError(cfg.family)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, **kw):
-    _lm(cfg, "decode_step")
-    return lm.decode_step(params, cfg, token, cache, pos, **kw)
+    if cfg.family in LM_FAMILIES:
+        return lm.decode_step(params, cfg, token, cache, pos, **kw)
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.decode_step(params, cfg, token, cache, pos, **kw)
+    raise ValueError(cfg.family)
 
 
 def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos, **kw):
@@ -102,7 +120,6 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos, **kw):
     K-extent full-attention layers attend against."""
     if cfg.family not in LM_FAMILIES:
         raise ValueError(f"{cfg.family}: no grouped ring decode")
-    _lm(cfg, "decode_step_grouped")
     return lm.decode_step_grouped(params, cfg, token, cache, pos, **kw)
 
 
@@ -125,7 +142,11 @@ def batch_spec(cfg: ModelConfig, shape: ShapeConfig,
         return {"clips": _spec(resnet3d.input_shape(cfg, B), act_dtype),
                 "labels": _spec((B,), torch.int32)}
     if cfg.family in ENCDEC_FAMILIES:
-        raise _unported(cfg, "batch_spec")
+        tgt = S // 2 if shape.kind == "train" else ENCDEC_TGT_LEN
+        src = S - tgt if shape.kind == "train" else S
+        return {"src_embeds": _spec((B, src, cfg.d_model), act_dtype),
+                "tokens": _spec((B, tgt), torch.int32),
+                "labels": _spec((B, tgt), torch.int32)}
     spec = {}
     text = S
     if cfg.prefix_len:

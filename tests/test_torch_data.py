@@ -16,7 +16,10 @@ import repro_torch.types as ttypes
 
 
 @pytest.mark.parametrize("name", ["resnet3d-18", "resnet3d-26",
-                                  "resnet3d-34"])
+                                  "resnet3d-34", "llama4-scout-17b-a16e",
+                                  "grok-1-314b", "seamless-m4t-large-v2",
+                                  "internlm2-20b", "minitron-4b",
+                                  "h2o-danube-3-4b", "paligemma-3b"])
 def test_configs_equal(name):
     a, b = jcfg.get_config(name), tcfg.get_config(name)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)

@@ -89,11 +89,14 @@ def test_shape_supported_equal():
 
 
 def test_unported_archs_still_raise_naming_the_item():
-    unported = [a for a in tcfg.list_archs() if a not in LM_ARCHS]
-    assert len(unported) == 7
-    for arch in unported:
-        with pytest.raises(KeyError, match="item 11"):
-            tcfg.get_config(arch)
+    """Every assigned arch is ported now: each resolves to the reference's
+    config, and a name the registry does not know raises, listing the
+    known ones."""
+    for arch in tcfg.list_archs():
+        assert dataclasses.asdict(tcfg.get_config(arch)) == \
+            dataclasses.asdict(jcfg.get_config(arch))
+    with pytest.raises(KeyError, match="known"):
+        tcfg.get_config("llama4-maverick")
 
 
 @pytest.mark.parametrize("arch,reduced", [("hymba-1.5b", False),
@@ -149,9 +152,16 @@ def test_synth_batch_byte_identical(arch, reduced):
 
 
 def test_encdec_spec_raises_naming_the_item():
+    """The encoder-decoder's specs are ported: a source of S - S // 2
+    frames and S // 2 target tokens for training, as the reference's
+    (tests/test_torch_encdec.py holds the rest)."""
     cfg = dataclasses.replace(tcfg.get_config("gemma3-12b"), family="encdec")
-    s = ttypes.ShapeConfig("s", seq_len=8, global_batch=1, kind="train")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        treg.batch_spec(cfg, s)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        treg.synth_batch(np.random.default_rng(0), cfg, s, device="cpu")
+    jc = dataclasses.replace(jcfg.get_config("gemma3-12b"), family="encdec")
+    s = ttypes.ShapeConfig("s", seq_len=9, global_batch=1, kind="train")
+    js = jtypes.ShapeConfig("s", seq_len=9, global_batch=1, kind="train")
+    got, want = treg.batch_spec(cfg, s), jreg.batch_spec(jc, js)
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+    assert tuple(got["src_embeds"].shape) == (1, 5, cfg.d_model)
+    b = treg.synth_batch(np.random.default_rng(0), cfg, s, device="cpu")
+    assert b["tokens"].shape == (1, 4)

@@ -142,6 +142,11 @@ def test_scoring_forward_options_and_refusals(rng):
     # the scoring kernels have no backward
     with pytest.raises(ValueError, match="no backward"):
         tlm.forward_hidden(grad_params, tc, toks, kernel="cuda")
-    moe = dataclasses.replace(tc, family="moe", moe=MoEConfig(num_experts=4))
+    # a MoE config scores (tests/test_torch_lm_families.py), but not with
+    # the sharded dispatch, which needs a mesh
+    moe = dataclasses.replace(tc, family="moe", ssm=None,
+                              moe=MoEConfig(num_experts=4))
+    moe_params = treg.init_params(torch.Generator(), moe, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.loss_fn(tp, moe, {"tokens": toks, "labels": toks})
+        treg.loss_fn(moe_params, moe, {"tokens": toks, "labels": toks},
+                     moe_ctx={})

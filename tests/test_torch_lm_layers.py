@@ -292,12 +292,21 @@ def test_ssm_decode_step_matches(rng):
 
 
 def test_unported_families_raise():
+    """The moe and encdec families are ported; what stays unported is the
+    sharded MoE dispatch (``moe_ctx``, ROADMAP Queue 1 item 13), and the
+    encoder-decoder has no ring cache, as in the reference."""
     from repro_torch.types import MoEConfig
     base = tcfg.get_config("hymba-1.5b").reduced()
-    for cfg in (dataclasses.replace(base, family="moe",
-                                    moe=MoEConfig(num_experts=4)),
-                dataclasses.replace(base, family="encdec")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tregistry.init_params(torch.Generator(), cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tregistry.init_cache(cfg, 1, 8, device="cpu")
+    moe = dataclasses.replace(base, family="moe", ssm=None,
+                              moe=MoEConfig(num_experts=4))
+    params = tregistry.init_params(torch.Generator(), moe, "cpu")
+    assert params["layers/moe/wg"].shape == (2, 4, moe.d_model, moe.d_ff)
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tregistry.loss_fn(params, moe, {"tokens": toks, "labels": toks},
+                          moe_ctx={})
+    encdec = dataclasses.replace(base, family="encdec", ssm=None)
+    assert set(tregistry.init_cache(encdec, 1, 8, device="cpu")) == \
+        {"enc_k", "enc_v", "k", "v"}
+    with pytest.raises(ValueError, match="ring"):
+        tregistry.init_ring_cache(encdec, 1, 8, device="cpu")
