@@ -57,6 +57,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    algorithms (``captured``); then fresh engines report one program and
    one capture per round shape over three H^k draws, and replay under
    ``torch.cuda.set_sync_debug_mode("error")`` (``engines``);
+6a. the sharded and hierarchical sync rounds (``multi_device``) in a
+   world of one over NCCL at the main path's full width: shard and hier
+   against scan (an even and a ragged round with a zero-weight client)
+   in ``_Exact``, one capture per round shape, replays with host syncs
+   made errors, each replay's wall and device ms; ``run_sync`` on both
+   with FedProx and SCAFFOLD (clocks equal); ``launch.train --mode sync
+   --engine hier --distill-first`` traced (16 launches of each KD
+   kernel, counted and on the card);
 6b. the federated-algorithm layer at the main path's full width
    (``algorithms``): ``run_async`` with SCAFFOLD, LowRankSubmodel and
    FedProx at ``compress_bits`` 8 and 4, ``run_sync`` with SCAFFOLD and
@@ -1236,6 +1244,151 @@ def phase_engines() -> None:
         "replayed_without_host_sync": list(calls),
         "main_path_engines": {name: [e.num_compiled, e._graphs.num_captured]
                               for name, e in main.items()}}))
+
+
+MULTI_COUNTS = (3, 1, 2, 3)     # the ragged round's H^k
+MULTI_SIZES = (32, 8, 16, 0)    # its data sizes: client 3 of zero weight
+
+
+def phase_multi_device(kernels: list) -> None:
+    """The sharded and hierarchical sync rounds on the card, a world of
+    one over NCCL (``launch.mesh.make_fleet_mesh``: the ``("clients",)``
+    mesh and the (1, 1) ``("edge", "clients")`` tree), at the main path's
+    full width (ResNet3D-18, 400 classes, 4 clients x 3 steps, batch 4,
+    4x16x16 clips), in an ``_Exact`` block: (a) fresh shard, hier and scan
+    round engines, an even round and a ragged H^k round with a
+    zero-weight client, three calls each (eager, capture, replay), params
+    and losses against scan's first call within ``ENGINE_TOL``; each
+    engine's replay timed (wall ms, 3 x 5 calls in turns, their spread)
+    and traced (device ms); (b) program shapes and captures, and a replay
+    of each under ``torch.cuda.set_sync_debug_mode("error")``; (c)
+    ``run_sync`` on shard and hier against scan, 2 rounds, FedProx and
+    SCAFFOLD: clocks equal, params within ``ENGINE_TOL``; (d)
+    ``launch.train --mode sync --engine hier --distill-first`` at full
+    width, traced: kernels 1 and 1b counted on the host and run on the
+    card 16 times each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import fed_engine, fedavg, simulator
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.launch.mesh import destroy_world, make_fleet_mesh
+    from repro_torch.models import registry
+    from repro_torch.types import FedConfig
+    t_phase = time.perf_counter()
+    fed = FedConfig()
+    meshes = {"shard": make_fleet_mesh(device="cuda"),
+              "hier": make_fleet_mesh(edges=0, device="cuda")}
+    student = registry.init_params(torch.Generator().manual_seed(3),
+                                   RESNET18, "cuda")
+    ds = make_dataset_for(RESNET18, small=True, seed=0)
+    H = fed.local_iters_max
+    rounds = {"even": ([H] * 4, None), "ragged": (MULTI_COUNTS, MULTI_SIZES)}
+    data = {name: [list(ds.batches(4, h, seed=30 + c))
+                   for c, h in enumerate(counts)]
+            for name, (counts, _) in rounds.items()}
+    with _Exact():
+        engines = {"scan": fed_engine.SyncRound(RESNET18, fed)}
+        engines.update({name: fed_engine.ShardedSyncRound(RESNET18, fed, m)
+                        for name, m in meshes.items()})
+
+        def call(engine, name):
+            return lambda: fedavg.fedavg_round(
+                student, [iter(b) for b in data[name]], RESNET18, fed,
+                engine=engines[engine], data_sizes=rounds[name][1])
+        want = {name: call("scan", name)() for name in rounds}
+        errs = {}
+        for engine in engines:
+            for name in rounds:
+                for _ in range(3):         # eager, capture, replay
+                    got, losses = call(engine, name)()
+                    flat = np.concatenate(losses)
+                    ref = np.concatenate(want[name][1])
+                    err = max(_rel_err(got, want[name][0]), float(
+                        np.max(np.abs(flat - ref) / (1 + np.abs(ref)))))
+                    errs[f"{engine}_{name}"] = max(
+                        errs.get(f"{engine}_{name}", 0.0), err)
+        if max(errs.values()) > ENGINE_TOL:
+            raise AssertionError(f"shard / hier vs scan: {errs}")
+        counts = {e: [r.num_compiled, r._graphs.num_captured]
+                  for e, r in engines.items()}
+        want_counts = {e: [2, 2] for e in engines}
+        if counts != want_counts:
+            raise AssertionError(f"[program shapes, captures]: {counts}, "
+                                 f"expected {want_counts}")
+        stacked, iters = fed_engine.pad_client_batches(
+            [stack_batches(b) for b in data["ragged"]])
+        weights = np.asarray(MULTI_SIZES, np.float32) / np.float32(
+            sum(MULTI_SIZES))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for e in ("shard", "hier"):
+                engines[e](student, stacked, weights=weights, iters=iters)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if {e: [r.num_compiled, r._graphs.num_captured]
+                for e, r in engines.items()} != want_counts:
+            raise AssertionError("a replay captured anew")
+        walls = {e: [] for e in engines}
+        for e in ("scan", "shard", "hier", "hier", "shard", "scan"):
+            walls[e].append(_wall_ms(call(e, "even")))
+        timing = {e: {"wall_ms": float(np.median(w)),
+                      "wall_ms_spread": max(w) - min(w),
+                      "profile": _profile(call(e, "even"), 3)}
+                  for e, w in walls.items()}
+
+        sync = {}
+        fed8 = FedConfig(global_epochs=8)
+        for alg in (None, "scaffold"):
+            out = {e: simulator.run_sync(student, RESNET18, fed8,
+                                         _jetson_fleet(RESNET18, fed8, 4),
+                                         engine=e, algorithm=alg,
+                                         device="cuda")
+                   for e in ("scan", "shard", "hier")}
+            name = alg or "fedprox"
+            for e in ("shard", "hier"):
+                err = _rel_err(out[e].params, out["scan"].params)
+                if (out[e].wall_clock_s != out["scan"].wall_clock_s
+                        or err > ENGINE_TOL):
+                    raise AssertionError(
+                        f"run_sync {e} {name}: clock {out[e].wall_clock_s} "
+                        f"vs {out['scan'].wall_clock_s}, params {err}")
+                sync[f"{e}_{name}"] = {"virtual_wall_s": out[e].wall_clock_s,
+                                       "rounds": len(out[e].history),
+                                       "param_rel_err_vs_scan": err}
+
+    argv = ["--mode", "sync", "--engine", "hier", "--distill-first",
+            "--epochs", "8", "--device", "cuda"]
+    _zero_kd_launches()
+    res, ran = _traced_kd(lambda: _train(argv))
+    host = _kd_launches()
+    _expect_launches("train --engine hier, counted", host, 16)
+    _expect_launches("train --engine hier, on the card", ran, 16)
+    if not math.isfinite(res["final_loss"]):
+        raise AssertionError(f"train --engine hier: {res}")
+    for k in kernels:
+        if k["name"] in ran:
+            k["launches_by_path"]["train_sync_hier_distill_first"] = {
+                "host": host[k["name"]], "card": ran[k["name"]]}
+    print(json.dumps({
+        "phase": "multi_device", "card": _card_line(),
+        "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+        "meshes": {e: [list(m.mesh_dim_names), list(m.shape)]
+                   for e, m in meshes.items()},
+        "graph_design": ("one graph a round shape, collectives inside"
+                         if counts["shard"][1] == counts["shard"][0]
+                         else "split around the collectives"),
+        "tol": ENGINE_TOL, "max_rel_err_vs_scan": errs,
+        "program_shapes_and_captures": counts,
+        "replayed_without_host_sync": ["shard", "hier"],
+        "round_4x3": timing, "run_sync": sync,
+        "train_hier_distill_first": res, "kd_host_launches": host,
+        "kd_kernels_ran_on_card": ran,
+        "seconds": time.perf_counter() - t_phase}))
+    destroy_world()          # the group and the sharded engines on it
 
 
 # the algorithm layer's runs at full width: (mode, algorithm, compress_bits)
@@ -3992,6 +4145,7 @@ def main(argv=None) -> int:
     phase_step_times()
     phase_captured(kernels)
     phase_engines()
+    phase_multi_device(kernels)
     phase_algorithms()
     phase_codistill(kernels)
     phase_population()

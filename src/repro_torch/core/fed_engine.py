@@ -40,8 +40,11 @@ exactly as before the layer. A stateful algorithm (``Scaffold``,
 returns ``(w_new, new_state, msg, losses)`` from a client call and
 ``(new_global, new_server_ctx, new_states, losses)`` from a round; its
 states and server context are graph inputs, so one graph per round shape
-serves every client and round. The sharded and hierarchical rounds are
-ROADMAP Queue 1 item 13. The loop stays as the parity oracle.
+serves every client and round. ``ShardedSyncRound`` splits the padded
+round's client axis over the ranks of a ``DeviceMesh``
+(``make_sharded_sync_round``; ``make_hierarchical_sync_round`` on the
+two-level edge / clients mesh) and reduces with ``torch.distributed``
+collectives. The loop stays as the parity oracle.
 """
 from __future__ import annotations
 
@@ -563,26 +566,196 @@ def make_sync_round(cfg: ModelConfig, fed: FedConfig, loss_kwargs=None,
         lambda: SyncRound(cfg, fed, loss_kwargs, algorithm=algorithm))
 
 
-def _multi_device(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the sharded and hierarchical rounds are ROADMAP Queue 1 "
-        "item 13")
-
-
 class ShardedSyncRound(SyncRound):
-    """The sync round with its client axis split over devices: ROADMAP
-    Queue 1 item 13."""
+    """The padded sync round with its client axis split over the ranks of
+    a ``DeviceMesh`` (``launch.mesh.make_fleet_mesh``; the split in
+    ``sharding.specs.fed_round_specs``), the reference's ``shard_map``
+    round.
 
-    def __init__(self, *args, **kwargs):
-        raise _multi_device("ShardedSyncRound")
+    Each rank runs its block of the clients (``sharding.shard_index``:
+    block e·C + c on the ``("edge", "clients")`` mesh) through the
+    client engine, forms its weight-scaled f32 partial of the new global
+    and all-reduces it level by level, innermost first: on a 1-D mesh one
+    ``all_reduce``; on the two-level mesh the *hierarchical
+    edge-aggregator tree*, clients to their edge aggregator, then edges
+    to the server. Every weight-scaled client model is added exactly once
+    either way, so the nested sum is the flat weighted average,
+    Σ_e Σ_{k∈e} w_k·θ_k = Σ_k w_k·θ_k: bit for bit in a world of one,
+    within a few ulps of the summation order under real sharding. The
+    partials are one f32 buffer, so a level costs one collective. When n
+    clients do not divide over the shards, zero-weight, zero-iteration
+    dummies pad the axis and their losses and states are sliced off. As
+    in ``SyncRound``, a round whose clients all run their whole stack and
+    need no dummies runs unmasked, a ragged or padded one masked: two
+    round shapes.
+
+    Every rank returns what the reference's ``out_specs`` give: the
+    replicated new global (and server context) and the full (n, H) losses
+    and n new states, gathered over the mesh (``gather_levels``). A
+    stateful algorithm's ``reduce_prepare`` runs on the rank's own
+    clients (it is elementwise on the client axis), then the nested sums
+    of the partial and of the msgs' weighted sum, then ``reduce_finish``.
+
+    On the card a round shape is one CUDA graph a rank (``GraphCache``)
+    with its collectives inside: NCCL records them on the capture stream,
+    and the shape's first, eager call has made the communicator the
+    capture needs. The mesh's CUDA backend must be NCCL (``init_world``
+    checks it). LowRank keeps its split round (``_split_round``): the
+    client half, the eager SVD, then the fold with the collectives. On
+    the CPU (gloo) the round runs eagerly, as every CPU round does.
+    """
+
+    def __init__(self, cfg: ModelConfig, fed: FedConfig, mesh,
+                 loss_kwargs=None, algorithm=None):
+        from repro_torch import sharding
+        super().__init__(cfg, fed, loss_kwargs, algorithm=algorithm)
+        self.mesh = mesh
+        self._shard, self._n_shards = sharding.shard_index(mesh)
+
+    def _finish(self, w_eff, params_global, weights, msgs, server_ctx,
+                new_states, losses):
+        """The shard's server half: its weight-scaled f32 partials (of the
+        params and the msgs), the level-by-level sums, the cast back,
+        ``reduce_finish``, and the per-client outputs gathered."""
+        from repro_torch import sharding
+        weights = torch.as_tensor(weights,
+                                  device=params_device(params_global))
+        with torch.no_grad():
+            partial = {k: torch.einsum("c,c...->...", weights,
+                                       w_eff[k].float())
+                       for k in params_global}
+            if self.algorithm.stateful:
+                msgs = algorithms.weighted_state_sum(msgs, weights)
+            partial, msg_sum = sharding.psum_levels((partial, msgs),
+                                                    self.mesh)
+            avg = {k: partial[k].to(p.dtype)
+                   for k, p in params_global.items()}
+            new_states, losses = sharding.gather_levels((new_states, losses),
+                                                        self.mesh)
+            if not self.algorithm.stateful:
+                return avg, losses
+            new_global, new_ctx = self.algorithm.reduce_finish(
+                avg, msg_sum, server_ctx, params_global)
+            return new_global, new_ctx, new_states, losses
+
+    def _shard_round(self, params_global, stacked, weights, iters, mask,
+                     server_ctx=(), states=()):
+        out = self.client._clients(params_global, stacked, mask, iters,
+                                   server_ctx, states)
+        if not self.algorithm.stateful:
+            w_news, losses = out
+            return self._finish(w_news, params_global, weights, (), (), (),
+                                losses)
+        w_news, new_states, msgs, losses = out
+        with torch.no_grad():
+            w_eff = self.algorithm.reduce_prepare(w_news, params_global,
+                                                  new_states, server_ctx)
+        return self._finish(w_eff, params_global, weights, msgs, server_ctx,
+                            new_states, losses)
+
+    def _split_round(self, params_global, stacked, weights, mask, iters,
+                     server_ctx, states):
+        w_news, new_states, msgs, losses = self.client_half(
+            params_global, stacked, mask, iters, server_ctx, states)
+        with torch.no_grad():
+            w_eff = self.algorithm.reduce_prepare(w_news, params_global,
+                                                  new_states, server_ctx)
+        return self._graphs.call(
+            "fold", self._finish, (w_eff, params_global, weights, msgs,
+                                   server_ctx, new_states, losses))
+
+    def __call__(self, params_global, client_stacks, weights=None,
+                 mask=None, iters=None, donate=None,
+                 donate_params: bool = False, server_ctx=None, states=None):
+        if params_device(params_global).type != self.mesh.device_type:
+            raise ValueError(
+                f"params on {params_device(params_global)}, mesh on "
+                f"{self.mesh.device_type}")
+        client_stacks, weights, mask, iters = self._prep(
+            params_global, client_stacks, weights, mask, iters)
+        server_ctx, states = self.client._alg_inputs(server_ctx, states)
+        n = _batch_len(client_stacks)
+        pad = (-n) % self._n_shards
+        if pad:                  # zero-weight dummies round the axis up
+            if iters is None:    # the real clients run their whole stack
+                iters = _full_iters(client_stacks)
+            client_stacks = {k: np.concatenate(
+                [np.asarray(v)] + [np.asarray(v)[:1]] * pad)
+                for k, v in client_stacks.items()}
+            weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+            iters = np.concatenate([np.asarray(iters, np.int32),
+                                    np.zeros(pad, np.int32)])
+            states = trees.tree_map(lambda l: torch.cat([l] + [l[:1]] * pad),
+                                    states)
+        b = (n + pad) // self._n_shards
+        rows = slice(self._shard * b, (self._shard + 1) * b)
+        stacked = {k: np.asarray(v)[rows] for k, v in client_stacks.items()}
+        states = trees.tree_map(lambda l: l[rows], states)
+        if iters is not None:
+            iters = np.asarray(iters, np.int32)[rows]
+        if self.algorithm.stateful and not self.algorithm.prepare_in_graph:
+            out = self._split_round(params_global, stacked, weights[rows],
+                                    mask, iters, server_ctx, states)
+        else:
+            out = self._graphs.call(
+                "shard", self._shard_round,
+                (params_global, stacked, weights[rows], iters, mask,
+                 server_ctx, states))
+        if not self.algorithm.stateful:
+            new, losses = out
+            return new, losses[:n]
+        new, new_ctx, new_states, losses = out
+        return (new, new_ctx, trees.tree_map(lambda l: l[:n], new_states),
+                losses[:n])
+
+
+def _sharded_engine(kind: str, cfg, fed, mesh, loss_kwargs, algorithm):
+    algorithm = _algorithm(algorithm)
+    return cached_engine(
+        _engine_key((kind, mesh), cfg, fed, loss_kwargs, algorithm),
+        lambda: ShardedSyncRound(cfg, fed, mesh, loss_kwargs,
+                                 algorithm=algorithm))
+
+
+def drop_sharded_engines() -> None:
+    """Forget the memoized sharded and hierarchical rounds (their meshes'
+    process group is going away)."""
+    for key in [k for k in _ENGINE_CACHE
+                if isinstance(k[0], tuple) and k[0][0] in ("shard", "hier")]:
+        del _ENGINE_CACHE[key]
 
 
 def make_sharded_sync_round(cfg: ModelConfig, fed: FedConfig, mesh=None,
-                            loss_kwargs=None, algorithm=None):
-    raise _multi_device("make_sharded_sync_round")
+                            loss_kwargs=None, algorithm=None,
+                            device=None) -> ShardedSyncRound:
+    """Sync-round engine whose client axis is split over ``mesh``
+    (default: every rank of the process group as a 1-D ``("clients",)``
+    mesh on ``device``, ``launch.mesh.make_fleet_mesh``). Memoized like
+    ``make_sync_round`` with the mesh in the key."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_fleet_mesh
+        mesh = make_fleet_mesh(device=device)
+    return _sharded_engine("shard", cfg, fed, mesh, loss_kwargs, algorithm)
 
 
 def make_hierarchical_sync_round(cfg: ModelConfig, fed: FedConfig,
                                  mesh=None, edges: int | None = None,
-                                 loss_kwargs=None, algorithm=None):
-    raise _multi_device("make_hierarchical_sync_round")
+                                 loss_kwargs=None, algorithm=None,
+                                 device=None) -> ShardedSyncRound:
+    """Sync-round engine over a two-level ``("edge", "clients")`` mesh:
+    the hierarchical edge-aggregator tree (clients → edge aggregators →
+    server as nested all-reduces, the flat weighted average; see
+    ``ShardedSyncRound``). Default mesh: the process group's ranks
+    factored by ``make_fleet_mesh(edges=...)`` (a world of one runs the
+    same program on the (1, 1) tree). Memoized like
+    ``make_sharded_sync_round``; a mesh without both axes raises
+    ``ValueError``."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_fleet_mesh
+        mesh = make_fleet_mesh(edges=edges if edges is not None else 0,
+                               device=device)
+    if not {"edge", "clients"} <= set(mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"hierarchical round needs a ('edge', 'clients') mesh, got "
+            f"axes {mesh.mesh_dim_names}")
+    return _sharded_engine("hier", cfg, fed, mesh, loss_kwargs, algorithm)

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import algorithms, fed_engine
 from repro_torch.core.fedasync import cached_client_step, make_client_step
 from repro_torch.data import stack_batches
+from repro_torch.device import params_device
 from repro_torch.optim import trainable_mask
 from repro_torch.types import FedConfig, ModelConfig
 
@@ -137,8 +138,10 @@ def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
 
     ``engine``: a ``fed_engine.SyncRound``, ``None`` (the memoized
     default), or an ``fleet.EngineSpec`` / its string ("loop" routes to
-    ``fedavg_round_loop``; "shard" and "hier" are ROADMAP Queue 1 item
-    13). ``donate_params`` is the reference's keyword; the port never
+    ``fedavg_round_loop``; "shard" and "hier" split the round's clients
+    over the process group's ranks on the params' device type,
+    ``fed_engine.ShardedSyncRound``). ``donate_params`` is the
+    reference's keyword; the port never
     writes into ``params_global``. ``algorithm`` / ``client_ids``: see
     the module's docstring.
     """
@@ -147,7 +150,8 @@ def fedavg_round(params_global, client_batches: Sequence, cfg: ModelConfig,
     if engine is not None and not isinstance(engine, fed_engine.SyncRound):
         from repro_torch.core.fleet import EngineSpec
         engine = EngineSpec.from_str(engine).build_sync(
-            cfg, fed, algorithm=algorithm)
+            cfg, fed, algorithm=algorithm,
+            device=params_device(params_global))
         if engine is None:                  # EngineSpec.LOOP
             return fedavg_round_loop(params_global, client_batches, cfg,
                                      fed, mask=mask, data_sizes=data_sizes,

@@ -65,9 +65,13 @@ class EngineSpec(enum.Enum):
            replayed as one CUDA graph per round shape on the card — the
            default everywhere.
     LOOP   per-iteration dispatch loop; the parity oracle.
-    SHARD  SCAN with the sync round's client axis split over devices
-           (sync only; ROADMAP Queue 1 item 13).
-    HIER   SCAN over a two-level edge / clients mesh (sync only; item 13).
+    SHARD  SCAN with the sync round's client axis split over the ranks
+           of a 1-D ``("clients",)`` mesh, reduced by one ``all_reduce``
+           (sync only; ``launch.mesh.make_fleet_mesh``: a world of one
+           unless ``torchrun`` started more ranks).
+    HIER   SCAN over a two-level ``("edge", "clients")`` mesh: clients
+           reduce to edge aggregators, edges to the server, one
+           ``all_reduce`` a level, the flat weighted average (sync only).
     """
 
     SCAN = "scan"
@@ -96,18 +100,19 @@ class EngineSpec(enum.Enum):
                 f"{[m.value for m in allowed]}")
         return spec
 
-    def build_sync(self, cfg, fed, mesh=None, algorithm=None):
+    def build_sync(self, cfg, fed, mesh=None, algorithm=None, device=None):
         """The sync-round engine for this member (None for LOOP: the
-        caller owns the per-iteration oracle path)."""
+        caller owns the per-iteration oracle path). SHARD and HIER build
+        their default mesh on ``device``'s type."""
         from repro_torch.core import fed_engine
         if self is EngineSpec.SCAN:
             return fed_engine.make_sync_round(cfg, fed, algorithm=algorithm)
         if self is EngineSpec.SHARD:
-            return fed_engine.make_sharded_sync_round(cfg, fed, mesh=mesh,
-                                                      algorithm=algorithm)
+            return fed_engine.make_sharded_sync_round(
+                cfg, fed, mesh=mesh, algorithm=algorithm, device=device)
         if self is EngineSpec.HIER:
             return fed_engine.make_hierarchical_sync_round(
-                cfg, fed, mesh=mesh, algorithm=algorithm)
+                cfg, fed, mesh=mesh, algorithm=algorithm, device=device)
         return None
 
 

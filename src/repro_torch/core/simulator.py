@@ -17,8 +17,10 @@ LowRankSubmodel) runs on both engines and both modes, and
 wire codec (``core/compression.py``), per dispatch and outside any graph.
 Both entry points take a ``Fleet`` or a ``FleetSpec`` (``Fleet.resolve``):
 a streamed population of any size holds only its sampled (sync) or
-in-flight (async) clients. Still to be ported: the sharded and
-hierarchical engines (ROADMAP Queue 1 item 13).
+in-flight (async) clients. ``run_sync`` also takes the sharded and
+hierarchical engines (``"shard"``, ``"hier"``: the round's clients split
+over the process group's ranks); ``run_async`` refuses them, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -144,15 +146,6 @@ def _bound_algorithm(algorithm, fleet):
     return alg
 
 
-def _check_ported(engine, allowed) -> EngineSpec:
-    espec = EngineSpec.from_str(engine, allowed=allowed)
-    if espec in (EngineSpec.SHARD, EngineSpec.HIER):
-        raise NotImplementedError(
-            f"engine={espec.value!r}: the sharded and hierarchical rounds "
-            "are ROADMAP Queue 1 item 13")
-    return espec
-
-
 def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet,
               client_data: Optional[Sequence[Callable[[], Iterable]]] = None,
               iters_per_epoch: int = 1, jitter: float = 0.0,
@@ -192,7 +185,7 @@ def run_async(params0, cfg: ModelConfig, fed: FedConfig, fleet,
     engine's call.
     """
     fleet = Fleet.resolve(fleet, client_data, fed)
-    espec = _check_ported(engine, ASYNC_ENGINES)
+    espec = EngineSpec.from_str(engine, allowed=ASYNC_ENGINES)
     alg = _bound_algorithm(algorithm, fleet)
     stateful = alg.stateful
     device = resolve_device(device)
@@ -377,25 +370,33 @@ def run_sync(params0, cfg: ModelConfig, fed: FedConfig, fleet,
     runs the whole population every round.
 
     ``engine="scan"`` (default) runs every round as one ``SyncRound``
-    call (a CUDA graph replay on the card); ``"loop"`` is the per-client
-    oracle; ``"shard"`` and ``"hier"`` are ROADMAP Queue 1 item 13.
+    call (a CUDA graph replay on the card); ``"shard"`` also splits the
+    round's client axis over the process group's ranks
+    (``launch.mesh.make_fleet_mesh``, on ``device``'s type: a world of one
+    unless ``torchrun`` started more) with one ``all_reduce``;
+    ``"hier"`` splits it over a two-level ``("edge", "clients")`` mesh,
+    clients reducing to edge aggregators and edges to the server, the
+    flat weighted average; ``"loop"`` is the per-client oracle. The
+    virtual clock is the same on every engine.
 
     ``algorithm``: a ``core.algorithms.FedAlgorithm`` or its name; None
     is ``FedProx``, the paper's round. A stateful algorithm keeps each client's
     state on the instance across rounds, keyed by the sampled ids.
     """
     fleet = Fleet.resolve(fleet, client_data, fed)
-    espec = _check_ported(engine, SYNC_ENGINES)
+    espec = EngineSpec.from_str(engine, allowed=SYNC_ENGINES)
     alg = _bound_algorithm(algorithm, fleet)
     device = resolve_device(device)
-    params = {k: v.to(device) for k, v in params0.items()}
     rng = np.random.default_rng(fed.seed)
     sample_rng = np.random.default_rng((fed.seed, 0x5A3D))
     if espec is EngineSpec.LOOP:
         step, opt = fedasync.cached_client_step(cfg, fed)
         round_engine = None
     else:
-        round_engine = espec.build_sync(cfg, fed, algorithm=alg)
+        # before the params move: a launched rank's mesh selects its card
+        round_engine = espec.build_sync(cfg, fed, algorithm=alg,
+                                        device=device)
+    params = {k: v.to(device) for k, v in params0.items()}
     mask = trainable_mask(params, fed.trainable)
     now = 0.0
     history, trace = [], []

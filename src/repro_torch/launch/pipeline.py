@@ -8,7 +8,9 @@ asynchronously by Algorithm 1 (``simulator.run_async``) or synchronously
 by FedAvg (``simulator.run_sync``). Both stages run on the batched
 engines by default (``engine="scan"``: the KD epochs and the client runs
 replayed as CUDA graphs on the card); ``engine="loop"`` runs stage 2 on
-the per-iteration oracle. ``codistill`` replaces stage 1's teacher ->
+the per-iteration oracle, and in sync mode ``"shard"`` / ``"hier"`` split
+its rounds' clients over the process group's ranks
+(``fed_engine.ShardedSyncRound``). ``codistill`` replaces stage 1's teacher ->
 student chain by codistillation (``distill.run_codistill``): the teacher
 and the student train together, each from the other's round-start
 logits, and the student goes on to stage 2. ``compare_scratch`` also
@@ -98,10 +100,6 @@ def run_pipeline(arch: str = "resnet3d-18", teacher: str = "resnet3d-34",
     """
     if mode not in ("async", "sync"):
         raise ValueError(f"mode must be 'async' or 'sync', got {mode!r}")
-    if EngineSpec.from_str(engine) in (EngineSpec.SHARD, EngineSpec.HIER):
-        raise NotImplementedError(
-            f"engine={engine!r}: the sharded and hierarchical rounds are "
-            "ROADMAP Queue 1 item 13")
     device = resolve_device(device)
     cfg = get_config(arch)
     tcfg = get_config(teacher)
@@ -189,8 +187,9 @@ def main(argv=None):
     ap.add_argument("--engine", choices=["scan", "loop", "shard"],
                     default="scan",
                     help="stage 2's client execution: the batched engines "
-                         "(CUDA graphs on the card) or the per-iteration "
-                         "loop; shard is ROADMAP Queue 1 item 13")
+                         "(CUDA graphs on the card), 'shard' to also split "
+                         "the sync round's clients over the process "
+                         "group's ranks, or the per-iteration loop")
     ap.add_argument("--codistill", action="store_true",
                     help="stage 1 by codistillation (the teacher and the "
                          "student as peers) instead of the teacher -> "

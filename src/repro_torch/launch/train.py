@@ -27,10 +27,20 @@ the paper's proximal local SGD (``fedprox``, the default), SCAFFOLD's
 control variates (``scaffold``) or capacity-scaled low-rank / masked
 submodel updates (``lowrank``), on either engine and mode.
 
+``--engine shard|hier`` (sync mode) splits each round's clients over the
+ranks of the process group (``launch/mesh.py``): in one process a world
+of one; under ``torchrun --nproc-per-node N`` N ranks, each running the
+same seeded program on its block of the clients (its own card, or the
+CPU over gloo), rank 0 alone printing and writing ``--ckpt``; the group
+is destroyed at exit. More than one rank on the card needs as many cards.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode sync \
         --epochs 8 --reduced --device cpu [--engine scan|loop] \
         [--algorithm fedprox|scaffold|lowrank]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --mode sync \
+        --engine shard --reduced --device cpu --epochs 2
     PYTHONPATH=src python -m repro_torch.launch.train --mode central \
         --steps 20 --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --mode async \
@@ -55,6 +65,7 @@ from repro_torch.core.fleet import (JETSON_FLEET_HMDB51, EngineSpec, Fleet,
                                     FleetSpec)
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.models import registry
 from repro_torch.optim import trainable_mask
 from repro_torch.types import DistillConfig, FedConfig
@@ -65,12 +76,8 @@ def build_fleet(n: int):
     return tuple(base[i % len(base)] for i in range(n))
 
 
-def _refuse_unported(args) -> None:
-    if EngineSpec.from_str(args.engine) in (EngineSpec.SHARD,
-                                            EngineSpec.HIER):
-        raise NotImplementedError(
-            f"--engine {args.engine}: the sharded and hierarchical rounds "
-            "are ROADMAP Queue 1 item 13")
+def _quiet(*args, **kwargs) -> None:
+    """A rank other than 0 prints nothing."""
 
 
 def main(argv=None):
@@ -101,8 +108,12 @@ def main(argv=None):
     ap.add_argument("--engine", choices=[e.value for e in EngineSpec],
                     default="scan",
                     help="client execution: the batched engines (CUDA "
-                         "graphs on the card) or the per-iteration loop, the "
-                         "oracle; shard and hier are ROADMAP Queue 1 item 13")
+                         "graphs on the card), 'shard' to also split the "
+                         "sync round's clients over the process group's "
+                         "ranks (a world of one unless torchrun started "
+                         "more), 'hier' for the two-level edge-aggregator "
+                         "tree over the ('edge', 'clients') mesh (both "
+                         "sync only), or the per-iteration loop, the oracle")
     ap.add_argument("--algorithm", choices=sorted(ALGORITHMS),
                     default="fedprox",
                     help="federated algorithm (core/algorithms.py): "
@@ -124,8 +135,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    if args.mode == "sync" and EngineSpec.from_str(args.engine) in (
+            EngineSpec.SHARD, EngineSpec.HIER):
+        device = mesh.init_world(args.device)   # a launched rank's own card
+    else:
+        device = resolve_device(args.device)
+    say = print if mesh.rank() == 0 else _quiet
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -135,7 +150,7 @@ def main(argv=None):
         raise ValueError(
             f"{cfg.name}: make_dataset_for yields token streams with no "
             "src_embeds, which the encoder-decoder's loss reads")
-    print(f"arch={cfg.name} family={cfg.family} mode={args.mode}")
+    say(f"arch={cfg.name} family={cfg.family} mode={args.mode}")
 
     params = registry.init_params(torch.Generator().manual_seed(args.seed),
                                   cfg, device)
@@ -153,7 +168,7 @@ def main(argv=None):
             steps_per_stage=16, seed=args.seed, trained_teacher_steps=16,
             kd_kernel=args.kd_kernel, device=device)
         for st in stages:
-            print(f"  KD {st.teacher} -> {st.student}: "
+            say(f"  KD {st.teacher} -> {st.student}: "
                   f"acc={st.accuracy:.3f} ({st.wall_time_s:.1f}s)")
 
     population = args.population or args.clients
@@ -176,7 +191,7 @@ def main(argv=None):
             params, opt_state, loss = step(params, opt_state, anchor, batch,
                                            mask)
             if i % 10 == 0:
-                print(f"  step {i:4d} loss {float(loss):.4f}")
+                say(f"  step {i:4d} loss {float(loss):.4f}")
         result = {"mode": "central", "final_loss": float(loss),
                   "wall_s": time.time() - t0}
     else:
@@ -206,24 +221,29 @@ def main(argv=None):
                                      algorithm=args.algorithm,
                                      device=device)
         params = res.params
-        print(f"  virtual wall-clock {res.wall_clock_s:.0f}s "
+        say(f"  virtual wall-clock {res.wall_clock_s:.0f}s "
               f"final loss {res.final_loss:.4f}")
         if args.mode == "async":
-            print(f"  staleness histogram: {res.staleness_hist}")
+            say(f"  staleness histogram: {res.staleness_hist}")
             if args.async_window > 0:
-                print(f"  receive-group histogram (W={args.async_window}): "
+                say(f"  receive-group histogram (W={args.async_window}): "
                       f"{res.group_hist}")
         result = {"mode": args.mode, "algorithm": args.algorithm,
                   "final_loss": res.final_loss,
                   "virtual_wall_s": res.wall_clock_s,
                   "real_wall_s": time.time() - t0}
 
-    if args.ckpt:
+    if args.ckpt and mesh.rank() == 0:
         save_params(params, args.ckpt, extra=result)
-        print(f"  saved {args.ckpt}")
-    print(json.dumps(result))
+        say(f"  saved {args.ckpt}")
+    say(json.dumps(result))
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    try:
+        rc = main()
+    finally:
+        if mesh.launched():
+            mesh.destroy_world()
+    raise SystemExit(rc)

@@ -306,9 +306,12 @@ def test_engine_spec_and_memo():
     fed = TFed(**FED)
     assert EngineSpec.LOOP.build_sync(cfg, fed) is None
     assert isinstance(EngineSpec.SCAN.build_sync(cfg, fed), tfe.SyncRound)
+    # the sharded and hierarchical rounds, memoized on their mesh (a
+    # world of one on the CPU here)
     for spec in (EngineSpec.SHARD, EngineSpec.HIER):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            spec.build_sync(cfg, fed)
+        rnd = spec.build_sync(cfg, fed, device="cpu")
+        assert isinstance(rnd, tfe.ShardedSyncRound)
+        assert spec.build_sync(cfg, fed, device="cpu") is rnd
     # a stateful algorithm gets its own engine, whose call equals the
     # algorithm-aware loop oracle
     from repro_torch.core import algorithms as talg

@@ -96,15 +96,17 @@ def test_fedavg_round_loop_matches_reference(setup):
     assert [len(x) for x in tl] == [len(x) for x in jl] == [2, 2]
     np.testing.assert_allclose(np.ravel(tl), np.ravel(jl), rtol=1e-4)
     assert_params_close(jw, tw, rtol=1e-4, atol=1e-6)
-    # engine="loop" routes to the loop; the multi-device engines are
-    # refused
+    # engine="loop" routes to the loop; the multi-device engines run in a
+    # world of one (an in-process gloo group) and give the scan round
     rw, rl = tfedavg.fedavg_round(tp, [iter(b) for b in batches], tc,
                                   TFed(**FED), engine="loop")
     assert rl == tl and all(torch.equal(rw[k], tw[k]) for k in tw)
-    for kw, item in (({"engine": "shard"}, "item 13"),
-                     ({"engine": "hier"}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tfedavg.fedavg_round(tp, batches, tc, TFed(**FED), **kw)
+    sw, sl = tfedavg.fedavg_round(tp, batches, tc, TFed(**FED))
+    for engine in ("shard", "hier"):
+        gw, gl = tfedavg.fedavg_round(tp, batches, tc, TFed(**FED),
+                                      engine=engine)
+        assert gl == sl and all(torch.equal(gw[k], sw[k]) for k in sw)
+    assert_params_close(jw, gw, rtol=1e-4, atol=1e-6)
     # the algorithm layer runs: a SCAFFOLD round on the batched engine
     # against the port's loop oracle and the reference's
     from repro.core.algorithms import Scaffold as JScaffold
@@ -179,11 +181,19 @@ def test_run_sync_algorithm_matches_reference_loop(setup, algorithm):
 
 def test_run_sync_rejects_unported_paths(setup):
     _, tc, _, tp = setup
+    # the sharded and hierarchical engines, refused before they were
+    # ported, run in a world of one: the scan run's clock and params
+    want = tsim.run_sync(tp, tc, TFed(**FED), Fleet.from_lists(
+        JETSON_FLEET_HMDB51, _loaders(TLoader, TDS)), device="cpu")
+    for engine in ("shard", "hier"):
+        got = tsim.run_sync(tp, tc, TFed(**FED), Fleet.from_lists(
+            JETSON_FLEET_HMDB51, _loaders(TLoader, TDS)), device="cpu",
+            engine=engine)
+        assert got.wall_clock_s == want.wall_clock_s
+        assert got.history == want.history
+        assert all(torch.equal(got.params[k], want.params[k])
+                   for k in want.params)
     fleet = Fleet.from_lists(JETSON_FLEET_HMDB51, _loaders(TLoader, TDS))
-    for kw, item in (({"engine": "shard"}, "item 13"),
-                     ({"engine": "hier"}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsim.run_sync(tp, tc, TFed(**FED), fleet, device="cpu", **kw)
     with pytest.raises(ValueError, match="legacy"):
         tsim.run_sync(tp, tc, TFed(**FED), list(JETSON_FLEET_HMDB51),
                       device="cpu")

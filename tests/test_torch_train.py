@@ -7,8 +7,8 @@ the Markov token stream, no client shards), vs
 (JAX-initialised, converted) and the same numpy data: ``final_loss`` rtol
 1e-3, ``virtual_wall_s`` exactly, the result line's keys equal. A
 checkpoint written by either package is read by the other, bit for bit.
-The flags whose modules are not ported are refused, naming their ROADMAP
-item."""
+``--engine shard`` gives the scan run's result in a world of one and is
+refused in async mode, as the reference's is."""
 import json
 
 import numpy as np
@@ -107,10 +107,21 @@ def test_algorithm_flag_matches_reference(mode, algorithm, engine, init,
                                rtol=1e-3)
 
 
-@pytest.mark.parametrize("flag,item", [(["--engine", "shard"], "item 13")])
-def test_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS + flag)
+# --engine shard, refused before the sharded round was ported: in sync
+# mode (a world of one) the scan run's result line; async refuses it, as
+# the reference's trainer does
+@pytest.mark.parametrize("flag,item", [(["--engine", "shard"],
+                                        "not supported here")])
+def test_unported_flags_raise(flag, item, capsys):
+    with pytest.raises(ValueError, match=item):
+        ttrain.main(["--mode", "async", "--device", "cpu"] + ARGS + flag)
+    assert ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS) == 0
+    want = _result(capsys)
+    assert ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS
+                       + flag) == 0
+    got = _result(capsys)
+    assert got["final_loss"] == want["final_loss"]
+    assert got["virtual_wall_s"] == want["virtual_wall_s"]
 
 
 # --population, refused before streaming fleets were ported: a streamed
