@@ -101,12 +101,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the other configs' shapes, each timed call held against its plain
    version and each kernel's launches a call measured (one);
 8. the reduced Hymba serving path on the card against the CPU (TF32 off):
-   identical tokens, prefill and decode logits to rtol 1e-3;
+   identical tokens, prefill and decode logits to rtol 1e-3; the card's
+   ticks replays of one CUDA graph a K-extent rung (``GraphCache``, the
+   params and the cache in place), traced: the decode kernels counted on
+   the host (a tick's for each eager tick and each capture) and on the
+   card (a tick's every tick, from the profiler's device events);
 9. the serving path at full width: Hymba-1.5B, f32, four slots, eight
    requests of 1 to 1500 prompt tokens through the continuous batcher in
-   ring mode on the CUDA kernels, every kernel's launches counted, 16
-   decode ticks teacher-forced against the uniform eager decode, and one
-   decode tick traced by torch.profiler (kernels a tick);
+   ring mode on the CUDA kernels, each tick a graph replay after its
+   rung's eager tick and capture: the stream timed with every kernel's
+   host launches counted, then again traced (the kernels the card ran,
+   the stream's device-busy share), each batcher's graphs released and
+   their pools' GiB printed; 16 decode ticks teacher-forced against the
+   uniform eager decode; in ``_Exact``, 12 forced ticks across the
+   K-extent rungs 8, 16 and 32, ring and uniform, each replay against the
+   eager decode on a copy of the cache, 0.0 apart; one tick at K-extent
+   2048 replayed and eager, timed and traced (kernels a tick);
 10. the scoring kernels (sliding-window attention through its folded and
     its GQA entry, SSD chunk scan) against their plain versions on the
     card, f32 and bf16, Gemma3-12B's GQA shape at head dim 240 among
@@ -145,7 +155,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     for bit; ``launch.train --arch mamba2-130m --reduced`` central and
     async;
 13c. single-batch serving (``lm_serve``): ``launch.serve`` without
-    ``--continuous`` on Hymba-1.5B at full width (prefill and decode ms);
+    ``--continuous`` on Hymba-1.5B at full width (prefill and decode ms,
+    the decode one CUDA graph replayed a step); its decode steps in
+    ``_Exact``, each replay against the eager step on copies, 0.0 apart,
+    ``generate``'s tokens equal to the eager steps', a replayed step
+    timed and traced;
     the ring decode and the unrolled window-sliced decode against the
     uniform decode past the window: tokens equal, logits within
     1e-3 * (1 + |uniform|), and the serve steps' tokens equal;
@@ -153,7 +167,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     reduced, card against CPU; then at their configs' widths, one model
     at a time: h2o-danube-3-4b (24 layers, head dim 120) and
     llama4-scout-17b-a16e (4 of 48 layers, top-1 MoE with capacity)
-    scored and served through the continuous batcher, grok-1-314b (2 of
+    scored and served through the continuous batcher (traced: its
+    ticks' kernels on the card), grok-1-314b (2 of
     64 layers, top-2 MoE) scored, paligemma-3b (18 layers, the patch
     prefix, one kv head) scored, decoded through the extent kernel and
     served by ``serve.py``, seamless-m4t-large-v2 (24 + 24 layers)
@@ -2412,6 +2427,111 @@ def _zero_decode_launches() -> None:
     ssd_decode.ssd_decode_step.launches = 0
 
 
+def _per_tick(cfg) -> dict:
+    """The decode kernels one ring-mode tick of ``cfg`` launches."""
+    from repro_torch.models import lm
+    attn = cfg.family != "ssm"
+    return {"ring_decode_attend": len(lm.swa_layer_ids(cfg)) if attn else 0,
+            "extent_decode_attend":
+                len(lm.global_layer_ids(cfg)) if attn else 0,
+            "ssd_decode_step":
+                cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0}
+
+
+def _decode_on_card(events) -> dict:
+    """The decode kernels among the profiler's device events, by wrapper:
+    the ring and the extent attend are one template told apart by its
+    RING argument (demangled ``true``, mangled ``Lb1E``), the SSD step's
+    vector and scalar kernels count as one."""
+    out = dict.fromkeys(("ring_decode_attend", "extent_decode_attend",
+                         "ssd_decode_step"), 0)
+    for e in events:
+        n = e.name()
+        if "decode_attend_kernel" in n:
+            ring = ", true," in n or "Lb1E" in n
+            out["ring_decode_attend" if ring else "extent_decode_attend"] += 1
+        elif "ssd_decode_" in n and "_kernel" in n:
+            out["ssd_decode_step"] += 1
+    return out
+
+
+def _serve_counts(what: str, srv, host: dict, card=None, names=()) -> dict:
+    """A stream's decode kernels against its batcher's graphs: from the
+    host (``host``, the wrappers' counts) one tick's kernels for each eager
+    tick and each capture; on the card (``card``, from ``_decode_on_card``)
+    one tick's for every tick. Returns the tick accounting."""
+    per = _per_tick(srv.cfg)
+    ticks, eager = srv._steps, srv.decode_compiles
+    captured = srv._graphs.num_captured
+    want = {k: (eager + captured) * v for k, v in per.items()}
+    if host != want:
+        raise AssertionError(f"{what}: host launches {host}, want {want} "
+                             f"({eager} eager ticks + {captured} captures)")
+    if card is not None and card != {k: ticks * v for k, v in per.items()}:
+        raise AssertionError(f"{what}: the card ran {card}, want {ticks} "
+                             f"ticks x {per} (kernel names: "
+                             f"{sorted(set(names))[:6]})")
+    return {"ticks": ticks, "eager_ticks": eager, "captures": captured,
+            "ticks_by_graph": ticks - eager, "per_tick": per,
+            "captures_per_rung": {
+                str(r): srv._graphs.captures(("decode", r))
+                for r in srv.decode_buckets or (0,)
+                if srv._graphs.count(("decode", r))}}
+
+
+def _stream_parts(srv) -> dict:
+    """Wrap ``srv``'s admit and decode tick so that a stream's host
+    seconds split into admits (prefill and install), eager ticks (a
+    shape's first), captured ticks (the capture and its first replay) and
+    replayed ticks: {part: [calls, seconds]}, filled as the stream runs.
+    Each part ends in a synchronise, where an admit and a tick end in a
+    host transfer anyway."""
+    import torch
+    parts = {k: [0, 0.0] for k in ("admit", "eager_tick", "captured_tick",
+                                   "replayed_tick")}
+    admit, decode = srv._admit, srv._decode
+
+    def add(kind, t0):
+        torch.cuda.synchronize()
+        parts[kind][0] += 1
+        parts[kind][1] += time.perf_counter() - t0
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        if not (srv.queue and None in srv.active):
+            return admit()
+        admit()
+        add("admit", t0)
+
+    def timed_decode(mask):
+        seen, held = srv._graphs.num_compiled, srv._graphs.num_captured
+        t0 = time.perf_counter()
+        out = decode(mask)
+        add("eager_tick" if srv._graphs.num_compiled > seen else
+            "captured_tick" if srv._graphs.num_captured > held else
+            "replayed_tick", t0)
+        return out
+
+    srv._admit, srv._decode = timed_admit, timed_decode
+    return parts
+
+
+def _release_graphs(srv) -> dict:
+    """Drop a batcher's decode graphs: the GiB their pools held (what
+    dropping them returns to the card) and the GiB still allocated."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    srv._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"graph_pools_gib": (before - torch.cuda.memory_reserved())
+            / 2 ** 30,
+            "held_after_release_gib": torch.cuda.memory_allocated() / 2 ** 30}
+
+
 def _serve(params, cfg, prompts, max_new, **kw):
     from repro_torch.core.serving import ContinuousBatcher
     srv = ContinuousBatcher(params, cfg, **kw)
@@ -2470,11 +2590,12 @@ def _forced_ticks(srv, tokens, mode: str) -> list:
 
 def phase_serve_card_vs_cpu():
     """Reduced Hymba: one request stream served on the card (CUDA
-    kernels) and on the CPU (their plain versions), TF32 off."""
+    kernels, the ticks graph replays, traced) and on the CPU (their plain
+    versions, eager), TF32 off."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import lm, registry
+    from repro_torch.models import registry
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("hymba-1.5b").reduced()
     cpu = registry.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -2485,8 +2606,14 @@ def phase_serve_card_vs_cpu():
     kw = dict(max_slots=2, max_len=96, min_bucket=4, decode_mode="ring",
               decode_kernel="cuda")
     _zero_decode_launches()
-    srv, toks_card = _serve(card, cfg, prompts, 12, **kw)
+    (srv, toks_card), events, _, lost = _trace(
+        lambda: _serve(card, cfg, prompts, 12, **kw))
     n_card = _decode_launches()
+    ticks = _serve_counts("reduced serve", srv, n_card,
+                          _decode_on_card(events),
+                          [e.name() for e in events])
+    ticks["dropped_launches"] = lost["calls"]
+    released = _release_graphs(srv)
     _zero_decode_launches()
     _, toks_cpu = _serve(cpu, cfg, prompts, 12, **kw)
     if any(_decode_launches().values()):
@@ -2495,12 +2622,6 @@ def phase_serve_card_vs_cpu():
     if toks_card != toks_cpu:
         raise AssertionError(f"card vs CPU tokens differ:\n{toks_card}\n"
                              f"{toks_cpu}")
-    ticks = srv._steps
-    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
-            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
-            "ssd_decode_step": ticks * cfg.num_layers}
-    if n_card != want:
-        raise AssertionError(f"reduced serve launches {n_card}, want {want}")
     # logits: a bucketed prefill, then 6 teacher-forced ring decode ticks
     # from the batcher's own install of one admitted group
     B, S = 3, 16
@@ -2520,29 +2641,82 @@ def phase_serve_card_vs_cpu():
                           prefill_logits["cpu"])]
     for t, (a, b) in enumerate(zip(ticks_logits["cuda"], ticks_logits["cpu"])):
         errs.append(_logits_close(f"reduced decode tick {t}", a, b))
-    print(json.dumps({"phase": "serve_card_vs_cpu", "tokens_equal": True,
-                      "requests": len(toks_card), "decode_ticks": ticks,
-                      "launches": n_card, "logits_rel_err": max(errs)}))
+    print(json.dumps({"phase": "serve_card_vs_cpu", "card": _card_line(),
+                      "tokens_equal": True, "requests": len(toks_card),
+                      "decode_ticks": ticks, "launches": n_card,
+                      **released, "logits_rel_err": max(errs)}))
 
 
 FULL_PROMPTS = (1, 7, 33, 100, 513, 1024, 1100, 1500)
-# phase 9's traced tick before the SSD step read its operands in place
-# (PERF.md §5: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-TICK_BEFORE = {"kernels": 3717.7, "device_ms": 12.33}
+# the exactness check's group: the longest prompt puts the first tick at
+# position 6, so 12 forced ticks climb the K-extent rungs 8, 16 and 32
+EXACT_PROMPTS = (6, 3, 5, 1)
+EXACT_TICKS = 12
+# phase 9's eager tick before the decode became a graph (PERF.md §5:
+# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+TICK_BEFORE = {"kernels": 3589.7, "device_ms": 12.14, "wall_ms": 119.6}
+
+
+def _replayed_vs_eager(srv, forced) -> dict:
+    """Ticks of an admitted batcher through its decode graphs, fed
+    ``forced[t]`` (one token a slot) at tick t, each against the eager
+    decode of its mode (``decode_step_grouped`` with its kernel and
+    K-extent, or ``decode_step``) on an identical copy of the cache: the
+    logits and every cache leaf 0.0 apart and the argmax tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    mask = np.array([r is not None for r in srv.active])
+    twin = {k: v.clone() for k, v in srv.cache.items()}
+    rungs = []
+    for t, tok in enumerate(forced):
+        srv.last_tok[:] = tok
+        tp = torch.from_numpy(np.stack([srv.last_tok, srv.pos])).to(
+            srv.device)
+        if srv.decode_mode == "ring":
+            rungs.append(srv._decode_k_ext(mask))
+            want, twin = registry.decode_step_grouped(
+                srv.params, srv.cfg, tp[0], twin, tp[1], k_ext=rungs[-1],
+                decode_kernel=srv.decode_kernel)
+        else:
+            want, twin = registry.decode_step(srv.params, srv.cfg, tp[0],
+                                              twin, tp[1])
+        nxt, logits = srv._decode(mask)
+        apart = [k for k in twin if not torch.equal(srv.cache[k], twin[k])]
+        if apart or not torch.equal(logits, want) or not torch.equal(
+                nxt, torch.argmax(want, dim=-1).to(torch.int32)):
+            raise AssertionError(
+                f"{srv.decode_mode} tick {t}: replayed vs eager logits "
+                f"{float((logits - want).abs().max())} apart, cache leaves "
+                f"{apart} apart")
+        srv.pos[mask] += 1
+    return {"ticks": len(forced), "k_ext_per_tick": rungs,
+            "eager_ticks": srv.decode_compiles,
+            "captures": srv._graphs.num_captured,
+            "logits_and_cache_max_abs_diff": 0.0, "tokens_equal": True}
 
 
 def phase_serve_full_width(kernels: list, seed: int) -> None:
     """Hymba-1.5B at full width, f32, through the continuous batcher:
     4 slots, max_len 2048, prefill buckets from 8, ring decode on the CUDA
-    kernels. Eight requests of FULL_PROMPTS tokens, 32 new tokens each:
-    they cross several prefill buckets, install prompts longer than the
-    1024-slot ring, wrap it in decode and climb the K-extent ladder."""
+    kernels, each tick a replay of its K-extent rung's graph after the
+    rung's eager tick and capture. Eight requests of FULL_PROMPTS tokens,
+    32 new tokens each: they cross several prefill buckets, install
+    prompts longer than the 1024-slot ring, wrap it in decode and climb
+    the K-extent ladder. The stream runs twice: timed, its launches
+    counted on the host (the kernel rows' launches); then traced, the
+    kernels the card ran counted from the profiler's device events, and
+    the stream's device-busy share. Then replayed ticks against eager ones
+    in ``_Exact`` (ring and uniform), and one replayed tick timed and
+    traced beside the eager tick."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.serving import generate_single
-    from repro_torch.models import lm, registry
+    from repro_torch.core.serving import ContinuousBatcher, generate_single
+    from repro_torch.models import registry
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    card = _card_line()
     cfg = get_config("hymba-1.5b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2556,23 +2730,24 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
     kw = dict(max_slots=4, max_len=2048, min_bucket=8, decode_mode="ring",
               decode_kernel="cuda")
     torch.cuda.reset_peak_memory_stats()
+    srv = ContinuousBatcher(params, cfg, **kw)
+    parts = _stream_parts(srv)
+    for p in prompts:
+        srv.submit(p, max_new=max_new)
     _zero_decode_launches()
     t0 = time.perf_counter()
-    srv, toks = _serve(params, cfg, prompts, max_new, **kw)
+    toks = {r.rid: r.out for r in srv.run()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _decode_launches()
-    ticks = srv._steps
+    stream = _serve_counts("full-width stream", srv, launches)
+    stream["parts_s"] = {k: {"calls": n, "s": t}
+                         for k, (n, t) in parts.items()}
+    stream["parts_s"]["rest"] = wall - sum(t for _, t in parts.values())
     if len(toks) != len(prompts) or any(len(t) != max_new
                                         for t in toks.values()):
         raise AssertionError(f"not every request completed: "
                              f"{ {k: len(v) for k, v in toks.items()} }")
-    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
-            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
-            "ssd_decode_step": ticks * cfg.num_layers}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, want {want} "
-                             f"({ticks} decode ticks)")
     if srv.prefill_compiles > len(srv.buckets) \
             or srv.decode_compiles > len(srv.decode_buckets):
         raise AssertionError(
@@ -2583,14 +2758,57 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
         if "arch" not in k:            # the other configs' rows: lm_families
             k["launches"] = launches[k["name"]]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    report = {"phase": "serve_full_width", "arch": cfg.name, "card": card,
+              "params": sum(v.numel() for v in params.values()),
+              "init_s": init_s, "real_wall_s": wall,
+              "decode_ticks": srv._steps, "generated_tokens": sum(
+                  len(t) for t in toks.values()),
+              "prefill_compiles": srv.prefill_compiles,
+              "buckets": list(srv.buckets),
+              "decode_compiles": srv.decode_compiles,
+              "decode_buckets": list(srv.decode_buckets),
+              "bucket_hist": {str(k): v for k, v in srv.bucket_hist.items()},
+              "group_admits": {str(k): v
+                               for k, v in srv.group_admits.items()},
+              "launches": launches, "graphs": stream,
+              "peak_mem_gib": peak_gib}
+    report["gen_tok_per_s"] = report["generated_tokens"] / wall
+    report.update(_release_graphs(srv))
+    del srv
 
-    # generate_single launches no kernel; share of requests it agrees with
+    # the stream again, traced: what the card ran, and its busy share
     _zero_decode_launches()
-    same = sum(generate_single(params, cfg, p, max_new, max_len=2048)
-               == toks[rid] for rid, p in enumerate(prompts))
+    (srv, toks2), events, traced_ms, lost = _trace(
+        lambda: _serve(params, cfg, prompts, max_new, **kw))
+    if toks2 != toks:
+        raise AssertionError("the traced stream's tokens differ")
+    on_card = _decode_on_card(events)
+    _serve_counts("traced full-width stream", srv, _decode_launches(),
+                  on_card, [e.name() for e in events])
+    busy_ms = sum(e.duration_ns() for e in events) / 1e6
+    report["traced_stream"] = {
+        "launches_on_card": on_card, "device_ms": busy_ms,
+        "traced_wall_ms": traced_ms, "kernels": len(events),
+        "device_busy_share_traced": busy_ms / traced_ms,
+        "device_busy_share_of_real_wall": busy_ms / (wall * 1e3),
+        "dropped_launches": lost["calls"]}
+    for k in kernels:
+        if "arch" not in k:
+            k["launches_on_card"] = on_card[k["name"]]
+    report["traced_stream"].update(_release_graphs(srv))
+    del srv
+
+    # generate_single launches no kernel; share of requests it agrees
+    # with, of the shortest and the longest (its eager decode takes ~3 s a
+    # request at this width)
+    _zero_decode_launches()
+    oracle = (0, len(prompts) - 1)
+    same = sum(generate_single(params, cfg, prompts[rid], max_new,
+                               max_len=2048) == toks[rid] for rid in oracle)
     if any(_decode_launches().values()):
         raise AssertionError(f"generate_single launched kernels: "
                              f"{_decode_launches()}")
+    report["generate_single_share"] = same / len(oracle)
 
     # teacher-forced: the first admitted group's own tokens through 16
     # ring/cuda ticks and 16 uniform eager ticks, logits compared
@@ -2607,32 +2825,52 @@ def phase_serve_full_width(kernels: list, seed: int) -> None:
     for lg in ring:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError("non-finite full-width logits")
+    report["forced_logits_rel_err"] = max(errs)
 
-    # where the time goes: one decode tick at the run's last state
-    tok = torch.from_numpy(srv.last_tok).cuda()
-    pos = torch.from_numpy(np.minimum(srv.pos, 2047)).cuda()
-    tick = _profile(lambda: registry.decode_step_grouped(
-        params, cfg, tok, srv.cache, pos, k_ext=2048,
-        decode_kernel="cuda"), 3)
-    n_tok = sum(len(t) for t in toks.values())
-    print(json.dumps({
-        "phase": "serve_full_width", "arch": cfg.name,
-        "params": sum(v.numel() for v in params.values()),
-        "init_s": init_s, "real_wall_s": wall, "decode_ticks": ticks,
-        "generated_tokens": n_tok, "gen_tok_per_s": n_tok / wall,
-        "prefill_compiles": srv.prefill_compiles,
-        "buckets": list(srv.buckets),
-        "decode_compiles": srv.decode_compiles,
-        "decode_buckets": list(srv.decode_buckets),
-        "bucket_hist": {str(k): v for k, v in srv.bucket_hist.items()},
-        "group_admits": {str(k): v for k, v in srv.group_admits.items()},
-        "launches": launches, "peak_mem_gib": peak_gib,
-        "generate_single_share": same / len(prompts),
-        "forced_logits_rel_err": max(errs), "tick_profile": tick,
-        "kernels_per_tick": tick.get("kernels_per_step"),
-        "device_ms_per_tick": tick.get("device_ms_per_step"),
-        # the same tick traced before the SSD step's redesign
-        "tick_before_redesign": TICK_BEFORE}))
+    # replayed ticks against eager ones, bit for bit, across two rungs
+    exact = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in EXACT_PROMPTS]
+    forced = rng.integers(0, cfg.vocab_size, (EXACT_TICKS, 4)).astype(
+        np.int32)
+    report["replayed_vs_eager"] = {}
+    with _Exact():
+        for mode, kern in (("ring", "cuda"), ("uniform", "eager")):
+            adm = _admitted(params, cfg, exact, **{
+                **kw, "decode_mode": mode, "decode_kernel": kern})
+            report["replayed_vs_eager"][mode] = {
+                **_replayed_vs_eager(adm, forced), **_release_graphs(adm)}
+            del adm
+
+    # where the time goes: one tick of the stream's second admitted group
+    # at the K-extent 2048, replayed (after its eager tick and capture)
+    # and eagerly, through the same batcher
+    adm = _admitted(params, cfg, prompts[4:], **kw)
+    mask = np.ones(4, bool)
+    for _ in range(2):
+        adm._decode(mask)
+    tick = lambda: adm._decode(mask)[0].cpu()
+    tp = torch.from_numpy(np.stack([adm.last_tok, adm.pos])).cuda()
+    eager = lambda: registry.decode_step_grouped(
+        params, cfg, tp[0], adm.cache, tp[1], k_ext=adm._decode_k_ext(mask),
+        decode_kernel="cuda")
+    report["tick"] = {"k_ext": adm._decode_k_ext(mask),
+                      "replayed_wall_ms": _wall_ms(tick, 10),
+                      "replayed": _profile(tick, 3),
+                      "eager_wall_ms": _wall_ms(eager, 3),
+                      "eager": _profile(eager, 3),
+                      "before_graphs": TICK_BEFORE}
+    report["tick"]["replayed_on_card"] = _decode_on_card(_trace(tick)[1])
+    if report["tick"]["replayed_on_card"] != _per_tick(cfg):
+        raise AssertionError(f"a replayed tick ran "
+                             f"{report['tick']['replayed_on_card']}, want "
+                             f"{_per_tick(cfg)}")
+    report["tick"].update(_release_graphs(adm))
+    report["kernels_per_tick"] = report["tick"]["replayed"].get(
+        "kernels_per_step")
+    report["device_ms_per_tick"] = report["tick"]["replayed"].get(
+        "device_ms_per_step")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
 
 
 # ---------------------------------------------------------------------------
@@ -3568,6 +3806,75 @@ def phase_lm_train(kernels: list) -> None:
                       "phase_s": time.perf_counter() - t_phase}))
 
 
+def _static_decode_replays(params, cfg, seed: int) -> dict:
+    """The static decode as ``serve.generate`` runs it at the CLI's shape
+    (B 4, prompt 32, 16 tokens: a cache of 48 positions), in ``_Exact``:
+    each step ``serve.greedy_step`` through a ``GraphCache`` with the
+    params, the cache, the token and the positions in place (the second
+    step captured, later ones replayed), against the eager step on copies:
+    logits, cache and state 0.0 apart; ``generate``'s tokens equal to the
+    eager steps'. Then a replayed step timed and traced (its positions
+    reset before each, so the cache holds them)."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.core.compile_cache import GraphCache
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.types import ShapeConfig
+    B, P, gen = 4, 32, 16
+    dev = params["embed"].device
+    batch = registry.synth_batch(
+        np.random.default_rng(seed), cfg,
+        ShapeConfig("serve", seq_len=P, global_batch=B, kind="decode"),
+        device=dev)
+    step = functools.partial(serve.greedy_step, cfg)
+    graphs = GraphCache()
+    with _Exact(), torch.no_grad():
+        cache = registry.init_cache(cfg, B, P + gen, torch.float32, dev)
+        logits, cache = registry.prefill(params, cfg, batch, cache,
+                                         q_chunk=P)
+        state = {"tok": torch.argmax(logits, dim=-1).to(torch.int32),
+                 "pos": torch.full((B,), P, dtype=torch.int32, device=dev)}
+        twin = [{k: v.clone() for k, v in cache.items()},
+                {k: v.clone() for k, v in state.items()}]
+        eager = [state["tok"].cpu().numpy().copy()]
+        for i in range(gen - 1):
+            lg, cache, state = graphs.call("decode", step,
+                                           (params, cache, state),
+                                           inplace=(0, 1, 2))
+            want, *twin = step(params, *twin)
+            apart = [k for k in cache if not torch.equal(cache[k],
+                                                         twin[0][k])]
+            if apart or not torch.equal(lg, want) or any(
+                    not torch.equal(state[k], twin[1][k]) for k in state):
+                raise AssertionError(
+                    f"static decode step {i}: replayed vs eager logits "
+                    f"{float((lg - want).abs().max())} apart, cache leaves "
+                    f"{apart} apart")
+            eager.append(twin[1]["tok"].cpu().numpy().copy())
+        toks = serve.generate(params, cfg, batch, P + gen, gen)[0]
+    if not np.array_equal(toks, np.stack(eager, axis=1)):
+        raise AssertionError("generate's tokens differ from the eager "
+                             "steps'")
+    if graphs.num_captured != 1:
+        raise AssertionError(f"{graphs.num_captured} captures, want 1")
+
+    def replay():
+        state["pos"].fill_(P + 8)
+        return graphs.call("decode", step, (params, cache, state),
+                           inplace=(0, 1, 2))
+    with _Exact(), torch.no_grad():     # the captured graph's switches
+        out = {"batch": B, "prompt": P, "tokens": gen, "captures": 1,
+               "steps_max_abs_diff": 0.0, "generate_tokens_equal": True,
+               "replayed_wall_ms": _wall_ms(replay, 20),
+               "replayed": _profile(replay, 3)}
+    if graphs.num_captured != 1:
+        raise AssertionError("the timed replays captured again")
+    graphs.clear()
+    return out
+
+
 def phase_lm_serve(seed: int) -> None:
     """Single-batch serving at full width (Hymba-1.5B, f32): ``python -m
     repro_torch.launch.serve --arch hymba-1.5b --batch 4 --prompt-len 32
@@ -3608,6 +3915,7 @@ def phase_lm_serve(seed: int) -> None:
     cfg = get_config("hymba-1.5b")
     params = registry.init_params(
         torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    report["static_decode"] = _static_decode_replays(params, cfg, seed)
     P, T = LM_SERVE_PROMPT, LM_SERVE_TOKENS
     toks = registry.synth_batch(
         np.random.default_rng(seed), cfg,
@@ -3781,35 +4089,33 @@ def _greedy_ties(what: str, want, lk, le) -> int:
 
 
 def _family_serve(params, cfg, prompts, max_len: int, seed: int) -> dict:
-    """The continuous batcher in ring mode on the CUDA decode kernels
-    (counts zeroed just before, read just after). Then each admitted group
-    again, the kernel decode and the eager decode fed the kernel run's
-    tokens tick by tick (``_forced_ticks``): logits within
-    1e-3 (1 + |eager|), the same greedy tokens (``_greedy_ties``)."""
+    """The continuous batcher in ring mode on the CUDA decode kernels,
+    its ticks replays of one graph a K-extent rung, traced (counts zeroed
+    just before, read just after; the card's from the profiler's device
+    events). Then each admitted group again, the kernel decode and the
+    eager decode fed the kernel run's tokens tick by tick
+    (``_forced_ticks``): logits within 1e-3 (1 + |eager|), the same greedy
+    tokens (``_greedy_ties``)."""
     import numpy as np
-    import torch
-    from repro_torch.models import lm
     rng = np.random.default_rng(seed)
     reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
             for n in prompts]
     kw = dict(max_slots=4, max_len=max_len, min_bucket=8,
               decode_mode="ring")
     _zero_decode_launches()
-    t0 = time.perf_counter()
-    srv, toks = _serve(params, cfg, reqs, FAMILY_TOKENS,
-                       decode_kernel="cuda", **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    (srv, toks), events, wall_ms, lost = _trace(
+        lambda: _serve(params, cfg, reqs, FAMILY_TOKENS,
+                       decode_kernel="cuda", **kw))
     launches = _decode_launches()
+    if any(len(t) != FAMILY_TOKENS for t in toks.values()):
+        raise AssertionError(f"{cfg.name} serve tokens {toks}")
+    graphs = _serve_counts(f"{cfg.name} serve", srv, launches,
+                           _decode_on_card(events),
+                           [e.name() for e in events])
+    busy_ms = sum(e.duration_ns() for e in events) / 1e6
+    graphs.update(_release_graphs(srv), dropped_launches=lost["calls"])
     _free(srv.cache)
     ticks = srv._steps
-    want = {"ring_decode_attend": ticks * len(lm.swa_layer_ids(cfg)),
-            "extent_decode_attend": ticks * len(lm.global_layer_ids(cfg)),
-            "ssd_decode_step": 0}
-    if launches != want or any(len(t) != FAMILY_TOKENS
-                               for t in toks.values()):
-        raise AssertionError(f"{cfg.name} serve launches {launches}, want "
-                             f"{want} ({ticks} ticks); tokens {toks}")
     # every request asks for as many tokens, so the slots free together
     # and the groups are admitted in order, max_slots at a time
     errs, ties = [], 0
@@ -3832,10 +4138,11 @@ def _family_serve(params, cfg, prompts, max_len: int, seed: int) -> dict:
                                  lk[:n], le[:n])
     n_tok = sum(len(t) for t in toks.values())
     return {"prompts": list(prompts), "max_len": max_len,
-            "decode_ticks": ticks, "launches": launches,
+            "decode_ticks": ticks, "launches": launches, "graphs": graphs,
             "forced_logits_rel_err_vs_eager": max(errs),
-            "greedy_ties_vs_eager": ties, "real_wall_s": wall,
-            "gen_tok_per_s": n_tok / wall,
+            "greedy_ties_vs_eager": ties, "traced_wall_s": wall_ms / 1e3,
+            "gen_tok_per_s_traced": n_tok / (wall_ms / 1e3),
+            "device_busy_share_traced": busy_ms / wall_ms,
             "prefill_compiles": srv.prefill_compiles,
             "decode_compiles": srv.decode_compiles,
             "bucket_hist": {str(k): v for k, v in srv.bucket_hist.items()}}

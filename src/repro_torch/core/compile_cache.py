@@ -3,19 +3,23 @@
 
 The reference funnels serving's dynamic quantities into a small static
 ladder of padded shapes so that XLA compiles a bounded number of
-programs. Serving in the port runs eagerly and compiles nothing, but it
-keeps the ladder and counts the distinct program shapes it runs
-(``ShapeCache``), so that ``prefill_compiles`` / ``decode_compiles`` keep
+programs. The port keeps the ladder: its decode ticks run as one CUDA
+graph a shape (``GraphCache``), its prefill and install eagerly, counted
+by ``ShapeCache``, so that ``prefill_compiles`` / ``decode_compiles`` keep
 their meaning: the number of distinct (entry point, argument shapes) the
 serving loop ran. That is the reference's own fallback count (``JitCache``
 records each call's argument signature for when jax's private cache size
 is gone).
 
-``GraphCache`` is the port's ``JitCache`` for the federated engines and
-the KD epoch: on CUDA tensors each (entry point, argument signature) runs
-eagerly the first time, is captured into a ``torch.cuda.CUDAGraph`` the
-second time and replayed from then on; on CPU tensors the function runs
-eagerly. ``num_compiled`` counts the signatures either way.
+``GraphCache`` is the port's ``JitCache`` for the federated engines, the
+KD epoch and serving's decode: on CUDA tensors each (entry point, argument
+signature) runs eagerly the first time, is captured into a
+``torch.cuda.CUDAGraph`` the second time and replayed from then on; on
+CPU tensors the function runs eagerly. ``num_compiled`` and
+``count(name)`` count the signatures either way. Arguments named
+``inplace`` are the counterpart of ``JitCache``'s donated argnums: the
+graph reads and writes them where they live (the decode's params and
+cache), where every other array leaf is copied in.
 
 ``bucket_for(P) = next_pow2(clamp(P, min_bucket, max_len))`` (capped at
 ``max_len``) maps a prompt length to its padded prefill length;
@@ -25,7 +29,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
 
 
 def _signature(args) -> tuple:
@@ -47,6 +50,13 @@ def _signature(args) -> tuple:
 
     walk(args)
     return tuple(out)
+
+
+def _named(key, name) -> bool:
+    """Whether an entry called ``key`` counts under ``name``: ``key`` is
+    ``name``, or a tuple starting with it (``("decode", k_ext)``)."""
+    return key == name or (isinstance(key, tuple) and bool(key)
+                           and key[0] == name)
 
 
 class ShapeCache:
@@ -71,9 +81,7 @@ class ShapeCache:
         return sum(len(s) for s in self._seen.values())
 
     def count(self, name) -> int:
-        return sum(len(s) for n, s in self._seen.items()
-                   if n == name or (isinstance(n, tuple) and n
-                                    and n[0] == name))
+        return sum(len(s) for n, s in self._seen.items() if _named(n, name))
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +120,20 @@ def _unflatten(spec, it):
     return items if kind == "l" else tuple(items)
 
 
+def _flatten_args(args, inplace) -> tuple:
+    """``_flatten`` of the argument tuple: (spec, leaves, own), ``own[i]``
+    True where leaf ``i`` lies in an argument position named in
+    ``inplace``."""
+    leaves: list = []
+    own: list = []
+    specs = []
+    for i, a in enumerate(args):
+        n = len(leaves)
+        specs.append(_flatten(a, leaves))
+        own += [i in inplace] * (len(leaves) - n)
+    return ("t", tuple(specs)), leaves, own
+
+
 def _cuda_device(leaves):
     """The device of the first CUDA tensor among ``leaves``, else None."""
     for x in leaves:
@@ -120,77 +142,116 @@ def _cuda_device(leaves):
     return None
 
 
-class _Graph:
-    """One captured call. ``fn`` must be functional: it reads its
-    arguments and returns new tensors.
+def _leaf_key(x, own: bool, device) -> tuple:
+    """A leaf's part of the signature: shape and dtype; an in-place leaf's
+    address, strides and device too, so that another tensor there is
+    another graph and never a read of memory the graph no longer owns."""
+    if not own:
+        return tuple(x.shape), str(x.dtype)
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"an in-place argument's leaves must be tensors, "
+                        f"got {type(x).__name__}")
+    if device is not None and x.device != device:
+        raise ValueError(f"in-place leaf on {x.device}, the call runs on "
+                         f"{device}")
+    return (tuple(x.shape), str(x.dtype), x.data_ptr(), x.stride(),
+            str(x.device))
 
-    It copies the arguments' array leaves into static device buffers and
-    captures ``fn`` on them; a capture that fails raises. ``replay`` copies
-    new arguments into the buffers, replays, and copies the outputs out of
-    the graph's memory (the next replay writes over them), so nothing it
-    returns aliases the graph.
+
+class _Graph:
+    """One captured call.
+
+    It copies the arguments' array leaves into static device buffers,
+    but for the in-place leaves (``own``), which it captures where they
+    live, and captures ``fn`` on them; a capture that fails raises.
+    ``replay`` copies new arguments into the buffers, replays, and clones
+    the outputs out of the graph's memory (the next replay writes over
+    them), so nothing it returns aliases the graph, but for an output
+    that is an in-place leaf itself: that is handed back as the caller
+    passed it. ``fn`` may write its in-place leaves; its other inputs it
+    must only read.
 
     A kernel wrapper's ``launches`` count is bumped while its launch is
     captured: the capture is that launch, recorded once. A replay runs the
     captured kernels on the card without the wrappers, so it adds nothing
     to the counts; the profiler's device events count what a replay ran."""
 
-    def __init__(self, fn, args, device, pool):
-        leaves: list = []
-        spec = _flatten(args, leaves)
-        self.buffers = [torch.as_tensor(x).to(device, copy=True)
-                        for x in leaves]
+    def __init__(self, fn, spec, leaves, own, device, pool):
+        self.own = own
+        self.buffers = [x if o else torch.as_tensor(x).to(device, copy=True)
+                        for x, o in zip(leaves, self.own)]
         static = _unflatten(spec, iter(self.buffers))
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool):
             out = fn(*static)
         self.out_leaves: list = []
         self.out_spec = _flatten(out, self.out_leaves)
+        at = {id(b): i for i, (b, o) in enumerate(zip(self.buffers, self.own))
+              if o}
+        # each output: the index of the in-place leaf it is, else None
+        self.out_own = [at.get(id(t)) for t in self.out_leaves]
 
-    def replay(self, args):
-        leaves: list = []
-        _flatten(args, leaves)
-        for buf, x in zip(self.buffers, leaves):
+    def replay(self, leaves):
+        for buf, x, o in zip(self.buffers, leaves, self.own):
+            if o:
+                continue
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(x)
             buf.copy_(x, non_blocking=True)
         self.graph.replay()
         return _unflatten(self.out_spec,
-                          (t.clone() for t in self.out_leaves))
+                          (t.clone() if i is None else leaves[i]
+                           for t, i in zip(self.out_leaves, self.out_own)))
 
 
 class GraphCache:
     """One CUDA graph per (entry point, argument signature), captured the
     second time the signature is called.
 
-    ``call(name, fn, args)`` runs ``fn(*args)``. ``args`` is a tree of
-    dicts, lists and tuples whose leaves are tensors, numpy arrays (inputs:
-    any values at the same shape and dtype replay one graph) and other
-    values (baked into the graph: part of the signature). With no CUDA
-    tensor among the leaves ``fn`` runs eagerly. On the card every call
-    hands ``fn`` its array leaves as tensors on that device; the first
-    call with a signature runs ``fn`` eagerly: the warm-up that lets
-    cuDNN, cuBLAS and the caching allocator settle (and builds the
+    ``call(name, fn, args, inplace=())`` runs ``fn(*args)``. ``name`` is
+    a string or a tuple starting with one (``("decode", k_ext)``).
+    ``args`` is a tuple of trees of dicts, lists and tuples whose leaves
+    are tensors, numpy arrays (inputs: any values at the same shape and
+    dtype replay one graph) and other values (baked into the graph: part
+    of the signature). The leaves of the argument positions in
+    ``inplace`` (the counterpart of ``JitCache``'s donated argnums) must be
+    tensors: the graph reads them where they live and ``fn`` may write
+    them in place; their address, shape, dtype and strides are part of
+    the signature, so another tensor there is another graph. Every other
+    leaf is copied into the graph's buffers and every output cloned out,
+    but an output that is an in-place leaf, which comes back as the
+    caller passed it.
+
+    With no CUDA tensor among the leaves ``fn`` runs eagerly. On the card
+    every call hands ``fn`` its array leaves as tensors on that device;
+    the first call with a signature runs ``fn`` eagerly: the warm-up that
+    lets cuDNN, cuBLAS and the caching allocator settle (and builds the
     kernels) before a capture, and all a signature called once ever pays.
     The second call captures it on that tensor's device (``_Graph``) and
     replays; later calls replay. The signature also holds the device and
     the cuDNN and cuBLAS switches read at capture (TF32, deterministic,
     benchmark). The graphs of one cache share one memory pool: each
     replay's outputs are copied out before the next call, and calls run
-    in the stream order they are made. ``num_compiled`` counts the
-    signatures, CPU ones included; ``num_captured`` the graphs."""
+    in the stream order they are made.
+
+    A graph keeps its in-place tensors alive (and its pool's memory held):
+    their owner frees them by dropping the cache or calling ``clear``.
+
+    ``num_compiled`` counts the signatures, CPU ones included, and
+    ``count(name)`` those of one entry point (``ShapeCache.count``'s
+    meaning); ``num_captured`` and ``captures(name)`` count the graphs."""
 
     def __init__(self):
         self._seen: set = set()
         self._graphs: dict = {}
         self._pool = None
 
-    def call(self, name, fn, args):
-        leaves: list = []
-        spec = _flatten(args, leaves)
+    def call(self, name, fn, args, inplace=()):
+        spec, leaves, own = _flatten_args(args, inplace)
         device = _cuda_device(leaves)
-        key = (name, spec, tuple((tuple(x.shape), str(x.dtype))
-                                 for x in leaves), device,
+        key = (name, spec,
+               tuple(_leaf_key(x, o, device) for x, o in zip(leaves, own)),
+               device,
                torch.backends.cudnn.allow_tf32,
                torch.backends.cudnn.deterministic,
                torch.backends.cudnn.benchmark,
@@ -200,26 +261,42 @@ class GraphCache:
         if device is None:
             return fn(*args)
         if first:
-            return fn(*_unflatten(spec, (torch.as_tensor(x).to(device)
-                                         for x in leaves)))
+            return fn(*_unflatten(spec, (
+                x if o else torch.as_tensor(x).to(device)
+                for x, o in zip(leaves, own))))
         graph = self._graphs.get(key)
         if graph is None:
             with torch.cuda.device(device):
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-                graph = _Graph(fn, args, device, self._pool)
+                graph = _Graph(fn, spec, leaves, own, device, self._pool)
             self._graphs[key] = graph
-        return graph.replay(args)
+        return graph.replay(leaves)
+
+    def clear(self) -> None:
+        """Drop every graph, and with them their pool and the in-place
+        tensors they hold; the counts stay, and a signature called again
+        is captured again."""
+        self._graphs.clear()
+        self._pool = None
 
     @property
     def num_compiled(self) -> int:
         return len(self._seen)
+
+    def count(self, name) -> int:
+        """Signatures called under ``name`` (``_named``)."""
+        return sum(_named(key[0], name) for key in self._seen)
 
     @property
     def num_captured(self) -> int:
         """CUDA graphs captured (one per CUDA signature called twice or
         more)."""
         return len(self._graphs)
+
+    def captures(self, name) -> int:
+        """Graphs held under ``name`` (``_named``)."""
+        return sum(_named(key[0], name) for key in self._graphs)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,18 @@ largest active prefix bucketed on the same ladder. ``"uniform"`` keeps the
 full-cache decode as the parity oracle. The reference ``vmap``s a
 single-stream step over the slots; here the slots are one batch, and every
 position is a per-row (B,) int32 tensor on the device. A decode tick makes
-one host transfer: the argmax tokens.
+one host transfer each way: tokens and positions up in one copy, the
+argmax tokens down.
+
+Each decode tick is one call of the batcher's ``GraphCache``, one entry a
+decode shape (``("decode", k_ext)`` in ring mode, ``"decode"`` in uniform
+mode), with the params and the serving cache as in-place arguments: on
+the card a shape's first tick runs eagerly, its second is captured into
+a CUDA graph that reads the params and writes the cache where they live,
+and later ticks replay it, ending in the argmax. On the CPU the same call
+runs the tick eagerly. Prefill and install run eagerly, counted by a
+``ShapeCache``: a stream admits a handful of groups against tens of
+ticks, and a prefill graph's pool would hold a whole bucket's cache.
 
 Ring-mode decode runs the attends and the SSM recurrence as the
 hand-written CUDA kernels (``decode_kernel="cuda"``, the default; see
@@ -41,7 +52,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.compile_cache import ShapeCache, bucket_for, bucket_ladder
+from repro_torch.core.compile_cache import (GraphCache, ShapeCache,
+                                            bucket_for, bucket_ladder)
 from repro_torch.device import params_device
 from repro_torch.models import lm, registry
 from repro_torch.models.attention import KERNELS as DECODE_KERNELS
@@ -84,7 +96,9 @@ class ContinuousBatcher:
     ``max(1, len(self.decode_buckets))``. ``decode_kernel="cuda"``
     (default) runs the ring-mode decode through the CUDA kernels;
     ``"eager"`` is the torch oracle. The batcher serves on the device its
-    params live on; ``dtype`` is the cache's dtype.
+    params live on; ``dtype`` is the cache's dtype. Its decode graphs
+    (``_graphs``) keep the params and the cache alive until the batcher
+    is dropped or ``_graphs.clear()`` is called.
     """
 
     def __init__(self, params, cfg: ModelConfig, max_slots: int = 4,
@@ -138,7 +152,8 @@ class ContinuousBatcher:
         self.bucket_hist: dict = {}     # {bucket (or exact P): admits}
         self._rid = itertools.count()
         self._steps = 0
-        self._shapes = ShapeCache()
+        self._shapes = ShapeCache()     # prefill and install
+        self._graphs = GraphCache()     # the decode ticks
 
     # -- shape accounting ------------------------------------------------
     @property
@@ -152,11 +167,11 @@ class ContinuousBatcher:
     def decode_compiles(self) -> int:
         """Distinct decode shapes run: one per K-extent rung a stream
         reached in ring mode, exactly one in uniform mode."""
-        return self._shapes.count("decode")
+        return self._graphs.count("decode")
 
     @property
     def num_compiled(self) -> int:
-        return self._shapes.num_compiled
+        return self._shapes.num_compiled + self._graphs.num_compiled
 
     # -- entry points (shape-counted) -------------------------------------
     def _prefill_fn(self, params, tokens, lengths):
@@ -335,18 +350,8 @@ class ContinuousBatcher:
         mask = np.array([r is not None for r in self.active])
         if not mask.any():
             return 0
-        if self.decode_mode == "ring":
-            k_ext = self._decode_k_ext(mask)
-            name = ("decode", k_ext)
-            fn = functools.partial(self._decode_ring, k_ext)
-        else:
-            name, fn = "decode", self._decode_uniform
-        # tokens and positions go up in one copy
-        tp = self._to_device(np.stack([self.last_tok, self.pos]))
-        logits, self.cache = self._shapes.call(
-            name, fn, (self.params, tp[0], self.cache, tp[1]))
-        # argmax on the device, one transfer of B ints per tick
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        # one transfer of B ints per tick
+        nxt = self._decode(mask)[0].cpu().numpy()
         for slot, req in enumerate(self.active):
             if req is None:
                 continue
@@ -356,13 +361,36 @@ class ContinuousBatcher:
         self._steps += 1
         return int(mask.sum())
 
-    def _decode_ring(self, k_ext, params, token, cache, pos):
-        return registry.decode_step_grouped(
-            params, self.cfg, token, cache, pos, k_ext=k_ext,
-            decode_kernel=self.decode_kernel)
+    def _decode_entry(self, mask) -> tuple:
+        """This tick's decode entry: its name and its function of
+        (params, (2, B) tokens and positions, cache)."""
+        if self.decode_mode == "ring":
+            k_ext = self._decode_k_ext(mask)
+            return ("decode", k_ext), functools.partial(self._tick, k_ext)
+        return "decode", functools.partial(self._tick, None)
 
-    def _decode_uniform(self, params, token, cache, pos):
-        return registry.decode_step(params, self.cfg, token, cache, pos)
+    def _decode(self, mask):
+        """One decode tick of every slot at ``last_tok`` / ``pos`` through
+        the decode graphs, the cache written in place. Returns the (B,)
+        int32 argmax tokens and the (B, V) logits, on the device."""
+        name, fn = self._decode_entry(mask)
+        # tokens and positions go up in one copy
+        tp = self._to_device(np.stack([self.last_tok, self.pos]))
+        nxt, logits, self.cache = self._graphs.call(
+            name, fn, (self.params, tp, self.cache), inplace=(0, 2))
+        return nxt, logits
+
+    def _tick(self, k_ext, params, tp, cache):
+        """The decode of one tick, ring (``k_ext`` an int) or uniform
+        (None), and its argmax: (tokens, logits, cache)."""
+        if k_ext is None:
+            logits, cache = registry.decode_step(params, self.cfg, tp[0],
+                                                 cache, tp[1])
+        else:
+            logits, cache = registry.decode_step_grouped(
+                params, self.cfg, tp[0], cache, tp[1], k_ext=k_ext,
+                decode_kernel=self.decode_kernel)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
 
     def pending(self) -> list:
         """Requests not yet completed: in-flight (slot order) + queued."""

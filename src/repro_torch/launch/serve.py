@@ -6,8 +6,11 @@ The static path synthesises ``--batch`` prompts of ``--prompt-len``
 tokens (``registry.synth_batch``: a VLM's patch prefix too; for the
 encoder-decoder, ``--prompt-len`` source frames and BOS 0 as the first
 target token), prefills an f32 uniform cache and decodes ``--gen`` tokens
-one step at a time (``registry.decode_step``, eager attends), printing
-the prefill and decode times.
+one step at a time (``greedy_step``: ``registry.decode_step``, eager
+attends), printing the prefill and decode times. On the card the decode
+steps are one CUDA graph, captured at the second step and replayed after
+it, which reads the params and writes the cache, the token and the
+positions where they live.
 
 ``--continuous`` serves through the slot-based continuous batcher
 (``core/serving.py``): bucketed prefill (``--prefill-buckets`` sets the
@@ -26,12 +29,14 @@ Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.compile_cache import GraphCache
 from repro_torch.core.serving import (DECODE_KERNELS, DECODE_MODES,
                                       ContinuousBatcher)
 from repro_torch.device import resolve_device
@@ -78,6 +83,18 @@ def serve_continuous(cfg, args) -> int:
     return 0
 
 
+def greedy_step(cfg, params, cache, state):
+    """One greedy decode step of the batch fed ``state["tok"]`` (B,)
+    int32 at ``state["pos"]`` (B,) int32: writes the argmax token into
+    ``tok`` and advances ``pos`` by one, both in place, as the cache.
+    Returns (logits, cache, state)."""
+    logits, cache = registry.decode_step(params, cfg, state["tok"], cache,
+                                         state["pos"])
+    state["tok"].copy_(torch.argmax(logits, dim=-1))
+    state["pos"].add_(1)
+    return logits, cache, state
+
+
 @torch.no_grad()
 def generate(params, cfg, batch, max_len: int, gen: int):
     """Greedy generation from a static batch: ``batch`` is a (B, P) token
@@ -87,8 +104,11 @@ def generate(params, cfg, batch, max_len: int, gen: int):
     its first token from the prefill; an encoder-decoder encodes the
     source (a cache of ``max_len`` source frames,
     ``registry.ENCDEC_TGT_LEN`` target positions) and starts from BOS 0
-    at position 0. Then ``gen - 1`` greedy decode steps. Returns the
-    (B, gen) int32 tokens (numpy) and the prefill and decode seconds."""
+    at position 0. Then ``gen - 1`` greedy decode steps (``greedy_step``)
+    through a ``GraphCache`` with the params, the cache and the step's
+    token and positions in place: one CUDA graph on the card, eager on
+    the CPU. Returns the (B, gen) int32 tokens (numpy) and the prefill and
+    decode seconds (the decode's eager step and capture included)."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
     if cfg.is_encdec:
@@ -121,11 +141,14 @@ def generate(params, cfg, batch, max_len: int, gen: int):
     t_prefill = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
-    for i in range(gen - 1):
-        logits, cache = registry.decode_step(params, cfg, tok, cache,
-                                             start_pos + i)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        out.append(tok)
+    state = {"tok": tok.clone(),
+             "pos": torch.full((B,), start_pos, dtype=torch.int32,
+                               device=device)}
+    graphs, step = GraphCache(), functools.partial(greedy_step, cfg)
+    for _ in range(gen - 1):
+        graphs.call("decode", step, (params, cache, state),
+                    inplace=(0, 1, 2))
+        out.append(state["tok"].clone())
     _sync(device)
     t_decode = time.perf_counter() - t0
     return torch.stack(out, dim=1).cpu().numpy(), t_prefill, t_decode

@@ -27,8 +27,10 @@ the paper's proximal local SGD (``fedprox``, the default), SCAFFOLD's
 control variates (``scaffold``) or capacity-scaled low-rank / masked
 submodel updates (``lowrank``), on either engine and mode.
 
-``--engine shard|hier`` (sync mode) splits each round's clients over the
-ranks of the process group (``launch/mesh.py``): in one process a world
+``--engine shard|hier`` (sync mode; async mode prints that they are
+sync-only and runs on ``scan``, as the reference's trainer) splits each
+round's clients over the ranks of the process group
+(``launch/mesh.py``): in one process a world
 of one; under ``torchrun --nproc-per-node N`` N ranks, each running the
 same seeded program on its block of the clients (its own card, or the
 CPU over gloo), rank 0 alone printing and writing ``--ckpt``; the group
@@ -61,8 +63,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import distill, simulator
 from repro_torch.core.algorithms import ALGORITHMS
 from repro_torch.core.fedasync import make_client_step
-from repro_torch.core.fleet import (JETSON_FLEET_HMDB51, EngineSpec, Fleet,
-                                    FleetSpec)
+from repro_torch.core.fleet import (ASYNC_ENGINES, JETSON_FLEET_HMDB51,
+                                    EngineSpec, Fleet, FleetSpec)
 from repro_torch.data import BatchLoader, iid_partition, make_dataset_for
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh
@@ -209,15 +211,22 @@ def main(argv=None):
                                 seed=k, indices=parts[k])
                     for k in range(args.clients)]
             fleet = Fleet.from_lists(build_fleet(args.clients), data)
+        eng = args.engine
+        if args.mode == "async" \
+                and EngineSpec.from_str(eng) not in ASYNC_ENGINES:
+            # the async path has no fleet-wide round to shard: its bursts
+            # run on the batched engines, as the reference's trainer does
+            say(f"  engine={eng} is sync-only; async uses engine=scan")
+            eng = "scan"
         if args.mode == "async":
             res = simulator.run_async(params, cfg, fed, fleet,
-                                      engine=args.engine,
+                                      engine=eng,
                                       window=args.async_window,
                                       algorithm=args.algorithm,
                                       device=device)
         else:
             res = simulator.run_sync(params, cfg, fed, fleet,
-                                     engine=args.engine,
+                                     engine=eng,
                                      algorithm=args.algorithm,
                                      device=device)
         params = res.params

@@ -325,8 +325,9 @@ def test_decode_kernels_reject_mixed_devices(cuda):
 
 def test_serving_on_the_card_goes_through_the_kernels(cuda, rng):
     """Reduced Hymba served on the card: the CUDA decode gives the eager
-    decode's tokens, and every decode tick launches each kernel once per
-    layer of its kind."""
+    decode's tokens, and each eager tick and each capture of a decode
+    shape's graph launches each kernel once per layer of its kind (a
+    replay runs the captured kernels without the wrappers)."""
     from repro_torch.configs import get_config
     from repro_torch.core.serving import ContinuousBatcher, generate_single
     from repro_torch.kernels import decode_attend as tda
@@ -348,7 +349,9 @@ def test_serving_on_the_card_goes_through_the_kernels(cuda, rng):
         for p in prompts:
             srv.submit(p, max_new=12)
         outs[kern] = {r.rid: r.out for r in srv.run()}
-        n = srv._steps if kern == "cuda" else 0
+        n = srv.decode_compiles + srv._graphs.num_captured \
+            if kern == "cuda" else 0
+        assert n < srv._steps
         assert (tda.ring_decode_attend.launches,
                 tda.extent_decode_attend.launches,
                 tsd.ssd_decode_step.launches) == (

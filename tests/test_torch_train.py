@@ -108,20 +108,24 @@ def test_algorithm_flag_matches_reference(mode, algorithm, engine, init,
 
 
 # --engine shard, refused before the sharded round was ported: in sync
-# mode (a world of one) the scan run's result line; async refuses it, as
-# the reference's trainer does
+# mode (a world of one) the scan run's result line; in async mode the
+# reference's trainer prints that the engine is sync-only and runs on
+# scan, and so does the port's
 @pytest.mark.parametrize("flag,item", [(["--engine", "shard"],
-                                        "not supported here")])
+                                        "engine=shard is sync-only; async "
+                                        "uses engine=scan")])
 def test_unported_flags_raise(flag, item, capsys):
-    with pytest.raises(ValueError, match=item):
-        ttrain.main(["--mode", "async", "--device", "cpu"] + ARGS + flag)
-    assert ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS) == 0
-    want = _result(capsys)
-    assert ttrain.main(["--mode", "sync", "--device", "cpu"] + ARGS
-                       + flag) == 0
-    got = _result(capsys)
-    assert got["final_loss"] == want["final_loss"]
-    assert got["virtual_wall_s"] == want["virtual_wall_s"]
+    for mode in ("async", "sync"):
+        assert ttrain.main(["--mode", mode, "--engine", "scan", "--device",
+                            "cpu"] + ARGS) == 0
+        want = _result(capsys)
+        assert ttrain.main(["--mode", mode, "--device", "cpu"] + ARGS
+                           + flag) == 0
+        out = capsys.readouterr().out
+        assert (f"  {item}\n" in out) == (mode == "async")
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["final_loss"] == want["final_loss"]
+        assert got["virtual_wall_s"] == want["virtual_wall_s"]
 
 
 # --population, refused before streaming fleets were ported: a streamed
