@@ -177,6 +177,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
     eager decode fed the same tokens, each model's time and peak GB; the
     ``kernels`` rows of phases 7 and 10 at these shapes take their
     launches from here;
+13e. the LM's ("data", "model") mesh (``lm_mesh``), a world of one over
+    NCCL (``make_host_mesh``: the (1, 1) mesh), in ``_Exact``: Hymba-1.5B
+    at full width, 2 steps of B 2 x S 2048 (bf16 compute, remat) through
+    ``jit_train_step`` against ``make_train_step(mesh=None)``, losses and
+    params within ``ENGINE_TOL``, each step's ms and the peak GB; 16
+    tokens of ``jit_serve_step`` (B 4, a 2048-position cache, uniform and
+    ring) against the unsharded decode: tokens equal, logits and cache
+    within ``ENGINE_TOL``; the scoring forward under ``act_pspec``
+    through kernels 5 and 6 (32 of each counted and on the card by the
+    profiler, the hidden and the loss equal to the forward without a
+    mesh; the counts go to those kernels' rows); llama4-scout's first 4
+    layers scored with ``moe_ctx`` equal to the local path; the sharded
+    train step on five reduced configs, card against the CPU's gloo mesh
+    within 1e-5 relative. The phase must take <= 90 s; it frees its
+    memory and the process group at its end;
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
     math): the reduction must reach 35%.
 
@@ -4416,6 +4431,310 @@ def phase_lm_families(seed: int = 0, rows: list = ()) -> None:
                                   and "model_s" in report[a]}}))
 
 
+# ---------------------------------------------------------------------------
+# The LM half of multi-device: the ("data", "model") mesh in a world of one
+# ---------------------------------------------------------------------------
+
+LM_MESH_STEPS = 2
+LM_MESH_SERVE = (4, 2048, 64, 16)     # B, cache positions, prompt, tokens
+LM_MESH_REDUCED = ("hymba-1.5b", "mamba2-130m", "llama4-scout-17b-a16e",
+                   "seamless-m4t-large-v2", "paligemma-3b")
+
+
+def _mesh_scoring_on_card(events) -> dict:
+    """Kernels 5 and 6 among the profiler's device events: the attention
+    kernel once a launch, the SSD scan's state pass once a launch (its
+    two chunk passes beside it)."""
+    return {"swa_attention": sum("swa_attention_kernel" in e.name()
+                                 for e in events),
+            "ssd_scan": sum("ssd_state_pass_kernel" in e.name()
+                            for e in events)}
+
+
+def _max_diff(got: dict, want: dict) -> float:
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want)
+
+
+def phase_lm_mesh(rows: list = ()) -> None:
+    """The LM's ("data", "model") mesh on the card, a world of one over
+    NCCL (``launch.mesh.make_host_mesh``: the (1, 1) mesh), in ``_Exact``:
+
+    (a) Hymba-1.5B at full width, f32 params, bf16 compute, remat,
+        ``LM_MESH_STEPS`` steps of B 2 x S 2048 through ``jit_train_step``
+        (params, momentum, batch placed by the rules), each step's ms and
+        the peak GB; losses and params against ``make_train_step(mesh=
+        None)`` on the same batches within ``ENGINE_TOL`` (both run the
+        same local ops: 0.0 expected), its steps timed too;
+    (b) Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position
+        cache prefilled with 64 tokens, 16 greedy tokens, uniform and
+        ring, against ``make_serve_step`` on a copy: tokens equal, logits
+        and cache within ``ENGINE_TOL``;
+    (c) the Hymba-1.5B scoring forward through kernels 5 and 6 under
+        ``act_pspec``, B 2 x S 2048 (the main path: counts zeroed just
+        before, read just after, and the card's from a trace): 32 of each,
+        the hidden and the loss equal to the forward without a mesh;
+    (d) llama4-scout's first 4 layers (43.5 GB of f32 weights), B 1 x S
+        2048, the loss with ``moe_ctx`` and ``act_pspec`` through kernel
+        5: at one dp shard equal to the local path;
+    (e) the sharded train step on the reduced Hymba, Mamba2, llama4-scout,
+        seamless and paligemma, f32 compute, the card against the CPU's
+        (1, 1) gloo mesh: losses within 1e-5 relative.
+
+    ``rows``: the kernel rows of kernels 5 and 6 at Hymba's shape; their
+    ``launches_by_path`` get this path's counts. Frees its memory and the
+    process group at the end."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.sharding import specs as shspecs
+    from repro_torch.types import FedConfig, ShapeConfig
+    t_phase = time.perf_counter()
+    held = {"held_before_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "held_after_release_gib": _release_engines()}
+    mesh = make_host_mesh(device="cuda")
+    report = {"phase": "lm_mesh", "card": _card_line(), **held,
+              "mesh": [list(mesh.mesh_dim_names), list(mesh.shape)],
+              "tol": ENGINE_TOL}
+
+    def line(part):
+        print(json.dumps({"phase": "lm_mesh", "part": part,
+                          "card": report["card"], **report[part]}))
+
+    cfg = get_config("hymba-1.5b")
+    with _Exact():
+        # (a) the train step at full width
+        B, S = LM_TRAIN_SHAPE
+        shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+        rng = np.random.default_rng(0)
+        batches = [registry.synth_batch(rng, cfg, shape, device="cuda")
+                   for _ in range(LM_MESH_STEPS)]
+        fed = FedConfig()
+        init = registry.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        fn, (in_sh, _) = steps.jit_train_step(
+            cfg, fed, mesh, shape, _shapes(cfg),
+            registry.batch_spec(cfg, shape))
+        params = shspecs.place(mesh, {k: v.clone() for k, v in init.items()},
+                               in_sh[0])
+        anchor = shspecs.place(mesh, init, in_sh[2])
+        state = fn.opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_a = torch.cuda.memory_allocated()
+        mesh_losses, step_ms = [], []
+        for b in batches:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            params, state, loss = fn(params, state, anchor, b)
+            t1.record()
+            torch.cuda.synchronize()
+            step_ms.append(t0.elapsed_time(t1))
+            mesh_losses.append(float(loss.to_local()))
+        peak_a = (torch.cuda.max_memory_allocated() - held_a) / 2 ** 30
+        got = {k: v.to_local() for k, v in params.items()}
+        del state, anchor
+        gc.collect()
+        step, opt = steps.make_train_step(cfg, fed)
+        p = {k: v.clone() for k, v in init.items()}
+        ost, plain_losses, plain_ms = opt.init(p), [], []
+        for b in batches:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            p, ost, l = step(p, ost, init, b)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms.append(t0.elapsed_time(t1))
+            plain_losses.append(float(l))
+        p_err = _max_diff(got, p)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses,
+                                                        plain_losses))
+        if p_err > ENGINE_TOL or l_err > ENGINE_TOL or not all(
+                math.isfinite(x) for x in mesh_losses):
+            raise AssertionError(f"jit_train_step vs make_train_step: "
+                                 f"params {p_err}, losses {l_err}")
+        report["train_full_width"] = {
+            "arch": cfg.name, "batch": B, "seq_len": S, "compute": "bf16",
+            "remat": True, "step_ms": step_ms, "losses": mesh_losses,
+            "peak_gib": peak_a, "param_max_abs_err_vs_unsharded": p_err,
+            "loss_rel_err_vs_unsharded": l_err,
+            "unsharded_step_ms": plain_ms}
+        line("train_full_width")
+        del p, ost, got, params, batches
+        _free()
+
+        # (b) the serve step
+        SB, SL, SP, ST = LM_MESH_SERVE
+        sshape = ShapeConfig("serve", seq_len=SL, global_batch=SB,
+                             kind="decode")
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (SB, SP)).astype(np.int32)).cuda()
+        with torch.no_grad():
+            first_logits, filled = registry.prefill(
+                init, cfg, {"tokens": prompt},
+                registry.init_cache(cfg, SB, SL, device="cuda"))
+        first = torch.argmax(first_logits, dim=-1).to(torch.int32)
+        serve_rep = {}
+        for ring in (False, True):
+            base = lm.to_ring_cache(cfg, filled, SP) if ring else filled
+            plain = {k: v.clone() for k, v in base.items()}
+            sfn, (s_in, _) = steps.jit_serve_step(
+                cfg, mesh, sshape, _shapes(cfg), base, ring=ring)
+            sparams = shspecs.place(mesh, init, s_in[0])
+            cache = shspecs.place(mesh, {k: v.clone()
+                                         for k, v in base.items()}, s_in[2])
+            tok = ref_tok = first
+            errs, ms = [], []
+            for t in range(ST):
+                t0 = time.perf_counter()
+                tok, cache, lg = sfn(sparams, tok, cache, SP + t,
+                                     with_logits=True)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                with torch.no_grad():
+                    if ring:
+                        want, plain = lm.decode_step_ring(init, cfg, ref_tok,
+                                                          plain, SP + t)
+                    else:
+                        want, plain = registry.decode_step(init, cfg,
+                                                           ref_tok, plain,
+                                                           SP + t)
+                ref_tok = torch.argmax(want, dim=-1).to(torch.int32)
+                if not torch.equal(tok.to_local(), ref_tok):
+                    raise AssertionError(f"jit_serve_step ring={ring} step "
+                                         f"{t}: tokens differ")
+                errs.append(float(((lg - want).abs()
+                                   / (1 + want.abs())).max()))
+            c_err = _max_diff({k: v.to_local() for k, v in cache.items()},
+                              plain)
+            if max(errs) > ENGINE_TOL or c_err > ENGINE_TOL:
+                raise AssertionError(f"jit_serve_step ring={ring}: logits "
+                                     f"{max(errs)}, cache {c_err}")
+            serve_rep["ring" if ring else "uniform"] = {
+                "tokens": ST, "logits_rel_err": max(errs),
+                "cache_max_abs_err": c_err, "step_wall_ms": ms}
+            del sparams, cache, plain
+        report["serve"] = {"arch": cfg.name, "batch": SB, "max_len": SL,
+                           "prompt": SP, **serve_rep}
+        line("serve")
+        del filled
+        _free()
+
+        # (c) the scoring forward through kernels 5 and 6 under act_pspec
+        batch = _score_batch(cfg, SCORE_B, SCORE_S, 0, "cuda")
+        ap = steps.act_pspec(mesh, cfg, SCORE_S)
+        with torch.no_grad():
+            _zero_score_launches()
+            (hid, _), events, wall_ms, lost = _trace(
+                lambda: lm.forward_hidden(init, cfg, batch["tokens"],
+                                          kernel="cuda", act_pspec=ap))
+            host = _score_launches()
+            card = _mesh_scoring_on_card(events)
+            want_h, _ = lm.forward_hidden(init, cfg, batch["tokens"],
+                                          kernel="cuda")
+            loss_m = registry.loss_fn(init, cfg, batch, kernel="cuda",
+                                      act_pspec=ap)[0]
+            loss_p = registry.loss_fn(init, cfg, batch, kernel="cuda")[0]
+        per = _per_forward(cfg)
+        if host != per or card != per or lost["calls"]:
+            raise AssertionError(f"mesh scoring launches: host {host}, card "
+                                 f"{card}, want {per} ({lost} lost)")
+        if not torch.equal(hid, want_h) or not torch.equal(loss_m, loss_p):
+            raise AssertionError("mesh scoring forward differs from the "
+                                 "forward without a mesh")
+        for r in rows:
+            r.setdefault("launches_by_path", {})["lm_mesh_scoring"] = {
+                "host": host[r["name"]], "card": card[r["name"]]}
+        report["scoring"] = {
+            "arch": cfg.name, "batch": [SCORE_B, SCORE_S],
+            "act_pspec": repr(ap), "launches_host": host,
+            "launches_card": card, "dropped_launches": lost["calls"],
+            "traced_forward_ms": wall_ms, "hidden_equal": True,
+            "loss": float(loss_m), "loss_equal": True}
+        line("scoring")
+        del init, hid, want_h
+        _free()
+
+        # (d) llama4-scout's MoE scoring with moe_ctx
+        lcfg = _family_cfg("llama4-scout-17b-a16e")
+        torch.cuda.reset_peak_memory_stats()
+        lparams, info = _family_params(lcfg, 0)
+        lbatch = _family_batch(lcfg, 1, SCORE_S, 0)
+        ctx = {"mesh": mesh, "dp": "data"}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lm_, met = registry.loss_fn(lparams, lcfg, lbatch, kernel="cuda",
+                                        moe_ctx=ctx,
+                                        act_pspec=steps.act_pspec(
+                                            mesh, lcfg, SCORE_S))
+            torch.cuda.synchronize()
+            moe_s = time.perf_counter() - t0
+            lp_, mp_ = registry.loss_fn(lparams, lcfg, lbatch, kernel="cuda")
+        if not (torch.equal(lm_, lp_) and torch.equal(met["aux"],
+                                                      mp_["aux"])):
+            raise AssertionError(f"llama4 moe_ctx loss {float(lm_)} / aux "
+                                 f"{float(met['aux'])} vs local "
+                                 f"{float(lp_)} / {float(mp_['aux'])}")
+        report["moe_scoring"] = {
+            "arch": lcfg.name, "layers": lcfg.num_layers,
+            "batch": [1, SCORE_S], "loss": float(lm_),
+            "aux": float(met["aux"]), "equal_to_local_path": True,
+            "loss_s": moe_s, **info,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        line("moe_scoring")
+        _free(lparams)
+
+    # (e) reduced configs, the sharded train step, card vs CPU
+    cpu_mesh = make_host_mesh(device="cpu")
+    red = {}
+    with _Exact():
+        for arch in LM_MESH_REDUCED:
+            rc = get_config(arch).reduced()
+            sh = ShapeConfig("t", seq_len=64, global_batch=2, kind="train")
+            b = registry.synth_batch(np.random.default_rng(2), rc, sh,
+                                     device="cpu")
+            p0 = registry.init_params(torch.Generator().manual_seed(0), rc,
+                                      "cpu")
+            losses = {}
+            for dev, m in (("cuda", mesh), ("cpu", cpu_mesh)):
+                rfn, _ = steps.jit_train_step(
+                    rc, FedConfig(lr=0.05), m, sh, _shapes(rc),
+                    registry.batch_spec(rc, sh),
+                    train_kwargs={"dtype": torch.float32})
+                pp = {k: v.to(dev) for k, v in p0.items()}
+                st, anc = rfn.opt.init(pp), {k: v.clone()
+                                             for k, v in pp.items()}
+                ls = []
+                for _ in range(2):
+                    pp, st, l = rfn(pp, st, anc,
+                                    {k: v.to(dev) for k, v in b.items()})
+                    ls.append(float(l.to_local()))
+                losses[dev] = ls
+            err = max(abs(a - c) / abs(c) for a, c in zip(losses["cuda"],
+                                                          losses["cpu"]))
+            if err > 1e-5:
+                raise AssertionError(f"{arch} reduced sharded step card vs "
+                                     f"CPU: {err}")
+            red[arch] = {"losses": losses["cuda"], "loss_rel_err": err}
+    report["reduced_card_vs_cpu"] = red
+    line("reduced_card_vs_cpu")
+    destroy_world()
+    _free()
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "lm_mesh", "part": "summary",
+                      "card": report["card"], "mesh": report["mesh"],
+                      "seconds": seconds,
+                      "held_after_gib": torch.cuda.memory_allocated()
+                      / 2 ** 30}))
+    if seconds > 90:
+        raise AssertionError(f"lm_mesh took {seconds:.1f} s > 90 s")
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
@@ -4468,6 +4787,7 @@ def main(argv=None) -> int:
     phase_lm_serve(args.seed)
     phase_lm_families(args.seed, [k for k in serve_kernels + score_kernels
                                   if "arch" in k])
+    phase_lm_mesh([k for k in score_kernels if "arch" not in k])
     phase_analytic_speedup()
     kernels += score_kernels
 

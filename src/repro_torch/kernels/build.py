@@ -70,6 +70,25 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+_DTENSOR: list = []
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel reads its operands' ``data_ptr``: a DTensor's is not the
+    block it holds. Raise on one; the caller crosses to its rank-local
+    tensor first (``torch.distributed.tensor.experimental.local_map``, or
+    ``to_local`` / ``from_local`` with explicit placements)."""
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.append(DTensor)
+    for t in tensors:
+        if isinstance(t, _DTENSOR[0]):
+            raise TypeError(
+                f"{name}: got a DTensor; a kernel takes rank-local tensors "
+                "(cross with torch.distributed.tensor.experimental."
+                "local_map, or to_local / from_local)")
+
+
 def launch(fn, device: torch.device, *args) -> int:
     """``fn(*args, stream)``: a C entry called with ``device``'s current
     stream. The current device is switched only when it is another one

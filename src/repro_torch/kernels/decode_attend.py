@@ -107,6 +107,7 @@ def ring_decode_attend(q, k, v, pos, window: int):
     ``pos % W``; pos: (B,) int32; window: int (0 = full). Returns
     (B, KV, G, D) in q's dtype.
     """
+    build.refuse_dtensor("ring_decode_attend", q, k, v, pos)
     W = k.shape[1]
     _check(q, k, v, pos)
     if q.device.type == "cpu":
@@ -127,6 +128,7 @@ def extent_decode_attend(q, k, v, pos, window: int, k_ext: int):
     row masks positions beyond its ``pos + 1``. Raises unless
     1 <= k_ext <= S_max. Returns (B, KV, G, D) in q's dtype.
     """
+    build.refuse_dtensor("extent_decode_attend", q, k, v, pos)
     S_max = k.shape[1] if k.dim() == 4 else 0
     if not 1 <= k_ext <= S_max:
         raise ValueError(f"k_ext {k_ext} out of range [1, {S_max}]")

@@ -88,6 +88,7 @@ def _fused_fwd(s, t, labels, alpha, temperature, valid, lse):
     """The per-row loss (R,) f32: on a CPU tensor the plain version, on a
     CUDA tensor the forward kernel, which also writes the row logsumexp
     into ``lse`` (an (R,) f32 buffer) unless it is None."""
+    build.refuse_dtensor("kd_loss_fused", s, t, labels, valid)
     if s.device.type == "cpu":
         return ref.kd_loss_ref(s, t, labels, alpha, temperature=temperature,
                                valid=valid)
@@ -150,6 +151,7 @@ def kd_loss_fused_bwd(s, t, labels, valid, g, lse, alpha: float,
     row logsumexp (f32, from ``_fused_fwd``; unused on the CPU). ``g``
     may have any stride, 0 among them (a cotangent broadcast from a sum);
     the logits, labels and valid are checked as the forward checks them."""
+    build.refuse_dtensor("kd_loss_fused_bwd", s, t, labels, valid, g, lse)
     if s.device.type == "cpu":
         ds, dt = kd_loss_rows_bwd(s, t, labels, valid, g, alpha, temperature)
         return ds, (dt if need_dt else None)

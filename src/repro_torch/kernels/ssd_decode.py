@@ -97,6 +97,8 @@ def ssd_decode_step(xh, dt, A, Bm, Cm, state, state_out=None):
     a new tensor. Returns (y (B, H, P) in the dtype of promote(state, C),
     h' in state's dtype).
     """
+    build.refuse_dtensor("ssd_decode_step", xh, dt, A, Bm, Cm, state,
+                         state_out)
     sx, sb, sc = xh.stride(), Bm.stride(), Cm.stride()
     _check(xh, dt, A, Bm, Cm, state, state_out, sx, sb, sc)
     dev = xh.device

@@ -81,6 +81,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
     kernels in their own (``BLOCK_CHUNK``). Returns (y (B, S, H, P), final
     state (B, H, P, N)), both in x's dtype; f32 inside.
     """
+    build.refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm)
     Q = min(chunk, x.shape[1]) if x.dim() == 4 else chunk
     _check(x, dt, A, Bm, Cm, Q)
     if x.device.type == "cpu":

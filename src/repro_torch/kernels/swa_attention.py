@@ -125,6 +125,7 @@ def swa_attention(q, k, v, window: int, causal: bool = True):
     q, k, v: (BH, S, D), one dtype (float32 or bfloat16); on the card D
     in ``HEAD_DIMS``. Returns (BH, S, D) in q's dtype; f32 inside.
     """
+    build.refuse_dtensor("swa_attention", q, k, v)
     _check(q, k, v, window, causal)
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q, k, v, window, causal)
@@ -146,6 +147,7 @@ def swa_attention_gqa(q, k, v, window: int, causal: bool = True):
     ``gqa_attention(kernel="pallas")`` does; the kernel reads each kv head
     in place and writes (B, S, H, D).
     """
+    build.refuse_dtensor("swa_attention_gqa", q, k, v)
     _check_gqa(q, k, v, window, causal)
     if q.device.type == "cpu":
         return ref.swa_attention_gqa_ref(q, k, v, window, causal)

@@ -1,5 +1,5 @@
-"""The fleet mesh of the sharded federated sync round (port of
-``repro/launch/mesh.py::make_fleet_mesh``).
+"""Device meshes (port of ``repro/launch/mesh.py``): the LM's production
+and host meshes and the fleet mesh of the sharded federated sync round.
 
 The reference's "devices of this host" are here the ranks of the default
 ``torch.distributed`` process group. Launched by ``torchrun``, that is
@@ -9,13 +9,17 @@ no process group, ``init_world`` makes a world of one in-process: a
 (gloo for CPU tensors, NCCL for CUDA ones where NCCL is built), so a
 process can hold CPU and CUDA meshes at once.
 
-The production and host meshes of the LM stack (``make_production_mesh``,
-``make_host_mesh``) are ROADMAP Queue 1 item 13's LM half. Functions,
-not module constants: importing this module touches no process group.
+The LM's meshes are ``("data", "model")`` (or ``("pod", "data",
+"model")``) ``DeviceMesh``es over those ranks, row-major: rank
+r = (d, m) sits at d·M + m. Every mesh covers the whole process group; one
+of another size raises, as the reference's ``jax.make_mesh`` does when
+the devices are not there. Functions, not module constants: importing
+this module touches no process group.
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import torch
@@ -117,6 +121,46 @@ def make_fleet_mesh(n: int | None = None, edges: int | None = None,
                 dev.type, (edges, n // edges),
                 mesh_dim_names=("edge", "clients"))
     return _MESHES[key]
+
+
+def make_mesh(shape, axis_names, device=None):
+    """A ``DeviceMesh`` of ``shape`` over every rank of the process group
+    (``init_world``), its dims named ``axis_names``; the counterpart of
+    ``jax.make_mesh``. ``prod(shape)`` must be the world size. The same
+    arguments in one process give the same mesh object."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names} differ "
+                         "in length")
+    dev = init_world(device)
+    world = dist.get_world_size()
+    size = math.prod(shape)
+    if size != world:
+        raise ValueError(
+            f"a {shape} mesh needs a process group of {size} ranks; this "
+            f"one has {world} (start the ranks with torchrun)")
+    key = (dist.group.WORLD, dev.type, shape, axis_names)
+    if key not in _MESHES:
+        _MESHES[key] = init_device_mesh(dev.type, shape,
+                                        mesh_dim_names=axis_names)
+    return _MESHES[key]
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """One pod: 16 x 16 = 256 ranks ``("data", "model")``. Two pods:
+    2 x 16 x 16 = 512 ranks ``("pod", "data", "model")``. Raises unless
+    the process group has that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(device=None):
+    """Every rank of the process group on the data axis: ``(world, 1)``
+    over ``("data", "model")`` (a world of one: the (1, 1) mesh)."""
+    init_world(device)
+    return make_mesh((dist.get_world_size(), 1), ("data", "model"), device)
 
 
 def destroy_world() -> None:

@@ -8,54 +8,170 @@ gradients), as the reference's. ``make_serve_step`` is one token of
 greedy decode against a cache. ``mixing_step`` / ``fedavg_step`` are the
 server's aggregation programs, in f32 and cast back.
 
-The reference lowers these across a device mesh (``act_pspec``,
-``jit_train_step``, ``jit_serve_step``); the port runs on one device, and
-those, like a ``mesh`` other than None, raise naming ROADMAP Queue 1 item
-13.
+On a ``("data", "model")`` (or ``("pod", "data", "model")``) mesh
+(``launch/mesh.py``), ``jit_train_step`` and ``jit_serve_step`` take and
+return the reference's trees as DTensors placed by the rules of
+``sharding/specs.py``: params by ``param_pspecs``, momentum like its
+param, the batch by ``batch_pspecs``, the cache by ``cache_pspecs``, the
+tokens by ``token_pspec``. They run eagerly. Where the redistribution
+goes: each call gathers the whole params on every rank (ZeRO-3: stored
+split, gathered for the step), so every layer runs whole heads on plain
+local tensors. The rules split ``wq`` / ``wk`` / ``wv`` on their flat
+H·hd dim wherever ``"model"`` divides it, mid-head where it does not
+divide the heads (Hymba's 5 kv heads of 64); the kernels need whole heads
+and never see a DTensor. The data axes split the compute: each rank runs
+its rows of the batch, and the gradients are summed over the data axes
+(and over the axes that split the MoE dispatch's tokens further) before
+each rank updates its own blocks of the params and the momentum. The
+model axis splits storage: params, momentum, the residual stream that
+``remat`` stores (``act_pspec``) and the decode cache's sequence dim, whose
+attend combines across the ranks (``attention.sharded_attend``); the
+layers' compute is replicated over it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import batch_to, params_device
-from repro_torch.models import lm, registry
+from repro_torch.models import lm, moe as moe_mod, registry
+from repro_torch.models.attention import SeqShard
 from repro_torch.optim import proximal_grad, sgd, value_and_grad
-from repro_torch.types import FedConfig, ModelConfig
+from repro_torch.sharding import specs as shspecs
+from repro_torch.sharding.specs import P, NamedSpec
+from repro_torch.types import FedConfig, ModelConfig, ShapeConfig
 
 
-def _no_mesh(what: str):
-    return NotImplementedError(
-        f"{what}: device meshes are not ported yet (ROADMAP Queue 1 item 13)")
+def act_pspec(mesh, cfg: ModelConfig, seq_len: int) -> Optional[NamedSpec]:
+    """Residual-stream layout between layers (sequence parallelism): the
+    batch dim over the data axes, the sequence dim over ``"model"`` when
+    it divides ``seq_len``, so the residuals ``remat`` stores are split
+    over the model axis. None for resnet3d."""
+    if cfg.family == "resnet3d":
+        return None
+    dp = shspecs._flat(shspecs.data_axes(mesh))
+    return NamedSpec(mesh, P(dp, shspecs._maybe(mesh, "model", seq_len),
+                             None))
 
 
-def act_pspec(mesh, cfg: ModelConfig, seq_len: int):
-    raise _no_mesh("act_pspec")
+def _mesh_loss_kwargs(cfg: ModelConfig, mesh, seq_len: int,
+                      loss_kwargs: dict, constrain_acts: bool) -> dict:
+    """The reference's ``act_pspec`` / ``moe_ctx`` defaults on a mesh. The
+    port's loss always knows its mesh there (its rows are a block of the
+    batch, so its CE sums over the data axes): without ``constrain_acts``
+    or ``seq_len`` the residual keeps the rows' layout, unsplit."""
+    if cfg.family == "resnet3d":
+        raise ValueError("the mesh steps take the LM families; resnet3d "
+                         "runs multi-device as the sharded sync round "
+                         "(core/fed_engine.py::ShardedSyncRound)")
+    dp = shspecs._flat(shspecs.data_axes(mesh))
+    if constrain_acts and seq_len:
+        loss_kwargs.setdefault("act_pspec", act_pspec(mesh, cfg, seq_len))
+        if cfg.moe is not None:
+            loss_kwargs.setdefault("moe_ctx", {"mesh": mesh, "dp": dp})
+    loss_kwargs.setdefault("act_pspec", NamedSpec(mesh, P(dp, None, None)))
+    if cfg.moe is not None and "moe_ctx" not in loss_kwargs \
+            and _data_size(mesh) > 1:
+        raise ValueError("a MoE config on a mesh whose data axes split the "
+                         "batch routes with moe_ctx (constrain_acts and "
+                         "seq_len)")
+    return loss_kwargs
+
+
+def _data_size(mesh) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return math.prod(sizes[a] for a in shspecs.data_axes(mesh))
+
+
+def _grad_fn(cfg: ModelConfig, fed: FedConfig, mesh, seq_len: int,
+             proximal: bool, loss_kwargs: Optional[dict],
+             constrain_acts: bool):
+    """``grads_of(params, anchor, batch) -> (loss, grads)``: the loss's
+    gradients (on a mesh summed over the ranks that split the compute:
+    ``reduce_grads``) plus the proximal term."""
+    loss_kwargs = dict(loss_kwargs or {})
+    if cfg.family != "resnet3d":
+        loss_kwargs.setdefault("dtype", torch.bfloat16)   # bf16 compute
+    if mesh is not None:
+        loss_kwargs = _mesh_loss_kwargs(cfg, mesh, seq_len, loss_kwargs,
+                                        constrain_acts)
+    moe_ctx = loss_kwargs.get("moe_ctx")
+
+    def grads_of(params, anchor, batch):
+        batch = batch_to(batch, params_device(params))
+        l, grads = value_and_grad(
+            lambda p: registry.loss_fn(p, cfg, batch, **loss_kwargs)[0],
+            params)
+        if mesh is not None:
+            grads = reduce_grads(grads, mesh, moe_ctx)
+        if proximal:
+            grads = proximal_grad(grads, params, anchor, fed.prox_theta)
+        return l, grads
+
+    return grads_of
+
+
+def _moe_routed(key: str) -> bool:
+    """The MoE block's router and experts: the params the distributed
+    dispatch runs on the rank's own tokens only."""
+    parts = key.split("/")
+    return len(parts) >= 2 and parts[-2] == "moe" and \
+        parts[-1] in ("router", "wg", "wi", "wo")
+
+
+@torch.no_grad()
+def reduce_grads(grads: dict, mesh, moe_ctx=None) -> dict:
+    """Each rank's gradients of the whole params -> their sums over the
+    ranks that split the compute: every param over the data axes (each
+    rank ran its rows), the MoE router and experts also over the axes of
+    ``moe_ctx``'s dp that split the rows further (``moe_fullgrid``). The
+    model axis otherwise replicates the compute, so the gradients there
+    are already equal. One all-reduce an axis over a flat f32 buffer; an
+    axis of one rank sums nothing."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    data = tuple(a for a in shspecs.data_axes(mesh) if sizes[a] > 1)
+    extra = tuple(a for a in (moe_mod.split_axes(moe_ctx) if moe_ctx
+                              else ()) if sizes[a] > 1)
+    out = dict(grads)
+    for axes, keys in ((data + extra, [k for k in grads if _moe_routed(k)]),
+                       (data, [k for k in grads if not _moe_routed(k)])):
+        if not axes or not keys:
+            continue
+        flat = torch.cat([grads[k].reshape(-1).float() for k in keys])
+        for a in axes:
+            dist.all_reduce(flat, group=mesh.get_group(a))
+        for k, part in zip(keys, flat.split([grads[k].numel()
+                                             for k in keys])):
+            out[k] = part.reshape(grads[k].shape).to(grads[k].dtype)
+    return out
 
 
 def make_train_step(cfg: ModelConfig, fed: FedConfig, mesh=None,
                     seq_len: int = 0, proximal: bool = True,
-                    loss_kwargs: Optional[dict] = None):
+                    loss_kwargs: Optional[dict] = None,
+                    constrain_acts: bool = True):
     """FL client local step: ``step(params, opt_state, anchor, batch) ->
     (params, opt_state, loss)``; returns ``(step, opt)``. The batch may be
-    numpy or tensors; it is moved to the params' device. ``seq_len``
-    served the reference's sequence sharding and is unused here."""
-    if mesh is not None:
-        raise _no_mesh("make_train_step(mesh=...)")
-    opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
-    loss_kwargs = dict(loss_kwargs or {})
-    if cfg.family != "resnet3d":
-        loss_kwargs.setdefault("dtype", torch.bfloat16)   # bf16 compute
+    numpy or tensors; it is moved to the params' device.
 
-    def loss(params, batch):
-        return registry.loss_fn(params, cfg, batch, **loss_kwargs)[0]
+    With a ``mesh``, the step runs on one rank's plain tensors: the whole
+    params, anchor and optimizer state, and the rank's rows of the batch
+    (its block over the data axes). As in the reference, ``seq_len`` with
+    ``constrain_acts`` lays the residual out by ``act_pspec`` and gives a
+    MoE config the distributed dispatch (``moe_ctx`` over the data axes).
+    The loss is the whole batch's and the gradients are summed over the
+    ranks (``reduce_grads``), so every rank takes the same step.
+    ``jit_train_step`` wraps this step for params and state placed on
+    the mesh."""
+    opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
+    grads_of = _grad_fn(cfg, fed, mesh, seq_len, proximal, loss_kwargs,
+                        constrain_acts)
 
     def step(params, opt_state, anchor, batch):
-        batch = batch_to(batch, params_device(params))
-        l, grads = value_and_grad(lambda p: loss(p, batch), params)
-        if proximal:
-            grads = proximal_grad(grads, params, anchor, fed.prox_theta)
+        l, grads = grads_of(params, anchor, batch)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, l
 
@@ -109,9 +225,237 @@ def fedavg_step(w_stacked: dict) -> dict:
     return {k: mean(s) for k, s in w_stacked.items()}
 
 
-def jit_train_step(*args, **kwargs):
-    raise _no_mesh("jit_train_step")
+# ---------------------------------------------------------------------------
+# Steps over params, state, batches and caches placed on a mesh
+# ---------------------------------------------------------------------------
+
+def _dtensor(x, mesh, placements):
+    """``x`` as a DTensor laid out by ``placements``: a plain tensor or
+    array (every rank holding the same whole value) keeps this rank's
+    block, on the mesh's device; a DTensor is redistributed if it is laid
+    out otherwise."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == tuple(placements) \
+            else x.redistribute(mesh, placements)
+    return distribute_tensor(torch.as_tensor(x), mesh, placements,
+                             src_data_rank=None)
 
 
-def jit_serve_step(*args, **kwargs):
-    raise _no_mesh("jit_serve_step")
+def _whole(x) -> torch.Tensor:
+    """A DTensor's whole value on this rank, plain (its local tensor when
+    nothing is split)."""
+    loc = x.to_local()
+    return loc if loc.shape == x.shape else x.full_tensor()
+
+
+def _block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of the whole value ``x`` under ``placements``: a
+    local slice, no communication."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * len(placements)
+    return DTensor.from_local(x, mesh, rep, run_check=False).redistribute(
+        mesh, placements).to_local()
+
+
+def _wrap(local: torch.Tensor, like):
+    """``local`` as the block of a DTensor laid out as ``like``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def _store_blocks(out: dict, new: dict, inplace: bool) -> dict:
+    """The DTensors of ``out`` with their blocks replaced by ``new``'s:
+    written into their storage when ``inplace`` (donated), else new
+    DTensors."""
+    if inplace:
+        for k, v in new.items():
+            out[k].to_local().copy_(v)
+        return out
+    return {k: _wrap(new[k], out[k]) for k in out}
+
+
+def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
+                   shape: ShapeConfig, params_shape, batch_shape,
+                   proximal: bool = True, constrain_acts: bool = True,
+                   donate: bool = True, moe_fullgrid: bool = False,
+                   train_kwargs: Optional[dict] = None):
+    """Returns ``(fn, (in_specs, out_specs))`` for ``fn(params, opt_state,
+    anchor, batch) -> (params, opt_state, loss)`` on ``mesh``.
+
+    Specs: params and anchor by ``param_pspecs``, the momentum like its
+    param and the step counter replicated, the batch by ``batch_pspecs``,
+    the loss replicated. ``fn`` takes those trees as DTensors (a plain
+    tensor, the same on every rank, is placed first) and returns them
+    so. It gathers the whole params and anchor, runs
+    ``make_train_step(mesh=)``'s gradients on the rank's rows of the
+    batch, and updates each rank's own blocks. ``donate``: the new params
+    and momentum are written into the inputs' storage (so the anchor must
+    not share it, as in the reference). ``moe_fullgrid``: the MoE
+    dispatch splits the tokens over the data axes and ``"model"``. The
+    residual's batch dim keeps the batch's own layout.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+    lk = dict(train_kwargs or {})
+    if moe_fullgrid and cfg.moe is not None:
+        dp = tuple(shspecs.data_axes(mesh)) + ("model",)
+        lk["moe_ctx"] = {"mesh": mesh, "dp": dp}
+    pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
+    ospec = {"mom": pspec if fed.momentum else None, "step": P()}
+    bspec = shspecs.batch_pspecs(mesh, cfg, batch_shape)
+    lead = next(iter(bspec.values()))[0]
+    if constrain_acts and shape.seq_len and cfg.family != "resnet3d":
+        lk.setdefault("act_pspec", NamedSpec(mesh, P(
+            lead, shspecs._maybe(mesh, "model", shape.seq_len), None)))
+    if cfg.moe is not None and lead is None and _data_size(mesh) > 1:
+        B = shspecs._shape(next(iter(batch_shape.values())))[0]
+        raise ValueError(
+            f"a batch of {B}: the data axes ({_data_size(mesh)} ranks) must "
+            "divide it for the MoE dispatch (the reference splits each "
+            "shard's tokens evenly)")
+    grads_of = _grad_fn(cfg, fed, mesh, shape.seq_len, proximal, lk,
+                        constrain_acts)
+    opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
+    in_sh = (pspec, ospec, pspec, bspec)
+    out_sh = (pspec, ospec, P())
+    pl = shspecs.named(mesh, pspec)
+    bpl = shspecs.named(mesh, bspec)
+    rep = (Replicate(),) * len(mesh.mesh_dim_names)
+
+    def fn(params, opt_state, anchor, batch):
+        params = {k: _dtensor(v, mesh, pl[k]) for k, v in params.items()}
+        anchor = {k: _dtensor(v, mesh, pl[k]) for k, v in anchor.items()}
+        mom = opt_state["mom"]
+        if mom is not None:
+            mom = {k: _dtensor(v, mesh, pl[k]) for k, v in mom.items()}
+        if donate and any(anchor[k].to_local().data_ptr()
+                          == params[k].to_local().data_ptr()
+                          for k in params):
+            raise ValueError("donated params share storage with the anchor")
+        rows = {k: _dtensor(v, mesh, bpl[k]).to_local()
+                for k, v in batch.items()}
+        whole = {k: _whole(v) for k, v in params.items()}
+        loss, grads = grads_of(whole, {k: _whole(v) for k, v in
+                                       anchor.items()}, rows)
+        del whole
+        local = {k: v.to_local() for k, v in params.items()}
+        state = {"mom": None if mom is None else
+                 {k: v.to_local() for k, v in mom.items()},
+                 "step": opt_state["step"]}
+        with torch.no_grad():
+            new_p, new_s = opt.update(
+                {k: _block(g, mesh, pl[k]) for k, g in grads.items()},
+                state, local)
+        out_p = _store_blocks(params, new_p, donate)
+        out_m = None if mom is None else _store_blocks(mom, new_s["mom"],
+                                                       donate)
+        loss = DTensor.from_local(loss, mesh, rep, run_check=False)
+        return out_p, {"mom": out_m, "step": new_s["step"]}, loss
+
+    fn.opt = opt
+    return fn, (in_sh, out_sh)
+
+
+_SEQ_SPLIT = {"k": "k", "v": "k", "enc_k": "enc_k", "enc_v": "enc_k"}
+
+
+def _seq_shard(mesh, spec: P, length: int) -> Optional[SeqShard]:
+    """The ``SeqShard`` of a cache entry whose spec splits its sequence
+    dim (2) over mesh axes of more than one rank (None otherwise): the
+    block index row-major over those axes, outermost first."""
+    axes = spec[2]
+    if axes is None:
+        return None
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    sizes = dict(zip(names, mesh.shape))
+    if math.prod(sizes[a] for a in axes) == 1:
+        return None
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coord[a]
+    return SeqShard(index * length, [mesh.get_group(a) for a in axes])
+
+
+def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                   params_shape, cache_shape, donate: bool = True,
+                   unroll: bool = False, window_slice: bool = False,
+                   ring: bool = False):
+    """Returns ``(fn, (in_specs, out_specs))`` for ``fn(params, token,
+    cache, pos) -> (next_token, cache)``, one greedy decode step on
+    ``mesh``: params by ``param_pspecs``, tokens by ``token_pspec``, the
+    cache by ``cache_pspecs`` (the ring layout when ``ring``), ``pos``
+    replicated (an int, or the (B,) positions of every row).
+
+    ``fn`` gathers the whole params and decodes the rank's rows (a block
+    over the data axes when the batch is split). A cache entry whose
+    sequence dim is split stays split: the rank owning a row's position
+    writes it, and the attend combines across the ranks (``SeqShard``).
+    An entry split on another dim (an SSM state's heads, a conv state's
+    channels) is gathered to the rank's rows for the step and split back.
+    ``donate``: the cache is written in place, and the DTensors passed in
+    come back. ``fn(..., with_logits=True)`` also returns the rank's
+    rows' logits (plain), for checks.
+    """
+    from torch.distributed.tensor import DTensor
+    step_kw = {}
+    if unroll and cfg.family in lm.FAMILIES:
+        step_kw = {"unroll": True, "window_slice": window_slice}
+    pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
+    cspec = shspecs.cache_pspecs(mesh, cfg, cache_shape, shape.global_batch)
+    tspec = shspecs.token_pspec(mesh, shape.global_batch)
+    in_sh = (pspec, tspec, cspec, P())
+    out_sh = (tspec, cspec)
+    pl, cpl = shspecs.named(mesh, pspec), shspecs.named(mesh, cspec)
+    tpl = shspecs.placements(mesh, tspec)
+    # each entry's layout with only its batch dim split: the rank's rows
+    rpl = {k: shspecs.placements(mesh, P(None, s[1], *[None] * (len(s) - 2)))
+           for k, s in cspec.items()}
+
+    @torch.no_grad()
+    def fn(params, token, cache, pos, with_logits: bool = False):
+        whole = {k: _whole(_dtensor(v, mesh, pl[k]))
+                 for k, v in params.items()}
+        token = _dtensor(token, mesh, tpl)
+        tok = token.to_local()
+        if isinstance(pos, torch.Tensor):      # every row's, or one for all
+            pos = pos.to(tok.device)
+            pos = _block(pos, mesh, tpl) if pos.dim() else \
+                pos.reshape(1).expand(tok.shape[0])
+        cache = {k: _dtensor(v, mesh, cpl[k]) for k, v in cache.items()}
+        if not donate:
+            cache = {k: _wrap(v.to_local().clone(), v)
+                     for k, v in cache.items()}
+        shards, work, regather = {}, {}, []
+        for k, v in cache.items():
+            seq = _SEQ_SPLIT.get(k)
+            if seq is not None:
+                sh = _seq_shard(mesh, cspec[seq], cache[seq].to_local()
+                                .shape[2])
+                if sh is not None:
+                    shards[seq] = sh
+                work[k] = v.to_local()
+            elif cpl[k] != rpl[k]:
+                work[k] = v.redistribute(mesh, rpl[k]).to_local()
+                regather.append(k)
+            else:
+                work[k] = v.to_local()
+        if ring and cfg.family in lm.FAMILIES:
+            logits, work = lm.decode_step_ring(whole, cfg, tok, work, pos,
+                                               seq_shards=shards)
+        else:
+            logits, work = registry.decode_step(whole, cfg, tok, work, pos,
+                                                seq_shards=shards, **step_kw)
+        for k in regather:
+            cache[k].to_local().copy_(DTensor.from_local(
+                work[k], mesh, rpl[k], run_check=False).redistribute(
+                    mesh, cpl[k]).to_local())
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = DTensor.from_local(nxt, mesh, tpl, run_check=False,
+                                 shape=token.shape, stride=token.stride())
+        return (nxt, cache, logits) if with_logits else (nxt, cache)
+
+    return fn, (in_sh, out_sh)

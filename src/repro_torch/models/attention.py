@@ -12,6 +12,13 @@ the ring slot ``pos % W`` each row writes, the row's cache write and its
 ``k_len = pos + 1``. Caches are updated in place (the reference returns
 new arrays; the port saves the copy) and returned.
 
+A decode cache whose sequence dim is split over mesh axes (``SeqShard``,
+``launch.steps.jit_serve_step``) holds positions ``[offset, offset +
+S_local)`` on each rank: the rank that owns a row's position writes it,
+and the attend runs over the local keys and combines its max, sum and
+weighted values across the ranks (flash-decoding, ``sharded_attend``):
+the whole cache is never gathered.
+
 Kernels: ``"cuda"`` runs the hand-written attends (``kernels/ops.py``):
 the causal sliding-window attention of the cache-free scoring forward,
 and the ring and extent attends of decode; ``"eager"`` the plain torch
@@ -20,6 +27,7 @@ path below — the oracle they are held against.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, fan_in_init
@@ -123,6 +131,55 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D)
 
 
+class SeqShard:
+    """This rank's block of a cache whose sequence dim is split over mesh
+    axes: its first position ``offset``, and the process groups of those
+    axes, over which an attend combines."""
+
+    def __init__(self, offset: int, groups: tuple):
+        self.offset, self.groups = offset, tuple(groups)
+
+    def __repr__(self) -> str:
+        return f"SeqShard(offset={self.offset})"
+
+
+def sharded_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   shard: SeqShard, *, window=0, causal: bool = True,
+                   q_offset=0, k_len=None) -> torch.Tensor:
+    """``gqa_attention`` over a cache split on its sequence dim: k, v
+    (B, S_local, KV, D) hold positions ``shard.offset + arange(S_local)``.
+    Each rank scores its keys in f32, masks them as ``gqa_attention``
+    does, and the ranks of ``shard.groups`` combine the row maxima (a MAX
+    all-reduce), then the exponential sums and the weighted values (SUM
+    all-reduces); the result is their quotient, the reference's softmax
+    up to the order of its sums. q: (B, Sq, H, D) -> (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    k_pos = (shard.offset + torch.arange(S, device=dev))[None, :]
+    q_pos = _rows(q_offset, dev) + torch.arange(Sq, device=dev)[None, :]
+    s = torch.einsum("bckgd,bskd->bckgs",
+                     q.reshape(B, Sq, KV, G, D).float(), k.float()) \
+        * D ** -0.5
+    bias = _mask_bias(q_pos, k_pos, window, causal)
+    if k_len is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        bias = bias + torch.where(k_pos < _rows(k_len, dev), zero,
+                                  NEG_INF)[:, None, :]
+    s = s + bias[:, :, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    for g in shard.groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bckgs,bskd->bckgd", e, v.float())
+    for g in shard.groups:
+        dist.all_reduce(denom, group=g)
+        dist.all_reduce(o, group=g)
+    return (o / denom).to(q.dtype).reshape(B, Sq, H, D)
+
+
 # ---------------------------------------------------------------------------
 # Full attention layer (projections + rope + cache plumbing)
 # ---------------------------------------------------------------------------
@@ -204,7 +261,7 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
 def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
                  cache=None, cache_index=None, q_chunk: int = 1024,
                  cache_slice_window: int = 0, k_extent: int = 0,
-                 kernel: str = "eager"):
+                 kernel: str = "eager", seq_shard: SeqShard | None = None):
     """One attention layer (params already per-layer, no leading L).
 
     cache: optional {"k": (B, S_max, KV, D), "v": ...}, written in place
@@ -228,10 +285,20 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
     attend is the extent kernel (``kernels.ops.extent_decode_attend``),
     which reads only the first ``k_extent`` positions and applies the
     ``k_len`` mask itself.
+
+    ``seq_shard`` (decode only): the cache is this rank's block of a
+    sequence-split cache. A row's new k/v is written by the rank whose
+    block holds its position, and the attend is ``sharded_attend`` over
+    the local keys, masked by window and ``k_len`` (so the window slice
+    and the K-extent, which only skip keys those masks zero, are not
+    needed). Eager only: the decode kernels read whole caches.
     """
     check_kernel(kernel)
     B, Sq, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
+    if seq_shard is not None:
+        return _sharded_decode(p, x, q, k, v, cache, cache_index, window,
+                               causal, kernel, seq_shard)
     if cache is None:
         out = gqa_attention(q, k, v, window=window, causal=causal,
                             q_chunk=q_chunk, kernel=kernel)
@@ -272,4 +339,26 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
         ks, vs = (ck[:, :k_extent], cv[:, :k_extent]) if sliced else (ck, cv)
         out = gqa_attention(q, ks, vs, window=window, causal=causal,
                             q_offset=idx, k_len=idx + Sq, q_chunk=q_chunk)
+    return _out_proj(p, out, x), {"k": ck, "v": cv}
+
+
+def _sharded_decode(p, x, q, k, v, cache, idx, window, causal, kernel,
+                    shard: SeqShard):
+    """``attn_forward``'s decode against this rank's block of a
+    sequence-split cache (see there)."""
+    if kernel != "eager" or not isinstance(idx, torch.Tensor) \
+            or q.shape[1] != 1:
+        raise ValueError("a sequence-split cache decodes one token a row at "
+                         "(B,) positions, eagerly (kernel='eager')")
+    ck, cv = cache["k"], cache["v"]
+    S = ck.shape[1]
+    local = idx.long() - shard.offset
+    owned = (local >= 0) & (local < S)
+    local = local.clamp(0, S - 1)
+    rows = _row_ids(idx)
+    for c, new in ((ck, k), (cv, v)):
+        c[rows, local] = torch.where(owned[:, None, None],
+                                     new[:, 0].to(c.dtype), c[rows, local])
+    out = sharded_attend(q, ck, cv, shard, window=window, causal=causal,
+                         q_offset=idx, k_len=idx + 1)
     return _out_proj(p, out, x), {"k": ck, "v": cv}

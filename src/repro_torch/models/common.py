@@ -117,9 +117,10 @@ def _chunk_nll(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor):
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
-def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """Next-token CE without materialising (B, S, V) at once.
+def chunked_lm_nll(hidden: torch.Tensor, lm_head: torch.Tensor,
+                   labels: torch.Tensor, chunk: int = 512):
+    """The summed next-token NLL and the count of non-ignored labels,
+    without materialising (B, S, V) at once.
 
     Walks sequence chunks; under autograd each chunk's logits are
     recomputed in the backward pass (``torch.utils.checkpoint``), so peak
@@ -142,4 +143,12 @@ def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
         a, c = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
                 else _chunk_nll(*args))
         nll, cnt = nll + a, cnt + c
+    return nll, cnt
+
+
+def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Next-token CE (mean over the non-ignored labels) of
+    ``chunked_lm_nll``."""
+    nll, cnt = chunked_lm_nll(hidden, lm_head, labels, chunk)
     return nll / torch.clamp(cnt, min=1.0)

@@ -15,6 +15,13 @@ causal only. ``kernel="cuda"`` is refused.
 
 Decode positions are per-row ``(B,)`` int32 tensors, as in ``lm.py``;
 the decoder's self-attention cache is written in place.
+
+On a device mesh, as in ``lm.py``: ``act_pspec`` keeps each stack's
+residual between layers as a DTensor laid out by it (its sequence dim
+split over ``"model"`` where that divides the stack's own length), each
+layer running on the rank's whole rows; ``loss_fn``'s CE is the whole
+batch's; ``decode_step(seq_shards=)`` attends a sequence-split
+self-attention (``"k"``) or source (``"enc_k"``) cache across the ranks.
 """
 from __future__ import annotations
 
@@ -25,10 +32,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import gqa_attention
-from repro_torch.models.common import (chunked_lm_loss, fan_in_init,
+from repro_torch.models.common import (chunked_lm_nll, fan_in_init,
                                        normal_init, rms_norm)
 from repro_torch.models.lm import (_decode_pos, _embed_token, _logits,
-                                   _store, layer_params, lm_head_weight)
+                                   _store, batch_ce, layer_params,
+                                   lm_head_weight, mesh_of)
+from repro_torch.sharding.specs import gather_rows, shard_rows
 from repro_torch.types import ModelConfig
 
 
@@ -89,25 +98,31 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None,
     return {k: v.to(device) for k, v in out.items()}
 
 
-def _run_stack(params, stack: str, n: int, body, x, remat: bool):
+def _run_stack(params, stack: str, n: int, body, x, remat: bool,
+               act_pspec=None):
     """``x = body(x, lp)`` over the layers of ``stack``, each recomputed
-    in the backward pass when ``remat`` and autograd records."""
+    in the backward pass when ``remat`` and autograd records. Under
+    ``act_pspec`` the residual between layers is the DTensor laid out by
+    it, and ``body`` runs on the rank's whole rows."""
     remat = remat and torch.is_grad_enabled()
+    run = body
+    if act_pspec is not None:
+        def run(x, lp):
+            return shard_rows(body(gather_rows(x), lp), act_pspec)
+        x = shard_rows(x, act_pspec)
     for i in range(n):
         lp = layer_params(params, i, stack)
-        x = (checkpoint(body, x, lp, use_reentrant=False) if remat
-             else body(x, lp))
-    return x
+        x = (checkpoint(run, x, lp, use_reentrant=False) if remat
+             else run(x, lp))
+    return x if act_pspec is None else gather_rows(x)
 
 
 def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor,
            remat: bool = True, q_chunk: int = 1024,
            act_pspec=None) -> torch.Tensor:
     """src_embeds: (B, S_src, d) precomputed frame embeddings -> the
-    normed encoder output (B, S_src, d)."""
-    if act_pspec is not None:
-        raise NotImplementedError("act_pspec needs a device mesh (ROADMAP "
-                                  "Queue 1 item 13)")
+    normed encoder output (B, S_src, d). ``act_pspec``: see
+    ``_run_stack``."""
     positions = torch.arange(src_embeds.shape[1], device=src_embeds.device)
 
     def body(x, lp):
@@ -120,16 +135,22 @@ def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor,
         return x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
 
     x = _run_stack(params, "enc_layers", cfg.num_encoder_layers, body,
-                   src_embeds, remat)
+                   src_embeds, remat, act_pspec)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _cross_attn(xp, h, enc_k, enc_v, cfg: ModelConfig, q_chunk: int):
+def _cross_attn(xp, h, enc_k, enc_v, cfg: ModelConfig, q_chunk: int,
+                seq_shard=None):
     B, Sq, _ = h.shape
     H, hd = cfg.num_heads, cfg.head_dim
     q = torch.matmul(h, xp["wq"].to(h.dtype)).reshape(B, Sq, H, hd)
-    out = gqa_attention(q, enc_k.to(h.dtype), enc_v.to(h.dtype), window=0,
-                        causal=False, q_chunk=q_chunk)
+    if seq_shard is not None:
+        out = attn_mod.sharded_attend(q, enc_k.to(h.dtype),
+                                      enc_v.to(h.dtype), seq_shard,
+                                      window=0, causal=False)
+    else:
+        out = gqa_attention(q, enc_k.to(h.dtype), enc_v.to(h.dtype),
+                            window=0, causal=False, q_chunk=q_chunk)
     return torch.matmul(out.reshape(B, Sq, H * hd), xp["wo"].to(h.dtype))
 
 
@@ -145,10 +166,7 @@ def _enc_kv(xp, enc_out, cfg: ModelConfig):
 def decode_train(params, cfg: ModelConfig, tokens, enc_out,
                  remat: bool = True, q_chunk: int = 1024, act_pspec=None):
     """Teacher-forced decoder pass. Returns the normed hidden
-    (B, S_tgt, d)."""
-    if act_pspec is not None:
-        raise NotImplementedError("act_pspec needs a device mesh (ROADMAP "
-                                  "Queue 1 item 13)")
+    (B, S_tgt, d). ``act_pspec``: see ``_run_stack``."""
     x = params["embed"][tokens].to(enc_out.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
 
@@ -163,7 +181,8 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
 
-    x = _run_stack(params, "dec_layers", cfg.num_layers, body, x, remat)
+    x = _run_stack(params, "dec_layers", cfg.num_layers, body, x, remat,
+                   act_pspec)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -183,7 +202,9 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
             q_chunk: int = 1024, loss_chunk: int = 512, dtype=None,
             act_pspec=None, kernel: str = "eager"):
     """Next-token CE. batch: src_embeds (B, S_src, d), tokens (B, S_tgt),
-    labels (B, S_tgt). Returns (loss, {"ce", "aux"}), aux a zero."""
+    labels (B, S_tgt). Returns (loss, {"ce", "aux"}), aux a zero. Under
+    ``act_pspec`` the batch is the rank's rows and the CE the whole
+    batch's."""
     _check_kernel(kernel)
     src = batch["src_embeds"]
     if dtype is not None:
@@ -193,7 +214,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     hidden = decode_train(params, cfg, batch["tokens"], enc_out,
                           remat=remat, q_chunk=q_chunk, act_pspec=act_pspec)
     head = lm_head_weight(params, cfg).to(hidden.dtype)
-    ce = chunked_lm_loss(hidden, head, batch["labels"], chunk=loss_chunk)
+    ce = batch_ce(*chunked_lm_nll(hidden, head, batch["labels"],
+                                  chunk=loss_chunk), mesh_of(act_pspec))
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 
@@ -230,10 +252,14 @@ def prefill(params, cfg: ModelConfig, src_embeds, cache,
     return cache
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None):
+def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
+                seq_shards=None):
     """One target-token step. token: (B,) int; pos: (B,) int32 positions
     (or one int for all rows). Returns (logits (B, V), cache), the
-    self-attention cache written in place."""
+    self-attention cache written in place. ``seq_shards``: ``{"k":
+    SeqShard, "enc_k": SeqShard}`` for the entries that are this rank's
+    block of a sequence-split cache."""
+    seq_shards = seq_shards or {}
     x = _embed_token(params, cfg, token, dtype)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
@@ -243,11 +269,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None):
         a, ac = attn_mod.attn_forward(
             lp["attn"], h, cfg=cfg, window=0, positions=positions,
             cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_index=pos,
-            q_chunk=1)
+            q_chunk=1, seq_shard=seq_shards.get("k"))
         x = x + a
         hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
         x = x + _cross_attn(lp["xattn"], hx, cache["enc_k"][i],
-                            cache["enc_v"][i], cfg, q_chunk=1)
+                            cache["enc_v"][i], cfg, q_chunk=1,
+                            seq_shard=seq_shards.get("enc_k"))
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
         for key in ("k", "v"):

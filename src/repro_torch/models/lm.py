@@ -26,6 +26,20 @@ and decode, its switch-style aux loss summed over the layers into
 ``loss_fn``'s loss. The vlm family prepends a prefix of patch embeddings
 (``prefix_embeds``) to the token embeddings and attends it causally, as
 the reference's forward does.
+
+On a device mesh (``launch/steps.py``) every function here runs on the
+rank's own tensors: whole params (the steps gather them), the rank's rows
+of the batch (split over the data axes) and the rank's block of a decode
+cache. ``act_pspec`` (a ``sharding.NamedSpec``) keeps the residual stream
+between layers as a DTensor laid out by it (its sequence dim split over
+``"model"``: sequence parallelism of what ``remat`` stores), and each
+layer gathers the rank's whole rows before it runs, so the attend and
+the SSD scan, and their kernels, always see whole heads and whole
+sequences on plain local tensors. ``moe_ctx`` runs the MoE layers'
+distributed dispatch (``models/moe.py``). Under either, ``loss_fn``'s CE
+is the whole batch's: its sums over the data axes. ``seq_shards`` on the
+decode steps names the cache entries whose sequence dim is split
+(``attention.SeqShard``).
 """
 from __future__ import annotations
 
@@ -37,7 +51,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import chunked_lm_loss, normal_init, rms_norm
+from repro_torch.models.common import chunked_lm_nll, normal_init, rms_norm
+from repro_torch.sharding.specs import (data_axes, gather_rows, psum_axes,
+                                        shard_rows)
 from repro_torch.types import ModelConfig
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -161,7 +177,7 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
            cache=None, pos=None, q_chunk: int = 1024, k_extent: int = 0,
            seq_lens=None, kernel: str = "eager",
-           cache_slice_window: int = 0):
+           cache_slice_window: int = 0, moe_ctx=None, seq_shard=None):
     """One layer. mode: 'train' | 'prefill' | 'decode'. Returns (x, aux,
     new_cache): ``aux`` the MoE layer's load-balance loss (None for the
     other families); 'train' takes no cache and returns None for it. The
@@ -179,7 +195,9 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     attend, ``cache_slice_window`` slices it to the last positions
     (``attn_forward``). ``kernel`` ("eager" or "cuda") picks the
     scoring kernels in 'train' mode and the decode kernels in 'decode';
-    prefill runs eager.
+    prefill runs eager. ``moe_ctx`` (mode 'train') runs the MoE layer's
+    distributed dispatch; ``seq_shard`` (decode) marks a uniform cache as
+    this rank's block of a sequence-split one.
     """
     train = mode == "train"
 
@@ -209,7 +227,7 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
             lp["attn"], h, cfg=cfg, window=window, positions=positions,
             cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
             q_chunk=q_chunk, cache_slice_window=cache_slice_window,
-            k_extent=k_extent, kernel=kern)
+            k_extent=k_extent, kernel=kern, seq_shard=seq_shard)
 
     aux = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -232,7 +250,7 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg.moe, cfg.act,
-                                     dropless=not train)
+                                     moe_ctx=moe_ctx, dropless=not train)
     else:
         y = mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
     return x + y, aux, new_cache
@@ -275,15 +293,19 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     scan (``ssm_forward``) through the hand-written kernels, one launch of
     each a layer; they have no backward, so that path scores under
     ``torch.no_grad()``. ``remat`` recomputes each layer in the backward
-    pass (``torch.utils.checkpoint``) when autograd records. Sequence
-    parallelism (``act_pspec``) and the sharded MoE dispatch
-    (``moe_ctx``) are not ported: they need a device mesh (ROADMAP Queue
-    1 item 13). The MoE layers' aux losses are summed in layer order into
-    ``aux_loss`` (an f32 zero for the other families).
+    pass (``torch.utils.checkpoint``) when autograd records. The MoE
+    layers' aux losses are summed in layer order into ``aux_loss`` (an
+    f32 zero for the other families).
+
+    ``act_pspec`` (a ``NamedSpec``, ``launch.steps.act_pspec``): between
+    layers the residual is a DTensor laid out by it, its sequence dim
+    split over ``"model"`` where that divides it; each layer gathers the
+    rank's whole rows (``gather_rows``) and its output is split again
+    (``shard_rows``), so under ``remat`` the stored residuals are the
+    split ones. ``tokens`` are then the rank's rows of the batch, and so
+    is the hidden returned. ``moe_ctx``: the MoE layers' distributed
+    dispatch (``models/moe.py``).
     """
-    if act_pspec is not None or moe_ctx is not None:
-        raise NotImplementedError("act_pspec / moe_ctx need a device mesh, "
-                                  "not ported yet (ROADMAP Queue 1 item 13)")
     _check_family(cfg)
     attn_mod.check_kernel(kernel)
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
@@ -291,9 +313,14 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     remat = remat and torch.is_grad_enabled()
 
     def body(x, lp, window):
-        return _layer(cfg, lp, x, window, positions, "train",
-                      q_chunk=q_chunk, kernel=kernel)[:2]
+        if act_pspec is not None:
+            x = gather_rows(x)
+        x, a = _layer(cfg, lp, x, window, positions, "train",
+                      q_chunk=q_chunk, kernel=kernel, moe_ctx=moe_ctx)[:2]
+        return (x if act_pspec is None else shard_rows(x, act_pspec)), a
 
+    if act_pspec is not None:
+        x = shard_rows(x, act_pspec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         lp, window = layer_params(params, i), cfg.window_for_layer(i)
@@ -301,8 +328,29 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
                 else body(x, lp, window))
         if a is not None:
             aux = aux + a
+    if act_pspec is not None:
+        x = gather_rows(x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
+
+
+def mesh_of(act_pspec=None, moe_ctx=None):
+    """The device mesh an ``act_pspec`` or a ``moe_ctx`` runs on (None
+    without either)."""
+    if act_pspec is not None:
+        return act_pspec.mesh
+    return None if moe_ctx is None else moe_ctx["mesh"]
+
+
+def batch_ce(nll: torch.Tensor, cnt: torch.Tensor, mesh) -> torch.Tensor:
+    """The CE of the whole batch from a rank's summed NLL and label count:
+    on a mesh both are summed over the data axes first (the rank's rows
+    being its block of the batch)."""
+    if mesh is not None:
+        axes = data_axes(mesh)
+        nll = psum_axes(nll, mesh, axes)
+        cnt = psum_axes(cnt.detach(), mesh, axes)
+    return nll / torch.clamp(cnt, min=1.0)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
@@ -310,7 +358,9 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
             act_pspec=None, moe_ctx=None, kernel: str = "eager"):
     """Next-token CE (+ MoE aux). batch: tokens (B, S), labels (B, S)[,
     prefix_embeds]. With a prefix, labels cover only the token part.
-    Returns (loss, {"ce", "aux"})."""
+    Returns (loss, {"ce", "aux"}). Under ``act_pspec`` / ``moe_ctx`` the
+    batch is the rank's rows and the loss the whole batch's, the same on
+    every rank."""
     hidden, aux = forward_hidden(params, cfg, batch["tokens"],
                                  batch.get("prefix_embeds"), remat=remat,
                                  q_chunk=q_chunk, dtype=dtype,
@@ -319,7 +369,9 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     if cfg.prefix_len and batch.get("prefix_embeds") is not None:
         hidden = hidden[:, cfg.prefix_len:, :]
     head = lm_head_weight(params, cfg).to(hidden.dtype)
-    ce = chunked_lm_loss(hidden, head, batch["labels"], chunk=loss_chunk)
+    ce = batch_ce(*chunked_lm_nll(hidden, head, batch["labels"],
+                                  chunk=loss_chunk),
+                  mesh_of(act_pspec, moe_ctx))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -438,14 +490,15 @@ def to_ring_cache(cfg: ModelConfig, cache: dict, pos) -> dict:
 
 
 def decode_step_ring(params, cfg: ModelConfig, token, cache, pos,
-                     dtype=None):
+                     dtype=None, seq_shards=None):
     """One decode step against a ring cache (``to_ring_cache`` /
     ``init_ring_cache``): SWA layers attend against their W-slot rings,
     full-attention layers against their whole buffer. Eager attends, as
     the reference's, which takes no kernel switch; it is
     ``decode_step_grouped`` with no K-extent. Matches ``decode_step``
     numerically."""
-    return decode_step_grouped(params, cfg, token, cache, pos, dtype=dtype)
+    return decode_step_grouped(params, cfg, token, cache, pos, dtype=dtype,
+                               seq_shards=seq_shards)
 
 
 def _kind_runs(cfg: ModelConfig):
@@ -476,7 +529,7 @@ def _embed_token(params, cfg, token, dtype):
 
 def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
                         k_ext: int = 0, dtype=None,
-                        decode_kernel: str = "eager"):
+                        decode_kernel: str = "eager", seq_shards=None):
     """One decode step against an ``init_ring_cache`` layout.
 
     token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
@@ -488,10 +541,13 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
 
     ``decode_kernel="cuda"`` runs every decode attend and recurrence
     through the hand-written kernels (``kernels/ops.py``).
+    ``seq_shards``: ``{"k": SeqShard}`` when the full-attention layers'
+    cache is this rank's block of a sequence-split one.
     """
     if cfg.family == "ssm":      # no attention: ring layout == uniform
         return decode_step(params, cfg, token, cache, pos, dtype=dtype,
                            decode_kernel=decode_kernel)
+    shard = (seq_shards or {}).get("k")
     x = _embed_token(params, cfg, token, dtype)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
@@ -511,7 +567,8 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
                 cl["conv_state"] = cache["conv_state"][i]
             x, _, nc = _layer(cfg, layer_params(params, i), x, win,
                               positions, "decode", cache=cl, pos=pos,
-                              q_chunk=1, k_extent=ext, kernel=decode_kernel)
+                              q_chunk=1, k_extent=ext, kernel=decode_kernel,
+                              seq_shard=shard if kind == "full" else None)
             for key, val in nc.items():
                 _store(cache, key, j if key in keys else i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -555,7 +612,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
                 unroll: bool = False, window_slice: bool = False,
-                decode_kernel: str = "eager"):
+                decode_kernel: str = "eager", seq_shards=None):
     """One autoregressive step against a uniform cache (the oracle).
 
     token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
@@ -567,7 +624,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
     positions of its cache (``attn_forward(cache_slice_window=)``), O(window)
     of cache read a step instead of O(S_max). ``decode_kernel="cuda"``
     refuses the slice, as the reference's fused attend does.
+    ``seq_shards``: ``{"k": SeqShard}`` when the cache is this rank's
+    block of a sequence-split one (its attend then masks by the window
+    instead of slicing).
     """
+    shard = (seq_shards or {}).get("k")
     x = _embed_token(params, cfg, token, dtype)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
@@ -577,7 +638,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
         csw = w if (unroll and window_slice and w > 0) else 0
         x, _, nc = _layer(cfg, layer_params(params, i), x, w, positions,
                           "decode", cache=cl, pos=pos, q_chunk=1,
-                          kernel=decode_kernel, cache_slice_window=csw)
+                          kernel=decode_kernel, cache_slice_window=csw,
+                          seq_shard=shard)
         for key, val in nc.items():
             _store(cache, key, i, val)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

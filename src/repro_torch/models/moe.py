@@ -8,9 +8,20 @@ products, outside any kernel); the combine gathers each pick's output back,
 zeroes the dropped ones and sums the k picks with their renormalised
 router weights.
 
-The reference's distributed path (``moe_ctx``: the dispatch and combine
-inside ``shard_map`` over the data axes) needs a device mesh, which is
-ROADMAP Queue 1 item 13; given a ``moe_ctx``, ``moe_forward`` raises.
+The distributed path (``moe_ctx = {"mesh": DeviceMesh, "dp": axis or
+tuple}``, the reference's ``shard_map`` over ``dp``): each dp shard
+routes its own T_loc tokens with its own capacity C_loc = capacity(T_loc),
+dispatches into an (E, C_loc, d) block and combines locally; the blocks
+together are the reference's (E, C_loc · shards, d) buffer split over dp
+on dim 1, so the expert FFN runs on this rank's block, with the layer's
+whole expert weights (``launch/steps.py`` gathers them). ``frac`` and
+``mean_p`` are averaged over dp before the aux loss. The rank's tokens are
+its rows of the batch (split over the data axes); an axis of dp that does
+not split the batch (``"model"``, under ``moe_fullgrid``) splits them
+further, and the outputs are gathered back over it. With more than one
+dp shard this is not the local path's result, since each shard drops by
+its own capacity. As in the reference, the distributed path ignores
+``dropless`` (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import activation, fan_in_init
+from repro_torch.sharding.specs import data_axes, psum_axes
 from repro_torch.types import MoEConfig
 
 
@@ -119,6 +131,54 @@ def expert_ffn(p: dict, eb: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(activation(act)(g) * h, p["wo"].to(dt))
 
 
+def _dp_axes(moe_ctx) -> tuple:
+    """The dispatch's dp axes as a tuple of names."""
+    dp = moe_ctx["dp"]
+    return () if dp is None else (dp if isinstance(dp, tuple) else (dp,))
+
+
+def split_axes(moe_ctx) -> tuple:
+    """The dp axes that split a rank's rows further (not data axes): the
+    axes over which the routing's own parameters' gradients are partial
+    beyond the data axes'."""
+    data = data_axes(moe_ctx["mesh"])
+    return tuple(a for a in _dp_axes(moe_ctx) if a not in data)
+
+
+def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
+    """The distributed dispatch of this rank's tokens xt (T_loc, d):
+    (out (T_loc, d), frac, mean_p), the last two averaged over dp."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = moe_ctx["mesh"]
+    axes, split = _dp_axes(moe_ctx), split_axes(moe_ctx)
+    names = tuple(mesh.mesh_dim_names)
+    if not set(data_axes(mesh)) <= set(axes) or not set(axes) <= set(names):
+        raise ValueError(f"moe_ctx dp {axes}: must hold the mesh's data "
+                         f"axes {data_axes(mesh)} and only axes of {names}")
+    E, k = moe.num_experts, moe.top_k
+    sub = mesh[split] if split else None
+    if sub is not None:
+        n = math.prod(sub.shape)
+        if xt.shape[0] % n:
+            raise ValueError(f"{xt.shape[0]} tokens do not split over "
+                             f"{split} ({n} ranks)")
+        xt = DTensor.from_local(xt, sub, [Replicate()] * len(split),
+                                run_check=False).redistribute(
+            sub, [Shard(0)] * len(split)).to_local()
+    T = xt.shape[0]
+    C = capacity(T, moe)
+    weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
+    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
+    out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+    if sub is not None:
+        out = DTensor.from_local(out, sub, [Shard(0)] * len(split),
+                                 run_check=False).redistribute(
+            sub, [Replicate()] * len(split)).to_local()
+    shards = math.prod(dict(zip(names, mesh.shape))[a] for a in axes)
+    return (out, psum_axes(frac, mesh, axes) / shards,
+            psum_axes(mean_p, mesh, axes) / shards)
+
+
 def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
                 moe_ctx=None, dropless: bool = False):
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
@@ -130,18 +190,17 @@ def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
     what it gets alone. Training and scoring (``dropless=False``) drop
     picks past C = ceil(T / E · capacity_factor · k).
     """
-    if moe_ctx is not None:
-        raise NotImplementedError(
-            "moe_ctx (the sharded MoE dispatch) needs a device mesh: "
-            "ROADMAP Queue 1 item 13")
     B, S, d = x.shape
     T = B * S
     E, k = moe.num_experts, moe.top_k
     xt = x.reshape(T, d)
-    C = T if dropless else capacity(T, moe)
-    weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
-    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
-    out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+    if moe_ctx is not None:
+        out, frac, mean_p = _sharded(p, xt, moe, act, moe_ctx)
+    else:
+        C = T if dropless else capacity(T, moe)
+        weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
+        eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
+        out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
     out = out.reshape(B, S, d)
     if moe.shared_expert:
         dt = x.dtype

@@ -1,5 +1,10 @@
-from repro_torch.sharding.specs import (fed_round_specs, gather_levels,
-                                        levels, psum_levels, shard_index)
+from repro_torch.sharding.specs import (P, MeshShape, NamedSpec, batch_pspecs,
+                                        cache_pspecs, data_axes,
+                                        fed_round_specs, gather_levels,
+                                        levels, named, param_pspecs, place,
+                                        psum_levels, shard_index, token_pspec)
 
-__all__ = ["fed_round_specs", "gather_levels", "levels", "psum_levels",
+__all__ = ["param_pspecs", "batch_pspecs", "cache_pspecs", "data_axes",
+           "named", "token_pspec", "place", "P", "MeshShape", "NamedSpec",
+           "fed_round_specs", "gather_levels", "levels", "psum_levels",
            "shard_index"]

@@ -1,5 +1,7 @@
-"""Placements and level-by-level collectives of the sharded federated sync
-round (port of ``repro/sharding/specs.py::fed_round_specs``).
+"""Sharding rules of the port (port of ``repro/sharding/specs.py``): the
+placements and level-by-level collectives of the sharded federated sync
+round, and the LM's partition rules on the ``("data", "model")`` and
+``("pod", "data", "model")`` meshes.
 
 The reference's round is a ``shard_map``: per-client operands (batch
 stacks (n, H_max, ...), weights (n,), the H^k vector, losses, states)
@@ -14,10 +16,29 @@ level by level. ``fed_round_specs`` names the split as
 and ``P()``.
 
 The LM rules (``param_pspecs``, ``batch_pspecs``, ``cache_pspecs``,
-``token_pspec``, ``named``, ``data_axes``) are ROADMAP Queue 1 item 13's
-LM half.
+``token_pspec``) give each leaf a ``P``: for each tensor dim ``None``, a
+mesh axis name, or a tuple of names (the dim split over each, outermost
+first), the reference's ``PartitionSpec``. Every rule is
+divisibility-guarded: a dim is split only when the axes divide it, else it
+replicates. They read a mesh's axis names and sizes only
+(``mesh_dim_names``, ``shape``), so they run on a ``DeviceMesh`` and on a
+``MeshShape`` stand-in (the production meshes without their 256 or 512
+ranks). ``named`` turns specs into ``torch.distributed.tensor``
+placements, one a mesh dim; ``place`` distributes plain tensors by them,
+the counterpart of ``jax.device_put`` with a ``NamedSharding``.
+
+The helpers at the end cross between a rank's local tensors and the
+mesh inside the LM's forward (``launch/steps.py`` on the layers above):
+``NamedSpec`` binds a spec to its mesh (a ``PartitionSpec`` under a mesh
+context); ``shard_rows`` / ``gather_rows`` redistribute the residual
+stream between its sequence-sharded storage and the rank's whole rows;
+``psum_axes`` sums over mesh axes with DTensor's ``Partial`` (an
+identity backward: every rank already holds the summed value's
+gradient).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -121,3 +142,311 @@ def gather_levels(tree, mesh):
     return trees.tree_map(
         lambda x: next(parts).contiguous().view(x.dtype).reshape(
             (buf.shape[0],) + tuple(x.shape[1:])), tree)
+
+
+# ---------------------------------------------------------------------------
+# The LM's partition rules
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: for each tensor dim ``None``, an axis name, or a
+    tuple of axis names (the dim split over each, outermost first). Equal
+    to any tuple of the same entries; ``P()`` replicates every dim."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+class MeshShape:
+    """A mesh's axis names and sizes without its ranks (the reference's
+    ``AbstractMesh``): enough for the rules, which read nothing else."""
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape}, {self.mesh_dim_names})"
+
+
+def _sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def data_axes(mesh) -> tuple:
+    """The batch-parallel axes present in a mesh."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _flat(axes: tuple):
+    """The reference's spelling of a set of axes: one name alone, a tuple
+    of several, None for none."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def _axis_size(mesh, name) -> int:
+    if isinstance(name, tuple):
+        s = 1
+        for n in name:
+            s *= _axis_size(mesh, n)
+        return s
+    return _sizes(mesh).get(name, 0)
+
+
+def _maybe(mesh, axis, dim: int):
+    """axis if it divides dim (and exists), else None."""
+    size = _axis_size(mesh, axis)
+    if size and dim % size == 0:
+        return axis
+    return None
+
+
+def _spec_for(mesh, key: str, shape, fsdp: bool = True) -> P:
+    """The rule table, keyed by the parts of a param's flat path
+    (``layers/attn/wq`` -> ``["layers", "attn", "wq"]``), as the
+    reference's is by its pytree path. The tensor-parallel dim splits over
+    ``"model"``; with ``fsdp`` the other large dim also splits over the
+    data axes (ZeRO-3). Stacked layers (``layers/``, ``enc_layers/``,
+    ``dec_layers/``) keep their leading L dim whole."""
+    keys = key.split("/")
+    name = keys[-1]
+    shape = tuple(shape)
+    m = lambda dim: _maybe(mesh, "model", dim)  # noqa: E731
+    dp_flat = _flat(data_axes(mesh))
+
+    def d(dim):
+        if not fsdp or dp_flat is None:
+            return None
+        return _maybe(mesh, dp_flat, dim)
+
+    # ---- embeddings / heads ----
+    if name == "embed":
+        return P(m(shape[0]), d(shape[1]))
+    if name == "lm_head":
+        return P(d(shape[0]), m(shape[1]))
+
+    stacked = bool({"layers", "enc_layers", "dec_layers"} & set(keys))
+    off = 1 if stacked else 0
+
+    def lead(*rest):
+        return P(*(((None,) * off) + rest))
+
+    # ---- attention ----
+    if len(keys) >= 2 and keys[-2] in ("attn", "xattn"):
+        if name in ("wq", "wk", "wv"):
+            return lead(d(shape[-2]), m(shape[-1]))
+        if name == "wo":
+            return lead(m(shape[-2]), d(shape[-1]))
+
+    # ---- dense / shared-expert MLP ----
+    if name in ("wg", "wi", "shared_wg", "shared_wi") \
+            and len(shape) == 2 + off:
+        return lead(d(shape[-2]), m(shape[-1]))
+    if name in ("wo", "shared_wo") and len(shape) == 2 + off:
+        return lead(m(shape[-2]), d(shape[-1]))
+
+    # ---- MoE experts: expert-parallel when E divides, else 2-D tensor ----
+    if name in ("wg", "wi") and len(shape) == 3 + off:
+        e = m(shape[off])
+        if e is not None:
+            return lead(e, d(shape[-2]), None)
+        return lead(None, d(shape[-2]), m(shape[-1]))
+    if name == "wo" and len(shape) == 3 + off:
+        e = m(shape[off])
+        if e is not None:
+            return lead(e, None, d(shape[-1]))
+        return lead(None, m(shape[-2]), d(shape[-1]))
+    if name == "router":
+        return lead(None, None)
+
+    # ---- SSM ----
+    if name == "in_proj":
+        return lead(d(shape[-2]), m(shape[-1]))
+    if name == "out_proj":
+        return lead(m(shape[-2]), d(shape[-1]))
+
+    # ---- everything else (norms, convs, biases) replicates ----
+    return P()
+
+
+def _shape(leaf) -> tuple:
+    """A tensor's shape, or a shape given as a tuple."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def param_pspecs(mesh, cfg, params: dict, fsdp: bool = True) -> dict:
+    """Flat dict of ``P`` matching a flat param dict (tensors, meta
+    tensors or shapes)."""
+    return {k: _spec_for(mesh, k, _shape(v), fsdp=fsdp)
+            for k, v in params.items()}
+
+
+def _dp(mesh):
+    """(the data axes in the reference's spelling, their size)."""
+    axes = data_axes(mesh)
+    return _flat(axes), math.prod(_sizes(mesh)[a] for a in axes)
+
+
+def batch_pspecs(mesh, cfg, batch: dict) -> dict:
+    """The batch dim splits over the data axes when they divide it; every
+    other dim (an embedding input's features too) replicates."""
+    dp, dp_size = _dp(mesh)
+
+    def spec(leaf):
+        shape = _shape(leaf)
+        lead = dp if shape[0] % max(dp_size, 1) == 0 else None
+        return P(*((lead,) + (None,) * (len(shape) - 1)))
+
+    return {k: spec(v) for k, v in batch.items()}
+
+
+def cache_pspecs(mesh, cfg, cache: dict, global_batch: int) -> dict:
+    """Serving cache placements. Batched decode: the batch dim over the
+    data axes, the K/V sequence dim and the SSM heads over ``"model"``.
+    One sequence (batch 1, or a batch the data axes do not divide): the
+    K/V sequence dim over ``("data", "model")`` (or ``"data"``) and the
+    attend combines across them (flash-decoding); SSM states split their
+    heads, or the conv state its channels, over ``"model"``. The leading
+    L dim never splits."""
+    dp, dp_size = _dp(mesh)
+    batch_sharded = global_batch % max(dp_size, 1) == 0 and global_batch > 1
+
+    def spec(name, shape):
+        if name in ("k_win", "v_win"):
+            # ring buffers: their sequence dim is the window; batch only
+            return P(None, dp if batch_sharded else None, None, None, None)
+        if name in ("k", "v", "enc_k", "enc_v"):          # (L, B, S, KV, hd)
+            if batch_sharded:
+                return P(None, dp, _maybe(mesh, "model", shape[2]), None,
+                         None)
+            return P(None, None, _maybe(mesh, ("data", "model"), shape[2])
+                     or _maybe(mesh, "data", shape[2]), None, None)
+        if name == "ssm_state":                           # (L, B, H, P, N)
+            return P(None, dp if batch_sharded else None,
+                     _maybe(mesh, "model", shape[2]), None, None)
+        if name == "conv_state":                          # (L, B, K-1, C)
+            if batch_sharded:
+                return P(None, dp, None, None)
+            return P(None, None, None, _maybe(mesh, "model", shape[3]))
+        raise ValueError(f"unknown cache leaf {name}")
+
+    return {k: spec(k, _shape(v)) for k, v in cache.items()}
+
+
+def token_pspec(mesh, global_batch: int) -> P:
+    dp, dp_size = _dp(mesh)
+    if global_batch % max(dp_size, 1) == 0 and global_batch > 1:
+        return P(dp)
+    return P(None)
+
+
+def placements(mesh, spec) -> tuple:
+    """One spec's DTensor placements, one a mesh dim: ``Shard(d)`` on each
+    mesh dim that splits tensor dim d, ``Replicate()`` on the others. A
+    tuple of axes on one dim must name them in the mesh's order
+    (outermost first), the order in which ``Shard`` nests them."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: axes {axes} out of the mesh's order "
+                             f"{names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def named(mesh, spec_tree):
+    """``spec_tree`` (a ``P``, or a dict / tuple / list of them; None stays
+    None) with each ``P`` replaced by its placements on ``mesh``."""
+    if isinstance(spec_tree, P):
+        return placements(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(named(mesh, v) for v in spec_tree)
+    return spec_tree
+
+
+def place(mesh, tree, specs):
+    """The plain tensors of ``tree`` (a tensor or a dict of them) as
+    DTensors on ``mesh`` laid out by ``specs``: each rank keeps its own
+    block of the tensor it holds, so every rank must hold the same
+    values (as ``init_params`` from one seed, or a converted checkpoint,
+    gives them). A leaf that already is a DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(tree, dict):
+        return {k: place(mesh, v, specs[k]) for k, v in tree.items()}
+    pl = placements(mesh, specs)
+    if isinstance(tree, DTensor):
+        return tree.redistribute(mesh, pl)
+    return distribute_tensor(tree, mesh, pl, src_data_rank=None)
+
+
+# ---------------------------------------------------------------------------
+# Between a rank's local tensors and the mesh
+# ---------------------------------------------------------------------------
+
+class NamedSpec:
+    """A ``P`` bound to its mesh: the port's ``PartitionSpec`` under a mesh
+    context (``launch.steps.act_pspec``)."""
+
+    def __init__(self, mesh, spec: P):
+        self.mesh, self.spec = mesh, P(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSpec({self.spec}, {tuple(self.mesh.mesh_dim_names)})"
+
+
+def _even_spec(mesh, spec, shape) -> P:
+    """``spec`` with every dim its axes do not divide replicated (the
+    divisibility guard, at the tensor's own sizes)."""
+    return P(*(a if a is None or dim % _axis_size(mesh, a) == 0 else None
+               for a, dim in zip(spec, shape)))
+
+
+def shard_rows(x, act):
+    """A rank's whole rows ``x`` (plain, the same on every rank of the axes
+    that do not split the batch) -> the DTensor laid out by ``act`` (a
+    ``NamedSpec``): a dim the spec splits over ``"model"`` keeps this
+    rank's block, a local slice whose backward gathers."""
+    from torch.distributed.tensor import DTensor
+    mesh = act.mesh
+    spec = P(act.spec[0], *_even_spec(mesh, act.spec[1:], x.shape[1:]))
+    rows = P(spec[0], *[None] * (len(spec) - 1))     # the batch dim only
+    rows = DTensor.from_local(x, mesh, placements(mesh, rows),
+                              run_check=False)
+    return rows.redistribute(mesh, placements(mesh, spec))
+
+
+def gather_rows(x):
+    """The DTensor of ``shard_rows`` -> the rank's whole rows, plain: an
+    all-gather over the axes that split the other dims, whose backward
+    keeps this rank's block of the gradient."""
+    from torch.distributed.tensor import Replicate, Shard
+    keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+    return x.redistribute(x.device_mesh, keep).to_local()
+
+
+def psum_axes(x, mesh, axes):
+    """Σ of the plain ``x`` over the ranks of the mesh ``axes`` (a name, a
+    tuple of names, or None for none), the same on every rank. Its
+    backward is the identity: each rank's ``x`` receives the sum's
+    gradient, which every rank holds."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    axes = () if axes is None else (axes if isinstance(axes, tuple)
+                                    else (axes,))
+    if not axes:
+        return x
+    names = tuple(mesh.mesh_dim_names)
+    pl = tuple(Partial() if n in axes else Replicate() for n in names)
+    return DTensor.from_local(x, mesh, pl, run_check=False).full_tensor()

@@ -1,0 +1,285 @@
+"""The LM's ``("data", "model")`` mesh across cards: ``torchrun`` with one
+rank a card (NCCL), the (2, 2) mesh on four cards, (1, 2) and (2, 1) on
+two, each run bounded by a time limit. Every rank checks, against runs on
+its own card without a mesh:
+
+- Hymba-1.5B at full width (f32 params, bf16 compute, remat), two steps
+  of B 2 x S 2048 through ``jit_train_step``: the losses within the bf16
+  limit of ``tests/test_torch_steps.py`` (3e-4 relative) of
+  ``make_train_step(mesh=None)`` on the whole batch; each step's ms and
+  the card's peak GB;
+- Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position cache
+  (its sequence dim split over ``"model"``) prefilled with 64 tokens, 16
+  greedy tokens, against the whole batch decoded on one card fed the
+  same tokens: the same picks but for near-ties within the two decodes'
+  difference (counted, as ``chip_smoke.py``'s ``lm_families`` does);
+- llama4-scout's first 4 layers at dp 2 (the mesh's data axis of 2), B 2
+  x S 2048: the CE with ``moe_ctx`` and ``act_pspec`` against a
+  per-shard oracle, each data shard's row through the local MoE path
+  (its own capacity), the NLL and label counts summed over the shards.
+
+With fewer than two cards every test skips. Imports no JAX:
+
+    PYTHONPATH=src python -m pytest -m cuda -s tests/test_torch_cuda_lm_mesh.py
+
+The ranks run this file as a script (``python -m torch.distributed.run
+... tests/test_torch_cuda_lm_mesh.py OUT_DIR``); rank 0 writes what it
+measured and checked to ``OUT_DIR/lm_mesh.json``.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parents[1]
+RUN_LIMIT_S = 900
+BF16_LOSS_RTOL = 3e-4          # tests/test_torch_steps.py's bf16 limit
+TRAIN = (2, 2048, 2)           # B, S, steps
+SERVE = (4, 2048, 64, 16)      # B, cache positions, prompt, tokens
+MOE_LAYERS = 4
+
+
+def _card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "unknown"
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train(mesh, cfg) -> dict:
+    import numpy as np
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs as shspecs
+    from repro_torch.types import FedConfig, ShapeConfig
+    B, S, n = TRAIN
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    rng = np.random.default_rng(0)
+    batches = [registry.synth_batch(rng, cfg, shape, device="cuda")
+               for _ in range(n)]
+    fed = FedConfig()
+
+    def init():
+        return registry.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    fn, (in_sh, _) = steps.jit_train_step(cfg, fed, mesh, shape,
+                                          _shapes(cfg),
+                                          registry.batch_spec(cfg, shape))
+    whole = init()
+    params = shspecs.place(mesh, {k: v.clone() for k, v in whole.items()},
+                           in_sh[0])
+    anchor = shspecs.place(mesh, whole, in_sh[2])
+    del whole
+    _free()
+    state = fn.opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for b in batches:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, state, loss = fn(params, state, anchor, b)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+        losses.append(float(loss.to_local()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, anchor
+    _free()
+    step, opt = steps.make_train_step(cfg, fed)
+    p = init()
+    anchor, ost, want = dict(p), opt.init(p), []
+    for b in batches:
+        p, ost, l = step(p, ost, anchor, b)
+        want.append(float(l))
+    del p, ost, anchor
+    _free()
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    return {"losses": losses, "one_card_losses": want,
+            "loss_rel_err": err, "ok": err <= BF16_LOSS_RTOL
+            and all(math.isfinite(x) for x in losses),
+            "step_ms": ms, "peak_gb": peak}
+
+
+def _serve(mesh, cfg) -> dict:
+    import numpy as np
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs as shspecs
+    from repro_torch.types import ShapeConfig
+    B, L, P, T = SERVE
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        logits, cache = registry.prefill(
+            params, cfg, {"tokens": prompt},
+            registry.init_cache(cfg, B, L, device="cuda"))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    plain = {k: v.clone() for k, v in cache.items()}
+    shape = ShapeConfig("serve", seq_len=L, global_batch=B, kind="decode")
+    fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, shape, _shapes(cfg),
+                                          cache)
+    placed = shspecs.place(mesh, params, in_sh[0])
+    cache = shspecs.place(mesh, cache, in_sh[2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ties, errs, ms = 0, [], []
+    for t in range(T):
+        t0 = time.perf_counter()
+        nxt, cache, lk = fn(placed, tok, cache, P + t, with_logits=True)
+        picks = nxt.full_tensor()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            le, plain = registry.decode_step(params, cfg, tok, plain, P + t)
+        rows = _rows(mesh, B)
+        le = le[rows]
+        diff = (lk - le).abs().max(dim=-1).values
+        gap = le.max(dim=-1).values - le.gather(
+            -1, picks[rows].long()[:, None])[:, 0]
+        off = le.argmax(dim=-1) != picks[rows]
+        if bool((off & (gap > 2 * diff)).any()):
+            return {"ok": False, "step": t, "picks": picks.tolist()}
+        ties += int(off.sum())
+        errs.append(float(((lk - le).abs() / (1 + le.abs())).max()))
+        tok = picks
+    return {"ok": True, "tokens": T, "greedy_ties": ties,
+            "logits_rel_err": max(errs), "step_wall_ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _rows(mesh, B: int):
+    """This rank's rows of a batch of B split over the data axis."""
+    d = mesh.size(0)
+    i = mesh.get_coordinate()[0]
+    return slice(i * B // d, (i + 1) * B // d)
+
+
+def _moe(mesh) -> dict:
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, registry
+    from repro_torch.models.common import chunked_lm_nll
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              num_layers=MOE_LAYERS)
+    B, S = 2, 2048
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(2), cfg, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -100)], 1)
+    rows = _rows(mesh, B)
+    batch = {"tokens": toks[rows], "labels": labels[rows]}
+    ctx = {"mesh": mesh, "dp": "data"}
+    with torch.no_grad():
+        _, met = registry.loss_fn(params, cfg, batch, kernel="cuda",
+                                  moe_ctx=ctx,
+                                  act_pspec=steps.act_pspec(mesh, cfg, S))
+        hidden, _ = lm.forward_hidden(params, cfg, batch["tokens"],
+                                      kernel="cuda")
+        nll, cnt = chunked_lm_nll(hidden, lm.lm_head_weight(params, cfg)
+                                  .to(hidden.dtype), batch["labels"])
+    parts = torch.stack([nll, cnt])
+    dist.all_reduce(parts, group=mesh.get_group("data"))
+    want = float(parts[0] / parts[1])
+    err = abs(float(met["ce"]) - want) / abs(want)
+    out = {"ce": float(met["ce"]), "oracle_ce": want, "ce_rel_err": err,
+           "aux": float(met["aux"]), "ok": err <= 1e-6
+           and math.isfinite(float(met["aux"])),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, hidden
+    _free()
+    return out
+
+
+def _rank_main(out_dir: str) -> int:
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import destroy_world, init_world, make_mesh
+    init_world()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    shapes = [(2, 2)] if world == 4 else [(1, world), (world, 1)]
+    cfg = get_config("hymba-1.5b")
+    report = {"world": world, "card": _card(), "meshes": {}}
+    for shape in shapes:
+        mesh = make_mesh(shape, ("data", "model"))
+        t0 = time.perf_counter()
+        got = {"train": _train(mesh, cfg), "serve": _serve(mesh, cfg)}
+        _free()
+        if shape[0] == 2:
+            got["moe_dp2"] = _moe(mesh)
+        got["seconds"] = time.perf_counter() - t0
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, got)
+        report["meshes"]["x".join(map(str, shape))] = per_rank
+    if dist.get_rank() == 0:
+        Path(out_dir, "lm_mesh.json").write_text(json.dumps(report))
+    destroy_world()
+    return 0
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory) -> dict:
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: one rank a card")
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    out = tmp_path_factory.mktemp("lm_mesh")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), str(Path(__file__)), str(out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=RUN_LIMIT_S)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    report = json.loads((out / "lm_mesh.json").read_text())
+    print(json.dumps({"lm_mesh_cards": report}))
+    return report
+
+
+def _all(report, part):
+    return [r[part] for ranks in report["meshes"].values() for r in ranks
+            if part in r]
+
+
+def test_train_step_over_cards_matches_one_card(run):
+    got = _all(run, "train")
+    assert got and all(r["ok"] for r in got), got
+
+
+def test_serve_step_over_cards_picks_the_one_card_tokens(run):
+    got = _all(run, "serve")
+    assert got and all(r["ok"] for r in got), got
+
+
+def test_moe_loss_at_dp2_matches_the_per_shard_oracle(run):
+    got = _all(run, "moe_dp2")
+    assert got and all(r["ok"] for r in got), got
+
+
+if __name__ == "__main__":
+    sys.exit(_rank_main(sys.argv[1]))

@@ -209,8 +209,8 @@ def test_specs_and_synth_batch_match_reference(kind):
 
 def test_refusals(rng):
     """No kernel path (bidirectional attends), no bucketed prefill, no
-    ring cache, no mesh; the trainer refuses the family with the reason
-    the reference's trainer fails on."""
+    ring cache; the trainer refuses the family with the reason the
+    reference's trainer fails on. The mesh path (``act_pspec``) runs."""
     _, tc, _, tp = _both()
     tb = {k: torch.tensor(v) for k, v in _batch(rng, tc).items()}
     with pytest.raises(ValueError, match="eagerly"):
@@ -222,8 +222,12 @@ def test_refusals(rng):
                                                  "cpu"), lengths=[3, 4])
     with pytest.raises(ValueError, match="ring"):
         treg.init_ring_cache(tc, 2, 24, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        treg.loss_fn(tp, tc, tb, act_pspec=object())
+    # the mesh path in a world of one: the loss bit for bit
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import act_pspec
+    ap = act_pspec(make_host_mesh(device="cpu"), tc, 16)
+    assert torch.equal(treg.loss_fn(tp, tc, tb, act_pspec=ap)[0],
+                       treg.loss_fn(tp, tc, tb)[0])
     with pytest.raises(ValueError, match="src_embeds"):
         ttrain.main(["--arch", ARCH, "--reduced", "--mode", "central",
                      "--device", "cpu"])

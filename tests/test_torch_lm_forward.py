@@ -134,19 +134,28 @@ def test_scoring_forward_options_and_refusals(rng):
     remat, _ = tlm.forward_hidden(grad_params, tc, toks, remat=True)
     plain, _ = tlm.forward_hidden(grad_params, tc, toks, remat=False)
     assert torch.equal(remat, plain)
-    for kw in (dict(act_pspec=object()), dict(moe_ctx=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.forward_hidden(tp, tc, toks, **kw)
+    # the residual laid out by act_pspec in a world of one, remat and the
+    # kernels' path: the forward as it is
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import act_pspec
+    ap = act_pspec(make_host_mesh(device="cpu"), tc, 32)
+    assert torch.equal(tlm.forward_hidden(grad_params, tc, toks,
+                                          act_pspec=ap)[0], remat)
+    with torch.no_grad():
+        assert torch.equal(
+            tlm.forward_hidden(tp, tc, toks, act_pspec=ap, kernel="cuda")[0],
+            tlm.forward_hidden(tp, tc, toks, kernel="cuda")[0])
     with pytest.raises(ValueError, match="must be one of"):
         tlm.forward_hidden(tp, tc, toks, kernel="pallas")
     # the scoring kernels have no backward
     with pytest.raises(ValueError, match="no backward"):
         tlm.forward_hidden(grad_params, tc, toks, kernel="cuda")
-    # a MoE config scores (tests/test_torch_lm_families.py), but not with
-    # the sharded dispatch, which needs a mesh
+    # a MoE config's loss with the sharded dispatch, one dp shard: the
+    # local path's
     moe = dataclasses.replace(tc, family="moe", ssm=None,
                               moe=MoEConfig(num_experts=4))
     moe_params = treg.init_params(torch.Generator(), moe, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.loss_fn(moe_params, moe, {"tokens": toks, "labels": toks},
-                     moe_ctx={})
+    ctx = {"mesh": ap.mesh, "dp": "data"}
+    b = {"tokens": toks, "labels": toks}
+    assert torch.equal(treg.loss_fn(moe_params, moe, b, moe_ctx=ctx)[0],
+                       treg.loss_fn(moe_params, moe, b)[0])

@@ -292,9 +292,10 @@ def test_ssm_decode_step_matches(rng):
 
 
 def test_unported_families_raise():
-    """The moe and encdec families are ported; what stays unported is the
-    sharded MoE dispatch (``moe_ctx``, ROADMAP Queue 1 item 13), and the
+    """The moe and encdec families are ported, the sharded MoE dispatch
+    (``moe_ctx``) too: in a world of one it is the local path. The
     encoder-decoder has no ring cache, as in the reference."""
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.types import MoEConfig
     base = tcfg.get_config("hymba-1.5b").reduced()
     moe = dataclasses.replace(base, family="moe", ssm=None,
@@ -302,9 +303,10 @@ def test_unported_families_raise():
     params = tregistry.init_params(torch.Generator(), moe, "cpu")
     assert params["layers/moe/wg"].shape == (2, 4, moe.d_model, moe.d_ff)
     toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.loss_fn(params, moe, {"tokens": toks, "labels": toks},
-                          moe_ctx={})
+    ctx = {"mesh": make_host_mesh(device="cpu"), "dp": "data"}
+    b = {"tokens": toks, "labels": toks}
+    assert torch.equal(tregistry.loss_fn(params, moe, b, moe_ctx=ctx)[0],
+                       tregistry.loss_fn(params, moe, b)[0])
     encdec = dataclasses.replace(base, family="encdec", ssm=None)
     assert set(tregistry.init_cache(encdec, 1, 8, device="cpu")) == \
         {"enc_k", "enc_v", "k", "v"}

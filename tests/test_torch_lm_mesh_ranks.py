@@ -1,0 +1,208 @@
+"""The LM's mesh steps split for real, over gloo ranks on the CPU, against
+the reference's sharded steps on a CPU mesh of the same shape.
+
+The reference runs once, in a process of its own with four host devices
+(``tests/lm_mesh_oracle.py``: ``jit_train_step`` one step at f32
+compute, ``jit_serve_step`` four greedy tokens after a prefill, the MoE
+layer's distributed dispatch), and writes its inputs and outputs as npz
+files. Then 4 ranks run the (2, 2) ``("data", "model")`` cases and 2
+ranks the (2, 1) and (1, 2) ones, each spawn bounded by its own time
+limit, on the same inputs converted (``params_from_jax``): the port's
+``jit_train_step`` / ``jit_serve_step`` with reduced Hymba, Mamba2,
+llama4-scout (the MoE dispatch over the data axes, and with
+``moe_fullgrid``), seamless (the encoder-decoder) and paligemma (its
+patch prefix). Train: loss within 1e-5 relative, params within
+1e-5 (1 + |ref|). Serve: tokens equal, cache within 1e-5 (1 + |ref|).
+The capacity case shows the port follows the reference's distributed
+dispatch, whose per-shard capacity drops a pick that the local path
+keeps."""
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from lm_mesh_oracle import (ANCHOR_SCALE, BATCH, CASES, FED, REDUCE,  # noqa: E402
+                            SEQ, SERVE_STEPS, _serve_shapes)
+
+ROOT = Path(__file__).resolve().parents[1]
+ORACLE_LIMIT_S = 300
+SPAWN_LIMIT_S = 240
+TOL = 1e-5
+
+
+def _names(kind=None, world=None):
+    return [n for n, (shape, _, k, _) in CASES.items()
+            if (kind is None or k == kind)
+            and (world is None or shape[0] * shape[1] == world)]
+
+
+def _err(got: torch.Tensor, want: np.ndarray) -> float:
+    """max |got - want| / (1 + |want|)."""
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want) / (1 + np.abs(want)))) \
+        if got.size else 0.0
+
+
+def _check(name: str, ref: Path) -> dict:
+    """One case on this rank: the port's step on the reference's inputs,
+    its errors against the reference's outputs."""
+    from repro_torch.checkpoint.convert import _shapes, params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import registry
+    from repro_torch.types import FedConfig, MoEConfig, ShapeConfig
+    shape, arch, kind, opts = CASES[name]
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    z = np.load(ref / f"{name}.npz")
+    part = lambda pre: {k[len(pre):]: z[k] for k in z.files  # noqa: E731
+                        if k.startswith(pre)}
+    if kind == "capacity":
+        p = {k: torch.tensor(v) for k, v in part("p/").items()}
+        row = mesh.get_coordinate()[0]
+        moe = MoEConfig(num_experts=4, top_k=1, capacity_factor=1.0)
+        out, aux = tmoe.moe_forward(
+            p, torch.tensor(z["x"][row:row + 1]), moe, "silu",
+            moe_ctx={"mesh": mesh, "dp": "data"})
+        return {"out": _err(out, z["dist_out"][row:row + 1]),
+                "aux": abs(float(aux) - float(z["dist_aux"])),
+                "local_vs_dist": float(np.max(np.abs(
+                    z["local_out"][row] - z["dist_out"][row])))}
+    cfg = get_config(arch).reduced(**REDUCE)
+    params = params_from_jax(part("p/"), cfg)
+    if kind == "train":
+        anchor = params_from_jax(
+            {k: v * np.float32(ANCHOR_SCALE) for k, v in part("p/").items()},
+            cfg)
+        batch = {k: torch.tensor(v) for k, v in part("b/").items()}
+        sc = ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train")
+        fn, _ = steps.jit_train_step(
+            cfg, FedConfig(**FED), mesh, sc, _shapes(cfg),
+            registry.batch_spec(cfg, sc), donate=False,
+            moe_fullgrid=opts.get("moe_fullgrid", False),
+            train_kwargs={"dtype": torch.float32})
+        new, state, loss = fn(params, fn.opt.init(params), anchor, batch)
+        want = part("out/")
+        return {"loss": abs(float(loss.to_local()) - float(z["loss"]))
+                / abs(float(z["loss"])),
+                "params": max(_err(new[k].full_tensor(), want[k])
+                              for k in want),
+                "step": state["step"]}
+    B, _, S = _serve_shapes(cfg, opts)
+    sc = ShapeConfig("s", seq_len=S, global_batch=B, kind="decode")
+    cache = {k: torch.tensor(v) for k, v in part("c/").items()}
+    fn, _ = steps.jit_serve_step(cfg, mesh, sc, _shapes(cfg), cache,
+                                 ring=opts.get("ring", False))
+    tok, pos, picked = torch.tensor(z["token"]), int(z["pos"]), []
+    for t in range(SERVE_STEPS):
+        tok, cache = fn(params, tok, cache, pos + t)
+        picked.append(tok.full_tensor().numpy())
+    want = part("out/")
+    return {"tokens_equal": bool(np.array_equal(np.stack(picked),
+                                                z["tokens"])),
+            "cache": max(_err(cache[k].full_tensor(), want[k])
+                         for k in want)}
+
+
+def _rank(rank: int, world: int, store: str, ref: str, names: list,
+          out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    got = {name: _check(name, Path(ref)) for name in names}
+    Path(out, f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _spawn(world: int, names: list, ref: Path, out: Path) -> dict:
+    """``world`` ranks of ``_rank``; fails, never hangs, past
+    ``SPAWN_LIMIT_S``. Each case's errors, the worst over the ranks."""
+    ctx = mp.spawn(_rank, args=(world, str(out / "store"), str(ref), names,
+                                str(out)),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + SPAWN_LIMIT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"{world} ranks did not finish in {SPAWN_LIMIT_S} s")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)]
+    worst = {}
+    for name in names:
+        worst[name] = {k: (all(r[name][k] for r in ranks)
+                           if isinstance(ranks[0][name][k], bool)
+                           else max(r[name][k] for r in ranks))
+                       for k in ranks[0][name]}
+    return worst
+
+
+@pytest.fixture(scope="module")
+def oracle(tmp_path_factory) -> Path:
+    out = tmp_path_factory.mktemp("lm_mesh_oracle")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    names = list(CASES)
+    # two processes, half the cases each: the reference compiles every
+    # case's step, which is most of its time
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "lm_mesh_oracle.py"), str(out)]
+        + names[i::2], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+    deadline = time.monotonic() + ORACLE_LIMIT_S
+    for proc in procs:
+        try:
+            _, err = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            pytest.fail(f"the reference's oracle took over "
+                        f"{ORACLE_LIMIT_S} s")
+        assert proc.returncode == 0, err[-4000:]
+    return out
+
+
+@pytest.fixture(scope="module")
+def results(oracle, tmp_path_factory) -> dict:
+    got = {}
+    for world in (4, 2):
+        out = tmp_path_factory.mktemp(f"ranks{world}")
+        got.update(_spawn(world, _names(world=world), oracle, out))
+    return got
+
+
+@pytest.mark.parametrize("name", _names("train"))
+def test_train_step_matches_the_reference(results, name):
+    got = results[name]
+    assert got["loss"] <= TOL and got["params"] <= TOL, got
+    assert got["step"] == 1
+
+
+@pytest.mark.parametrize("name", _names("serve"))
+def test_serve_step_matches_the_reference(results, name):
+    got = results[name]
+    assert got["tokens_equal"] and got["cache"] <= TOL, got
+
+
+def test_moe_follows_the_distributed_capacity(results):
+    got = results["2x1-capacity"]
+    assert got["out"] <= TOL and got["aux"] <= TOL, got
+    # the reference's two paths differ on this input by far more
+    assert got["local_vs_dist"] > 100 * TOL, got

@@ -6,7 +6,8 @@ the lower index first on tied router probabilities; then ``moe_forward``'s
 output and aux loss within 1e-5 relative, top-1 with a shared expert
 (llama4-scout's structure) and top-2 without (grok-1's); the gradients
 through the dispatch and combine within 1e-5; the capacity formula at
-the full configs; and ``moe_ctx`` refused, naming its ROADMAP item."""
+the full configs; and ``moe_ctx``'s distributed dispatch in a world of
+one (one dp shard), equal to the local path."""
 import dataclasses
 
 import numpy as np
@@ -162,7 +163,18 @@ def test_capacity_matches_reference(arch, T, want):
 
 
 def test_moe_ctx_raises_naming_item_13(rng):
+    """``moe_ctx`` on the (1, 1) host mesh: one dp shard routes every
+    token with the whole batch's capacity, so the output and aux equal
+    the local path's bit for bit, with ``"model"`` in dp too
+    (``moe_fullgrid``); a dp without the mesh's data axes raises."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cpu")
     _, tc = _cfgs("top2")
     _, tp = _params(_cfgs("top2")[0])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmoe.moe_forward(tp, torch.tensor(_x(rng)), tc, moe_ctx={})
+    x = torch.tensor(_x(rng))
+    want = tmoe.moe_forward(tp, x, tc)
+    for dp in ("data", ("data", "model")):
+        got = tmoe.moe_forward(tp, x, tc, moe_ctx={"mesh": mesh, "dp": dp})
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="data axes"):
+        tmoe.moe_forward(tp, x, tc, moe_ctx={"mesh": mesh, "dp": "model"})

@@ -103,3 +103,82 @@ def test_train_cli_refuses_without_a_card_unless_asked_for_the_cpu():
         text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "final_loss" not in out.stdout
+
+
+_TEST_SIDE_PROBE = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {tests!r})
+import lm_mesh_oracle, test_torch_lm_mesh_ranks, test_torch_cuda_lm_mesh
+from repro_torch.launch import mesh, steps
+from repro_torch.sharding import specs
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(lm_mesh_oracle.CASES))
+"""
+
+
+def test_mesh_ranks_and_four_card_runner_import_no_jax():
+    """What the gloo ranks and the four-card ``torchrun`` ranks import
+    (the oracle's case table, the rank bodies, the mesh modules) loads
+    neither JAX nor the reference: only the oracle's own process does."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _TEST_SIDE_PROBE.format(tests=str(ROOT / "tests"))],
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 10
+
+
+def test_kernel_wrappers_refuse_dtensors():
+    """Every kernel wrapper raises on a DTensor, naming ``local_map``,
+    before its CPU branch, so no DTensor reaches a launch; the scoring
+    forward under ``act_pspec`` hands the kernels rank-local tensors, and
+    on the card launches each once a layer as without a mesh."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (decode_attend, kd_loss, ssd_decode,
+                                     ssd_scan, swa_attention)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import act_pspec
+    from repro_torch.models import lm, registry
+    mesh = make_host_mesh(device="cpu")
+
+    def dt(*shape, dtype=torch.float32):
+        return DTensor.from_local(torch.zeros(shape, dtype=dtype), mesh,
+                                  [Replicate(), Replicate()])
+    calls = {
+        "swa_attention": lambda: swa_attention.swa_attention(
+            dt(2, 8, 64), dt(2, 8, 64), dt(2, 8, 64), 4),
+        "swa_attention_gqa": lambda: swa_attention.swa_attention_gqa(
+            dt(1, 8, 2, 64), dt(1, 8, 1, 64), dt(1, 8, 1, 64), 4),
+        "ssd_scan": lambda: ssd_scan.ssd_scan(
+            dt(1, 8, 2, 4), dt(1, 8, 2), dt(2), dt(1, 8, 3), dt(1, 8, 3)),
+        "ssd_decode_step": lambda: ssd_decode.ssd_decode_step(
+            dt(1, 2, 4), dt(1, 2), dt(2), dt(1, 3), dt(1, 3), dt(1, 2, 4, 3)),
+        "ring_decode_attend": lambda: decode_attend.ring_decode_attend(
+            dt(1, 1, 2, 64), dt(1, 4, 1, 64), dt(1, 4, 1, 64),
+            dt(1, dtype=torch.int32), 4),
+        "extent_decode_attend": lambda: decode_attend.extent_decode_attend(
+            dt(1, 1, 2, 64), dt(1, 4, 1, 64), dt(1, 4, 1, 64),
+            dt(1, dtype=torch.int32), 0, 4),
+        "kd_loss_fused": lambda: kd_loss.kd_loss_fused(
+            dt(2, 8), dt(2, 8), dt(2, dtype=torch.int32), 0.5),
+        "kd_loss_fused_bwd": lambda: kd_loss.kd_loss_fused_bwd(
+            dt(2, 8), dt(2, 8), dt(2, dtype=torch.int32), None, dt(2),
+            None, 0.5, 1.0)}
+    for name, call in calls.items():
+        with pytest.raises(TypeError, match="local_map"):
+            call()
+    cfg = get_config("hymba-1.5b").reduced()
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got, _ = lm.forward_hidden(params, cfg, toks, kernel="cuda",
+                                   act_pspec=act_pspec(mesh, cfg, 32))
+        want, _ = lm.forward_hidden(params, cfg, toks, kernel="cuda")
+    assert torch.equal(got, want)

@@ -3,7 +3,8 @@ reduced Hymba-1.5B and Mamba2-130M over three steps (f32 compute within
 the LM tolerances, losses 1e-5 relative and params 1e-5; the default
 bf16 compute within the error measured below), on reduced ResNet3D-18,
 and the server's ``mixing_step`` / ``fedavg_step`` bit for bit. The mesh
-entry points raise, naming their ROADMAP item."""
+entry points in a world of one (the (1, 1) host mesh) equal the
+single-device steps bit for bit, and ``act_pspec`` is the reference's."""
 import numpy as np
 import pytest
 
@@ -111,11 +112,68 @@ def test_mixing_and_fedavg_steps_bit_equal(rng):
 
 
 def test_mesh_entry_points_raise_naming_the_item():
-    cfg = tget("mamba2-130m").reduced()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsteps.make_train_step(cfg, TFed(), mesh=object())
-    for fn in (lambda: tsteps.act_pspec(object(), cfg, 64),
-               lambda: tsteps.jit_train_step(cfg, TFed(), object()),
-               lambda: tsteps.jit_serve_step(cfg, object())):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn()
+    """The mesh entry points in a world of one: ``make_host_mesh`` is the
+    (1, 1) mesh; ``make_train_step(mesh=)``, ``jit_train_step`` and
+    ``jit_serve_step`` equal the single-device steps bit for bit (loss,
+    params, momentum; tokens and cache); ``act_pspec`` is the
+    reference's spec. What still raises: resnet3d on the LM mesh, naming
+    the sharded sync round that carries it, and a production mesh the
+    process group is too small for."""
+    from jax.sharding import AbstractMesh
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import registry as treg
+    from repro_torch.sharding import MeshShape
+    from repro_torch.types import ShapeConfig
+    mesh = make_host_mesh(device="cpu")
+    assert mesh.mesh_dim_names == ("data", "model") and \
+        tuple(mesh.shape) == (1, 1)
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        cfg = tget(arch).reduced()
+        shape = ShapeConfig("t", seq_len=32, global_batch=2, kind="train")
+        params = treg.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+        batch = treg.synth_batch(np.random.default_rng(0), cfg, shape,
+                                 device="cpu")
+        fed = TFed(lr=0.05, prox_theta=0.01)
+        step, opt = tsteps.make_train_step(cfg, fed)
+        want = step(dict(params), opt.init(params), dict(params), batch)
+        mstep, _ = tsteps.make_train_step(cfg, fed, mesh=mesh, seq_len=32)
+        got = mstep(dict(params), opt.init(params), dict(params), batch)
+        fn, (in_sh, out_sh) = tsteps.jit_train_step(
+            cfg, fed, mesh, shape, _shapes(cfg), treg.batch_spec(cfg, shape),
+            donate=False)
+        jit = fn(dict(params), opt.init(params), dict(params), batch)
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(jit[2].to_local(), want[2])
+        for k in params:
+            assert torch.equal(got[0][k], want[0][k]), k
+            assert torch.equal(jit[0][k].to_local(), want[0][k]), k
+            assert torch.equal(jit[1]["mom"][k].to_local(),
+                               want[1]["mom"][k]), k
+        assert in_sh[0] == out_sh[0] and in_sh[1]["step"] == ()
+        # serving: four greedy tokens, the cache in place
+        sshape = ShapeConfig("s", seq_len=16, global_batch=2, kind="decode")
+        cache = treg.init_cache(cfg, 2, 16, torch.float32, "cpu")
+        ref_cache = {k: v.clone() for k, v in cache.items()}
+        sfn, _ = tsteps.jit_serve_step(cfg, mesh, sshape, _shapes(cfg),
+                                       cache)
+        serve = tsteps.make_serve_step(cfg)
+        tok = ref_tok = torch.tensor([3, 5], dtype=torch.int32)
+        for pos in range(4):
+            tok, cache = sfn(params, tok, cache, pos)
+            ref_tok, ref_cache = serve(params, ref_tok, ref_cache, pos)
+            assert torch.equal(tok.to_local(), ref_tok)
+        for k in cache:
+            assert torch.equal(cache[k].to_local(), ref_cache[k]), k
+    jmesh = AbstractMesh((16, 16), ("data", "model"))
+    for S in (64, 100):
+        got = tsteps.act_pspec(MeshShape((16, 16), ("data", "model")), cfg,
+                               S).spec
+        assert tuple(got) == tuple(jsteps.act_pspec(
+            jmesh, jget("mamba2-130m").reduced(), S))
+    with pytest.raises(ValueError, match="sharded sync round"):
+        tsteps.make_train_step(tget("resnet3d-18").reduced(), TFed(),
+                               mesh=mesh, seq_len=32)
+    with pytest.raises(ValueError, match="256 ranks"):
+        make_production_mesh(device="cpu")
