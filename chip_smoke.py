@@ -192,6 +192,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
     train step on five reduced configs, card against the CPU's gloo mesh
     within 1e-5 relative. The phase must take <= 90 s; it frees its
     memory and the process group at its end;
+13f. the roofline of three paths (``roofline``), each counted eagerly by
+    ``repro_torch.roofline`` (a ``Counter`` over one call; the hand
+    kernels recording their analytic models) and timed as it runs: the
+    main path's KD step at its clips and at the paper's 8x112x112 (timed
+    inside a replayed epoch of 8), Hymba-1.5B's scoring forward (B 2 x S
+    2048, kernels 5 and 6), a replayed Hymba-1.5B decode tick (kernels 2,
+    3 and 4); each line the flops by class, bytes, compute / memory
+    terms, the dominant one, the roofline step time, the measured ms,
+    ``mfu`` and the share of the roofline in the measured time; then the
+    pod dry run of Hymba-1.5B's train_4k (``python -m
+    repro_torch.launch.dryrun``) in a subprocess under a time limit, its
+    row printed. Every kernel row's ``bound_ms`` comes from the same
+    models (``roofline.analysis``, ``_bound``);
 14. Table II's analytic sync-vs-async model on both Jetson fleets (host
     math): the reduction must reach 35%.
 
@@ -219,11 +232,6 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, TF32 FLOP/s on them.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-TF32_FLOPS = 495e12
 TOL = 1e-4          # |kernel - plain| <= TOL * (1 + |plain|)
 KERNEL_SOURCES = ("kd_loss", "decode_attend", "ssd_decode", "swa_attention",
                   "ssd_scan")
@@ -235,6 +243,15 @@ def _card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _bound(cost) -> dict:
+    """``bound_ms`` and ``bound_by`` of one kernel call whose work is
+    ``cost`` ((flops by class, bytes): ``repro_torch.roofline.analysis``'s
+    model of that kernel), on the H100's figures (``roofline.HW``)."""
+    from repro_torch.roofline import HW
+    s, by = HW().bound_s(*cost)
+    return {"bound_ms": s * 1e3, "bound_by": by}
 
 
 def _cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -418,26 +435,20 @@ def phase_kernels() -> list:
         lambda: kd_loss.kd_loss_rows_bwd(s, t, lab, None, g, 0.5, 1.0))
     _one_kernel("kd_loss", fwd)
     _one_kernel("kd_loss_bwd", bwd)
-    # forward: s and t read once, labels read, out and lse written; ~7
-    # f32 operations an element (max, sub, exp, add, compare, sub-scale,
-    # fma). Backward: s and t read, ds written, labels, g, lse read; ~8
-    # (sub, scale, sub, exp, compare, two multiply-adds, multiply)
+    # the bounds from the kernels' models (roofline.analysis.kd_loss_cost,
+    # kd_loss_bwd_cost), at the calls timed: lse written, no mask, no dt
+    from repro_torch.roofline import analysis
     rows = []
-    for name, row, nbytes, ops, src_line in (
-            ("kd_loss", fwd, 2 * R * V * 4 + 3 * R * 4, 7 * R * V,
+    for name, row, cost, src_line in (
+            ("kd_loss", fwd, analysis.kd_loss_cost(R, V),
              "src/repro/kernels/kd_loss.py:119"),
-            ("kd_loss_bwd", bwd, 3 * R * V * 4 + 3 * R * 4, 8 * R * V,
+            ("kd_loss_bwd", bwd, analysis.kd_loss_bwd_cost(R, V),
              "src/repro/kernels/kd_loss.py:164 _rows_bwd")):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS * 1e3
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
                      "replaces": src_line,
                      "max_abs_err": worst if name == "kd_loss" else worst_bwd,
-                     **row, "kernel_ms": row["ms"],
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations",
+                     **row, "kernel_ms": row["ms"], **_bound(cost),
                      "library_ms": None})
     for row in rows:
         print(json.dumps({"phase": "kd_kernel_time", **row}))
@@ -2005,19 +2016,16 @@ def _extent_visible(pos, k_ext: int, window: int):
         & (k_pos <= pos.long()[:, None])
 
 
-def _attend_bound(q, k, visible) -> tuple:
-    """Least time for one attend: the visible keys' K and V read once, q
-    read and the output written once; ~4 f32 operations per (head, key,
-    dim) (score and p.V multiply-adds) against 67 TFLOP/s."""
-    B, KV, G, D = q.shape
-    n_vis = int(visible.sum())
-    nbytes = (2 * n_vis * KV * D * k.element_size()
-              + 2 * q.numel() * q.element_size() + 4 * B)
-    ops = 4 * n_vis * KV * G * D
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOPS * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+def _attend_bound(q, k, visible) -> dict:
+    """Least time for one attend, ``visible`` (B, L) the keys each row
+    sees: ``roofline.analysis.decode_attend_cost`` (the visible keys' K
+    and V read once, q read and the output written once, the positions
+    read; 4 operations per (head, key, dim) in 3xTF32)."""
+    from repro_torch.roofline import analysis
+    _, KV, G, D = q.shape
+    return _bound(analysis.decode_attend_cost(
+        [int(n) for n in visible.sum(dim=1).tolist()], KV, G, D,
+        q_bytes=q.element_size(), kv_bytes=k.element_size()))
 
 
 def _sdpa_ms(q, k, visible) -> float:
@@ -2314,14 +2322,13 @@ def _time_decode_kernels(worst: dict) -> list:
     row = _time_kernel(lambda: da.ring_decode_attend(q, k, v, pos, 1024),
                        lambda: ref.ring_decode_attend_ref(q, k, v, pos, 1024))
     _one_kernel("ring_decode_attend", row)
-    bound, by = _attend_bound(q, k, vis)
     out.append({"name": "ring_decode_attend", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
                 "replaces": "src/repro/kernels/swa_attention.py:173",
                 "shape": {"B_KV_G_D": HYMBA_ATTEND, "W": 1024,
                           "pos": pos.tolist(), "dtype": "float32"},
-                "max_abs_err": worst["ring"], **row, "bound_ms": bound,
-                "bound_by": by, "library_ms": _sdpa_ms(q, k, vis),
+                "max_abs_err": worst["ring"], **row,
+                **_attend_bound(q, k, vis), "library_ms": _sdpa_ms(q, k, vis),
                 "library": "F.scaled_dot_product_attention, boolean mask"})
     # extent: the deepest rung of max_len 2048, rows at the positions
     # the full-width run reaches there
@@ -2339,18 +2346,18 @@ def _time_decode_kernels(worst: dict) -> list:
         lambda: da.extent_decode_attend(q, k, v, pos, 0, 2048),
         lambda: ref.extent_decode_attend_ref(q, k, v, pos, 0, 2048))
     _one_kernel("extent_decode_attend", row)
-    bound, by = _attend_bound(q, k, vis)
     out.append({"name": "extent_decode_attend", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
                 "replaces": "src/repro/kernels/swa_attention.py:221",
                 "shape": {"B_KV_G_D": HYMBA_ATTEND, "S_max": 2048,
                           "k_ext": 2048, "pos": pos.tolist(),
                           "dtype": "float32"},
-                "max_abs_err": worst["extent"], **row, "bound_ms": bound,
-                "bound_by": by, "library_ms": _sdpa_ms(q, k[:, :2048], vis),
+                "max_abs_err": worst["extent"], **row,
+                **_attend_bound(q, k, vis),
+                "library_ms": _sdpa_ms(q, k[:, :2048], vis),
                 "library": "F.scaled_dot_product_attention, boolean mask"})
     # SSD step: the state read and written once, x, dt, A, B, C read,
-    # y written; ~6 f32 operations per state element
+    # y written (roofline.analysis.ssd_step_cost)
     # (contiguous operands, a new state; and the path's call: the conv
     # output's views, the state written in place)
     B_, H, P, N = HYMBA_SSD
@@ -2364,10 +2371,7 @@ def _time_decode_kernels(worst: dict) -> list:
         lambda: ssd_decode.ssd_decode_step(*views, state_out=views[-1]),
         lambda: ref.ssd_decode_step_ref(*views))
     _one_kernel("ssd_decode_step on the path's views", path)
-    nbytes = 4 * (2 * B_ * H * P * N + 2 * B_ * H * P + B_ * H + H
-                  + 2 * B_ * N)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 6 * B_ * H * P * N / F32_FLOPS * 1e3
+    from repro_torch.roofline import analysis
     out.append({"name": "ssd_decode_step", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd_decode.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:167",
@@ -2375,8 +2379,7 @@ def _time_decode_kernels(worst: dict) -> list:
                 "max_abs_err": worst["ssd"], **row,
                 "views_in_place": {k: path[k] for k in (
                     "ms", "call_ms", "kernels_per_call", "ms_source")},
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                **_bound(analysis.ssd_step_cost(B_, H, P, N)),
                 "library_ms": None})
     for k_ in out:
         print(json.dumps({"phase": "decode_kernel_time", **k_}))
@@ -2411,15 +2414,14 @@ def _time_family_decode() -> list:
                            plain(), SERVE_TOL["f32"])
         row = _time_kernel(fn, plain)
         _one_kernel(f"{name} {arch}", row)
-        bound, by = _attend_bound(q, k, vis)
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
                     "replaces": f"src/repro/kernels/swa_attention.py:{line}",
                     "arch": arch,
                     "shape": {"B_KV_G_D": shape, **extent, "pos": list(rows),
                               "dtype": "float32"},
-                    "max_abs_err": err, **row, "bound_ms": bound,
-                    "bound_by": by, "library_ms": _sdpa_ms(q, k, vis),
+                    "max_abs_err": err, **row, **_attend_bound(q, k, vis),
+                    "library_ms": _sdpa_ms(q, k, vis),
                     "library": "F.scaled_dot_product_attention, boolean "
                                "mask"})
     for k_ in out:
@@ -2965,58 +2967,37 @@ def _scan_inputs(B, S, H, P, N, dt_name, seed, live=None):
             Cm.to("cuda", d))
 
 
-def _visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs of one head inside the causal band."""
-    return sum(min(i + 1, window) for i in range(S))
+def _two_precisions(cost) -> dict:
+    """The bound of a 3xTF32 kernel's ``cost`` (``bound_ms``), and beside
+    it the bound were its products f32 on the FMA pipes."""
+    (_, ops), = cost[0].items()
+    fma = _bound(({"f32": ops}, cost[1]))
+    return {**_bound(cost),
+            "bound_precision": "3xTF32 on the tensor cores, 495 TFLOP/s",
+            "bound_f32_fma_ms": fma["bound_ms"],
+            "bound_f32_fma_by": fma["bound_by"]}
 
 
 def _swa_bound(q, k, window: int) -> dict:
-    """q and k (and v, k's shape) read and the output (q's shape) written
-    once; 4 D multiply-add operations per visible (query head, key) pair,
-    the score's and p.V's, for f32 inputs at two precisions: f32 on the
-    FMA pipes, and 3xTF32 on the tensor cores (three TF32 products for
-    each, the kernel's way to f32 accuracy there). ``bound_ms`` is the
-    lesser, the tensor cores'."""
-    S, D = q.shape[1], q.shape[-1]
-    heads = q.numel() // (S * D)
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = 4 * D * heads * _visible_pairs(S, window)
-    fma_ms = ops / F32_FLOPS * 1e3
-    tc_ms = 3 * ops / TF32_FLOPS * 1e3
-    return {"bound_ms": max(bytes_ms, tc_ms),
-            "bound_by": "bytes" if bytes_ms >= tc_ms else "operations",
-            "bound_precision": "3xTF32 on the tensor cores, 495 TFLOP/s",
-            "bound_f32_fma_ms": max(bytes_ms, fma_ms),
-            "bound_f32_fma_by": ("bytes" if bytes_ms >= fma_ms
-                                 else "operations")}
+    """``roofline.analysis.swa_attention_cost`` of one call on q (the GQA
+    entry's (B, S, H, D) or the folded (BH, S, D)) and k."""
+    from repro_torch.roofline import analysis
+    if q.dim() == 4:
+        B, S, H, D = q.shape
+        KV = k.shape[2]
+    else:
+        (B, S, D), H, KV = q.shape, 1, 1
+    return _two_precisions(analysis.swa_attention_cost(
+        B, S, H, KV, D, window, dtype_bytes=q.element_size()))
 
 
 def _scan_bound(x, N: int) -> dict:
-    """x, dt, A, B, C read and y and the final state written once; per
-    (b, h) and chunk of the kernels' own Q = ``BLOCK_CHUNK`` rows (the scan
-    is the same function for any chunk), the causal triangle's C.B and
-    G.(x dt) products, 2 Q(Q+1)/2 (N + P), and the state's readout and
-    update, 4 Q P N; for f32 inputs at two precisions, as for the
-    attention: 3xTF32 on the tensor cores (the kernels' products),
-    ``bound_ms``, and f32 on the FMA pipes beside it."""
+    """``roofline.analysis.ssd_scan_cost`` of one call on x, at the
+    kernels' own chunk (the scan is the same function for any chunk)."""
     from repro_torch.kernels import ssd_scan as tscan
-    B, S, H, P = x.shape
-    es = x.element_size()
-    nbytes = (2 * x.numel() * es + 4 * B * S * H + 4 * H
-              + 2 * B * S * N * es + B * H * P * N * es)
-    Q = min(tscan.BLOCK_CHUNK, S)
-    per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N
-    ops = per_chunk * B * H * -(-S // Q)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    fma_ms = ops / F32_FLOPS * 1e3
-    tc_ms = 3 * ops / TF32_FLOPS * 1e3
-    return {"bound_ms": max(bytes_ms, tc_ms),
-            "bound_by": "bytes" if bytes_ms >= tc_ms else "operations",
-            "bound_precision": "3xTF32 on the tensor cores, 495 TFLOP/s",
-            "bound_f32_fma_ms": max(bytes_ms, fma_ms),
-            "bound_f32_fma_by": ("bytes" if bytes_ms >= fma_ms
-                                 else "operations")}
+    from repro_torch.roofline import analysis
+    return _two_precisions(analysis.ssd_scan_cost(
+        *x.shape, N, dtype_bytes=x.element_size(), chunk=tscan.BLOCK_CHUNK))
 
 
 def phase_scoring_kernels() -> list:
@@ -3553,6 +3534,7 @@ def _lm_kd_kernel_rows(kernels: list) -> None:
     under ``lm_shapes``."""
     import torch
     from repro_torch.kernels import kd_loss, ref
+    from repro_torch.roofline import analysis
     for R, V in LM_KD_SHAPES:
         cases, checks = _lm_kd_cases(R, V), {}
         for name, *case in cases:
@@ -3579,16 +3561,12 @@ def _lm_kd_kernel_rows(kernels: list) -> None:
             lambda: kd_loss.kd_loss_rows_bwd(s, t, lab, None, g, 0.5, 1.0))
         _one_kernel(f"kd_loss ({R}, {V})", fwd)
         _one_kernel(f"kd_loss_bwd ({R}, {V})", bwd)
-        for name, row, nbytes, ops, err in (
-                ("kd_loss", fwd, 2 * R * V * 4 + 3 * R * 4, 7 * R * V, err_f),
-                ("kd_loss_bwd", bwd, 3 * R * V * 4 + 3 * R * 4, 8 * R * V,
+        for name, row, cost, err in (
+                ("kd_loss", fwd, analysis.kd_loss_cost(R, V), err_f),
+                ("kd_loss_bwd", bwd, analysis.kd_loss_bwd_cost(R, V),
                  err_b)):
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_FLOPS * 1e3
             out = {**row, "max_abs_err": err, "library_ms": None,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations"}
+                   **_bound(cost)}
             print(json.dumps({"phase": "lm_kd_kernel_time", "name": name,
                               "R": R, "V": V, **out}))
             for k in kernels:
@@ -4735,6 +4713,254 @@ def phase_lm_mesh(rows: list = ()) -> None:
         raise AssertionError(f"lm_mesh took {seconds:.1f} s > 90 s")
 
 
+# ---------------------------------------------------------------------------
+# The roofline of three paths: counted (roofline.counter) and timed
+# ---------------------------------------------------------------------------
+
+# the pod dry run of Hymba-1.5B's train_4k (~40 s of host time)
+DRYRUN_TIMEOUT_S = 300
+
+
+def _roofline_line(path: str, rep, wall_ms: float, prof: dict, want: dict,
+                   card: str, **extra) -> dict:
+    """Print one path's roofline line: its counted work and terms, the
+    device ms a step the profiler measured (wall ms where it traced
+    nothing), ``mfu`` and the share ``step_time_s / measured``. Fails
+    unless the path's hand kernels recorded ``want`` launches and every
+    term is finite and positive."""
+    got = {k: v["launches"] for k, v in rep.kernels.items()}
+    if got != want:
+        raise AssertionError(f"roofline {path}: kernels counted {got}, "
+                             f"want {want}")
+    traced = "device_ms_per_step" in prof
+    measured_ms = prof["device_ms_per_step"] if traced else wall_ms
+    rep.measured_s = measured_ms / 1e3
+    d = rep.to_dict()
+    terms = (rep.flops_per_device, rep.bytes_per_device, rep.compute_s,
+             rep.memory_s, rep.step_time_s, rep.mfu, measured_ms)
+    if not all(math.isfinite(v) and v > 0 for v in terms):
+        raise AssertionError(f"roofline {path}: a term not finite and "
+                             f"positive: {terms}")
+    line = {"phase": "roofline", "path": path, "card": card,
+            "flops_by_class": {p: v["flops"]
+                               for p, v in d["flops_by_class"].items()},
+            "flops": rep.flops_per_device, "bytes": rep.bytes_per_device,
+            "collective_bytes": rep.collective_bytes,
+            "model_flops": rep.model_flops_global,
+            "model_precision": rep.model_precision,
+            "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+            "dominant": rep.dominant, "step_time_s": rep.step_time_s,
+            "measured_ms": measured_ms,
+            "measured": ("device ms a step (profiler)" if traced
+                         else "wall ms a step (no device events traced)"),
+            "wall_ms": wall_ms, "device_busy_share":
+                prof.get("device_busy_share"),
+            "mfu": rep.mfu, "share": rep.roofline_share,
+            "useful_flop_ratio": rep.useful_flop_ratio,
+            "kernels": rep.kernels, "peak_memory_gb":
+                rep.peak_memory_bytes / 1e9, **extra}
+    print(json.dumps(line))
+    return line
+
+
+def _forward_products(fn) -> dict:
+    """The product flops (by class) of one forward ``fn()`` run without
+    autograd: the model flops a forward is priced at."""
+    import torch
+    from repro_torch.roofline.counter import Counter
+    with torch.no_grad(), Counter() as c:
+        fn()
+    return {p: n for p, n in c.flops.items() if p != "f32"}
+
+
+def _roofline_kd(card: str) -> None:
+    """(a) The main path's KD step (ResNet3D-34 -> 18, 400 classes) at its
+    clips (batch 4 of 4x16x16) and the paper's (batch 8 of 8x112x112),
+    TF32 at PyTorch's default: one eager step counted, the step timed
+    inside a replayed epoch of 8. Model flops: the teacher's forward
+    products plus three times the student's (forward, and the backward's
+    two products a forward one), in cuDNN's TF32 class."""
+    import torch
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.core import distill
+    from repro_torch.data import SyntheticActionDataset, stack_batches
+    from repro_torch.device import batch_to
+    from repro_torch.models import registry
+    from repro_torch.roofline import analyze_step
+    from repro_torch.types import DistillConfig
+    gen = torch.Generator().manual_seed(0)
+    teacher = registry.init_params(gen, RESNET34, "cuda")
+    student = registry.init_params(gen, RESNET18, "cuda")
+    H = 8
+    for name, frames, size, bsz in (("main_path", 4, 16, 4),
+                                    ("paper_clip", 8, 112, 8)):
+        ds = SyntheticActionDataset(num_classes=400, samples_per_class=1,
+                                    frames=frames, size=size, seed=0)
+        stacked = stack_batches(ds.batches(bsz, H, seed=1))
+        batch = {k: v[0] for k, v in batch_to(stacked, "cuda").items()}
+        engine = distill.DistillEngine(RESNET34, RESNET18,
+                                       DistillConfig(lr=0.01))
+        state = engine.opt.init(student)
+        engine.step(teacher, student, state, batch)   # cuDNN's choice
+        torch.cuda.synchronize()
+        fwd_t = _forward_products(lambda: registry.logits_fn(
+            teacher, RESNET34, batch))
+        fwd_s = _forward_products(lambda: registry.logits_fn(
+            student, RESNET18, batch))
+        model = sum(fwd_t.values()) + 3 * sum(fwd_s.values())
+        _, rep = analyze_step(
+            engine.step, teacher, student, state, batch,
+            arch="resnet3d-34->resnet3d-18", shape=name,
+            mesh_name="one card", chips=1, model_flops_global=model,
+            model_precision="tf32", watch=(teacher, student, state, batch))
+
+        def replay():
+            return engine.epoch(teacher, student, state, stacked)
+        replay(), replay()                  # eager, then captured
+        wall = _wall_ms(replay, 5) / H
+        prof = _profile(replay, 3)
+        per_step = {k: (v / H if k in ("device_ms_per_step",
+                                       "wall_ms_per_step") else v)
+                    for k, v in prof.items()}
+        _roofline_line(f"kd_step_{name}", rep, wall, per_step,
+                       {"kd_loss": 1, "kd_loss_bwd": 1}, card,
+                       clips=[bsz, frames, size, size, 3], epoch_H=H,
+                       timed="a step of a replayed KD epoch of 8")
+        del engine, state, stacked, batch
+    _free(teacher, student)
+
+
+def _roofline_scoring(card: str, seed: int) -> None:
+    """(b) Hymba-1.5B's scoring forward (``lm.forward_hidden``, B 2 x S
+    2048, f32, cuBLAS TF32 off) through kernels 5 and 6: one forward
+    counted, three timed. Model flops 2·N·tokens in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, registry
+    from repro_torch.roofline import analyze_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    batch = _score_batch(cfg, SCORE_B, SCORE_S, seed, "cuda")
+
+    def forward():
+        with torch.no_grad():
+            return lm.forward_hidden(params, cfg, batch["tokens"],
+                                     kernel="cuda")
+    forward()
+    torch.cuda.synchronize()
+    _, rep = analyze_step(
+        forward, arch=cfg.name, shape=f"score B{SCORE_B} x S{SCORE_S}",
+        mesh_name="one card", chips=1,
+        model_flops_global=2.0 * cfg.param_count() * SCORE_B * SCORE_S,
+        model_precision="f32", watch=(params, batch))
+    per_fwd = _per_forward(cfg)
+    _roofline_line("scoring_forward", rep, _wall_ms(forward, 3),
+                   _profile(forward, 1), per_fwd, card,
+                   batch=[SCORE_B, SCORE_S])
+    _free(params)
+
+
+def _roofline_tick(card: str, seed: int) -> None:
+    """(c) One Hymba-1.5B decode tick at K-extent 2048 (four slots of the
+    stream's longer prompts, f32, ring mode on kernels 2, 3 and 4): one
+    eager tick counted, the batcher's replayed tick timed. Model flops
+    2·N a slot in f32."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.roofline import analyze_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, "cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in FULL_PROMPTS[4:]]
+    adm = _admitted(params, cfg, prompts, max_slots=4, max_len=2048,
+                    min_bucket=8, decode_mode="ring", decode_kernel="cuda")
+    mask = np.ones(4, bool)
+    k_ext = adm._decode_k_ext(mask)
+    tp = torch.from_numpy(np.stack([adm.last_tok, adm.pos])).cuda()
+
+    def eager():
+        return registry.decode_step_grouped(
+            params, cfg, tp[0], adm.cache, tp[1], k_ext=k_ext,
+            decode_kernel="cuda")
+    eager()
+    torch.cuda.synchronize()
+    _, rep = analyze_step(
+        eager, arch=cfg.name, shape=f"decode tick, 4 slots, k_ext {k_ext}",
+        mesh_name="one card", chips=1,
+        model_flops_global=2.0 * cfg.param_count() * 4,
+        model_precision="f32", watch=(params, adm.cache))
+    for _ in range(2):                      # the rung's eager tick, capture
+        adm._decode(mask)
+
+    def tick():
+        return adm._decode(mask)[0].cpu()
+    _roofline_line("decode_tick", rep, _wall_ms(tick, 10), _profile(tick, 3),
+                   _per_tick(cfg), card, k_ext=k_ext,
+                   timed="a replayed tick")
+    _release_graphs(adm)
+    del adm
+    _free(params)
+
+
+def _roofline_dryrun(card: str) -> None:
+    """(d) ``python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape
+    train_4k --mesh pod`` in a process of its own (a process keeps one
+    default group), under ``DRYRUN_TIMEOUT_S``: the fake world and fake
+    tensors under this machine's torch. Prints its row."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "hymba-1.5b", "--shape", "train_4k", "--mesh", "pod", "--out",
+             out], capture_output=True, text=True, env=env, cwd=ROOT,
+            timeout=DRYRUN_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if res.returncode:
+            raise AssertionError(f"the pod dry run failed ({res.returncode})"
+                                 f":\n{res.stdout[-3000:]}\n"
+                                 f"{res.stderr[-3000:]}")
+        with open(os.path.join(out, "baseline_hymba-1.5b_train_4k_pod.json"),
+                  encoding="utf-8") as f:
+            row = json.load(f)
+    keep = ("arch", "shape", "mesh", "chips", "status", "flops_per_device",
+            "bytes_per_device", "collectives", "collective_bytes",
+            "peak_memory_bytes", "model_flops_global", "compute_s",
+            "memory_s", "collective_s", "dominant", "step_time_s",
+            "useful_flop_ratio", "mfu", "count_s")
+    print(json.dumps({"phase": "roofline", "path": "dryrun_pod",
+                      "card": card, "torch": torch.__version__,
+                      "seconds": seconds,
+                      "flops_by_class": {p: v["flops"] for p, v in
+                                         row["flops_by_class"].items()},
+                      **{k: row[k] for k in keep}}))
+
+
+def phase_roofline(seed: int) -> None:
+    """The roofline of three paths on the card, each counted eagerly by
+    ``repro_torch.roofline`` (the hand kernels by their models) and timed
+    as it runs: (a) the main path's KD step, (b) Hymba-1.5B's scoring
+    forward, (c) a replayed Hymba-1.5B decode tick; then (d) the pod dry
+    run of Hymba-1.5B's train_4k in a subprocess."""
+    card = _card_line()
+    t0 = time.perf_counter()
+    _roofline_kd(card)
+    _roofline_scoring(card, seed)
+    _roofline_tick(card, seed)
+    _roofline_dryrun(card)
+    print(json.dumps({"phase": "roofline_done",
+                      "seconds": time.perf_counter() - t0}))
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
@@ -4788,6 +5014,7 @@ def main(argv=None) -> int:
     phase_lm_families(args.seed, [k for k in serve_kernels + score_kernels
                                   if "arch" in k])
     phase_lm_mesh([k for k in score_kernels if "arch" not in k])
+    phase_roofline(args.seed)
     phase_analytic_speedup()
     kernels += score_kernels
 

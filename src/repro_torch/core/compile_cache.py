@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.roofline import counter
+
 
 def _signature(args) -> tuple:
     """Shapes and dtypes of every tensor leaf (dicts, lists and tuples
@@ -237,6 +239,10 @@ class GraphCache:
     A graph keeps its in-place tensors alive (and its pool's memory held):
     their owner frees them by dropping the cache or calling ``clear``.
 
+    Under an active ``roofline.counter.Counter`` a call raises: a replay
+    runs outside dispatch and would count nothing. Count an eager run of
+    ``fn`` instead.
+
     ``num_compiled`` counts the signatures, CPU ones included, and
     ``count(name)`` those of one entry point (``ShapeCache.count``'s
     meaning); ``num_captured`` and ``captures(name)`` count the graphs."""
@@ -247,6 +253,11 @@ class GraphCache:
         self._pool = None
 
     def call(self, name, fn, args, inplace=()):
+        if counter.counting():
+            raise RuntimeError(
+                f"GraphCache.call({name!r}) under a roofline counter: a "
+                "replay runs outside dispatch and would count nothing; "
+                "count an eager run of the function")
         spec, leaves, own = _flatten_args(args, inplace)
         device = _cuda_device(leaves)
         key = (name, spec,

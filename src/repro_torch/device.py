@@ -24,3 +24,12 @@ def batch_to(batch: dict, device) -> dict:
     """Numpy (or tensor) batch dict -> tensors on ``device``. Integer
     label arrays stay integer; clips keep their float dtype."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at one address: the same storage at
+    the same offset. Unlike comparing ``data_ptr()``, it holds for
+    tensors without memory (fake or meta: a dry run's), whose storages
+    are told apart all the same."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())

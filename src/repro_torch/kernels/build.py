@@ -35,7 +35,7 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> Path:
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.read_bytes())
@@ -48,7 +48,7 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is already built. Returns
     nvcc's output (the ptxas report), or "" when nothing was compiled;
     raises with that output if nvcc fails."""
-    out = lib_path(name)
+    out = _lib_path(name)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +66,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _LIBS:
         build(name)
-        _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LIBS[name]
 
 

@@ -11,7 +11,10 @@ visible keys over a cluster of blocks, each holding only fixed-size tiles.
 
 On a CPU tensor each wrapper computes the plain version (``ref.py``); on
 a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
-counts the launches and nothing else.
+counts the launches and nothing else. Under an active
+``roofline.counter`` each records its analytic work
+(``analysis.decode_attend_cost`` at the keys each row sees: the positions
+are read to the host then) and runs with the counter paused.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis, counter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
@@ -81,6 +85,13 @@ def _chunk(k, v) -> int:
     return 2
 
 
+def _cost(q, k, n_vis) -> tuple:
+    _, KV, G, D = q.shape
+    return analysis.decode_attend_cost(n_vis, KV, G, D,
+                                       q_bytes=q.element_size(),
+                                       kv_bytes=k.element_size())
+
+
 def _launch(name: str, q, k, v, pos, extent: tuple, window: int):
     """Launch ``name`` on the current stream. ``extent`` is (W,) for the
     ring and (S_max, k_ext) for the extent entry."""
@@ -110,6 +121,10 @@ def ring_decode_attend(q, k, v, pos, window: int):
     build.refuse_dtensor("ring_decode_attend", q, k, v, pos)
     W = k.shape[1]
     _check(q, k, v, pos)
+    if counter.counting():
+        n_vis = analysis.ring_visible(pos.tolist(), W, window)
+        return counter.kernel("ring_decode_attend", _cost(q, k, n_vis),
+                              ring_decode_attend, q, k, v, pos, window)
     if q.device.type == "cpu":
         return ref.ring_decode_attend_ref(q, k, v, pos, window)
     if q.device.type != "cuda":
@@ -133,6 +148,11 @@ def extent_decode_attend(q, k, v, pos, window: int, k_ext: int):
     if not 1 <= k_ext <= S_max:
         raise ValueError(f"k_ext {k_ext} out of range [1, {S_max}]")
     _check(q, k, v, pos)
+    if counter.counting():
+        n_vis = analysis.extent_visible(pos.tolist(), k_ext, window)
+        return counter.kernel("extent_decode_attend", _cost(q, k, n_vis),
+                              extent_decode_attend, q, k, v, pos, window,
+                              k_ext)
     if q.device.type == "cpu":
         return ref.extent_decode_attend_ref(q, k, v, pos, window, k_ext)
     if q.device.type != "cuda":

@@ -17,7 +17,9 @@ pointer (no mask is made).
 On a CPU tensor each wrapper computes its plain version (``ref.kd_loss_ref``,
 ``kd_loss_rows_bwd``); on a CUDA tensor it launches its kernel or raises.
 ``kd_loss_fused.launches`` and ``kd_loss_fused_bwd.launches`` count the
-launches and nothing else.
+launches and nothing else. Under an active ``roofline.counter`` each
+wrapper records its analytic work (``analysis.kd_loss_cost``,
+``kd_loss_bwd_cost``) and runs with the counter paused.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis, counter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -89,6 +92,13 @@ def _fused_fwd(s, t, labels, alpha, temperature, valid, lse):
     CUDA tensor the forward kernel, which also writes the row logsumexp
     into ``lse`` (an (R,) f32 buffer) unless it is None."""
     build.refuse_dtensor("kd_loss_fused", s, t, labels, valid)
+    if counter.counting():
+        return counter.kernel(
+            "kd_loss", analysis.kd_loss_cost(
+                s.numel() // s.shape[-1], s.shape[-1],
+                dtype_bytes=s.element_size(), lse=lse is not None,
+                masked=valid is not None),
+            _fused_fwd, s, t, labels, alpha, temperature, valid, lse)
     if s.device.type == "cpu":
         return ref.kd_loss_ref(s, t, labels, alpha, temperature=temperature,
                                valid=valid)
@@ -112,6 +122,9 @@ def _fused_fwd(s, t, labels, alpha, temperature, valid, lse):
     return out
 
 
+# The forward kernel's own entry, for the chip check and the tests; the KD
+# steps reach the kernel through kd_loss_rows.
+# repro-lint: disable=R4
 def kd_loss_fused(student_logits, teacher_logits, labels, alpha: float,
                   temperature: float = 1.0, valid=None):
     """Per-row fused loss. student/teacher: (R, V) f32 or bf16; labels
@@ -124,6 +137,9 @@ def kd_loss_fused(student_logits, teacher_logits, labels, alpha: float,
 kd_loss_fused.launches = 0
 
 
+# The backward kernel's plain version, which the chip check and the tests
+# hold the kernel against.
+# repro-lint: disable=R4
 def kd_loss_rows_bwd(s, t, labels, valid, g, alpha: float,
                      temperature: float):
     """The reference's analytic backward (``_rows_bwd``) in torch ops: the
@@ -143,6 +159,8 @@ def kd_loss_rows_bwd(s, t, labels, valid, g, alpha: float,
     return ds.to(s.dtype), dt.to(t.dtype)
 
 
+# Called by _KDLossRows.backward; public for the chip check and the tests.
+# repro-lint: disable=R4
 def kd_loss_fused_bwd(s, t, labels, valid, g, lse, alpha: float,
                       temperature: float, need_dt: bool = True):
     """(ds, dt) of the per-row loss for the row cotangent ``g`` (R,) f32,
@@ -152,6 +170,14 @@ def kd_loss_fused_bwd(s, t, labels, valid, g, lse, alpha: float,
     may have any stride, 0 among them (a cotangent broadcast from a sum);
     the logits, labels and valid are checked as the forward checks them."""
     build.refuse_dtensor("kd_loss_fused_bwd", s, t, labels, valid, g, lse)
+    if counter.counting():
+        return counter.kernel(
+            "kd_loss_bwd", analysis.kd_loss_bwd_cost(
+                s.numel() // s.shape[-1], s.shape[-1],
+                dtype_bytes=s.element_size(), need_dt=need_dt,
+                masked=valid is not None),
+            kd_loss_fused_bwd, s, t, labels, valid, g, lse, alpha,
+            temperature, need_dt)
     if s.device.type == "cpu":
         ds, dt = kd_loss_rows_bwd(s, t, labels, valid, g, alpha, temperature)
         return ds, (dt if need_dt else None)

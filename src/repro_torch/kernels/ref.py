@@ -76,6 +76,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int):
     return y.to(x.dtype), h.to(x.dtype)
 
 
+# The sequential oracle the tests hold the chunked scans against.
+# repro-lint: disable=R4
 def ssd_sequential_ref(x, dt, A, Bm, Cm):
     """The O(S) recurrence, the independent ground truth for SSD:
     h_t = exp(dt_t A) h_{t-1} + dt_t · x_t ⊗ B_t;  y_t = C_t · h_t."""

@@ -11,6 +11,8 @@ step cuts them from), and the new state may be written over the old one
 On a CPU tensor the wrapper computes the plain version
 (``ref.ssd_decode_step_ref``); on a CUDA tensor it launches the kernel or
 raises. ``ssd_decode_step.launches`` counts the launches and nothing else.
+Under an active ``roofline.counter`` it records its analytic work
+(``analysis.ssd_step_cost``) and runs with the counter paused.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis, counter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,6 +104,14 @@ def ssd_decode_step(xh, dt, A, Bm, Cm, state, state_out=None):
                          state_out)
     sx, sb, sc = xh.stride(), Bm.stride(), Cm.stride()
     _check(xh, dt, A, Bm, Cm, state, state_out, sx, sb, sc)
+    if counter.counting():
+        # y's dtype promotes state's and C's: the wider of f32 and bf16
+        y_bytes = max(state.element_size(), Cm.element_size())
+        return counter.kernel(
+            "ssd_decode_step", analysis.ssd_step_cost(
+                *xh.shape, Bm.shape[1], x_bytes=xh.element_size(),
+                state_bytes=state.element_size(), y_bytes=y_bytes),
+            ssd_decode_step, xh, dt, A, Bm, Cm, state, state_out)
     dev = xh.device
     if dev.type == "cpu":
         y, h = ref.ssd_decode_step_ref(xh, dt, A, Bm, Cm, state)

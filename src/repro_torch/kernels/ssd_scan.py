@@ -12,7 +12,10 @@ On a CPU tensor the wrapper computes the plain version
 launches the kernel or raises. The kernel has no backward (the reference
 defines no VJP), so the wrapper refuses inputs that require a gradient
 under grad mode. ``ssd_scan.launches`` counts the calls that launch (one
-a call, three kernels each) and nothing else.
+a call, three kernels each) and nothing else. Under an active
+``roofline.counter`` it records its analytic work (``analysis.
+ssd_scan_cost`` at the kernels' chunk, whichever runs) and runs with the
+counter paused.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.swa_attention import check_no_grad
+from repro_torch.roofline import analysis, counter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P = 64           # kMaxP in csrc/ssd_scan.cu
@@ -84,6 +88,12 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
     build.refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm)
     Q = min(chunk, x.shape[1]) if x.dim() == 4 else chunk
     _check(x, dt, A, Bm, Cm, Q)
+    if counter.counting():
+        return counter.kernel(
+            "ssd_scan", analysis.ssd_scan_cost(
+                *x.shape, Bm.shape[-1], dtype_bytes=x.element_size(),
+                chunk=BLOCK_CHUNK),
+            ssd_scan, x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
     if x.device.type != "cuda":

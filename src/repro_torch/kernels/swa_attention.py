@@ -16,7 +16,9 @@ repeat and fold the reference's caller does); on CUDA tensors it launches
 the kernel or raises. The kernel has no backward (the reference defines
 no VJP), so the wrappers refuse inputs that require a gradient under grad
 mode. ``swa_attention.launches`` counts the launches of both entries and
-nothing else.
+nothing else. Under an active ``roofline.counter`` each entry records its
+analytic work (``analysis.swa_attention_cost``) and runs with the counter
+paused.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis, counter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 120, 128, 240, 256)   # the kernel's; the plain version any
@@ -127,6 +130,12 @@ def swa_attention(q, k, v, window: int, causal: bool = True):
     """
     build.refuse_dtensor("swa_attention", q, k, v)
     _check(q, k, v, window, causal)
+    if counter.counting():
+        BH, S, D = q.shape
+        return counter.kernel(
+            "swa_attention", analysis.swa_attention_cost(
+                BH, S, 1, 1, D, window, dtype_bytes=q.element_size()),
+            swa_attention, q, k, v, window, causal)
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q, k, v, window, causal)
     BH, S, _ = q.shape
@@ -149,6 +158,13 @@ def swa_attention_gqa(q, k, v, window: int, causal: bool = True):
     """
     build.refuse_dtensor("swa_attention_gqa", q, k, v)
     _check_gqa(q, k, v, window, causal)
+    if counter.counting():
+        B, S, H, D = q.shape
+        return counter.kernel(
+            "swa_attention", analysis.swa_attention_cost(
+                B, S, H, k.shape[2], D, window,
+                dtype_bytes=q.element_size()),
+            swa_attention_gqa, q, k, v, window, causal)
     if q.device.type == "cpu":
         return ref.swa_attention_gqa_ref(q, k, v, window, causal)
     B, S, H, _ = q.shape

@@ -9,6 +9,9 @@ no process group, ``init_world`` makes a world of one in-process: a
 (gloo for CPU tensors, NCCL for CUDA ones where NCCL is built), so a
 process can hold CPU and CUDA meshes at once.
 
+A world the dry run made (``launch/dryrun.py::fake_world``: the ``fake``
+backend of ``torch.testing``, no transport) serves any device type.
+
 The LM's meshes are ``("data", "model")`` (or ``("pod", "data",
 "model")``) ``DeviceMesh``es over those ranks, row-major: rank
 r = (d, m) sits at d·M + m. Every mesh covers the whole process group; one
@@ -63,7 +66,7 @@ def init_world(device=None) -> torch.device:
                                     rank=0, world_size=1,
                                     timeout=GROUP_TIMEOUT)
     need = "nccl" if dev.type == "cuda" else "gloo"
-    if need not in dist.get_backend():
+    if need not in dist.get_backend() and dist.get_backend() != "fake":
         raise ValueError(
             f"the process group's backend {dist.get_backend()!r} has no "
             f"{need} for {dev.type} tensors")

@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.device import batch_to, params_device
+from repro_torch.device import batch_to, params_device, same_memory
 from repro_torch.models import lm, moe as moe_mod, registry
 from repro_torch.models.attention import SeqShard
 from repro_torch.optim import proximal_grad, sgd, value_and_grad
@@ -330,8 +330,8 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
         mom = opt_state["mom"]
         if mom is not None:
             mom = {k: _dtensor(v, mesh, pl[k]) for k, v in mom.items()}
-        if donate and any(anchor[k].to_local().data_ptr()
-                          == params[k].to_local().data_ptr()
+        if donate and any(same_memory(anchor[k].to_local(),
+                                      params[k].to_local())
                           for k in params):
             raise ValueError("donated params share storage with the anchor")
         rows = {k: _dtensor(v, mesh, bpl[k]).to_local()

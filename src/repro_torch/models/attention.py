@@ -46,6 +46,8 @@ def _rows(x, device) -> torch.Tensor:
     """An int or a (B,) tensor -> a (B or 1, 1) tensor of positions."""
     if isinstance(x, torch.Tensor):
         return x.reshape(-1, 1)
+    # x is a host int here: a tensor returned above
+    # repro-lint: disable=R2
     return torch.full((1, 1), int(x), dtype=torch.int32, device=device)
 
 
@@ -315,6 +317,8 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
         ck[:, idx:idx + Sq] = k.to(ck.dtype)
         cv[:, idx:idx + Sq] = v.to(cv.dtype)
     S_max = ck.shape[1]
+    # k_extent is a host int (the graph's key), not a tensor
+    # repro-lint: disable=R2
     sliced = bool(k_extent) and k_extent < S_max
     w_slice = cache_slice_window
     if kernel == "cuda":

@@ -46,7 +46,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_memory
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -261,7 +261,7 @@ def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
     attention entries, and a CUDA-kernel decode's SSM state, were written
     in place already)."""
     dst = cache[key][j]
-    if val.data_ptr() != dst.data_ptr():
+    if not same_memory(val, dst):
         dst.copy_(val)
 
 

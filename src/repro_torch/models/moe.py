@@ -66,6 +66,8 @@ def param_shapes(d_model: int, d_ff: int, moe: MoEConfig,
 
 
 def capacity(num_tokens: int, moe: MoEConfig) -> int:
+    # host ints in, a host int out: a shape, not a sync
+    # repro-lint: disable=R2
     return int(math.ceil(num_tokens / moe.num_experts
                          * moe.capacity_factor * moe.top_k))
 

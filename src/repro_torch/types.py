@@ -179,6 +179,15 @@ class ModelConfig:
             n += v * d
         return int(n)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k + shared experts
+        count); the reference's formula."""
+        if self.moe is None or not self.moe.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        inactive = (self.moe.num_experts - self.moe.top_k) * 3 * d * f
+        return int(self.param_count() - self.num_layers * inactive)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
