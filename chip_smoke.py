@@ -89,6 +89,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``FleetSpec`` twice each: clients held at once (<= 4), the in-flight
    bound, captures that do not grow with the clients drawn; 8 clients
    streamed against their materialized twin in ``_Exact``, bit for bit;
+6e. a scheduled learning rate through the engines (``schedules``) at the
+   main path's full width in ``_Exact``: two KD epochs of 8 under
+   ``cosine(0.01, 16, 2)`` replayed against their 16 steps run one by
+   one (the step ends at 16; the KD kernels 8 + 8 on the card in the
+   replays by ``_trace``, none from the host); the ragged 4 x 3 round
+   under ``inverse_sqrt(0.05, 1)`` on ``scan`` against ``loop`` and
+   ``shard`` / ``hier`` (a world of one over NCCL) against ``scan``;
+   ``run_async`` on ``scan`` against ``loop`` (clocks equal); two
+   codistill rounds at budgets [4, 2], a replay against eager, each
+   member's step; fresh scheduled engines, one capture per round shape
+   over three H^k draws, replayed with host syncs made errors (an
+   ``engines`` line); a replayed scheduled KD epoch and round, device ms
+   and kernels, beside the constant-rate ones;
 7. the serving decode kernels (ring attend, extent attend, SSD step)
    against their plain versions on the card, f32 and bf16 caches, an
    extent of 131072 keys among them, the other configs' decode shapes
@@ -1945,6 +1958,351 @@ def phase_population() -> None:
                       "population": POPULATION, "m": POPULATION_M,
                       "runs": runs, "streamed_vs_materialized": twin,
                       "phase_s": time.perf_counter() - t_phase}))
+
+
+def _replay_profile(fn) -> dict:
+    """Device ms, kernels and the KD kernels of one call of ``fn`` (the
+    mean of 3, ``_profile``), beside its wall ms (5 calls)."""
+    prof = _profile(fn, 3, match=("kd_loss",))
+    return {"wall_ms": _wall_ms(fn),
+            "device_ms": prof.get("device_ms_per_step"),
+            "kernels": prof.get("kernels_per_step"),
+            "kd_kernels": _kd_in_profile(prof),
+            "device_busy_share": prof.get("device_busy_share"),
+            "dropped_launches": prof.get("dropped_launches")}
+
+
+def _schedule_inputs() -> tuple:
+    """The ``schedules`` phase's full-width inputs: teacher and student
+    params, two KD epoch stacks of ``KD_STEPS``, the ragged round's
+    per-client batches."""
+    import torch
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(4)
+    teacher = registry.init_params(gen, RESNET34, "cuda")
+    student = registry.init_params(gen, RESNET18, "cuda")
+    clips = make_dataset_for(RESNET18, small=False, seed=0)
+    epochs = [stack_batches(clips.batches(4, KD_STEPS, seed=40 + e))
+              for e in range(2)]
+    ds = make_dataset_for(RESNET18, small=True, seed=0)
+    data = [list(ds.batches(4, h, seed=50 + c))
+            for c, h in enumerate(MULTI_COUNTS)]
+    return teacher, student, epochs, data
+
+
+def _replays(kd_engine, round_engine, fed, inputs) -> dict:
+    """A KD epoch of ``KD_STEPS`` and the ragged 4 x 3 round through the
+    given engines in ``_Exact``, each run eagerly, then captured, then
+    replayed and profiled (``_replay_profile``)."""
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import fedavg
+    teacher, student, epochs, data = inputs
+    state = kd_engine.opt.init(student)
+
+    def kd():
+        return kd_engine.epoch(teacher, student, state, epochs[0])
+
+    def rnd():
+        return fedavg.fedavg_round(student, [iter(b) for b in data],
+                                   RESNET18, fed, engine=round_engine,
+                                   data_sizes=MULTI_SIZES)
+    with _Exact():
+        for _ in range(2):                     # eager, then the capture
+            kd()
+            rnd()
+        return {"kd_epoch": _replay_profile(kd),
+                "sync_round_4x3": _replay_profile(rnd)}
+
+
+def _constant_rate_replays(inputs) -> dict:
+    """``_replays`` of fresh constant-rate engines (lr 0.01 and
+    ``FedConfig()``'s)."""
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.core import distill, fed_engine
+    from repro_torch.types import DistillConfig, FedConfig
+    return _replays(
+        distill.DistillEngine(RESNET34, RESNET18, DistillConfig(
+            lr=0.01, chain=(RESNET34.name, RESNET18.name))),
+        fed_engine.SyncRound(RESNET18, FedConfig()), FedConfig(), inputs)
+
+
+def constant_rate_tree(tree: str) -> None:
+    """The ``schedules`` phase's constant-rate replays on the engines of a
+    checkout of the repo (``.``, or e.g. a ``git archive`` of the parent
+    unpacked under ``build/``): its kernels built there, its ``src``
+    first on ``sys.path``. Run in a fresh process, before anything
+    imports ``repro_torch``; compare trees within one call."""
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import repro_torch
+    if not repro_torch.__file__.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"repro_torch came from {repro_torch.__file__}")
+    build_all()
+    print(json.dumps({"phase": "constant_rate_replays", "tree": tree,
+                      "card": _card_line(),
+                      **_constant_rate_replays(_schedule_inputs())}))
+
+
+def phase_schedules(kernels: list) -> None:
+    """A scheduled learning rate through the engines at the main path's
+    full width (ResNet3D-34 -> 18, 400 classes, batch 4, 4x16x16 clips),
+    in an ``_Exact`` block. (a) Two KD epochs of 8 under ``cosine(0.01,
+    16, 2)``, both replays of one graph (a first pass over the two
+    epochs ran the shape eagerly, then captured it), against the same 16
+    steps run one by one from a fresh state: params within
+    ``ENGINE_TOL``, the step 16, one capture; the KD kernels counted on
+    the host in the first pass (8 eager + 8 at the capture), 0 in the
+    replays, and 8 + 8 on the card by ``_trace``. (b) The ragged 4 x 3
+    sync round (H^k 3, 1, 2, 3; client 4 of zero weight) under
+    ``inverse_sqrt(0.05, 1)`` on ``scan`` against ``loop``, and ``shard``
+    / ``hier`` in a world of one over NCCL against ``scan``, three calls
+    each (eager, capture, replay), one capture each. (c) ``run_async``,
+    the four Jetsons x 4 epochs under the same schedule, ``scan`` against
+    ``loop``: clocks equal, params within ``ENGINE_TOL``. (d) Two
+    codistill rounds at budgets [4, 2] under the KD schedule, the second
+    a replay, against the same rounds run eagerly; each member's step.
+    (e) Fresh scheduled engines over three H^k draws: one program shape
+    and one capture each, and a replay of each with host syncs made
+    errors (an ``engines`` line). (f) A replayed scheduled KD epoch and
+    4 x 3 round, device ms and kernels, beside the constant-rate ones."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import RESNET18, RESNET34
+    from repro_torch.core import distill, fed_engine, fedavg, simulator
+    from repro_torch.core.compile_cache import GraphCache
+    from repro_torch.data import make_dataset_for, stack_batches
+    from repro_torch.launch.mesh import destroy_world, make_fleet_mesh
+    from repro_torch.optim import schedules
+    from repro_torch.types import DistillConfig, FedConfig
+    t_phase = time.perf_counter()
+    H = KD_STEPS
+    inputs = _schedule_inputs()
+    teacher, student, epochs, data = inputs
+    clips = make_dataset_for(RESNET18, small=False, seed=0)
+    chain = (RESNET34.name, RESNET18.name)
+    kd_lr = schedules.cosine(0.01, 2 * H, 2)
+    fed_lr = schedules.inverse_sqrt(0.05, 1)
+    fed = dataclasses.replace(FedConfig(), lr=fed_lr)
+    out = {"phase": "schedules", "card": _card_line(), "tol": ENGINE_TOL,
+           "kd_lr": "cosine(0.01, 16, 2)", "fed_lr": "inverse_sqrt(0.05, 1)"}
+
+    # (a) two scheduled KD epochs, replayed, against the steps one by one
+    with _Exact():
+        engine = distill.DistillEngine(RESNET34, RESNET18,
+                                       DistillConfig(lr=kd_lr, chain=chain))
+        p, st, want_losses = student, engine.opt.init(student), []
+        for stacked in epochs:
+            for i in range(H):
+                p, st, loss = engine.step(
+                    teacher, p, st, {k: v[i] for k, v in stacked.items()})
+                want_losses.append(loss)
+        want, want_losses = p, torch.stack(want_losses)
+        _zero_kd_launches()
+        warm = engine.opt.init(student)
+        for stacked in epochs:                # eager, then the capture
+            _, warm, _ = engine.epoch(teacher, student, warm, stacked)
+        host_first = _kd_launches()
+        _zero_kd_launches()
+
+        def two_epochs():
+            q, s, ls = student, engine.opt.init(student), []
+            for stacked in epochs:
+                q, s, loss = engine.epoch(teacher, q, s, stacked)
+                ls.append(loss)
+            return q, s, torch.cat(ls)
+        (got, got_st, got_losses), ran = _traced_kd(two_epochs)
+        host_replays = _kd_launches()
+    kd_err = _rel_err(got, want)
+    loss_err = float(((got_losses - want_losses).abs()
+                      / (1 + want_losses.abs())).max())
+    step = int(got_st["step"])
+    if max(kd_err, loss_err) > ENGINE_TOL or step != 2 * H:
+        raise AssertionError(f"scheduled KD epochs vs their steps: params "
+                             f"{kd_err}, losses {loss_err}, step {step}")
+    _expect_launches("scheduled KD epochs, eager + capture: host",
+                     host_first, 2 * H)
+    _expect_launches("scheduled KD epochs, replays: host", host_replays, 0)
+    _expect_launches("scheduled KD epochs, replays: card", ran, 2 * H)
+    kd_counts = [engine.num_compiled, engine._graphs.num_captured]
+    if kd_counts != [1, 1]:
+        raise AssertionError(f"scheduled KD [shapes, captures] {kd_counts}")
+    for k in kernels:
+        if k["name"] in ran:
+            k["launches_by_path"]["schedules_kd_epochs"] = {
+                "host_eager_and_capture": host_first[k["name"]],
+                "host_replays": host_replays[k["name"]],
+                "card_replays": ran[k["name"]]}
+    out["kd_epochs"] = {"H": H, "epochs": 2, "step": step,
+                        "param_rel_err_vs_steps": kd_err,
+                        "loss_rel_err_vs_steps": loss_err,
+                        "shapes_and_captures": kd_counts,
+                        "host_launches_eager_and_capture": host_first,
+                        "host_launches_replays": host_replays,
+                        "card_launches_replays": ran}
+
+    # (b) the ragged scheduled round: scan vs loop, shard / hier vs scan
+    ds = make_dataset_for(RESNET18, small=True, seed=0)
+    meshes = {"shard": make_fleet_mesh(device="cuda"),
+              "hier": make_fleet_mesh(edges=0, device="cuda")}
+
+    def round_of(engine, f=fed):
+        return lambda: fedavg.fedavg_round(
+            student, [iter(b) for b in data], RESNET18, f, engine=engine,
+            data_sizes=MULTI_SIZES)
+    with _Exact():
+        loop_w, loop_l = fedavg.fedavg_round_loop(
+            student, [iter(b) for b in data], RESNET18, fed,
+            data_sizes=MULTI_SIZES)
+        engines = {"scan": fed_engine.SyncRound(RESNET18, fed)}
+        engines.update({e: fed_engine.ShardedSyncRound(RESNET18, fed, m)
+                        for e, m in meshes.items()})
+        rounds = {e: [round_of(r)() for _ in range(3)]
+                  for e, r in engines.items()}
+    ref = np.concatenate(loop_l)
+
+    def err(res, w, flat):
+        got_l = np.concatenate(res[1])
+        return max(_rel_err(res[0], w), float(
+            np.max(np.abs(got_l - flat) / (1 + np.abs(flat)))))
+    round_errs = {"scan_vs_loop": max(err(r, loop_w, ref)
+                                      for r in rounds["scan"])}
+    scan_first = rounds["scan"][0]
+    for e in meshes:
+        round_errs[f"{e}_vs_scan"] = max(
+            err(r, scan_first[0], np.concatenate(scan_first[1]))
+            for r in rounds[e])
+    round_counts = {e: [r.num_compiled, r._graphs.num_captured]
+                    for e, r in engines.items()}
+    if max(round_errs.values()) > ENGINE_TOL:
+        raise AssertionError(f"scheduled round: {round_errs}")
+    if any(c != [1, 1] for c in round_counts.values()):
+        raise AssertionError(f"scheduled round [shapes, captures] "
+                             f"{round_counts}")
+    out["sync_round"] = {"clients": len(MULTI_COUNTS), "H": MULTI_COUNTS,
+                         "data_sizes": MULTI_SIZES, "max_rel_err": round_errs,
+                         "shapes_and_captures": round_counts}
+
+    # (c) the scheduled async run, scan against loop
+    fed4 = dataclasses.replace(FedConfig(global_epochs=4), lr=fed_lr)
+    with _Exact():
+        runs = {e: simulator.run_async(student, RESNET18, fed4,
+                                       _jetson_fleet(RESNET18, fed4, 4),
+                                       engine=e, device="cuda")
+                for e in ("scan", "loop")}
+    a_err = _rel_err(runs["scan"].params, runs["loop"].params)
+    if (runs["scan"].wall_clock_s != runs["loop"].wall_clock_s
+            or a_err > ENGINE_TOL):
+        raise AssertionError(f"scheduled run_async: clocks "
+                             f"{runs['scan'].wall_clock_s} / "
+                             f"{runs['loop'].wall_clock_s}, params {a_err}")
+    out["run_async"] = {"virtual_wall_s": runs["scan"].wall_clock_s,
+                        "updates": len(runs["scan"].history),
+                        "param_rel_err_scan_vs_loop": a_err}
+
+    # (d) two scheduled codistill rounds, the second replayed vs eager
+    p1, p2 = (stack_batches(clips.batches(4, 4, seed=s)) for s in (5, 6))
+
+    def fleet():
+        return distill.CodistillFleet(
+            [RESNET34, RESNET18], DistillConfig(lr=kd_lr)).init(
+            torch.Generator().manual_seed(0), "cuda")
+    with _Exact():
+        a, b = fleet(), fleet()
+        a.round(p1, iters=[4, 2])
+        b.round(p1, iters=[4, 2])
+        co_got = a.round(p2, iters=[4, 2])     # captured, then replayed
+        b._graphs = GraphCache()
+        co_want = b.round(p2, iters=[4, 2])    # eagerly
+    co_err = max(_rel_err(a.member_params(i), b.member_params(i))
+                 for i in range(2))
+    co_steps = [a.member_step(i) for i in range(2)]
+    if (co_err > ENGINE_TOL or not _nan_equal(co_got, co_want)
+            or co_steps != [b.member_step(i) for i in range(2)]
+            or co_steps != [8, 4]):
+        raise AssertionError(f"scheduled codistill: params {co_err}, steps "
+                             f"{co_steps}, losses\n{co_got}\n{co_want}")
+    out["codistill"] = {"budgets": [4, 2], "rounds": 2,
+                        "member_steps": co_steps,
+                        "param_rel_err_replay_vs_eager": co_err,
+                        "losses_equal": True,
+                        "shapes_and_captures": [a.num_compiled,
+                                                a._graphs.num_captured]}
+
+    # (e) fresh scheduled engines: one shape and one capture over three
+    # H^k draws, then a replay of each with host syncs made errors
+    stacks = [stack_batches(ds.batches(4, fed.local_iters_max, seed=k))
+              for k in range(4)]
+    burst, _ = fed_engine.pad_client_batches(stacks)
+    draws = [np.asarray(d, np.int32) for d in ([3, 1, 2, 3], [1, 1, 2, 3],
+                                               [2, 3, 3, 1])]
+    weights = np.asarray(MULTI_SIZES, np.float32) / np.float32(
+        sum(MULTI_SIZES))
+    fresh = {"client_run": fed_engine.ClientRun(RESNET18, fed),
+             "sync_round": fed_engine.SyncRound(RESNET18, fed),
+             "shard_round": fed_engine.ShardedSyncRound(RESNET18, fed,
+                                                        meshes["shard"]),
+             "kd_epoch": distill.DistillEngine(
+                 RESNET34, RESNET18, DistillConfig(lr=kd_lr, chain=chain))}
+    kd_state = {"s": fresh["kd_epoch"].opt.init(student)}
+
+    def kd_call(i):
+        _, kd_state["s"], _ = fresh["kd_epoch"].epoch(
+            teacher, student, kd_state["s"], epochs[i % 2])
+    calls = {
+        "client_run": lambda i: fresh["client_run"].run_batch(
+            student, burst, draws[i]),
+        "sync_round": lambda i: fresh["sync_round"](
+            student, burst, weights=weights, iters=draws[i]),
+        "shard_round": lambda i: fresh["shard_round"](
+            student, burst, weights=weights, iters=draws[i]),
+        "kd_epoch": kd_call}
+    with _Exact():
+        for fn in calls.values():
+            for i in range(3):
+                fn(i)
+        counts = {n: [e.num_compiled, e._graphs.num_captured]
+                  for n, e in fresh.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for fn in calls.values():
+                fn(0)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    after = {n: [e.num_compiled, e._graphs.num_captured]
+             for n, e in fresh.items()}
+    if any(c != [1, 1] for c in counts.values()) or after != counts:
+        raise AssertionError(f"scheduled [shapes, captures] {counts}, "
+                             f"after the guarded replays {after}")
+    print(json.dumps({"phase": "engines", "lr": "scheduled",
+                      "program_shapes_and_captures": counts,
+                      "h_draws": [d.tolist() for d in draws],
+                      "replayed_without_host_sync": list(calls),
+                      "kd_step_after": int(kd_state["s"]["step"])}))
+
+    # (f) a replayed epoch and round, scheduled beside constant-rate
+    timing = _replays(
+        distill.DistillEngine(RESNET34, RESNET18,
+                              DistillConfig(lr=kd_lr, chain=chain)),
+        fed_engine.SyncRound(RESNET18, fed), fed, inputs)
+    constant = _constant_rate_replays(inputs)
+    for name, part in timing.items():
+        s, c = part, constant[name]
+        timing[name] = {
+            "scheduled": s, "constant": c,
+            "extra_kernels": (None if None in (s["kernels"], c["kernels"])
+                              else s["kernels"] - c["kernels"]),
+            "extra_device_ms": (
+                None if None in (s["device_ms"], c["device_ms"])
+                else s["device_ms"] - c["device_ms"])}
+    out["replay_timing_exact_block"] = timing
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out))
+    destroy_world()          # the group and the sharded engines on it
 
 
 # ---------------------------------------------------------------------------
@@ -5001,6 +5359,7 @@ def main(argv=None) -> int:
     phase_algorithms()
     phase_codistill(kernels)
     phase_population()
+    phase_schedules(kernels)
     serve_kernels = phase_decode_kernels()
     phase_serve_card_vs_cpu()
     phase_serve_full_width(serve_kernels, args.seed)

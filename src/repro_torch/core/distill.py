@@ -44,7 +44,6 @@ from repro_torch.device import batch_to, params_device, resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models import registry
 from repro_torch.optim import sgd, value_and_grad
-from repro_torch.optim.optimizers import require_constant_lr
 from repro_torch.types import DistillConfig, ModelConfig
 
 KD_KERNELS = ("cuda", "eager")
@@ -91,29 +90,36 @@ def _check_widths(a: ModelConfig, b: ModelConfig):
             f"KD needs equal logit width: {a.name} vs {b.name}")
 
 
-def _epoch(step, params, mom, stacked):
+def _epoch(step, params, mom, stacked, n=None):
     """``step(params, opt_state, batch)`` over a batch dict with leading
-    axis H; returns (params, momentum, losses (H,)). The body of a
-    captured epoch: the stack is already on the params' device there, and
-    the step count, a host integer, stays outside (``_run_epoch``)."""
+    axis H; returns (params, momentum, losses (H,), step count). The body
+    of a captured epoch: the stack is already on the params' device
+    there. ``n`` is a scheduled rate's step count, a tensor input and
+    output of the graph; a constant rate's count is a host int that
+    stays outside (``_run_epoch``), and ``None`` comes back."""
     stacked = batch_to(stacked, params_device(params))
-    opt_state = {"mom": mom, "step": 0}
+    opt_state = {"mom": mom, "step": 0 if n is None else n}
     losses = []
     for i in range(len(stacked["labels"])):
         params, opt_state, loss = step(
             params, opt_state, {k: v[i] for k, v in stacked.items()})
         losses.append(loss)
-    return params, opt_state["mom"], torch.stack(losses)
+    return (params, opt_state["mom"], torch.stack(losses),
+            None if n is None else opt_state["step"])
 
 
 def _run_epoch(graphs: GraphCache, body, fixed: tuple, params, opt_state,
                stacked):
-    """One epoch through ``graphs``: ``body(*fixed, params, mom, stacked)``
-    captured once per (H, batch shape) on the card."""
-    params, mom, losses = graphs.call(
-        "epoch", body, fixed + (params, opt_state["mom"], stacked))
-    return (params, {"mom": mom, "step": opt_state["step"] + len(losses)},
-            losses)
+    """One epoch through ``graphs``: ``body(*fixed, params, mom, stacked[,
+    n])`` captured once per (H, batch shape) on the card, whatever the
+    step count: a scheduled rate's tensor step is an input of the graph."""
+    step = opt_state["step"]
+    scheduled = isinstance(step, torch.Tensor)
+    params, mom, losses, n = graphs.call(
+        "epoch", body, fixed + (params, opt_state["mom"], stacked)
+        + ((step,) if scheduled else ()))
+    return (params, {"mom": mom, "step": n if scheduled
+                     else step + len(losses)}, losses)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +149,6 @@ class DistillEngine:
         self.kd_kernel = kd_kernel
         self.use_teacher_targets = use_teacher_targets
         self.clip_norm = clip_norm
-        require_constant_lr(dcfg.lr, "DistillEngine")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         self._graphs = GraphCache()
 
@@ -168,9 +173,9 @@ class DistillEngine:
         params, opt_state = self.opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
-    def _epoch(self, teacher_params, params, mom, stacked):
+    def _epoch(self, teacher_params, params, mom, stacked, n=None):
         return _epoch(functools.partial(self.step, teacher_params), params,
-                      mom, stacked)
+                      mom, stacked, n)
 
     @property
     def num_compiled(self) -> int:
@@ -195,7 +200,6 @@ class ScratchRun:
         self.cfg = cfg
         self.dcfg = dcfg
         self.clip_norm = clip_norm
-        require_constant_lr(dcfg.lr, "ScratchRun")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         self._graphs = GraphCache()
 
@@ -208,8 +212,8 @@ class ScratchRun:
         params, opt_state = self.opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
-    def _epoch(self, params, mom, stacked):
-        return _epoch(self.step, params, mom, stacked)
+    def _epoch(self, params, mom, stacked, n=None):
+        return _epoch(self.step, params, mom, stacked, n)
 
     @property
     def num_compiled(self) -> int:
@@ -373,7 +377,10 @@ class CodistillFleet:
     the KD kernels, so one graph covers every budget draw.
 
     The members' params and momenta live on the fleet; ``round`` moves
-    them and returns the member-major (m, H) loss tensor.
+    them and returns the member-major (m, H) loss tensor. Under a
+    scheduled ``dcfg.lr`` each member also keeps its step count, a 0-d
+    tensor that its active steps advance and its masked steps leave
+    alone, across rounds, as the reference's per-member optimizer state.
     """
 
     def __init__(self, cfgs: Sequence[ModelConfig], dcfg: DistillConfig,
@@ -393,7 +400,6 @@ class CodistillFleet:
         self.dcfg = dcfg
         self.kd_kernel = kd_kernel
         self.clip_norm = clip_norm
-        require_constant_lr(dcfg.lr, "CodistillFleet")
         self.opt = sgd(dcfg.lr, dcfg.momentum, dcfg.weight_decay)
         groups: dict = {}                  # cfg -> member indices
         for i, c in enumerate(cfgs):
@@ -401,6 +407,7 @@ class CodistillFleet:
         self.groups = [(c, tuple(idx)) for c, idx in groups.items()]
         self._params = [None] * len(self.groups)   # a param dict a member
         self._mom = [None] * len(self.groups)      # a momentum dict a member
+        self._step = [None] * len(self.groups)     # a step tensor a member
         self._graphs = GraphCache()
 
     @property
@@ -419,15 +426,29 @@ class CodistillFleet:
         for gi, (cfg, idx) in enumerate(self.groups):
             self._params[gi] = [registry.init_params(gen, cfg, device)
                                 for _ in idx]
-            self._mom[gi] = [self.opt.init(p)["mom"]
-                             for p in self._params[gi]]
+            states = [self.opt.init(p) for p in self._params[gi]]
+            self._mom[gi] = [st["mom"] for st in states]
+            if callable(self.dcfg.lr):
+                self._step[gi] = [st["step"] for st in states]
         return self
 
-    def member_params(self, i: int) -> dict:
+    def _member(self, i: int) -> tuple:
+        """(group, index within the group) of member ``i``."""
         for gi, (_, idx) in enumerate(self.groups):
             if i in idx:
-                return self._params[gi][idx.index(i)]
+                return gi, idx.index(i)
         raise IndexError(i)
+
+    def member_params(self, i: int) -> dict:
+        gi, j = self._member(i)
+        return self._params[gi][j]
+
+    def member_step(self, i: int):
+        """Member ``i``'s step count under a scheduled rate (a host read,
+        a reporting path); ``None`` under a constant one, whose steps no
+        graph counts."""
+        gi, j = self._member(i)
+        return None if self._step[gi] is None else int(self._step[gi][j])
 
     # -- the captured calls -----------------------------------------------
     @torch.no_grad()
@@ -440,17 +461,20 @@ class CodistillFleet:
                          for h in range(H)])
             for p in members])
 
-    def _group_kd(self, cfg, n_total, members, moms, stacked, iters,
+    def _group_kd(self, cfg, n_total, members, moms, steps, stacked, iters,
                   sum_logits, own_logits):
         """The group's masked KD runs: member j's teacher is
         (Σ_all - own_j) / (n - 1); steps from index ``iters[j]`` on keep
-        its carry and emit NaN. Returns (params, momenta, losses (m_g, H))."""
+        its carry and emit NaN. ``steps``: the members' step tensors under
+        a scheduled rate, else ``None``. Returns (params, momenta, steps,
+        losses (m_g, H))."""
         device = params_device(members[0])
         stacked = batch_to(stacked, device)
         iters = torch.as_tensor(iters, device=device)
         H = fed_engine._batch_len(stacked)
-        out_p, out_m, out_l = [], [], []
+        out_p, out_m, out_s, out_l = [], [], [], []
         for j, (params, mom) in enumerate(zip(members, moms)):
+            opt_state = {"mom": mom, "step": 0 if steps is None else steps[j]}
             teacher_seq = (sum_logits - own_logits[j]) / (n_total - 1.0)
             losses = []
             for i in range(H):
@@ -464,16 +488,17 @@ class CodistillFleet:
 
                 loss, grads = value_and_grad(loss_of, params)
                 grads = clip_by_global_norm(grads, self.clip_norm)
-                new_p, new_st = self.opt.update(grads, {"mom": mom,
-                                                        "step": 0}, params)
+                new = self.opt.update(grads, opt_state, params)
                 active = i < iters[j]
-                params, mom = fed_engine._where(
-                    active, (new_p, new_st["mom"]), (params, mom))
+                params, opt_state = fed_engine._where(
+                    active, new, (params, opt_state))
                 losses.append(torch.where(active, loss, math.nan))
             out_p.append(params)
-            out_m.append(mom)
+            out_m.append(opt_state["mom"])
+            out_s.append(opt_state["step"])
             out_l.append(torch.stack(losses))
-        return out_p, out_m, torch.stack(out_l)
+        return (out_p, out_m, None if steps is None else out_s,
+                torch.stack(out_l))
 
     def round(self, stacked_probe, iters=None):
         """One codistillation round over a probe stack (leaves (H, B, ...)).
@@ -503,10 +528,12 @@ class CodistillFleet:
             torch.add, [gl.sum(dim=0) for gl in group_logits])
         losses = [None] * m
         for gi, (cfg, idx) in enumerate(self.groups):
-            self._params[gi], self._mom[gi], g_losses = self._graphs.call(
+            (self._params[gi], self._mom[gi], self._step[gi],
+             g_losses) = self._graphs.call(
                 ("kd", gi), functools.partial(self._group_kd, cfg, m),
-                (self._params[gi], self._mom[gi], stacked_probe,
-                 iters[list(idx)], sum_logits, group_logits[gi]))
+                (self._params[gi], self._mom[gi], self._step[gi],
+                 stacked_probe, iters[list(idx)], sum_logits,
+                 group_logits[gi]))
             for j, i in enumerate(idx):
                 losses[i] = g_losses[j]
         return torch.stack(losses)

@@ -60,7 +60,6 @@ from repro_torch.core.compile_cache import GraphCache
 from repro_torch.device import batch_to, params_device
 from repro_torch.models import registry
 from repro_torch.optim import sgd, trainable_mask, value_and_grad
-from repro_torch.optim.optimizers import require_constant_lr
 from repro_torch.types import FedConfig, ModelConfig
 
 
@@ -164,8 +163,10 @@ def _pad_H(fed: FedConfig, client_stacks) -> int:
 
 def _where(active, new, old):
     """``new`` where ``active`` (a 0-d bool tensor), else ``old``, over
-    the carry's dicts and tuples; other leaves (the step count) from
-    ``new``, and a subtree the step passed through unchanged (an
+    the carry's dicts and tuples: every tensor leaf, a scheduled rate's
+    step count among them, keeps its old value on a masked step. Other
+    leaves (a constant rate's host-int step, which no graph reads) come
+    from ``new``, and a subtree the step passed through unchanged (an
     algorithm's state) as it is."""
     if new is old:
         return new
@@ -205,7 +206,6 @@ class ClientRun:
         self.loss_kwargs = dict(loss_kwargs or {})
         self.algorithm = (algorithm if algorithm is not None
                           else algorithms.FedProx())
-        require_constant_lr(fed.lr, "ClientRun")
         self.opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
         self._graphs = GraphCache()
 
@@ -221,7 +221,8 @@ class ClientRun:
 
     def _scan(self, ctx, params_global, stacked, n_iters=None, state=()):
         """H steps of ``self.algorithm`` over ``stacked`` from
-        ``params_global`` with a fresh optimizer state; with ``n_iters``
+        ``params_global`` with a fresh optimizer state (a scheduled
+        rate's step made here, a tensor inside the call); with ``n_iters``
         (a 0-d int tensor) the steps from index ``n_iters`` on leave the
         carry unchanged and emit NaN. Returns (w, state, losses)."""
         stacked = batch_to(stacked, params_device(params_global))

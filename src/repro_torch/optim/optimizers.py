@@ -8,14 +8,21 @@ order is the reference's: weight decay is added to the gradients before
 momentum, and momentum accumulates as ``μ·m + g``.
 
 The learning rate is a float or a schedule, a function of the step
-(``optim/schedules.py``). A schedule reads the step as a 0-d int32 tensor
-on the params' device; only eager callers run one (``launch.steps``),
-since the batched engines refuse a schedule (``require_constant_lr``).
-``sgd`` with a constant rate keeps the step a host int, as before
-schedules were ported. ``adamw`` always keeps a tensor step, its bias
-corrections in f32 as the reference computes them. As in the reference,
-``sgd`` evaluates ``lr(step)`` before the increment and ``adamw`` after
-it.
+(``optim/schedules.py``). ``sgd``'s step has two formats, and every
+caller keeps to them:
+
+- a constant rate: the step is a host int. No graph reads it, so the
+  engines never hand it to a captured call (``GraphCache`` would bake
+  it into the graph and key a new graph on each value); they count it on
+  the host where they must (``core/distill.py``'s epochs).
+- a schedule: the step is a 0-d int32 tensor on the params' device. It
+  enters every captured call as an array leaf and comes back as an
+  output, and a masked step keeps it as it was (``fed_engine._where``),
+  as the reference's int32 step does in its scans.
+
+``adamw`` always keeps a tensor step, its bias corrections in f32 as the
+reference computes them. As in the reference, ``sgd`` evaluates
+``lr(step)`` before the increment and ``adamw`` after it.
 """
 from __future__ import annotations
 
@@ -105,15 +112,6 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return new_params, {"m": m, "v": v, "step": step}
 
     return Optimizer(init, update)
-
-
-def require_constant_lr(lr, where: str) -> None:
-    """The batched engines bake a constant rate into their graphs; a
-    schedule through them is not ported yet."""
-    if callable(lr):
-        raise NotImplementedError(
-            f"{where}: a scheduled lr through the engines is not ported "
-            "yet (ROADMAP Queue 1 item 2); pass a float")
 
 
 # head keys: the paper fine-tunes only the final FC layer (§V-B)

@@ -11,12 +11,15 @@ by a capture and run between the round's two graphs); a codistillation
 round replayed against its eager run (cuDNN deterministic: bit for bit)
 with 2 × H launches of each KD kernel on the card, budgets that change
 across rounds capturing nothing new, and a streamed fleet of 8 clients
-against its materialized twin, sync and async, bit for bit. Needs an
+against its materialized twin, sync and async, bit for bit; under a
+scheduled rate, KD epochs and a ragged round replayed against their eager
+runs, the step a graph input. Needs an
 NVIDIA GPU and nvcc; elsewhere every test skips with a reason. Imports no
 JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_engines.py
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -432,3 +435,52 @@ def test_streamed_run_equals_materialized_on_the_card(mode, cuda):
     for k in a.params:
         assert torch.equal(a.params[k], b.params[k]), k
     assert streamed.max_resident <= 2
+
+
+def test_scheduled_replays_equal_eager_without_host_sync(cuda):
+    """Under a scheduled rate the step is a tensor input of each graph:
+    three KD epochs of H 4 (eager, capture, replay) carry it to 12, each
+    equal to the eager epoch from the same state, with one
+    capture; a ragged ``run_batch`` under ``inverse_sqrt`` replays its
+    eager run; the replays read nothing back to the host."""
+    from repro_torch.optim import schedules
+    cfg, params, ds, padded = _setup(cuda)
+    teacher = registry.init_params(torch.Generator().manual_seed(1), cfg,
+                                   cuda)
+    engine = distill.DistillEngine(
+        cfg, cfg, DistillConfig(lr=schedules.cosine(0.01, 12, 2)))
+    run = fed_engine.ClientRun(
+        cfg, dataclasses.replace(FED, lr=schedules.inverse_sqrt(0.05, 1)))
+    iters = np.asarray([3, 1, 2], np.int32)
+    mask = trainable_mask(params, FED.trainable)
+    with _Deterministic():
+        state = engine.opt.init(params)
+        student = params
+        for e in range(3):
+            stacked = stack_batches(ds.batches(2, 4, seed=20 + e))
+            want = engine._epoch(teacher, student, state["mom"],
+                                 batch_to(stacked, cuda), state["step"])
+            if e == 2:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                student, state, losses = engine.epoch(teacher, student,
+                                                      state, stacked)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            _close(student, want[0])
+            _close({"l": losses}, {"l": want[2]})
+            assert torch.equal(state["step"], want[3])
+        want = run._clients(params, batch_to(padded, cuda), mask,
+                            torch.as_tensor(iters, device=cuda))
+        for i in range(3):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = run.run_batch(params, padded, iters, mask=mask)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            _close(got[0], want[0])
+    assert int(state["step"]) == 12
+    assert engine._graphs.num_captured == run._graphs.num_captured == 1

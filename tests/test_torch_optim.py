@@ -2,7 +2,8 @@
 proximal term and the trainable mask, over three steps (atol 1e-6);
 AdamW and scheduled / Nesterov SGD over five steps (rtol 1e-6); the
 schedules within one f32 ulp over steps 0..200; a scheduled lr's step a
-tensor on the params' device, refused by the batched engines."""
+tensor on the params' device (the engines under a schedule:
+``tests/test_torch_schedules.py``)."""
 import numpy as np
 import pytest
 
@@ -161,19 +162,3 @@ def test_step_is_a_device_tensor_only_for_a_schedule():
     b, _ = sgd(tsched.constant(0.1), 0.9).update(
         g, sgd(tsched.constant(0.1), 0.9).init(params), params)
     assert torch.equal(a["w"], b["w"])
-
-
-def test_engines_refuse_a_scheduled_lr():
-    import dataclasses
-    from repro_torch.configs import get_config as tget
-    from repro_torch.core import distill, fed_engine
-    from repro_torch.types import DistillConfig, FedConfig
-    cfg = tget("resnet3d-18").reduced()
-    sched = tsched.cosine(0.01, 10)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        fed_engine.ClientRun(cfg, dataclasses.replace(FedConfig(), lr=sched))
-    dcfg = dataclasses.replace(DistillConfig(), lr=sched)
-    for make in (lambda: distill.DistillEngine(cfg, cfg, dcfg),
-                 lambda: distill.ScratchRun(cfg, dcfg)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            make()

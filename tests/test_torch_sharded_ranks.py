@@ -10,7 +10,8 @@ ragged H^k with a zero-weight client, FedProx, SCAFFOLD (its server
 context and states too) and LowRank: params within rtol 1e-5 / atol 1e-6
 (the order of the sums differs from the scan round's single einsum),
 losses within 1e-6 relative, and ``run_sync``'s virtual clock exactly
-the scan run's. Then ``torchrun`` of the training CLI over 2 ranks.
+the scan run's; the ragged round and ``run_sync`` again on 2 ranks under a
+scheduled rate. Then ``torchrun`` of the training CLI over 2 ranks.
 Imports no JAX: the spawned ranks import this module."""
 import datetime
 import json
@@ -129,11 +130,52 @@ def _rank(rank: int, world: int, store: str, edges, out: str):
     dist.destroy_process_group()
 
 
-def _spawn(world: int, edges, tmp_path) -> dict:
-    """``world`` ranks of ``_rank``; fails, never hangs, past
+def _rank_scheduled(rank: int, world: int, store: str, edges, out: str):
+    """One rank under ``inverse_sqrt``: the 5-client ragged round with a
+    zero-weight client and ``run_sync`` against the rank's own scan
+    round and run; rank 0 writes the clock to ``out``."""
+    from repro_torch.core import fedavg, simulator
+    from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
+    from repro_torch.data import BatchLoader, SyntheticLMDataset
+    from repro_torch.models import registry
+    from repro_torch.optim import schedules
+    from repro_torch.types import FedConfig, ModelConfig
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    cfg = ModelConfig(**TINY)
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    ds = SyntheticLMDataset(vocab=64, seq_len=8, seed=0)
+    fed = FedConfig(**dict(FED, lr=schedules.inverse_sqrt(0.05, 1)))
+    counts, sizes = ROUNDS[1]
+    data = [list(ds.batches(4, h, seed=k)) for k, h in enumerate(counts)]
+    want, wl = fedavg.fedavg_round(params, data, cfg, fed, data_sizes=sizes)
+    got, gl = fedavg.fedavg_round(params, data, cfg, fed, engine="shard",
+                                  data_sizes=sizes)
+    _close(got, want, "scheduled round")
+    _losses_close(gl, wl, "scheduled round")
+
+    def fleet():
+        return Fleet.from_lists(
+            list(JETSON_FLEET_HMDB51) + [JETSON_FLEET_HMDB51[1]],
+            [BatchLoader(ds, 2, steps=3, seed=k) for k in range(5)])
+    runs = {e: simulator.run_sync(params, cfg, fed, fleet(), engine=e,
+                                  device="cpu") for e in ("scan", "shard")}
+    assert runs["shard"].wall_clock_s == runs["scan"].wall_clock_s
+    _close(runs["shard"].params, runs["scan"].params, "scheduled run_sync")
+    if rank == 0:
+        Path(out).write_text(json.dumps({"clock":
+                                         runs["shard"].wall_clock_s}))
+    dist.destroy_process_group()
+
+
+def _spawn(world: int, edges, tmp_path, fn=_rank) -> dict:
+    """``world`` ranks of ``fn``; fails, never hangs, past
     ``SPAWN_LIMIT_S``."""
     out = tmp_path / "rank0.json"
-    ctx = mp.spawn(_rank, args=(world, str(tmp_path / "store"), edges,
+    ctx = mp.spawn(fn, args=(world, str(tmp_path / "store"), edges,
                                 str(out)),
                    nprocs=world, join=False)
     deadline = time.monotonic() + SPAWN_LIMIT_S
@@ -155,6 +197,10 @@ def test_four_ranks_on_the_edge_clients_tree(tmp_path):
     got = _spawn(4, 0, tmp_path)
     assert got["mesh"] == ["edge", "clients"] and got["shape"] == [2, 2]
     assert len(got["checked"]) == 11
+
+
+def test_two_ranks_under_a_scheduled_rate(tmp_path):
+    assert _spawn(2, None, tmp_path, _rank_scheduled)["clock"] > 0
 
 
 def test_torchrun_of_the_training_cli_over_two_ranks():

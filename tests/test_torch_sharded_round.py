@@ -2,8 +2,8 @@
 .ShardedSyncRound``) in a world of one on the CPU (an in-process gloo
 group, ``launch.mesh.init_world``): the shard and hier rounds equal the
 port's scan round bit for bit on an even round and on a ragged round with
-a zero-weight client, for FedProx, SCAFFOLD (its server context too) and
-LowRank, and match the reference's scan round
+a zero-weight client (also under a scheduled rate), for FedProx, SCAFFOLD
+(its server context too) and LowRank, and match the reference's scan round
 (``repro.core.fedavg.fedavg_round(engine="scan")``) at the reference's
 own shard tolerance: params rtol 1e-3 / atol 1e-4, losses rtol 1e-4.
 ``run_sync`` on both engines keeps the reference's virtual clock exactly.
@@ -38,6 +38,7 @@ from repro_torch.core import simulator as tsim
 from repro_torch.core.fleet import JETSON_FLEET_HMDB51, Fleet
 from repro_torch.data import BatchLoader as TLoader
 from repro_torch.launch.mesh import make_fleet_mesh
+from repro_torch.optim import schedules as tsched
 from repro_torch.types import FedConfig as TFed
 from repro_torch.types import ModelConfig as TModel
 
@@ -47,9 +48,12 @@ TINY = dict(name="sharded-test-tiny", family="dense", num_layers=1,
             d_model=32, num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64)
 FED = dict(num_clients=5, global_epochs=10, local_iters_min=1,
            local_iters_max=3, lr=0.05)
-# the ragged round: H^k 3, 1, 2, 3, 1 and a zero-weight client
-COUNTS = {"even": [3, 3, 3, 3], "ragged": [3, 1, 2, 3, 1]}
-SIZES = {"even": None, "ragged": [32, 8, 16, 32, 0]}
+# the ragged round: H^k 3, 1, 2, 3, 1 and a zero-weight client; the
+# scheduled one is the ragged round under a decaying rate
+COUNTS = {"even": [3, 3, 3, 3], "ragged": [3, 1, 2, 3, 1],
+          "scheduled": [3, 1, 2, 3, 1]}
+SIZES = {"even": None, "ragged": [32, 8, 16, 32, 0],
+         "scheduled": [32, 8, 16, 32, 0]}
 ENGINES = ("shard", "hier")
 
 
@@ -146,11 +150,13 @@ def test_memoized_per_mesh_and_algorithm(setup):
         eng({k: v.to("meta") for k, v in tp.items()}, _data(ds, "even"))
 
 
-@pytest.mark.parametrize("case", ["even", "ragged"])
+@pytest.mark.parametrize("case", ["even", "ragged", "scheduled"])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_round_equals_the_scan_round_bit_for_bit(setup, engine, case):
     _, tc, _, tp, ds = setup
     fed = TFed(**FED)
+    if case == "scheduled":
+        fed = TFed(**dict(FED, lr=tsched.inverse_sqrt(0.05, 1)))
     want, wl = tfedavg.fedavg_round(tp, _data(ds, case), tc, fed,
                                     data_sizes=SIZES[case])
     got, gl = tfedavg.fedavg_round(tp, _data(ds, case), tc, fed,
