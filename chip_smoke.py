@@ -3277,6 +3277,15 @@ FAMILY_GQA = {"h2o-danube-3-4b": ((1, 4096, 32, 8, 120), 4096),
               "llama4-scout-17b-a16e": ((1, SCORE_S, 40, 8, 128), SCORE_S),
               "grok-1-314b": ((1, SCORE_S, 48, 8, 128), SCORE_S),
               "paligemma-3b": ((2, SCORE_S, 8, 1, 256), SCORE_S)}
+# kernel 5 on one rank's heads under tensor parallelism on the pod's
+# "model" axis of 16 (sharding.compute_layout): H / 16 query heads and the
+# one kv head they read, two rows of train_4k's 4096 positions; gemma3-12b
+# at its local layers' window, the others at their layers' (grok-1's and
+# internlm2's full, h2o-danube's 4096). {arch: (B, S, H, KV, D), window}
+SPLIT_GQA = {"gemma3-12b": ((2, 4096, 1, 1, 240), 1024),
+             "grok-1-314b": ((2, 4096, 3, 1, 128), 4096),
+             "h2o-danube-3-4b": ((2, 4096, 2, 1, 120), 4096),
+             "internlm2-20b": ((2, 4096, 3, 1, 128), 4096)}
 HYMBA_SWA = (SCORE_B * 25, SCORE_S, 64)
 HYMBA_SCAN = (SCORE_B, SCORE_S, 50, 64, 16, 128)
 # the reference's sweep (tests/test_kernels.py), Hymba's and Mamba2-130m's
@@ -3500,6 +3509,7 @@ def _time_scoring_kernels(worst: dict) -> list:
         _one_kernel(f"swa_attention {GEMMA_GQA} w={w}", row)
         gemma["window_1024" if w == 1024 else "window_S"] = row
     del qg, kg, vg, folded
+    split = _time_split_scoring(worst)
     # the row is the 29 sliding-window layers' shape; the 3 global
     # layers' (window S) rides along under "window_S"
     out.append({"name": "swa_attention", "route": "cuda",
@@ -3516,7 +3526,8 @@ def _time_scoring_kernels(worst: dict) -> list:
                            "heads, boolean band mask",
                 "window_S": rows[S],
                 "gemma3_12b": {"B_S_H_KV_D": GEMMA_GQA, "dtype": "float32",
-                               **gemma}})
+                               **gemma},
+                "rank_heads_on_model_16": split})
     B, S_, H, P, N, chunk = HYMBA_SCAN
     args = _scan_inputs(B, S_, H, P, N, "f32", seed=3)
     row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
@@ -3538,6 +3549,35 @@ def _time_scoring_kernels(worst: dict) -> list:
                 **_scan_bound(args[0], N), "library_ms": None})
     for k_ in out:
         print(json.dumps({"phase": "scoring_kernel_time", **k_}))
+    return out
+
+
+def _time_split_scoring(worst: dict) -> dict:
+    """Kernel 5's GQA entry at each ``SPLIT_GQA`` shape (a rank's heads on
+    the pod's "model" axis), f32: held against its plain version, timed
+    beside it, its bounds and SDPA on the folded heads. {arch: row}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    for arch, (shape, w) in SPLIT_GQA.items():
+        q, k, v = _gqa_inputs(*shape, "f32", seed=13)
+        B, S, H, KV, D = shape
+        err = _check_close(f"swa gqa rank heads {arch} {shape} w={w}",
+                           ops.swa_attention_gqa(q, k, v, w),
+                           ref.swa_attention_gqa_ref(q, k, v, w),
+                           SCORE_TOL["f32"])
+        worst["swa_gqa"] = max(worst["swa_gqa"], err)
+        folded = tuple(torch.repeat_interleave(t, H // t.shape[2], dim=2)
+                       .transpose(1, 2).reshape(B * H, S, D).contiguous()
+                       for t in (q, k, v))
+        row = _time_gqa_entry(q, k, v, w, folded)
+        _one_kernel(f"swa_attention {arch} rank heads {shape}", row)
+        out[arch] = {"B_S_H_KV_D": shape, "window": w, "dtype": "float32",
+                     "max_abs_err": err, **row}
+        print(json.dumps({"phase": "scoring_kernel_time",
+                          "name": "swa_attention", "arch": arch,
+                          "rank_heads_on_model_16": out[arch]}))
+        del q, k, v, folded
     return out
 
 
@@ -4806,12 +4846,14 @@ def phase_lm_mesh(rows: list = ()) -> None:
         cache prefilled with 64 tokens, 16 greedy tokens, uniform and
         ring, against ``make_serve_step`` on a copy: tokens equal, logits
         and cache within ``ENGINE_TOL``;
-    (c) the Hymba-1.5B scoring forward through kernels 5 and 6 under
-        ``act_pspec``, B 2 x S 2048 (the main path: counts zeroed just
-        before, read just after, and the card's from a trace): 32 of each,
-        the hidden and the loss equal to the forward without a mesh;
+    (c) the Hymba-1.5B scoring forward through kernels 5 and 6 on the
+        train step's split path (``steps.mesh_split``; in a world of one
+        the rank's blocks are the whole params), B 2 x S 2048 (the main
+        path: counts zeroed just before, read just after, and the card's
+        from a trace): 32 of each, the hidden and the loss equal to the
+        forward without a mesh;
     (d) llama4-scout's first 4 layers (43.5 GB of f32 weights), B 1 x S
-        2048, the loss with ``moe_ctx`` and ``act_pspec`` through kernel
+        2048, the loss with ``moe_ctx`` on the split path through kernel
         5: at one dp shard equal to the local path;
     (e) the sharded train step on the reduced Hymba, Mamba2, llama4-scout,
         seamless and paligemma, f32 compute, the card against the CPU's
@@ -4961,20 +5003,21 @@ def phase_lm_mesh(rows: list = ()) -> None:
         del filled
         _free()
 
-        # (c) the scoring forward through kernels 5 and 6 under act_pspec
+        # (c) the scoring forward through kernels 5 and 6 on the split
+        # path (a world of one: the rank's blocks are the whole params)
         batch = _score_batch(cfg, SCORE_B, SCORE_S, 0, "cuda")
-        ap = steps.act_pspec(mesh, cfg, SCORE_S)
+        split, _ = steps.mesh_split(cfg, mesh, SCORE_S, _shapes(cfg))
         with torch.no_grad():
             _zero_score_launches()
             (hid, _), events, wall_ms, lost = _trace(
                 lambda: lm.forward_hidden(init, cfg, batch["tokens"],
-                                          kernel="cuda", act_pspec=ap))
+                                          kernel="cuda", split=split))
             host = _score_launches()
             card = _mesh_scoring_on_card(events)
             want_h, _ = lm.forward_hidden(init, cfg, batch["tokens"],
                                           kernel="cuda")
             loss_m = registry.loss_fn(init, cfg, batch, kernel="cuda",
-                                      act_pspec=ap)[0]
+                                      split=split)[0]
             loss_p = registry.loss_fn(init, cfg, batch, kernel="cuda")[0]
         per = _per_forward(cfg)
         if host != per or card != per or lost["calls"]:
@@ -4988,7 +5031,7 @@ def phase_lm_mesh(rows: list = ()) -> None:
                 "host": host[r["name"]], "card": card[r["name"]]}
         report["scoring"] = {
             "arch": cfg.name, "batch": [SCORE_B, SCORE_S],
-            "act_pspec": repr(ap), "launches_host": host,
+            "split": repr(split), "launches_host": host,
             "launches_card": card, "dropped_launches": lost["calls"],
             "traced_forward_ms": wall_ms, "hidden_equal": True,
             "loss": float(loss_m), "loss_equal": True}
@@ -5001,13 +5044,11 @@ def phase_lm_mesh(rows: list = ()) -> None:
         torch.cuda.reset_peak_memory_stats()
         lparams, info = _family_params(lcfg, 0)
         lbatch = _family_batch(lcfg, 1, SCORE_S, 0)
-        ctx = {"mesh": mesh, "dp": "data"}
+        lsplit, ctx = steps.mesh_split(lcfg, mesh, SCORE_S, _shapes(lcfg))
         with torch.no_grad():
             t0 = time.perf_counter()
             lm_, met = registry.loss_fn(lparams, lcfg, lbatch, kernel="cuda",
-                                        moe_ctx=ctx,
-                                        act_pspec=steps.act_pspec(
-                                            mesh, lcfg, SCORE_S))
+                                        moe_ctx=ctx, split=lsplit)
             torch.cuda.synchronize()
             moe_s = time.perf_counter() - t0
             lp_, mp_ = registry.loss_fn(lparams, lcfg, lbatch, kernel="cuda")
@@ -5075,8 +5116,17 @@ def phase_lm_mesh(rows: list = ()) -> None:
 # The roofline of three paths: counted (roofline.counter) and timed
 # ---------------------------------------------------------------------------
 
-# the pod dry run of Hymba-1.5B's train_4k (~40 s of host time)
+# the pod dry runs of Hymba-1.5B's and gemma3-12b's train_4k (~40 and ~60
+# s of host time)
 DRYRUN_TIMEOUT_S = 300
+DRYRUN_ARCHS = ("hymba-1.5b", "gemma3-12b")
+# gemma3-12b's train_4k pod row before tensor-parallel compute, every
+# layer's compute replicated over "model" (PERF.md: python -m
+# repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k --mesh pod
+# on the parent tree, torch 2.13 on the CPU)
+DRYRUN_PARENT = {"gemma3-12b": {"flops_per_device": 6522199914559976.0,
+                                "useful_flop_ratio": 0.043799244529092715,
+                                "peak_memory_bytes": 199592486920.0}}
 
 
 def _roofline_line(path: str, rep, wall_ms: float, prof: dict, want: dict,
@@ -5268,39 +5318,47 @@ def _roofline_tick(card: str, seed: int) -> None:
 
 
 def _roofline_dryrun(card: str) -> None:
-    """(d) ``python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape
-    train_4k --mesh pod`` in a process of its own (a process keeps one
-    default group), under ``DRYRUN_TIMEOUT_S``: the fake world and fake
-    tensors under this machine's torch. Prints its row."""
+    """(d) ``python -m repro_torch.launch.dryrun --arch hymba-1.5b --arch
+    gemma3-12b --shape train_4k --mesh pod`` in a process of its own (a
+    process keeps one default group), under ``DRYRUN_TIMEOUT_S``: the
+    fake world and fake tensors under this machine's torch. Prints each
+    row, gemma3-12b's beside its parent's (``DRYRUN_PARENT``)."""
     import tempfile
     import torch
     with tempfile.TemporaryDirectory() as out:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         t0 = time.perf_counter()
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        for arch in DRYRUN_ARCHS:
+            argv += ["--arch", arch]
         res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "hymba-1.5b", "--shape", "train_4k", "--mesh", "pod", "--out",
-             out], capture_output=True, text=True, env=env, cwd=ROOT,
+            argv + ["--shape", "train_4k", "--mesh", "pod", "--out", out],
+            capture_output=True, text=True, env=env, cwd=ROOT,
             timeout=DRYRUN_TIMEOUT_S)
         seconds = time.perf_counter() - t0
         if res.returncode:
             raise AssertionError(f"the pod dry run failed ({res.returncode})"
                                  f":\n{res.stdout[-3000:]}\n"
                                  f"{res.stderr[-3000:]}")
-        with open(os.path.join(out, "baseline_hymba-1.5b_train_4k_pod.json"),
-                  encoding="utf-8") as f:
-            row = json.load(f)
+        rows = {}
+        for arch in DRYRUN_ARCHS:
+            with open(os.path.join(out, f"baseline_{arch}_train_4k_pod.json"),
+                      encoding="utf-8") as f:
+                rows[arch] = json.load(f)
     keep = ("arch", "shape", "mesh", "chips", "status", "flops_per_device",
             "bytes_per_device", "collectives", "collective_bytes",
             "peak_memory_bytes", "model_flops_global", "compute_s",
             "memory_s", "collective_s", "dominant", "step_time_s",
             "useful_flop_ratio", "mfu", "count_s")
-    print(json.dumps({"phase": "roofline", "path": "dryrun_pod",
-                      "card": card, "torch": torch.__version__,
-                      "seconds": seconds,
-                      "flops_by_class": {p: v["flops"] for p, v in
-                                         row["flops_by_class"].items()},
-                      **{k: row[k] for k in keep}}))
+    for arch, row in rows.items():
+        extra = {"parent": DRYRUN_PARENT[arch]} if arch in DRYRUN_PARENT \
+            else {}
+        print(json.dumps({"phase": "roofline", "path": "dryrun_pod",
+                          "card": card, "torch": torch.__version__,
+                          "seconds": seconds,
+                          "flops_by_class": {p: v["flops"] for p, v in
+                                             row["flops_by_class"].items()},
+                          **{k: row[k] for k in keep}, **extra}))
 
 
 def phase_roofline(seed: int) -> None:
@@ -5308,7 +5366,7 @@ def phase_roofline(seed: int) -> None:
     ``repro_torch.roofline`` (the hand kernels by their models) and timed
     as it runs: (a) the main path's KD step, (b) Hymba-1.5B's scoring
     forward, (c) a replayed Hymba-1.5B decode tick; then (d) the pod dry
-    run of Hymba-1.5B's train_4k in a subprocess."""
+    runs of Hymba-1.5B's and gemma3-12b's train_4k in a subprocess."""
     card = _card_line()
     t0 = time.perf_counter()
     _roofline_kd(card)

@@ -41,6 +41,7 @@ from repro_torch.configs import (ASSIGNED_ARCHS, SHAPES, get_config,
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import registry
 from repro_torch.roofline.counter import Counter
 from repro_torch.sharding import specs as shspecs
@@ -120,9 +121,11 @@ def _check_opts(cfg, opts: dict) -> None:
 
 def lower_combo(arch: str, shape_name: str, mesh, mesh_name: str,
                 fed: FedConfig, constrain_acts: bool = True,
-                opts: dict | None = None):
+                opts: dict | None = None, cfg=None):
     """Count rank 0's step of (``arch``, ``shape_name``) on ``mesh`` (its
-    world a ``fake_world``) and return its ``RooflineReport``.
+    world a ``fake_world``) and return its ``RooflineReport``. ``cfg``
+    replaces ``arch``'s config (a cut of it, say), the row keeping the
+    name.
 
     opts (all default off — the paper-faithful/naive BASELINE):
       param_dtype: 'f32'|'bf16'  — bf16 master weights (train/prefill)
@@ -137,7 +140,7 @@ def lower_combo(arch: str, shape_name: str, mesh, mesh_name: str,
       q_chunk / loss_chunk: int  — the train loss's chunks
     """
     opts = dict(opts or {})
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     _check_opts(cfg, opts)
     shape = SHAPES[shape_name]
     pdtype = torch.bfloat16 if opts.get("param_dtype") == "bf16" \
@@ -183,27 +186,35 @@ def _train_program(cfg, shape, mesh, fed, pdtype, constrain_acts, opts):
 
 
 def _prefill_program(cfg, shape, mesh, pdtype, constrain_acts, opts):
-    """The forward-only half of the train step: the whole params gathered,
-    the rank's rows scored (``registry.loss_fn``) under ``act_pspec``."""
+    """The forward-only half of the train step: the rank's rows scored
+    (``registry.loss_fn``) on the rank's placed blocks, laid out as the
+    train step lays them out (``sharding.MeshSplit`` by
+    ``compute_layout``, the residual split over ``"model"`` on its
+    sequence under ``act_pspec``). The encoder-decoder, whose layout
+    splits nothing, scores on the whole params."""
     pstruct = params_struct(cfg, pdtype)
     bstruct = registry.batch_spec(cfg, shape, ACT_DTYPE)
     pspec = shspecs.param_pspecs(mesh, cfg, pstruct)
     bspec = shspecs.batch_pspecs(mesh, cfg, bstruct)
     use_act = opts.get("prefill_act", True) and constrain_acts
-    ap = steps_mod.act_pspec(mesh, cfg, shape.seq_len) if use_act else None
-    kw = {}
-    if cfg.moe is not None:
-        dp = shspecs.data_axes(mesh)
-        if opts.get("moe_fullgrid_dispatch"):
-            dp = tuple(dp) + ("model",)
-        kw["moe_ctx"] = {"mesh": mesh,
-                         "dp": dp if len(dp) > 1 else (dp[0] if dp else None)}
+    if cfg.family in lm_mod.FAMILIES:
+        split, moe_ctx = steps_mod.mesh_split(
+            cfg, mesh, shape.seq_len, pstruct,
+            rows=steps_mod._spec_axes(next(iter(bspec.values()))[0]),
+            seq=use_act,
+            moe_fullgrid=bool(opts.get("moe_fullgrid_dispatch")))
+        kw = {"split": split, "moe_ctx": moe_ctx}
+        view = lambda v: v.to_local()                 # noqa: E731
+    else:
+        kw = {"act_pspec": steps_mod.act_pspec(mesh, cfg, shape.seq_len)
+              if use_act else None}
+        view = lambda v: v.full_tensor()              # noqa: E731
 
     @torch.no_grad()
     def fwd(params, batch):
-        whole = {k: v.full_tensor() for k, v in params.items()}
+        local = {k: view(v) for k, v in params.items()}
         rows = {k: v.to_local() for k, v in batch.items()}
-        return registry.loss_fn(whole, cfg, rows, remat=False, act_pspec=ap,
+        return registry.loss_fn(local, cfg, rows, remat=False,
                                 dtype=ACT_DTYPE, **kw)[0]
 
     return fwd, (shspecs.place(mesh, pstruct, pspec),

@@ -13,20 +13,25 @@ On a ``("data", "model")`` (or ``("pod", "data", "model")``) mesh
 return the reference's trees as DTensors placed by the rules of
 ``sharding/specs.py``: params by ``param_pspecs``, momentum like its
 param, the batch by ``batch_pspecs``, the cache by ``cache_pspecs``, the
-tokens by ``token_pspec``. They run eagerly. Where the redistribution
-goes: each call gathers the whole params on every rank (ZeRO-3: stored
-split, gathered for the step), so every layer runs whole heads on plain
-local tensors. The rules split ``wq`` / ``wk`` / ``wv`` on their flat
-H·hd dim wherever ``"model"`` divides it, mid-head where it does not
-divide the heads (Hymba's 5 kv heads of 64); the kernels need whole heads
-and never see a DTensor. The data axes split the compute: each rank runs
-its rows of the batch, and the gradients are summed over the data axes
-(and over the axes that split the MoE dispatch's tokens further) before
-each rank updates its own blocks of the params and the momentum. The
-model axis splits storage: params, momentum, the residual stream that
-``remat`` stores (``act_pspec``) and the decode cache's sequence dim, whose
-attend combines across the ranks (``attention.sharded_attend``); the
-layers' compute is replicated over it.
+tokens by ``token_pspec``. They run eagerly.
+
+The train step computes on each rank's stored blocks, laid out by
+``sharding.compute_layout`` (Megatron-LM's tensor parallelism, with its
+sequence parallelism at the reference's ``act_pspec``): the data axes
+split the batch, each rank running its rows, and ``"model"`` splits the
+layers' compute, each rank running its query heads (and the kv heads
+they read), its ``d_ff`` columns, its experts and its vocabulary rows,
+the residual split over ``"model"`` on its sequence between layers. Each
+layer gathers its leaves over the data axes inside its checkpointed body
+(and over ``"model"`` where the layout keeps a leaf whole: the SSM
+mixers, attention whose heads ``"model"`` does not divide). The
+gathers' backward sums the gradients over the ranks, so they come back
+as the rank's blocks and the proximal term and ``sgd`` act on blocks.
+The encoder-decoder, which the layout leaves whole, gathers the whole
+params for the step and sums its gradients (``reduce_grads``). The serve
+step gathers the whole params and decodes the rank's rows; the decode
+cache's sequence dim stays split over ``"model"`` and its attend
+combines across the ranks (``attention.sharded_attend``).
 """
 from __future__ import annotations
 
@@ -164,8 +169,9 @@ def make_train_step(cfg: ModelConfig, fed: FedConfig, mesh=None,
     MoE config the distributed dispatch (``moe_ctx`` over the data axes).
     The loss is the whole batch's and the gradients are summed over the
     ranks (``reduce_grads``), so every rank takes the same step.
-    ``jit_train_step`` wraps this step for params and state placed on
-    the mesh."""
+    ``jit_train_step`` wraps this step for the encoder-decoder's params
+    and state placed on the mesh (the decoder-only families compute on
+    the rank's blocks there)."""
     opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
     grads_of = _grad_fn(cfg, fed, mesh, seq_len, proximal, loss_kwargs,
                         constrain_acts)
@@ -289,34 +295,50 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
     param and the step counter replicated, the batch by ``batch_pspecs``,
     the loss replicated. ``fn`` takes those trees as DTensors (a plain
     tensor, the same on every rank, is placed first) and returns them
-    so. It gathers the whole params and anchor, runs
-    ``make_train_step(mesh=)``'s gradients on the rank's rows of the
-    batch, and updates each rank's own blocks. ``donate``: the new params
-    and momentum are written into the inputs' storage (so the anchor must
-    not share it, as in the reference). ``moe_fullgrid``: the MoE
-    dispatch splits the tokens over the data axes and ``"model"``. The
-    residual's batch dim keeps the batch's own layout.
+    so. ``donate``: the new params and momentum are written into the
+    inputs' storage (so the anchor must not share it, as in the
+    reference). ``moe_fullgrid``: the MoE dispatch splits the tokens over
+    the data axes and ``"model"``.
+
+    The decoder-only families compute on the rank's blocks (``fn.split``,
+    a ``sharding.MeshSplit`` by ``compute_layout``): the loss's
+    gradients come back as the rank's blocks, summed over the ranks, and
+    the proximal term and ``sgd`` act on the blocks; the residual is
+    split over ``"model"`` on its sequence between layers when
+    ``constrain_acts`` (the reference's ``act_pspec``) and its batch dim
+    keeps the batch's own layout. A MoE batch the data axes do not
+    divide has its flat tokens split evenly over them in the dispatch.
+    The encoder-decoder, whose layout splits nothing, gathers the whole
+    params and anchor, runs ``make_train_step(mesh=)``'s gradients on the
+    rank's rows and updates each rank's own blocks.
     """
     from torch.distributed.tensor import DTensor, Replicate
     lk = dict(train_kwargs or {})
-    if moe_fullgrid and cfg.moe is not None:
-        dp = tuple(shspecs.data_axes(mesh)) + ("model",)
-        lk["moe_ctx"] = {"mesh": mesh, "dp": dp}
-    pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
-    ospec = {"mom": pspec if fed.momentum else None, "step": P()}
     bspec = shspecs.batch_pspecs(mesh, cfg, batch_shape)
     lead = next(iter(bspec.values()))[0]
-    if constrain_acts and shape.seq_len and cfg.family != "resnet3d":
-        lk.setdefault("act_pspec", NamedSpec(mesh, P(
-            lead, shspecs._maybe(mesh, "model", shape.seq_len), None)))
-    if cfg.moe is not None and lead is None and _data_size(mesh) > 1:
-        B = shspecs._shape(next(iter(batch_shape.values())))[0]
-        raise ValueError(
-            f"a batch of {B}: the data axes ({_data_size(mesh)} ranks) must "
-            "divide it for the MoE dispatch (the reference splits each "
-            "shard's tokens evenly)")
-    grads_of = _grad_fn(cfg, fed, mesh, shape.seq_len, proximal, lk,
-                        constrain_acts)
+    pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
+    ospec = {"mom": pspec if fed.momentum else None, "step": P()}
+    split = None
+    if cfg.family in lm.FAMILIES:
+        if cfg.moe is not None and not (constrain_acts and shape.seq_len) \
+                and _data_size(mesh) > 1:
+            raise ValueError("a MoE config on a mesh whose data axes split "
+                             "the batch routes with moe_ctx (constrain_acts "
+                             "and seq_len)")
+        split, moe_ctx = mesh_split(cfg, mesh, shape.seq_len, params_shape,
+                                    rows=_spec_axes(lead),
+                                    seq=constrain_acts,
+                                    moe_fullgrid=moe_fullgrid)
+        if moe_ctx is not None:
+            lk["moe_ctx"] = moe_ctx
+        lk.setdefault("dtype", torch.bfloat16)      # bf16 compute
+        grads_of = _split_grad_fn(cfg, fed, split, proximal, lk)
+    else:
+        if constrain_acts and shape.seq_len and cfg.family != "resnet3d":
+            lk.setdefault("act_pspec", NamedSpec(mesh, P(
+                lead, shspecs._maybe(mesh, "model", shape.seq_len), None)))
+        grads_of = _grad_fn(cfg, fed, mesh, shape.seq_len, proximal, lk,
+                            constrain_acts)
     opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
     in_sh = (pspec, ospec, pspec, bspec)
     out_sh = (pspec, ospec, P())
@@ -336,26 +358,85 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
             raise ValueError("donated params share storage with the anchor")
         rows = {k: _dtensor(v, mesh, bpl[k]).to_local()
                 for k, v in batch.items()}
-        whole = {k: _whole(v) for k, v in params.items()}
-        loss, grads = grads_of(whole, {k: _whole(v) for k, v in
-                                       anchor.items()}, rows)
-        del whole
         local = {k: v.to_local() for k, v in params.items()}
+        if split is not None:
+            loss, grads = grads_of(local, {k: v.to_local() for k, v in
+                                           anchor.items()}, rows)
+        else:
+            whole = {k: _whole(v) for k, v in params.items()}
+            loss, grads = grads_of(whole, {k: _whole(v) for k, v in
+                                           anchor.items()}, rows)
+            del whole
+            grads = {k: _block(g, mesh, pl[k]) for k, g in grads.items()}
         state = {"mom": None if mom is None else
                  {k: v.to_local() for k, v in mom.items()},
                  "step": opt_state["step"]}
         with torch.no_grad():
-            new_p, new_s = opt.update(
-                {k: _block(g, mesh, pl[k]) for k, g in grads.items()},
-                state, local)
+            new_p, new_s = opt.update(grads, state, local)
         out_p = _store_blocks(params, new_p, donate)
         out_m = None if mom is None else _store_blocks(mom, new_s["mom"],
                                                        donate)
         loss = DTensor.from_local(loss, mesh, rep, run_check=False)
         return out_p, {"mom": out_m, "step": new_s["step"]}, loss
 
-    fn.opt = opt
+    fn.opt, fn.split = opt, split
     return fn, (in_sh, out_sh)
+
+
+def _spec_axes(entry) -> tuple:
+    """A spec entry (None, a name or a tuple of names) as a tuple."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def mesh_split(cfg: ModelConfig, mesh, seq_len: int, params_shape,
+               rows=None, seq: bool = True, moe_fullgrid: bool = False):
+    """The decoder-only LM's compute on ``mesh``, as the train step lays it
+    out: ``(split, moe_ctx)``. ``split`` is the ``sharding.MeshSplit`` of
+    ``compute_layout`` over ``params_shape``'s ``param_pspecs``, the
+    residual split over ``"model"`` on its sequence when ``seq`` and
+    ``"model"`` divides ``seq_len`` (the reference's ``act_pspec``);
+    ``moe_ctx`` (a MoE config only, else None) the distributed dispatch
+    over the data axes (and ``"model"`` with ``moe_fullgrid``).
+    ``rows``: the axes that split the batch's rows (None: the data axes;
+    ``()`` for a batch they do not divide, whose flat tokens the
+    dispatch splits over them). The forward takes them as
+    ``loss_fn(..., split=split, moe_ctx=moe_ctx)`` on the rank's stored
+    blocks and rows."""
+    moe_ctx = None
+    if cfg.moe is not None:
+        moe_ctx = {"mesh": mesh,
+                   "dp": tuple(shspecs.data_axes(mesh))
+                   + (("model",) if moe_fullgrid else ()),
+                   "rows": tuple(shspecs.data_axes(mesh)) if rows is None
+                   else tuple(rows)}
+    split = shspecs.MeshSplit(
+        mesh, shspecs.param_pspecs(mesh, cfg, params_shape),
+        shspecs.compute_layout(mesh, cfg, params_shape, moe_fullgrid),
+        seq=bool(seq and seq_len and shspecs._maybe(mesh, "model", seq_len)))
+    if moe_ctx is not None:
+        moe_ctx["split"] = split
+    return split, moe_ctx
+
+
+def _split_grad_fn(cfg: ModelConfig, fed: FedConfig, split, proximal: bool,
+                   loss_kwargs: dict):
+    """``grads_of(local, anchor, rows) -> (loss, grads)`` on the rank's
+    stored blocks under ``split``: the gradients come back as the blocks',
+    summed over the ranks by the gathers' backward, plus the proximal
+    term on the blocks."""
+
+    def grads_of(local, anchor, rows):
+        rows = batch_to(rows, params_device(local))
+        l, grads = value_and_grad(
+            lambda p: registry.loss_fn(p, cfg, rows, split=split,
+                                       **loss_kwargs)[0], local)
+        if proximal:
+            grads = proximal_grad(grads, local, anchor, fed.prox_theta)
+        return l, grads
+
+    return grads_of
 
 
 _SEQ_SPLIT = {"k": "k", "v": "k", "enc_k": "enc_k", "enc_v": "enc_k"}

@@ -19,6 +19,12 @@ and the attend runs over the local keys and combines its max, sum and
 weighted values across the ranks (flash-decoding, ``sharded_attend``):
 the whole cache is never gathered.
 
+Under tensor parallelism (``sharding.MeshSplit``) the projections are a
+rank's blocks: its query heads and the kv heads they read, counted from
+the weights' widths, and the row block of ``wo``, whose output is then a
+partial sum over ``"model"``; the attend and its kernel run on those
+heads alone.
+
 Kernels: ``"cuda"`` runs the hand-written attends (``kernels/ops.py``):
 the causal sliding-window attention of the cache-free scoring forward,
 and the ring and extent attends of decode; ``"eager"`` the plain torch
@@ -200,8 +206,12 @@ def init_attn_params(gen: torch.Generator, cfg, num_layers: int,
 
 
 def _qkv(p, x, cfg, positions):
+    """q (B, Sq, H, hd), k and v (B, Sq, KV, hd): H and KV are the heads
+    of the weights given, ``cfg``'s or a rank's block of them
+    (``sharding.MeshSplit``)."""
     B, Sq, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     dt = x.dtype
     q = torch.matmul(x, p["wq"].to(dt)).reshape(B, Sq, H, hd)
     k = torch.matmul(x, p["wk"].to(dt)).reshape(B, Sq, KV, hd)

@@ -107,25 +107,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.sum() / mask.sum().clamp(min=1.0)
 
 
-def _chunk_nll(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor):
-    """One chunk's summed next-token NLL and count of non-ignored labels."""
+def _chunk_nll(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+               split=None):
+    """One chunk's summed next-token NLL and count of non-ignored labels.
+    With ``split`` (a ``sharding.MeshSplit`` whose ``"model"`` splits the
+    vocabulary) ``lm_head`` is the rank's block of columns: the row maxima
+    and the sums of exponentials are reduced over ``"model"``, and the
+    gold logit comes from the rank whose block holds the label."""
     logits = torch.matmul(h, lm_head).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.long().clamp(min=0).unsqueeze(-1))[..., 0]
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.long().clamp(min=0).unsqueeze(-1))[..., 0]
+    else:
+        V = logits.shape[-1]
+        m = split.vocab_max(logits.detach().amax(dim=-1))
+        lse = torch.log(split.vocab_sum(
+            torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+        local = labels.long() - split.vocab_offset(V)
+        own = (local >= 0) & (local < V)
+        g = torch.gather(logits, -1, local.clamp(0, V - 1).unsqueeze(-1))
+        gold = split.vocab_sum(torch.where(own, g[..., 0], 0.0))
     mask = (labels != -100).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
 def chunked_lm_nll(hidden: torch.Tensor, lm_head: torch.Tensor,
-                   labels: torch.Tensor, chunk: int = 512):
+                   labels: torch.Tensor, chunk: int = 512, split=None):
     """The summed next-token NLL and the count of non-ignored labels,
     without materialising (B, S, V) at once.
 
     Walks sequence chunks; under autograd each chunk's logits are
     recomputed in the backward pass (``torch.utils.checkpoint``), so peak
     memory is (B, chunk, V). hidden: (B, S, d); lm_head: (d, V); labels:
-    (B, S), -100 ignored.
+    (B, S), -100 ignored. ``split``: the vocabulary-parallel CE of
+    ``_chunk_nll``, ``lm_head`` the rank's (d, V / M) block, the chunks
+    (B, chunk, V / M).
     """
     B, S, d = hidden.shape
     chunk = min(chunk, S)
@@ -139,7 +156,8 @@ def chunked_lm_nll(hidden: torch.Tensor, lm_head: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, S, chunk):
-        args = (hidden[:, i:i + chunk], lm_head, labels[:, i:i + chunk])
+        args = (hidden[:, i:i + chunk], lm_head, labels[:, i:i + chunk],
+                split)
         a, c = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
                 else _chunk_nll(*args))
         nll, cnt = nll + a, cnt + c

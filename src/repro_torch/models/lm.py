@@ -28,7 +28,14 @@ and decode, its switch-style aux loss summed over the layers into
 the reference's forward does.
 
 On a device mesh (``launch/steps.py``) every function here runs on the
-rank's own tensors: whole params (the steps gather them), the rank's rows
+rank's own tensors. The train step's and the mesh forward's ``split`` (a
+``sharding.MeshSplit``) hands ``forward_hidden`` and ``loss_fn`` the
+rank's stored blocks of the params: each layer gathers its leaves over
+the data axes inside its checkpointed body and computes on the rank's
+heads, ``d_ff`` columns, experts and vocabulary rows, the residual split
+over ``"model"`` on its sequence between layers (``_split_layer``).
+Without ``split`` they take whole params (the serve step gathers them),
+the rank's rows
 of the batch (split over the data axes) and the rank's block of a decode
 cache. ``act_pspec`` (a ``sharding.NamedSpec``) keeps the residual stream
 between layers as a DTensor laid out by it (its sequence dim split over
@@ -265,6 +272,82 @@ def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
         dst.copy_(val)
 
 
+def _split_layer(cfg: ModelConfig, lp, x, window: int, positions,
+                 q_chunk: int, kernel: str, moe_ctx, split):
+    """One training / scoring layer under tensor parallelism: ``x`` is the
+    residual in ``split``'s layout, ``lp`` the blocks ``split.layer``
+    gathered. Each sub-block runs on the rank's whole rows (``enter``):
+    attention on its heads and the MLP on its ``d_ff`` columns, leaving
+    as partial sums (``exit_partial``); the leaves gathered over
+    ``"model"`` (the SSM mixer, attention whose heads ``"model"`` does
+    not divide) compute alike on every rank (``exit_replicated``). In
+    the hybrid block a split attention's output is summed
+    (``split.reduce``) before its branch norm. Returns (x, aux)."""
+    aux = None
+    h = rms_norm(split.enter(x), lp["ln1"], cfg.norm_eps)
+
+    def ssm(h):
+        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, kernel=kernel)[0]
+
+    if cfg.family == "ssm":
+        return x + split.exit_replicated(ssm(h)), aux
+    a = attn_mod.attn_forward(lp["attn"], h, cfg=cfg, window=window,
+                              positions=positions, q_chunk=q_chunk,
+                              kernel=kernel)[0]
+    attn_split = split.splits("layers/attn/wq")
+    if cfg.family == "hybrid":
+        if attn_split:
+            a = split.reduce(a)
+        mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
+                       + rms_norm(ssm(h), lp["branch_norm_ssm"],
+                                  cfg.norm_eps))
+        x = x + split.exit_replicated(mixed.to(x.dtype))
+    else:
+        x = x + (split.exit_partial(a) if attn_split
+                 else split.exit_replicated(a))
+    h2 = rms_norm(split.enter(x), lp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg.moe, cfg.act,
+                                     moe_ctx=moe_ctx)
+        partial = moe_mod.split_partial(split)
+    else:
+        y = mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
+        partial = split.splits("layers/mlp/wi")
+    return x + (split.exit_partial(y) if partial
+                else split.exit_replicated(y)), aux
+
+
+def _split_embed(params, cfg: ModelConfig, tokens, prefix_embeds, dtype,
+                 split):
+    """``embed_inputs`` on the rank's block of ``embed``, in ``split``'s
+    residual layout. Vocabulary-parallel where ``"model"`` splits V: the
+    rank looks up the tokens its rows hold, zeros elsewhere, and the
+    partial sums are reduce-scattered (the prefix, every rank's alike,
+    rides on ``"model"`` rank 0)."""
+    table = split.gather("embed", params["embed"])
+    if not split.vocab:
+        return split.exit_replicated(embed_inputs(
+            {"embed": table}, cfg, tokens, prefix_embeds, dtype))
+    V = table.shape[0]
+    local = tokens.long() - split.vocab_offset(V)
+    own = (local >= 0) & (local < V)
+    x = torch.where(own[..., None], table[local.clamp(0, V - 1)], 0.0)
+    if dtype is not None:
+        x = x.to(dtype)
+    if cfg.prefix_len and prefix_embeds is not None:
+        x = torch.cat([split.to_partial(prefix_embeds.to(x.dtype)), x],
+                      dim=1)
+    return split.exit_partial(x)
+
+
+def _split_head(params, cfg: ModelConfig, split) -> torch.Tensor:
+    """The rank's block of the LM head, (d, V / M) where ``"model"``
+    splits the vocabulary, else (d, V)."""
+    if cfg.tie_embeddings:
+        return split.gather("embed", params["embed"]).T
+    return split.gather("lm_head", params["lm_head"])
+
+
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                  prefix_embeds=None, dtype=None) -> torch.Tensor:
     x = params["embed"][tokens]
@@ -286,7 +369,7 @@ def _logits(params, cfg: ModelConfig, last: torch.Tensor) -> torch.Tensor:
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
                    prefix_embeds=None, remat: bool = True,
                    q_chunk: int = 1024, dtype=None, act_pspec=None,
-                   moe_ctx=None, kernel: str = "eager"):
+                   moe_ctx=None, kernel: str = "eager", split=None):
     """Returns (hidden (B, S, d), aux_loss).
 
     ``kernel="cuda"`` runs each layer's attend (``gqa_attention``) and SSD
@@ -305,9 +388,21 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     split ones. ``tokens`` are then the rank's rows of the batch, and so
     is the hidden returned. ``moe_ctx``: the MoE layers' distributed
     dispatch (``models/moe.py``).
+
+    ``split`` (a ``sharding.MeshSplit``; ``act_pspec`` then unused):
+    ``params`` are the rank's stored blocks, ``tokens`` its rows. Each
+    layer's leaves are gathered over the data axes inside its
+    checkpointed body (recomputed in the backward pass, as the
+    reference's scan does), so a rank holds one layer's blocks beyond its
+    own storage; the layer computes on its blocks (``_split_layer``).
+    The hidden returned is the rank's whole rows, alike on every
+    ``"model"`` rank.
     """
     _check_family(cfg)
     attn_mod.check_kernel(kernel)
+    if split is not None:
+        return _split_forward(params, cfg, tokens, prefix_embeds, remat,
+                              q_chunk, dtype, moe_ctx, kernel, split)
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = remat and torch.is_grad_enabled()
@@ -334,6 +429,35 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     return x, aux
 
 
+def _split_forward(params, cfg, tokens, prefix_embeds, remat, q_chunk,
+                   dtype, moe_ctx, kernel, split):
+    """``forward_hidden`` under ``split`` (see there)."""
+    S = tokens.shape[1] + (cfg.prefix_len if cfg.prefix_len
+                           and prefix_embeds is not None else 0)
+    split = split.at_length(S)
+    x = _split_embed(params, cfg, tokens, prefix_embeds, dtype, split)
+    positions = torch.arange(S, device=x.device)
+    remat = remat and torch.is_grad_enabled()
+    stacks = [k for k in params if k.startswith("layers/")]
+
+    def body(x, flat, window):
+        return _split_layer(cfg, split.layer(flat), x, window, positions,
+                            q_chunk, kernel, moe_ctx, split)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        flat, window = {k: params[k][i] for k in stacks}, \
+            cfg.window_for_layer(i)
+        x, a = (checkpoint(body, x, flat, window, use_reentrant=False)
+                if remat else body(x, flat, window))
+        if a is not None:
+            aux = aux + a
+    x = rms_norm(split.enter(x),
+                 split.gather("final_norm", params["final_norm"]),
+                 cfg.norm_eps)
+    return x, aux
+
+
 def mesh_of(act_pspec=None, moe_ctx=None):
     """The device mesh an ``act_pspec`` or a ``moe_ctx`` runs on (None
     without either)."""
@@ -355,24 +479,41 @@ def batch_ce(nll: torch.Tensor, cnt: torch.Tensor, mesh) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
             q_chunk: int = 1024, loss_chunk: int = 512, dtype=None,
-            act_pspec=None, moe_ctx=None, kernel: str = "eager"):
+            act_pspec=None, moe_ctx=None, kernel: str = "eager",
+            split=None):
     """Next-token CE (+ MoE aux). batch: tokens (B, S), labels (B, S)[,
     prefix_embeds]. With a prefix, labels cover only the token part.
-    Returns (loss, {"ce", "aux"}). Under ``act_pspec`` / ``moe_ctx`` the
-    batch is the rank's rows and the loss the whole batch's, the same on
-    every rank."""
+    Returns (loss, {"ce", "aux"}). Under ``act_pspec`` / ``moe_ctx`` /
+    ``split`` the batch is the rank's rows and the loss the whole
+    batch's, the same on every rank. Under ``split`` the head is the
+    rank's block: where ``"model"`` splits the vocabulary the CE is
+    vocabulary-parallel (``chunked_lm_nll(split=)``), else every
+    ``"model"`` rank computes it alike (``split.owned``)."""
     hidden, aux = forward_hidden(params, cfg, batch["tokens"],
                                  batch.get("prefix_embeds"), remat=remat,
                                  q_chunk=q_chunk, dtype=dtype,
                                  act_pspec=act_pspec, moe_ctx=moe_ctx,
-                                 kernel=kernel)
+                                 kernel=kernel, split=split)
     if cfg.prefix_len and batch.get("prefix_embeds") is not None:
         hidden = hidden[:, cfg.prefix_len:, :]
-    head = lm_head_weight(params, cfg).to(hidden.dtype)
-    ce = batch_ce(*chunked_lm_nll(hidden, head, batch["labels"],
-                                  chunk=loss_chunk),
-                  mesh_of(act_pspec, moe_ctx))
-    return ce + aux, {"ce": ce, "aux": aux}
+    if split is None:
+        head = lm_head_weight(params, cfg).to(hidden.dtype)
+        nll, cnt = chunked_lm_nll(hidden, head, batch["labels"],
+                                  chunk=loss_chunk)
+        mesh = mesh_of(act_pspec, moe_ctx)
+        ce = batch_ce(nll, cnt, mesh)
+        return ce + aux, {"ce": ce, "aux": aux}
+    else:
+        head = _split_head(params, cfg, split).to(hidden.dtype)
+        nll, cnt = chunked_lm_nll(hidden, head, batch["labels"],
+                                  chunk=loss_chunk,
+                                  split=split if split.vocab else None)
+        if not split.vocab:
+            nll = split.owned(nll)
+        axes = data_axes(split.mesh)
+        ce = split.psum(nll, axes) / torch.clamp(
+            split.psum(cnt.detach(), axes), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
 
 def logits_fn(params, cfg: ModelConfig, tokens, prefix_embeds=None,

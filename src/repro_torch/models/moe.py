@@ -22,6 +22,21 @@ further, and the outputs are gathered back over it. With more than one
 dp shard this is not the local path's result, since each shard drops by
 its own capacity. As in the reference, the distributed path ignores
 ``dropless`` (ROADMAP Queue 3).
+
+``moe_ctx["rows"]``: the axes that split the rank's rows (the batch's
+own split; the data axes when absent). A dp axis that splits no rows
+(``"model"`` under ``moe_fullgrid``, the data axes for a batch they do
+not divide) splits the flat tokens evenly, as the reference's
+``shard_map`` does, and the outputs are gathered back over it.
+
+Under tensor parallelism (``moe_ctx["split"]``, a ``sharding.MeshSplit``:
+the train step's and the mesh forward's) the expert weights are the
+rank's blocks: its E / M experts (expert parallel), whose dispatch
+buffer holds only their picks, or every expert's ``d_ff`` columns. The
+router runs on every ``"model"`` rank alike; the combine is then a
+partial sum over ``"model"`` (``split_partial``), as the shared
+expert's on its columns, and the aux loss leaves through
+``split.owned``.
 """
 from __future__ import annotations
 
@@ -140,45 +155,77 @@ def _dp_axes(moe_ctx) -> tuple:
 
 
 def split_axes(moe_ctx) -> tuple:
-    """The dp axes that split a rank's rows further (not data axes): the
-    axes over which the routing's own parameters' gradients are partial
-    beyond the data axes'."""
-    data = data_axes(moe_ctx["mesh"])
-    return tuple(a for a in _dp_axes(moe_ctx) if a not in data)
+    """The dp axes that split a rank's rows further (not axes of its
+    rows): the axes over which the routing's own parameters' gradients
+    are partial beyond the rows'."""
+    rows = moe_ctx.get("rows", data_axes(moe_ctx["mesh"]))
+    return tuple(a for a in _dp_axes(moe_ctx) if a not in rows)
+
+
+def split_partial(split) -> bool:
+    """Whether the MoE block's output is a partial sum over ``"model"``
+    under ``split``: its experts or its shared expert split there."""
+    return any(split.splits(f"layers/moe/{k}") for k in ("wi", "shared_wi"))
+
+
+def _take(xt, mesh, axes, split):
+    """This rank's block of the flat tokens over ``axes``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if split is not None:
+        return split.take(xt, axes)
+    sub = mesh[axes]
+    return DTensor.from_local(xt, sub, [Replicate()] * len(axes),
+                              run_check=False).redistribute(
+        sub, [Shard(0)] * len(axes)).to_local()
+
+
+def _join(out, mesh, axes, split):
+    """``_take``'s inverse: every rank's block gathered back."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if split is not None:
+        return split.join(out, axes)
+    sub = mesh[axes]
+    return DTensor.from_local(out, sub, [Shard(0)] * len(axes),
+                              run_check=False).redistribute(
+        sub, [Replicate()] * len(axes)).to_local()
 
 
 def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
     """The distributed dispatch of this rank's tokens xt (T_loc, d):
     (out (T_loc, d), frac, mean_p), the last two averaged over dp."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh = moe_ctx["mesh"]
-    axes, split = _dp_axes(moe_ctx), split_axes(moe_ctx)
+    mesh, split = moe_ctx["mesh"], moe_ctx.get("split")
+    axes, tok = _dp_axes(moe_ctx), split_axes(moe_ctx)
     names = tuple(mesh.mesh_dim_names)
     if not set(data_axes(mesh)) <= set(axes) or not set(axes) <= set(names):
         raise ValueError(f"moe_ctx dp {axes}: must hold the mesh's data "
                          f"axes {data_axes(mesh)} and only axes of {names}")
     E, k = moe.num_experts, moe.top_k
-    sub = mesh[split] if split else None
-    if sub is not None:
-        n = math.prod(sub.shape)
+    sizes = dict(zip(names, mesh.shape))
+    n = math.prod(sizes[a] for a in tok)
+    if n > 1:
         if xt.shape[0] % n:
             raise ValueError(f"{xt.shape[0]} tokens do not split over "
-                             f"{split} ({n} ranks)")
-        xt = DTensor.from_local(xt, sub, [Replicate()] * len(split),
-                                run_check=False).redistribute(
-            sub, [Shard(0)] * len(split)).to_local()
+                             f"{tok} ({n} ranks)")
+        xt = _take(xt, mesh, tok, split)
     T = xt.shape[0]
     C = capacity(T, moe)
     weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
-    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
+    E_loc = p["wg"].shape[0]
+    if E_loc != E:           # expert parallel: this rank's experts' picks
+        lo = split.m * E_loc * C
+        keep = keep & (slot >= lo) & (slot < lo + E_loc * C)
+        slot = torch.where(keep, slot - lo, E_loc * C)
+    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E_loc, C)
     out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
-    if sub is not None:
-        out = DTensor.from_local(out, sub, [Shard(0)] * len(split),
-                                 run_check=False).redistribute(
-            sub, [Replicate()] * len(split)).to_local()
-    shards = math.prod(dict(zip(names, mesh.shape))[a] for a in axes)
-    return (out, psum_axes(frac, mesh, axes) / shards,
-            psum_axes(mean_p, mesh, axes) / shards)
+    if n > 1:
+        out = _join(out, mesh, tok, split)
+    shards = math.prod(sizes[a] for a in axes)
+    if split is None:
+        frac, mean_p = psum_axes(frac, mesh, axes), psum_axes(mean_p, mesh,
+                                                              axes)
+    else:
+        frac, mean_p = split.psum(frac, axes), split.psum(mean_p, axes)
+    return out, frac / shards, mean_p / shards
 
 
 def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
@@ -204,11 +251,21 @@ def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
         eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
         out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
     out = out.reshape(B, S, d)
+    split = None if moe_ctx is None else moe_ctx.get("split")
     if moe.shared_expert:
         dt = x.dtype
         g = torch.matmul(x, p["shared_wg"].to(dt))
         h = torch.matmul(x, p["shared_wi"].to(dt))
-        out = out + torch.matmul(activation(act)(g) * h,
-                                 p["shared_wo"].to(dt))
+        shared = torch.matmul(activation(act)(g) * h, p["shared_wo"].to(dt))
+        if split is not None and split_partial(split):
+            # one partial sum over "model": the part every rank holds alike
+            # rides on rank 0
+            if not split.splits("layers/moe/wi"):
+                out = split.to_partial(out)
+            if not split.splits("layers/moe/shared_wi"):
+                shared = split.to_partial(shared)
+        out = out + shared
     aux = E * torch.sum(frac * mean_p) * moe.router_aux_weight
+    if split is not None and "model" not in _dp_axes(moe_ctx):
+        aux = split.owned(aux)
     return out, aux

@@ -1,5 +1,6 @@
-from repro_torch.sharding.specs import (P, MeshShape, NamedSpec, batch_pspecs,
-                                        cache_pspecs, data_axes,
+from repro_torch.sharding.specs import (P, MeshShape, MeshSplit, NamedSpec,
+                                        Split, batch_pspecs, cache_pspecs,
+                                        compute_layout, data_axes,
                                         fed_round_specs, gather_levels,
                                         levels, named, param_pspecs, place,
                                         psum_levels, shard_index, token_pspec)
@@ -7,4 +8,4 @@ from repro_torch.sharding.specs import (P, MeshShape, NamedSpec, batch_pspecs,
 __all__ = ["param_pspecs", "batch_pspecs", "cache_pspecs", "data_axes",
            "named", "token_pspec", "place", "P", "MeshShape", "NamedSpec",
            "fed_round_specs", "gather_levels", "levels", "psum_levels",
-           "shard_index"]
+           "shard_index", "compute_layout", "MeshSplit", "Split"]

@@ -35,10 +35,21 @@ stream between its sequence-sharded storage and the rank's whole rows;
 ``psum_axes`` sums over mesh axes with DTensor's ``Partial`` (an
 identity backward: every rank already holds the summed value's
 gradient).
+
+Tensor-parallel compute (the last section): ``compute_layout`` says, for
+each param leaf, whether a layer computes on the rank's ``"model"`` block
+of it (a ``Split``: the query heads and the kv heads they read, the
+``d_ff`` columns, the experts, the vocabulary rows) or gathers it over
+``"model"``; ``MeshSplit`` runs a step by it on the rank's stored blocks,
+with the autograd collectives of Megatron-LM's tensor and sequence
+parallelism (all-gather / reduce-scatter pairs over ``"model"``, the
+params' all-gather over the data axes whose backward sums the gradient
+over them).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -450,3 +461,366 @@ def psum_axes(x, mesh, axes):
     names = tuple(mesh.mesh_dim_names)
     pl = tuple(Partial() if n in axes else Replicate() for n in names)
     return DTensor.from_local(x, mesh, pl, run_check=False).full_tensor()
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute over "model"
+# ---------------------------------------------------------------------------
+
+SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+
+class Split(NamedTuple):
+    """How a leaf meets ``"model"`` in a layer's compute: the layer reads
+    block ``coord // ranks`` of the ``M // ranks`` equal blocks of tensor
+    dim ``dim`` (negative, so a stacked leaf and its layer's slice
+    agree). ``ranks`` 1: the rank's own stored block, never gathered over
+    ``"model"``; ``ranks`` > 1: that many neighbouring ranks read one
+    block (the kv head of their query group, where ``"model"``
+    outnumbers the kv heads), gathered over ``"model"`` and sliced."""
+    dim: int
+    ranks: int = 1
+
+
+def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
+    """``{key: Split or None}`` over a flat param dict (tensors or
+    shapes): how each leaf meets ``"model"`` in the LM's train and
+    scoring forward (``MeshSplit``). None: gathered over ``"model"``, its
+    compute replicated there. The splits are ``param_pspecs``'
+    tensor-parallel dims under the reference's divisibility guards:
+
+    - attention by whole query heads when ``"model"`` divides
+      ``num_heads`` and either divides ``num_kv_heads`` (each rank its
+      kv heads) or is a multiple of it (each rank reads the kv head of
+      its query group: ``Split(-1, M // KV)``);
+    - the MLP and the shared expert by ``d_ff`` columns when ``"model"``
+      divides ``d_ff``;
+    - the MoE experts over ``"model"`` when it divides E (expert
+      parallel), else by each expert's ``d_ff`` columns (the rule's two
+      branches); ``moe_fullgrid`` keeps them gathered, its dispatch
+      splitting the tokens over ``"model"`` instead;
+    - ``embed`` / ``lm_head`` by vocabulary rows when ``"model"``
+      divides V.
+
+    Every other leaf (norms, the router, the SSM mixers, the
+    encoder-decoder's, any leaf of a mesh whose ``"model"`` has one rank)
+    is None.
+    """
+    out = {k: None for k in params}
+    M = _axis_size(mesh, "model")
+    if M <= 1 or cfg.family not in SPLIT_FAMILIES:
+        return out
+
+    def put(keys, dim, ranks=1):
+        for k in keys:
+            if k in out:
+                out[k] = Split(dim, ranks)
+
+    H, KV, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    if H and H % M == 0 and (KV % M == 0 or M % KV == 0):
+        put(("layers/attn/wq",), -1)
+        put(("layers/attn/wo",), -2)
+        put(("layers/attn/wk", "layers/attn/wv"), -1,
+            1 if KV % M == 0 else M // KV)
+    if f % M == 0:
+        put(("layers/mlp/wg", "layers/mlp/wi", "layers/moe/shared_wg",
+             "layers/moe/shared_wi"), -1)
+        put(("layers/mlp/wo", "layers/moe/shared_wo"), -2)
+    if cfg.moe is not None and not moe_fullgrid:
+        if cfg.moe.num_experts % M == 0:
+            put(("layers/moe/wg", "layers/moe/wi", "layers/moe/wo"), -3)
+        elif f % M == 0:
+            put(("layers/moe/wg", "layers/moe/wi"), -1)
+            put(("layers/moe/wo",), -2)
+    if cfg.vocab_size % M == 0:
+        put(("embed",), -2)
+        put(("lm_head",), -1)
+    specs = param_pspecs(mesh, cfg, params)
+    for k, s in out.items():
+        if s is not None and s.ranks == 1 and specs[k][s.dim] != "model":
+            raise ValueError(f"{k}: the layout computes on the model block "
+                             f"of dim {s.dim}, which {specs[k]} does not "
+                             "store")
+    return out
+
+
+def _wait(x):
+    return torch.ops._c10d_functional.wait_tensor(x)
+
+
+def _gather_along(x, dim: int, group):
+    """All-gather ``x`` over ``group`` along ``dim``, the ranks' blocks in
+    rank order."""
+    t = x.movedim(dim, 0).contiguous()
+    out = _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+        t, group.size(), group.group_name))
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def _scatter_along(x, dim: int, group):
+    """Reduce-scatter (sum) ``x`` over ``group`` along ``dim``: the rank's
+    block of the sum."""
+    t = x.movedim(dim, 0).contiguous()
+    out = _wait(torch.ops._c10d_functional.reduce_scatter_tensor(
+        t, "sum", group.size(), group.group_name))
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def _sum_over(x, groups, op: str = "sum"):
+    for g in groups:
+        x = _wait(torch.ops._c10d_functional.all_reduce(x.contiguous(), op,
+                                                        g.group_name))
+    return x
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along a dim; backward reduce-scatters (sums) the
+    gradient back to the rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_along(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter of a partial sum along a dim; backward all-gathers
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.dim, ctx.group), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Σ over ``groups``. Backward: the identity (``sum_grad`` False: the
+    sum feeds values whose gradient each rank holds whole, as a loss's)
+    or the same sum (a partial sum entering a layer's replicated
+    compute, whose gradients are parts)."""
+
+    @staticmethod
+    def forward(ctx, x, groups, sum_grad):
+        ctx.groups, ctx.sum_grad = groups, sum_grad
+        return _sum_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sum_over(g, ctx.groups) if ctx.sum_grad else g), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity; backward sums the gradient over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.groups), None
+
+
+class _Owned(torch.autograd.Function):
+    """``x`` (``keep`` or ``value``) or zeros; backward the gradient where
+    ``keep``, zeros elsewhere. Every rank keeps the same graph, so the
+    collectives of the backward pass run alike on all of them."""
+
+    @staticmethod
+    def forward(ctx, x, keep, value):
+        ctx.keep = keep
+        return x.view_as(x) if keep or value else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None, None
+
+
+class MeshSplit:
+    """One step's compute on ``mesh`` laid out by ``compute_layout``:
+    Megatron-LM's tensor parallelism, with its sequence parallelism when
+    ``seq`` (Shoeybi et al. 2019; Korthikanti et al. 2022), on each
+    rank's stored blocks (``specs``: ``param_pspecs``).
+
+    Between layers the residual stream is the rank's rows (its block of
+    the batch over the data axes), their sequence dim split over
+    ``"model"`` when ``seq`` and ``"model"`` divides it (the reference's
+    ``act_pspec``), else whole on every ``"model"`` rank. A layer
+    ``enter``s it (an all-gather over ``"model"``), computes on the
+    rank's blocks, and leaves by ``exit_partial`` (a row-parallel
+    product's partial sum, reduce-scattered back to the sequence split,
+    or all-reduced without it) or ``exit_replicated`` (the output of
+    leaves gathered over ``"model"``, of which the rank keeps its
+    sequence block).
+
+    Gradients: inside a layer a value that every ``"model"`` rank holds
+    alike carries, on each rank, a part of its gradient, the parts
+    summing to the whole over ``"model"`` (so the all-gather's backward
+    is a reduce-scatter). The leaves come from ``gather``: the rank's
+    stored block all-gathered over the axes the layer does not compute
+    on its block of, whose backward reduce-scatters the gradient back to
+    the block and sums it over the mesh's other axes (the data axes, and
+    ``"model"`` where the leaf is replicated there). A step's gradients
+    therefore come back as the rank's blocks, summed.
+    """
+
+    def __init__(self, mesh, specs: dict, layout: dict, seq: bool = True):
+        self.mesh, self.specs, self.layout = mesh, specs, layout
+        self.names = tuple(mesh.mesh_dim_names)
+        self.sizes = dict(zip(self.names, mesh.shape))
+        self.coords = dict(zip(self.names, mesh.get_coordinate()))
+        self.M = self.sizes.get("model", 1)
+        self.m = self.coords.get("model", 0)
+        self.seq = bool(seq) and self.M > 1
+        self.vocab = layout.get("embed") is not None
+
+    def __repr__(self) -> str:
+        split = sorted(k for k, v in self.layout.items() if v is not None)
+        return (f"MeshSplit({dict(self.sizes)}, seq={self.seq}, "
+                f"split={split})")
+
+    def group(self, axis):
+        return self.mesh.get_group(axis)
+
+    def splits(self, key: str) -> bool:
+        """Whether the layer computes on the rank's block of ``key``."""
+        return self.layout.get(key) is not None
+
+    def at_length(self, S: int) -> "MeshSplit":
+        """This split for a residual of ``S`` positions: without the
+        sequence split where ``"model"`` does not divide S."""
+        if not self.seq or S % self.M == 0:
+            return self
+        out = object.__new__(MeshSplit)
+        out.__dict__.update(self.__dict__, seq=False)
+        return out
+
+    # -- params -----------------------------------------------------------
+
+    def gather(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        """The block of leaf ``key`` (or of its layer's slice) that the
+        layer computes on, from the rank's stored block ``x``."""
+        spec = self.specs[key]
+        spec = spec[len(spec) - x.dim():]      # a layer's slice drops L
+        split = self.layout.get(key)
+        tp = None if split is None else split.dim % x.dim()
+        own = split is not None and split.ranks == 1
+        steps = []
+        for dim, axes in enumerate(spec):
+            axes = () if axes is None else (
+                axes if isinstance(axes, tuple) else (axes,))
+            for a in reversed(axes):            # innermost first
+                if self.sizes[a] > 1 and not (a == "model" and dim == tp
+                                              and own):
+                    steps.append((dim, a))
+        done = {a for _, a in steps} | ({"model"} if own else set())
+        rest = [self.group(a) for a in self.names
+                if self.sizes[a] > 1 and a not in done]
+        if rest:
+            x = _SumGrad.apply(x, rest)
+        for dim, a in steps:
+            x = _AllGather.apply(x, dim, self.group(a))
+        if split is not None and split.ranks > 1:
+            n = x.shape[tp] * split.ranks // self.M
+            x = x.narrow(tp, (self.m // split.ranks) * n, n)
+        return x
+
+    def layer(self, flat: dict, stack: str = "layers") -> dict:
+        """A layer's slices ``{"<stack>/...": block}`` gathered by
+        ``gather`` and nested as ``lm.layer_params`` nests them."""
+        out: dict = {}
+        for k, v in flat.items():
+            node = out
+            parts = k.split("/")[1:]
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = self.gather(k, v)
+        return out
+
+    # -- the residual stream ----------------------------------------------
+
+    def enter(self, x):
+        """The residual -> the rank's whole rows, alike on every
+        ``"model"`` rank."""
+        return _AllGather.apply(x, 1, self.group("model")) if self.seq \
+            else x
+
+    def exit_partial(self, y):
+        """A partial sum over ``"model"`` (row-parallel) -> the residual's
+        layout: reduce-scattered over the sequence, or all-reduced."""
+        if self.M == 1:
+            return y
+        if self.seq:
+            return _ReduceScatter.apply(y, 1, self.group("model"))
+        return self.reduce(y)
+
+    def exit_replicated(self, y):
+        """Rows every ``"model"`` rank computed alike -> the residual's
+        layout: this rank's sequence block (backward: zeros elsewhere)."""
+        if not self.seq:
+            return y
+        n = y.shape[1] // self.M
+        return y.narrow(1, self.m * n, n)
+
+    def reduce(self, y):
+        """A partial sum over ``"model"`` -> the sum on every rank, entering
+        replicated compute (backward: the gradient's parts summed)."""
+        if self.M == 1:
+            return y
+        return _AllReduce.apply(y, [self.group("model")], True)
+
+    def owned(self, v):
+        """A value every ``"model"`` rank computed alike, leaving into the
+        loss: its gradient kept on ``"model"`` rank 0 only, so the parts
+        sum to the whole once."""
+        return _Owned.apply(v, self.m == 0, True)
+
+    def to_partial(self, v):
+        """A value every ``"model"`` rank holds alike as a partial sum:
+        itself on ``"model"`` rank 0, zeros elsewhere."""
+        return _Owned.apply(v, self.m == 0, False)
+
+    # -- sums over axes ---------------------------------------------------
+
+    def psum(self, x, axes):
+        """Σ of x over ``axes`` (names), identity backward."""
+        groups = [self.group(a) for a in axes if self.sizes[a] > 1]
+        return _AllReduce.apply(x, groups, False) if groups else x
+
+    def vocab_sum(self, x):
+        return self.psum(x, ("model",))
+
+    def vocab_max(self, x):
+        """Max over ``"model"``, no gradient."""
+        if self.M == 1:
+            return x
+        return _sum_over(x.detach(), [self.group("model")], "max")
+
+    def vocab_offset(self, width: int) -> int:
+        """The first vocabulary row of this rank's block of ``width``."""
+        return self.m * width
+
+    def take(self, x, axes):
+        """This rank's block of dim 0 over ``axes`` (row-major, outermost
+        first); backward: zeros elsewhere."""
+        for a in axes:
+            n = x.shape[0] // self.sizes[a]
+            x = x.narrow(0, self.coords[a] * n, n)
+        return x
+
+    def join(self, x, axes):
+        """``take``'s inverse: the blocks all-gathered, innermost axis
+        first; backward reduce-scatters."""
+        for a in reversed(axes):
+            if self.sizes[a] > 1:
+                x = _AllGather.apply(x, 0, self.group(a))
+        return x

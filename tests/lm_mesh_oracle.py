@@ -40,6 +40,20 @@ CASES = {
                             {"moe_fullgrid": True}),
     "2x2-seamless": ((2, 2), "seamless-m4t-large-v2", "train", {}),
     "2x2-paligemma": ((2, 2), "paligemma-3b", "train", {}),
+    # 4 / 4 heads, layer 0 windowed (16 < SEQ), layer 1 global
+    "2x2-gemma3": ((2, 2), "gemma3-12b", "train",
+                   {"config": {"sliding_window": 16, "global_every": 2}}),
+    # no sequence split between layers: the partial sums are all-reduced
+    "2x2-gemma3-noseq": ((2, 2), "gemma3-12b", "train",
+                         {"config": {"sliding_window": 16, "global_every": 2},
+                          "constrain_acts": False}),
+    # 3 experts: "model" does not divide E, so each expert's d_ff splits
+    "2x2-grok1-e3": ((2, 2), "grok-1-314b", "train",
+                     {"config": {"experts": 3}}),
+    # a batch of 3 the data axes do not divide: the dispatch splits the
+    # flat tokens (3 x SEQ) evenly over them
+    "2x2-llama4-b3": ((2, 2), "llama4-scout-17b-a16e", "train",
+                      {"batch": 3}),
     "2x2-hymba-serve": ((2, 2), "hymba-1.5b", "serve", {}),
     "2x2-hymba-serve-ring": ((2, 2), "hymba-1.5b", "serve", {"ring": True}),
     "2x2-hymba-serve-b1": ((2, 2), "hymba-1.5b", "serve", {"batch": 1}),
@@ -78,6 +92,19 @@ def cap_inputs():
          for k, shape in (("wg", (CAP_D, 16)), ("wi", (CAP_D, 16)),
                           ("wo", (16, CAP_D)))}
     return {"router": router, **w}, x
+
+
+def case_config(get_config, arch, opts):
+    """A case's config: ``arch`` reduced to ``REDUCE``'s widths, with the
+    fields of ``opts["config"]`` replaced (``experts``: the MoE's expert
+    count). ``get_config`` is the reference's or the port's."""
+    import dataclasses
+    cfg = get_config(arch).reduced(**REDUCE)
+    over = dict(opts.get("config", {}))
+    if "experts" in over:
+        over["moe"] = dataclasses.replace(cfg.moe,
+                                          num_experts=over.pop("experts"))
+    return dataclasses.replace(cfg, **over)
 
 
 def _serve_shapes(cfg, opts):
@@ -120,7 +147,7 @@ def _run(name, out_dir):
                    local_aux=np.asarray(loc_aux))
         np.savez(Path(out_dir) / f"{name}.npz", **out)
         return
-    cfg = get_config(arch).reduced(**REDUCE)
+    cfg = case_config(get_config, arch, opts)
     params = jax.jit(registry.init_params, static_argnums=(1,))(
         jax.random.PRNGKey(0), cfg)
     pshape = jax.eval_shape(lambda: params)
@@ -128,13 +155,15 @@ def _run(name, out_dir):
     if kind == "train":
         anchor = jax.tree_util.tree_map(
             lambda v: v * np.float32(ANCHOR_SCALE), params)
-        sc = ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train")
+        sc = ShapeConfig("t", seq_len=SEQ,
+                         global_batch=opts.get("batch", BATCH), kind="train")
         batch = registry.synth_batch(rng, cfg, sc)
         bshape = jax.eval_shape(lambda: batch)
         fed = FedConfig(**FED)
         fn, _ = steps.jit_train_step(
             cfg, fed, mesh, sc, pshape, bshape, donate=False,
             moe_fullgrid=opts.get("moe_fullgrid", False),
+            constrain_acts=opts.get("constrain_acts", True),
             train_kwargs={"dtype": jnp.float32})
         state = {"mom": jax.tree_util.tree_map(jnp.zeros_like, params),
                  "step": jnp.int32(0)}

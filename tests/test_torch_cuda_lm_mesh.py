@@ -3,11 +3,12 @@ rank a card (NCCL), the (2, 2) mesh on four cards, (1, 2) and (2, 1) on
 two, each run bounded by a time limit. Every rank checks, against runs on
 its own card without a mesh:
 
-- Hymba-1.5B at full width (f32 params, bf16 compute, remat), two steps
-  of B 2 x S 2048 through ``jit_train_step``: the losses within the bf16
-  limit of ``tests/test_torch_steps.py`` (3e-4 relative) of
-  ``make_train_step(mesh=None)`` on the whole batch; each step's ms and
-  the card's peak GB;
+- Hymba-1.5B at full width (f32 params, bf16 compute, remat), three
+  steps of B 2 x S 2048 through ``jit_train_step``: the losses within the
+  bf16 limit of ``tests/test_torch_steps.py`` (3e-4 relative) of
+  ``make_train_step(mesh=None)`` on the whole batch; each step's ms, the
+  card's peak GB, the last step's profile (device ms, the ops with the
+  most device and host time);
 - Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position cache
   (its sequence dim split over ``"model"``) prefilled with 64 tokens, 16
   greedy tokens, against the whole batch decoded on one card fed the
@@ -16,7 +17,14 @@ its own card without a mesh:
 - llama4-scout's first 4 layers at dp 2 (the mesh's data axis of 2), B 2
   x S 2048: the CE with ``moe_ctx`` and ``act_pspec`` against a
   per-shard oracle, each data shard's row through the local MoE path
-  (its own capacity), the NLL and label counts summed over the shards.
+  (its own capacity), the NLL and label counts summed over the shards;
+  then the mesh scoring forward on the split path (the train step's
+  layout, ``steps.mesh_split``) from each rank's blocks, through kernel
+  5 and eagerly: on (2, 2) 20 query heads and 4 kv heads a launch, 8
+  experts a rank, the CE within ``SPLIT_CE_RTOL`` of the oracle's;
+- Hymba-1.5B's mesh scoring forward on the split path (its MLP split,
+  attention and SSM gathered), B 2 x S 2048, against the whole batch
+  scored on one card.
 
 With fewer than two cards every test skips. Imports no JAX:
 
@@ -26,6 +34,7 @@ The ranks run this file as a script (``python -m torch.distributed.run
 ... tests/test_torch_cuda_lm_mesh.py OUT_DIR``); rank 0 writes what it
 measured and checked to ``OUT_DIR/lm_mesh.json``.
 """
+import contextlib
 import json
 import math
 import os
@@ -43,9 +52,13 @@ pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
 RUN_LIMIT_S = 900
 BF16_LOSS_RTOL = 3e-4          # tests/test_torch_steps.py's bf16 limit
-TRAIN = (2, 2048, 2)           # B, S, steps
+TRAIN = (2, 2048, 3)           # B, S, steps (the last profiled)
 SERVE = (4, 2048, 64, 16)      # B, cache positions, prompt, tokens
 MOE_LAYERS = 4
+# the split path's CE against one card's (f32): its row-parallel partial
+# sums reduce in another order
+SPLIT_CE_RTOL = 1e-5
+KERNEL_CE_RTOL = 1e-4          # kernel 5 against the eager attend (f32)
 
 
 def _card() -> str:
@@ -94,15 +107,19 @@ def _train(mesh, cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
-    for b in batches:
+    for i, b in enumerate(batches):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        params, state, loss = fn(params, state, anchor, b)
-        t1.record()
-        torch.cuda.synchronize()
+        last = i == len(batches) - 1
+        prof = _profiler() if last else contextlib.nullcontext()
+        with prof:
+            t0.record()
+            params, state, loss = fn(params, state, anchor, b)
+            t1.record()
+            torch.cuda.synchronize()
         ms.append(t0.elapsed_time(t1))
         losses.append(float(loss.to_local()))
     peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = _top_ops(prof)
     del params, state, anchor
     _free()
     step, opt = steps.make_train_step(cfg, fed)
@@ -117,7 +134,29 @@ def _train(mesh, cfg) -> dict:
     return {"losses": losses, "one_card_losses": want,
             "loss_rel_err": err, "ok": err <= BF16_LOSS_RTOL
             and all(math.isfinite(x) for x in losses),
-            "step_ms": ms, "peak_gb": peak}
+            "step_ms": ms, "peak_gb": peak, "last_step_profile": profile}
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _top_ops(prof, n: int = 12) -> dict:
+    """The profiled step's device time in kernels and its ops with the
+    most self device and self host time, ms."""
+    rows = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    top = lambda key: [[e.key, round(key(e), 3), e.count]  # noqa: E731
+                       for e in sorted(rows, key=key, reverse=True)[:n]]
+    return {"device_ms": sum(dev(e) for e in rows),
+            "host_ms": sum(e.self_cpu_time_total for e in rows) / 1e3,
+            "top_device_ms": top(dev),
+            "top_host_ms": top(lambda e: e.self_cpu_time_total / 1e3)}
 
 
 def _serve(mesh, cfg) -> dict:
@@ -169,11 +208,95 @@ def _serve(mesh, cfg) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def _heads_seen():
+    """Wrap the attention's kernel entry to record each launch's query and
+    kv head counts; returns (the list, an undo)."""
+    from repro_torch.kernels import ops
+    seen, entry = [], ops.swa_attention_gqa
+
+    def record(q, k, v, window, causal=True):
+        seen.append((q.shape[2], k.shape[2]))
+        return entry(q, k, v, window, causal)
+    ops.swa_attention_gqa = record
+    return seen, lambda: setattr(ops, "swa_attention_gqa", entry)
+
+
+def _split_scores(mesh, cfg, whole, batch) -> dict:
+    """The mesh scoring forward on the split path (``steps.mesh_split``,
+    the train step's layout) from the rank's blocks of ``whole`` and its
+    rows of ``batch``: the CE through the kernels and eagerly, kernel 5's
+    launches and the heads each launch saw, the rank's block shapes."""
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs as shspecs
+    B, S = batch["tokens"].shape
+    split, ctx = steps.mesh_split(cfg, mesh, S, _shapes(cfg))
+    blocks = {k: v.to_local() for k, v in
+              shspecs.place(mesh, whole, split.specs).items()}
+    rows = {k: v[_rows(mesh, B)] for k, v in batch.items()}
+    out = {"split": repr(split)}
+    with torch.no_grad():
+        seen, undo = _heads_seen()
+        before = swa_attention.swa_attention.launches
+        try:
+            out["ce"] = float(registry.loss_fn(blocks, cfg, rows,
+                                               kernel="cuda", split=split,
+                                               moe_ctx=ctx)[1]["ce"])
+        finally:
+            undo()
+        out["kernel5_launches"] = swa_attention.swa_attention.launches \
+            - before
+        out["kernel5_heads"] = [list(h) for h in sorted(set(seen))]
+        out["ce_eager"] = float(registry.loss_fn(blocks, cfg, rows,
+                                                 split=split,
+                                                 moe_ctx=ctx)[1]["ce"])
+    out["blocks"] = {k: list(blocks[k].shape) for k, v in
+                     split.layout.items() if v is not None}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del blocks
+    _free()
+    return out
+
+
 def _rows(mesh, B: int):
     """This rank's rows of a batch of B split over the data axis."""
     d = mesh.size(0)
     i = mesh.get_coordinate()[0]
     return slice(i * B // d, (i + 1) * B // d)
+
+
+def _score(mesh, cfg) -> dict:
+    """Hymba-1.5B's mesh scoring forward on the split path, B 2 x S 2048
+    (its MLP split over "model"; 25 heads and the SSM mixer gathered):
+    the CE through the kernels within ``SPLIT_CE_RTOL`` of the whole
+    batch scored on one card without a mesh, and of the split path's
+    eager CE within ``KERNEL_CE_RTOL``."""
+    import numpy as np
+    from repro_torch.models import registry
+    from repro_torch.types import ShapeConfig
+    B, S, _ = TRAIN
+    shape = ShapeConfig("score", seq_len=S, global_batch=B, kind="train")
+    batch = registry.synth_batch(np.random.default_rng(3), cfg, shape,
+                                 device="cuda")
+    whole = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(3), cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        want = float(registry.loss_fn(whole, cfg, batch,
+                                      kernel="cuda")[1]["ce"])
+    got = _split_scores(mesh, cfg, whole, batch)
+    del whole
+    _free()
+    got["one_card_ce"] = want
+    got["ce_rel_err"] = abs(got["ce"] - want) / abs(want)
+    got["kernel_vs_eager_rel_err"] = abs(got["ce"] - got["ce_eager"]) \
+        / abs(got["ce_eager"])
+    got["ok"] = got["ce_rel_err"] <= SPLIT_CE_RTOL and \
+        got["kernel_vs_eager_rel_err"] <= KERNEL_CE_RTOL and \
+        got["kernel5_launches"] == cfg.num_layers
+    return got
 
 
 def _moe(mesh) -> dict:
@@ -212,8 +335,26 @@ def _moe(mesh) -> dict:
            "aux": float(met["aux"]), "ok": err <= 1e-6
            and math.isfinite(float(met["aux"])),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del params, hidden
+    del hidden
     _free()
+    # the split path on the rank's blocks: its heads, experts, vocabulary
+    # rows (on (2, 2): 20 query and 4 kv heads, 8 experts a rank)
+    split = _split_scores(mesh, cfg, params, {"tokens": toks,
+                                              "labels": labels})
+    del params
+    _free()
+    M = mesh.size(1)
+    split["ce_rel_err"] = abs(split["ce"] - want) / abs(want)
+    split["kernel_vs_eager_rel_err"] = abs(split["ce"] - split["ce_eager"]) \
+        / abs(split["ce_eager"])
+    split["ok"] = split["ce_rel_err"] <= SPLIT_CE_RTOL and \
+        split["kernel_vs_eager_rel_err"] <= KERNEL_CE_RTOL and \
+        split["kernel5_launches"] == MOE_LAYERS and \
+        split["kernel5_heads"] == [[cfg.num_heads // M,
+                                    cfg.num_kv_heads // M]] and \
+        split["blocks"]["layers/moe/wg"][1] == cfg.moe.num_experts // M
+    out["split"] = split
+    out["ok"] = out["ok"] and split["ok"]
     return out
 
 
@@ -231,6 +372,8 @@ def _rank_main(out_dir: str) -> int:
         mesh = make_mesh(shape, ("data", "model"))
         t0 = time.perf_counter()
         got = {"train": _train(mesh, cfg), "serve": _serve(mesh, cfg)}
+        _free()
+        got["score_split"] = _score(mesh, cfg)
         _free()
         if shape[0] == 2:
             got["moe_dp2"] = _moe(mesh)
@@ -278,6 +421,11 @@ def test_serve_step_over_cards_picks_the_one_card_tokens(run):
 
 def test_moe_loss_at_dp2_matches_the_per_shard_oracle(run):
     got = _all(run, "moe_dp2")
+    assert got and all(r["ok"] for r in got), got
+
+
+def test_split_scoring_forward_matches_one_card(run):
+    got = _all(run, "score_split")
     assert got and all(r["ok"] for r in got), got
 
 

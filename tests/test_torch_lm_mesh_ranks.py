@@ -10,8 +10,12 @@ ranks the (2, 1) and (1, 2) ones, each spawn bounded by its own time
 limit, on the same inputs converted (``params_from_jax``): the port's
 ``jit_train_step`` / ``jit_serve_step`` with reduced Hymba, Mamba2,
 llama4-scout (the MoE dispatch over the data axes, and with
-``moe_fullgrid``), seamless (the encoder-decoder) and paligemma (its
-patch prefix). Train: loss within 1e-5 relative, params within
+``moe_fullgrid``, and a batch of 3 the data axes do not divide),
+seamless (the encoder-decoder), paligemma (its patch prefix and one kv
+head), gemma3 (windowed and global layers) and grok-1 with 3 experts
+(each expert's ``d_ff`` split); the decoder-only families compute on
+each rank's heads, ``d_ff`` columns, experts and vocabulary rows
+(``sharding.compute_layout``). Train: loss within 1e-5 relative, params within
 1e-5 (1 + |ref|). Serve: tokens equal, cache within 1e-5 (1 + |ref|).
 The capacity case shows the port follows the reference's distributed
 dispatch, whose per-shard capacity drops a pick that the local path
@@ -33,8 +37,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from lm_mesh_oracle import (ANCHOR_SCALE, BATCH, CASES, FED, REDUCE,  # noqa: E402
-                            SEQ, SERVE_STEPS, _serve_shapes)
+from lm_mesh_oracle import (ANCHOR_SCALE, BATCH, CASES, FED,  # noqa: E402
+                            SEQ, SERVE_STEPS, _serve_shapes, case_config)
 
 ROOT = Path(__file__).resolve().parents[1]
 ORACLE_LIMIT_S = 300
@@ -82,18 +86,20 @@ def _check(name: str, ref: Path) -> dict:
                 "aux": abs(float(aux) - float(z["dist_aux"])),
                 "local_vs_dist": float(np.max(np.abs(
                     z["local_out"][row] - z["dist_out"][row])))}
-    cfg = get_config(arch).reduced(**REDUCE)
+    cfg = case_config(get_config, arch, opts)
     params = params_from_jax(part("p/"), cfg)
     if kind == "train":
         anchor = params_from_jax(
             {k: v * np.float32(ANCHOR_SCALE) for k, v in part("p/").items()},
             cfg)
         batch = {k: torch.tensor(v) for k, v in part("b/").items()}
-        sc = ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train")
+        sc = ShapeConfig("t", seq_len=SEQ,
+                         global_batch=opts.get("batch", BATCH), kind="train")
         fn, _ = steps.jit_train_step(
             cfg, FedConfig(**FED), mesh, sc, _shapes(cfg),
             registry.batch_spec(cfg, sc), donate=False,
             moe_fullgrid=opts.get("moe_fullgrid", False),
+            constrain_acts=opts.get("constrain_acts", True),
             train_kwargs={"dtype": torch.float32})
         new, state, loss = fn(params, fn.opt.init(params), anchor, batch)
         want = part("out/")
@@ -101,7 +107,10 @@ def _check(name: str, ref: Path) -> dict:
                 / abs(float(z["loss"])),
                 "params": max(_err(new[k].full_tensor(), want[k])
                               for k in want),
-                "step": state["step"]}
+                "step": state["step"],
+                "split": {k: list(v) for k, v in fn.split.layout.items()
+                          if v is not None} if fn.split else {},
+                "seq_split": bool(fn.split and fn.split.seq)}
     B, _, S = _serve_shapes(cfg, opts)
     sc = ShapeConfig("s", seq_len=S, global_batch=B, kind="decode")
     cache = {k: torch.tensor(v) for k, v in part("c/").items()}
@@ -147,6 +156,8 @@ def _spawn(world: int, names: list, ref: Path, out: Path) -> dict:
     for name in names:
         worst[name] = {k: (all(r[name][k] for r in ranks)
                            if isinstance(ranks[0][name][k], bool)
+                           else ranks[0][name][k]
+                           if isinstance(ranks[0][name][k], dict)
                            else max(r[name][k] for r in ranks))
                        for k in ranks[0][name]}
     return worst
@@ -193,6 +204,31 @@ def test_train_step_matches_the_reference(results, name):
     got = results[name]
     assert got["loss"] <= TOL and got["params"] <= TOL, got
     assert got["step"] == 1
+
+
+def test_new_cases_compute_on_the_rank_s_blocks(results):
+    """The dense and the 3-expert MoE cases run the split path: heads,
+    d_ff columns and vocabulary rows on the rank's block, the 3 experts
+    split by their d_ff columns (2 does not divide 3), and llama4's 4
+    experts expert-parallel; Hymba's SSM mixer stays gathered."""
+    gemma = results["2x2-gemma3"]["split"]
+    assert gemma == {"layers/attn/wq": [-1, 1], "layers/attn/wk": [-1, 1],
+                     "layers/attn/wv": [-1, 1], "layers/attn/wo": [-2, 1],
+                     "layers/mlp/wg": [-1, 1], "layers/mlp/wi": [-1, 1],
+                     "layers/mlp/wo": [-2, 1], "embed": [-2, 1]}, gemma
+    grok = results["2x2-grok1-e3"]["split"]
+    assert grok["layers/moe/wi"] == [-1, 1] and \
+        grok["layers/moe/wo"] == [-2, 1], grok
+    for name in ("2x2-llama4", "2x2-llama4-b3"):
+        assert results[name]["split"]["layers/moe/wg"] == [-3, 1]
+    # paligemma's one kv head: both ranks read it, gathered and sliced
+    assert results["2x2-paligemma"]["split"]["layers/attn/wk"] == [-1, 2]
+    assert "layers/ssm/in_proj" not in results["2x2-hymba"]["split"]
+    # between layers the residual is split over "model" on its sequence,
+    # but for the case without act_pspec, whose partial sums all-reduce
+    assert results["2x2-gemma3"]["seq_split"]
+    assert not results["2x2-gemma3-noseq"]["seq_split"]
+    assert results["2x2-gemma3-noseq"]["split"] == gemma
 
 
 @pytest.mark.parametrize("name", _names("serve"))
