@@ -196,8 +196,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``jit_train_step`` against ``make_train_step(mesh=None)``, losses and
     params within ``ENGINE_TOL``, each step's ms and the peak GB; 16
     tokens of ``jit_serve_step`` (B 4, a 2048-position cache, uniform and
-    ring) against the unsharded decode: tokens equal, logits and cache
-    within ``ENGINE_TOL``; the scoring forward under ``act_pspec``
+    ring; then h2o-danube-3-4b at full width, uniform) against the
+    unsharded decode: tokens equal, logits and cache within
+    ``ENGINE_TOL``; the scoring forward under ``act_pspec``
     through kernels 5 and 6 (32 of each counted and on the card by the
     profiler, the hidden and the loss equal to the forward without a
     mesh; the counts go to those kernels' rows); llama4-scout's first 4
@@ -4815,6 +4816,79 @@ LM_MESH_STEPS = 2
 LM_MESH_SERVE = (4, 2048, 64, 16)     # B, cache positions, prompt, tokens
 LM_MESH_REDUCED = ("hymba-1.5b", "mamba2-130m", "llama4-scout-17b-a16e",
                    "seamless-m4t-large-v2", "paligemma-3b")
+# served at full width beside Hymba: every leaf of its layers splits on a
+# "model" axis of 2 or 4 (32 / 8 heads, d_ff 10240, V 32000)
+LM_MESH_SERVE_DENSE = "h2o-danube-3-4b"
+
+
+def _mesh_serve_dense(mesh) -> dict:
+    """``LM_MESH_SERVE_DENSE`` at full width (f32, 15.9 GB) served by
+    ``jit_serve_step`` on ``mesh`` (``LM_MESH_SERVE``: B 4, a
+    2048-position cache, a 64-token prefill, 16 greedy tokens) against
+    ``registry.decode_step`` on a copy of the cache, fed the mesh's
+    tokens: the same picks but for near-ties (``_greedy_ties``), logits
+    and cache within ``ENGINE_TOL``. Each token's wall ms on both; the
+    card's peak GB over the mesh's steps and above what was held before
+    each."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs as shspecs
+    from repro_torch.types import ShapeConfig
+    cfg = get_config(LM_MESH_SERVE_DENSE)
+    SB, SL, SP, ST = LM_MESH_SERVE
+    params = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(4), cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SB, SP)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        first, filled = registry.prefill(
+            params, cfg, {"tokens": prompt},
+            registry.init_cache(cfg, SB, SL, device="cuda"))
+    tok = torch.argmax(first, dim=-1).to(torch.int32)
+    plain = {k: v.clone() for k, v in filled.items()}
+    fn, (s_in, _) = steps.jit_serve_step(
+        cfg, mesh, ShapeConfig("serve", seq_len=SL, global_batch=SB,
+                               kind="decode"), _shapes(cfg), filled)
+    placed = shspecs.place(mesh, params, s_in[0])
+    cache = shspecs.place(mesh, filled, s_in[2])
+    ties, errs, ms, plain_ms, peak, above = 0, [], [], [], 0.0, 0.0
+    for t in range(ST):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        nxt, cache, lg = fn(placed, tok, cache, SP + t, with_logits=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        top = torch.cuda.max_memory_allocated()
+        peak, above = max(peak, top / 1e9), max(above, (top - held) / 1e9)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want, plain = registry.decode_step(params, cfg, tok, plain,
+                                               SP + t)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        tok = nxt.to_local()
+        ties += _greedy_ties(f"{cfg.name} jit_serve_step step {t}", tok,
+                             lg, want)
+        errs.append(float(((lg - want).abs() / (1 + want.abs())).max()))
+    c_err = _max_diff({k: v.to_local() for k, v in cache.items()}, plain)
+    if max(errs) > ENGINE_TOL or c_err > ENGINE_TOL:
+        raise AssertionError(f"{cfg.name} jit_serve_step: logits "
+                             f"{max(errs)}, cache {c_err}")
+    out = {"arch": cfg.name, "batch": SB, "max_len": SL, "prompt": SP,
+           "tokens": ST, "greedy_ties": ties, "logits_rel_err": max(errs),
+           "cache_max_abs_err": c_err, "split": repr(fn.split),
+           "step_wall_ms": ms, "unsharded_step_wall_ms": plain_ms,
+           "peak_gb": peak, "step_peak_above_held_gb": above,
+           "params_gb": sum(v.numel() * v.element_size()
+                            for v in params.values()) / 1e9}
+    _free(params, placed, cache, plain, filled)
+    return out
 
 
 def _mesh_scoring_on_card(events) -> dict:
@@ -4845,7 +4919,10 @@ def phase_lm_mesh(rows: list = ()) -> None:
     (b) Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position
         cache prefilled with 64 tokens, 16 greedy tokens, uniform and
         ring, against ``make_serve_step`` on a copy: tokens equal, logits
-        and cache within ``ENGINE_TOL``;
+        and cache within ``ENGINE_TOL``; then h2o-danube-3-4b at full
+        width the same way against ``registry.decode_step``
+        (``_mesh_serve_dense``: near-ties counted teacher-forced), ms a
+        token and peak GB;
     (c) the Hymba-1.5B scoring forward through kernels 5 and 6 on the
         train step's split path (``steps.mesh_split``; in a world of one
         the rank's blocks are the whole params), B 2 x S 2048 (the main
@@ -5002,6 +5079,9 @@ def phase_lm_mesh(rows: list = ()) -> None:
         line("serve")
         del filled
         _free()
+        # (b') a dense model whose every leaf splits on a "model" axis
+        report["serve_dense"] = _mesh_serve_dense(mesh)
+        line("serve_dense")
 
         # (c) the scoring forward through kernels 5 and 6 on the split
         # path (a world of one: the rank's blocks are the whole params)

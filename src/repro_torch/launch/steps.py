@@ -29,8 +29,9 @@ gathers' backward sums the gradients over the ranks, so they come back
 as the rank's blocks and the proximal term and ``sgd`` act on blocks.
 The encoder-decoder, which the layout leaves whole, gathers the whole
 params for the step and sums its gradients (``reduce_grads``). The serve
-step gathers the whole params and decodes the rank's rows; the decode
-cache's sequence dim stays split over ``"model"`` and its attend
+step decodes the rank's rows on the same layout, one layer's leaves
+gathered at a time, as the reference's scanned decode gathers them; the
+decode cache's sequence dim stays split over ``"model"`` and its attend
 combines across the ranks (``attention.sharded_attend``).
 """
 from __future__ import annotations
@@ -471,15 +472,30 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     cache by ``cache_pspecs`` (the ring layout when ``ring``), ``pos``
     replicated (an int, or the (B,) positions of every row).
 
-    ``fn`` gathers the whole params and decodes the rank's rows (a block
-    over the data axes when the batch is split). A cache entry whose
-    sequence dim is split stays split: the rank owning a row's position
-    writes it, and the attend combines across the ranks (``SeqShard``).
-    An entry split on another dim (an SSM state's heads, a conv state's
-    channels) is gathered to the rank's rows for the step and split back.
-    ``donate``: the cache is written in place, and the DTensors passed in
-    come back. ``fn(..., with_logits=True)`` also returns the rank's
-    rows' logits (plain), for checks.
+    ``fn`` decodes the rank's rows (a block over the data axes when the
+    batch is split) on the rank's stored blocks, laid out as the train
+    step lays them out (``fn.split``, a ``sharding.MeshSplit`` by
+    ``compute_layout``, without a sequence split: a decode has one
+    position a row). Each layer gathers its leaves over the data axes
+    (and over ``"model"`` where the layout keeps a leaf whole) inside the
+    layer loop, as the reference's scanned decode does: no whole param
+    is held. The layer computes on the rank's query heads, ``d_ff``
+    columns and experts, its partial sums all-reduced over ``"model"``;
+    where ``"model"`` splits the vocabulary the embedding looks up the
+    rank's rows and the greedy pick is vocabulary-parallel
+    (``MeshSplit.vocab_argmax``: ``argmax``'s first index over the whole
+    row).
+
+    A cache entry whose sequence dim is split stays split: the rank
+    owning a row's position writes every kv head of it (the new k / v
+    gathered over ``"model"``), and the attend combines every head
+    across the ranks (``SeqShard``), the rank keeping its heads of the
+    output. An entry split on another dim (an SSM state's heads, a conv
+    state's channels) is gathered to the rank's rows for the step and
+    split back. ``donate``: the cache is written in place, and the
+    DTensors passed in come back. ``fn(..., with_logits=True)`` also
+    returns the rank's rows' logits (plain; gathered over ``"model"``
+    on that call where it splits the vocabulary), for checks.
     """
     from torch.distributed.tensor import DTensor
     step_kw = {}
@@ -488,6 +504,9 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
     cspec = shspecs.cache_pspecs(mesh, cfg, cache_shape, shape.global_batch)
     tspec = shspecs.token_pspec(mesh, shape.global_batch)
+    split = shspecs.MeshSplit(
+        mesh, pspec, shspecs.compute_layout(mesh, cfg, params_shape),
+        seq=False)
     in_sh = (pspec, tspec, cspec, P())
     out_sh = (tspec, cspec)
     pl, cpl = shspecs.named(mesh, pspec), shspecs.named(mesh, cspec)
@@ -498,7 +517,7 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
 
     @torch.no_grad()
     def fn(params, token, cache, pos, with_logits: bool = False):
-        whole = {k: _whole(_dtensor(v, mesh, pl[k]))
+        local = {k: _dtensor(v, mesh, pl[k]).to_local()
                  for k, v in params.items()}
         token = _dtensor(token, mesh, tpl)
         tok = token.to_local()
@@ -525,18 +544,26 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
             else:
                 work[k] = v.to_local()
         if ring and cfg.family in lm.FAMILIES:
-            logits, work = lm.decode_step_ring(whole, cfg, tok, work, pos,
-                                               seq_shards=shards)
+            logits, work = lm.decode_step_ring(local, cfg, tok, work, pos,
+                                               seq_shards=shards,
+                                               split=split)
         else:
-            logits, work = registry.decode_step(whole, cfg, tok, work, pos,
-                                                seq_shards=shards, **step_kw)
+            logits, work = registry.decode_step(local, cfg, tok, work, pos,
+                                                seq_shards=shards,
+                                                split=split, **step_kw)
         for k in regather:
             cache[k].to_local().copy_(DTensor.from_local(
                 work[k], mesh, rpl[k], run_check=False).redistribute(
                     mesh, cpl[k]).to_local())
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if split.vocab:
+            nxt = split.vocab_argmax(logits).to(torch.int32)
+            if with_logits:
+                logits = split.vocab_whole(logits)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = DTensor.from_local(nxt, mesh, tpl, run_check=False,
                                  shape=token.shape, stride=token.stride())
         return (nxt, cache, logits) if with_logits else (nxt, cache)
 
+    fn.split = split
     return fn, (in_sh, out_sh)

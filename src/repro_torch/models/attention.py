@@ -23,7 +23,11 @@ Under tensor parallelism (``sharding.MeshSplit``) the projections are a
 rank's blocks: its query heads and the kv heads they read, counted from
 the weights' widths, and the row block of ``wo``, whose output is then a
 partial sum over ``"model"``; the attend and its kernel run on those
-heads alone.
+heads alone. A decode on them (``heads``, a ``sharding.Heads``) keeps
+the cache's layout, every kv head a row: the new k / v are gathered
+over ``"model"`` and written whole, and the rank attends its kv heads'
+block of a whole cache, or, against a sequence-split one, every head
+(the queries gathered too) before keeping its own.
 
 Kernels: ``"cuda"`` runs the hand-written attends (``kernels/ops.py``):
 the causal sliding-window attention of the cache-free scoring forward,
@@ -234,8 +238,21 @@ def positions_like(pos: torch.Tensor) -> torch.Tensor:
     return pos.reshape(-1, 1)
 
 
+def _eager_heads(kernel: str, heads) -> None:
+    if heads is not None and kernel != "eager":
+        raise ValueError("the decode on a rank's heads (tensor parallel) "
+                         "attends eagerly, as the reference's mesh serve "
+                         "step does (kernel='eager')")
+
+
+def _whole_kv(k, v, heads):
+    """The new k / v of every kv head (a cache row holds them all)."""
+    return (k, v) if heads is None else (heads.whole_kv(k),
+                                         heads.whole_kv(v))
+
+
 def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
-                       window: int, kernel: str = "eager"):
+                       window: int, kernel: str = "eager", heads=None):
     """Decode attention against a ring-buffer cache of ``W`` slots.
 
     x: (B, 1, d); ring_k/v: (B, W, KV, D), slot s holding the latest
@@ -246,14 +263,22 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
     ``kernel="cuda"`` runs the attend as the ring kernel
     (``kernels.ops.ring_decode_attend``), which maps slots to positions
     and masks inside the kernel.
+
+    ``heads`` (``sharding.Heads``): ``p`` holds the rank's heads and the
+    ring every kv head (it is replicated over ``"model"``): the new k / v
+    are gathered over ``"model"`` and written whole, then the rank's
+    query heads attend against its kv heads' block of the ring, and the
+    output is a partial sum over ``"model"``. Eager only.
     """
     check_kernel(kernel)
+    _eager_heads(kernel, heads)
     B, Sq, _ = x.shape
     if Sq != 1:
         raise ValueError(f"ring decode takes one token per row, got {Sq}")
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = ring_k.shape[1]
     q, k, v = _qkv(p, x, cfg, positions_like(pos))
+    k, v = _whole_kv(k, v, heads)
     rows, slot = _row_ids(pos), pos % W
     ring_k[rows, slot] = k[:, 0].to(ring_k.dtype)
     ring_v[rows, slot] = v[:, 0].to(ring_v.dtype)
@@ -265,7 +290,9 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
         # absolute position per slot (negative = not yet written -> masked)
         p_col = pos[:, None]
         k_pos = p_col - (p_col - torch.arange(W, device=pos.device)) % W
-        out = gqa_attention(q, ring_k, ring_v, window=window, causal=True,
+        rk, rv = (ring_k, ring_v) if heads is None else (
+            heads.own_kv(ring_k), heads.own_kv(ring_v))
+        out = gqa_attention(q, rk, rv, window=window, causal=True,
                             q_offset=pos, k_positions=k_pos, q_chunk=1)
     return _out_proj(p, out, x), (ring_k, ring_v)
 
@@ -273,7 +300,8 @@ def ring_decode_attend(p, x, *, cfg, ring_k, ring_v, pos: torch.Tensor,
 def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
                  cache=None, cache_index=None, q_chunk: int = 1024,
                  cache_slice_window: int = 0, k_extent: int = 0,
-                 kernel: str = "eager", seq_shard: SeqShard | None = None):
+                 kernel: str = "eager", seq_shard: SeqShard | None = None,
+                 heads=None):
     """One attention layer (params already per-layer, no leading L).
 
     cache: optional {"k": (B, S_max, KV, D), "v": ...}, written in place
@@ -304,18 +332,30 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
     the local keys, masked by window and ``k_len`` (so the window slice
     and the K-extent, which only skip keys those masks zero, are not
     needed). Eager only: the decode kernels read whole caches.
+
+    ``heads`` (decode only; ``sharding.Heads``): ``p`` holds the rank's
+    query heads, the kv heads they read and ``wo``'s rows of them, so the
+    output is a partial sum over ``"model"``. The cache holds every kv
+    head: the new k / v are gathered over ``"model"`` and written whole.
+    Against a sequence-split cache the query heads are gathered too, the
+    attend combines every head across the ranks as above and the rank
+    keeps its heads of the output; against a whole cache the rank's query
+    heads attend its kv heads' block of it. Eager only.
     """
     check_kernel(kernel)
+    _eager_heads(kernel, heads)
     B, Sq, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if seq_shard is not None:
         return _sharded_decode(p, x, q, k, v, cache, cache_index, window,
-                               causal, kernel, seq_shard)
+                               causal, kernel, seq_shard, heads)
     if cache is None:
         out = gqa_attention(q, k, v, window=window, causal=causal,
                             q_chunk=q_chunk, kernel=kernel)
         return _out_proj(p, out, x), None
     ck, cv = cache["k"], cache["v"]
+    k, v = _whole_kv(k, v, heads)
+    own = (lambda c: c) if heads is None else heads.own_kv
     idx = 0 if cache_index is None else cache_index
     if isinstance(idx, torch.Tensor):
         if Sq != 1:
@@ -345,25 +385,29 @@ def attn_forward(p, x, *, cfg, window, positions, causal: bool = True,
         start = torch.clamp(idx + Sq - w_slice, 0, S_max - w_slice)
         take = start[:, None] + torch.arange(w_slice, device=ck.device)
         rows = _row_ids(idx)[:, None]
-        ks, vs = ck[rows, take], cv[rows, take]
+        ks, vs = own(ck[rows, take]), own(cv[rows, take])
         out = gqa_attention(q, ks, vs, window=window, causal=causal,
                             q_offset=idx, k_offset=start, k_len=idx + Sq,
                             q_chunk=q_chunk)
     else:
         ks, vs = (ck[:, :k_extent], cv[:, :k_extent]) if sliced else (ck, cv)
+        ks, vs = own(ks), own(vs)
         out = gqa_attention(q, ks, vs, window=window, causal=causal,
                             q_offset=idx, k_len=idx + Sq, q_chunk=q_chunk)
     return _out_proj(p, out, x), {"k": ck, "v": cv}
 
 
 def _sharded_decode(p, x, q, k, v, cache, idx, window, causal, kernel,
-                    shard: SeqShard):
+                    shard: SeqShard, heads=None):
     """``attn_forward``'s decode against this rank's block of a
     sequence-split cache (see there)."""
     if kernel != "eager" or not isinstance(idx, torch.Tensor) \
             or q.shape[1] != 1:
         raise ValueError("a sequence-split cache decodes one token a row at "
                          "(B,) positions, eagerly (kernel='eager')")
+    k, v = _whole_kv(k, v, heads)
+    if heads is not None:
+        q = heads.whole_q(q)
     ck, cv = cache["k"], cache["v"]
     S = ck.shape[1]
     local = idx.long() - shard.offset
@@ -375,4 +419,6 @@ def _sharded_decode(p, x, q, k, v, cache, idx, window, causal, kernel,
                                      new[:, 0].to(c.dtype), c[rows, local])
     out = sharded_attend(q, ck, cv, shard, window=window, causal=causal,
                          q_offset=idx, k_len=idx + 1)
+    if heads is not None:
+        out = heads.own_q(out)
     return _out_proj(p, out, x), {"k": ck, "v": cv}

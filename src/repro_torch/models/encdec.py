@@ -34,7 +34,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import gqa_attention
 from repro_torch.models.common import (chunked_lm_nll, fan_in_init,
                                        normal_init, rms_norm)
-from repro_torch.models.lm import (_decode_pos, _embed_token, _logits,
+from repro_torch.models.lm import (_decode_layer, _decode_logits,
+                                   _decode_pos, _embed_token, _logits,
                                    _store, batch_ce, layer_params,
                                    lm_head_weight, mesh_of)
 from repro_torch.sharding.specs import gather_rows, shard_rows
@@ -253,18 +254,22 @@ def prefill(params, cfg: ModelConfig, src_embeds, cache,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
-                seq_shards=None):
+                seq_shards=None, split=None):
     """One target-token step. token: (B,) int; pos: (B,) int32 positions
     (or one int for all rows). Returns (logits (B, V), cache), the
     self-attention cache written in place. ``seq_shards``: ``{"k":
     SeqShard, "enc_k": SeqShard}`` for the entries that are this rank's
-    block of a sequence-split cache."""
+    block of a sequence-split cache. ``split`` (a ``sharding.MeshSplit``
+    whose layout keeps every leaf whole: the mesh serve step):
+    ``params`` are the rank's stored blocks, each decoder layer's
+    gathered inside the loop and dropped after it, the embedding, the
+    last norm and the head where they are used."""
     seq_shards = seq_shards or {}
-    x = _embed_token(params, cfg, token, dtype)
+    x = _embed_token(params, cfg, token, dtype, split)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i, "dec_layers")
+        lp = _decode_layer(params, i, split, "dec_layers")
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, ac = attn_mod.attn_forward(
             lp["attn"], h, cfg=cfg, window=0, positions=positions,
@@ -279,5 +284,5 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
         x = x + mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
         for key in ("k", "v"):
             _store(cache, key, i, ac[key])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x[:, 0, :]), cache
+        del lp
+    return _decode_logits(params, cfg, x, split), cache

@@ -34,10 +34,11 @@ rank's stored blocks of the params: each layer gathers its leaves over
 the data axes inside its checkpointed body and computes on the rank's
 heads, ``d_ff`` columns, experts and vocabulary rows, the residual split
 over ``"model"`` on its sequence between layers (``_split_layer``).
-Without ``split`` they take whole params (the serve step gathers them),
-the rank's rows
-of the batch (split over the data axes) and the rank's block of a decode
-cache. ``act_pspec`` (a ``sharding.NamedSpec``) keeps the residual stream
+The serve step's ``split`` does the same for the decode steps, a layer's
+blocks gathered inside the layer loop, on the rank's rows and its block
+of the decode cache. Without ``split`` they take whole params and the
+rank's rows of the batch (split over the data axes). ``act_pspec`` (a
+``sharding.NamedSpec``) keeps the residual stream
 between layers as a DTensor laid out by it (its sequence dim split over
 ``"model"``: sequence parallelism of what ``remat`` stores), and each
 layer gathers the rank's whole rows before it runs, so the attend and
@@ -181,6 +182,39 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 # Layer body — one code path for train / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _run_ssm(cfg: ModelConfig, lp, h, mode: str, cache, seq_lens, kernel):
+    """The layer's SSM mixer: (out, (state, conv state))."""
+    if mode == "decode":
+        return ssm_mod.ssm_decode_step(lp["ssm"], h, cfg.ssm,
+                                       cache["ssm_state"],
+                                       cache["conv_state"], kernel=kernel)
+    return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens,
+                               kernel=kernel if mode == "train" else "eager")
+
+
+def _run_attn(cfg: ModelConfig, lp, h, window: int, positions, mode: str,
+              cache, pos, q_chunk: int, k_extent: int, kernel: str,
+              cache_slice_window: int, seq_shard, heads=None):
+    """The layer's attention: (out, its cache entries or None)."""
+    if mode == "train":
+        return attn_mod.attn_forward(lp["attn"], h, cfg=cfg, window=window,
+                                     positions=positions, q_chunk=q_chunk,
+                                     kernel=kernel)
+    if "k_win" in cache:     # ring-buffer SWA decode
+        a, (rk, rv) = attn_mod.ring_decode_attend(
+            lp["attn"], h, cfg=cfg, ring_k=cache["k_win"],
+            ring_v=cache["v_win"], pos=pos, window=window, kernel=kernel,
+            heads=heads)
+        return a, {"k_win": rk, "v_win": rv}
+    idx = 0 if mode == "prefill" else pos
+    kern = kernel if mode == "decode" else "eager"
+    return attn_mod.attn_forward(
+        lp["attn"], h, cfg=cfg, window=window, positions=positions,
+        cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
+        q_chunk=q_chunk, cache_slice_window=cache_slice_window,
+        k_extent=k_extent, kernel=kern, seq_shard=seq_shard, heads=heads)
+
+
 def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
            cache=None, pos=None, q_chunk: int = 1024, k_extent: int = 0,
            seq_lens=None, kernel: str = "eager",
@@ -207,52 +241,25 @@ def _layer(cfg: ModelConfig, lp, x, window: int, positions, mode: str,
     this rank's block of a sequence-split one.
     """
     train = mode == "train"
-
-    def run_ssm(h):
-        if mode == "decode":
-            return ssm_mod.ssm_decode_step(lp["ssm"], h, cfg.ssm,
-                                           cache["ssm_state"],
-                                           cache["conv_state"],
-                                           kernel=kernel)
-        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens,
-                                   kernel=kernel if train else "eager")
-
-    def run_attn(h):
-        if train:
-            return attn_mod.attn_forward(lp["attn"], h, cfg=cfg,
-                                         window=window, positions=positions,
-                                         q_chunk=q_chunk, kernel=kernel)
-        if "k_win" in cache:     # ring-buffer SWA decode
-            a, (rk, rv) = attn_mod.ring_decode_attend(
-                lp["attn"], h, cfg=cfg, ring_k=cache["k_win"],
-                ring_v=cache["v_win"], pos=pos, window=window,
-                kernel=kernel)
-            return a, {"k_win": rk, "v_win": rv}
-        idx = 0 if mode == "prefill" else pos
-        kern = kernel if mode == "decode" else "eager"
-        return attn_mod.attn_forward(
-            lp["attn"], h, cfg=cfg, window=window, positions=positions,
-            cache={"k": cache["k"], "v": cache["v"]}, cache_index=idx,
-            q_chunk=q_chunk, cache_slice_window=cache_slice_window,
-            k_extent=k_extent, kernel=kern, seq_shard=seq_shard)
-
     aux = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+
     if cfg.family == "ssm":
-        out, (st, cs) = run_ssm(h)
+        out, (st, cs) = _run_ssm(cfg, lp, h, mode, cache, seq_lens, kernel)
         return x + out, aux, None if train else {"ssm_state": st,
                                                  "conv_state": cs}
 
+    a, new_cache = _run_attn(cfg, lp, h, window, positions, mode, cache, pos,
+                             q_chunk, k_extent, kernel, cache_slice_window,
+                             seq_shard)
     if cfg.family == "hybrid":
-        a, ac = run_attn(h)
-        s, (st, cs) = run_ssm(h)
+        s, (st, cs) = _run_ssm(cfg, lp, h, mode, cache, seq_lens, kernel)
         mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
                        + rms_norm(s, lp["branch_norm_ssm"], cfg.norm_eps))
         x = x + mixed.to(x.dtype)
-        new_cache = None if train else {**ac, "ssm_state": st,
-                                        "conv_state": cs}
+        if not train:
+            new_cache = {**new_cache, "ssm_state": st, "conv_state": cs}
     else:
-        a, new_cache = run_attn(h)
         x = x + a
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
@@ -273,48 +280,63 @@ def _store(cache: dict, key: str, j: int, val: torch.Tensor) -> None:
 
 
 def _split_layer(cfg: ModelConfig, lp, x, window: int, positions,
-                 q_chunk: int, kernel: str, moe_ctx, split):
-    """One training / scoring layer under tensor parallelism: ``x`` is the
-    residual in ``split``'s layout, ``lp`` the blocks ``split.layer``
-    gathered. Each sub-block runs on the rank's whole rows (``enter``):
-    attention on its heads and the MLP on its ``d_ff`` columns, leaving
-    as partial sums (``exit_partial``); the leaves gathered over
-    ``"model"`` (the SSM mixer, attention whose heads ``"model"`` does
-    not divide) compute alike on every rank (``exit_replicated``). In
-    the hybrid block a split attention's output is summed
-    (``split.reduce``) before its branch norm. Returns (x, aux)."""
+                 q_chunk: int, kernel: str, moe_ctx, split,
+                 mode: str = "train", cache=None, pos=None,
+                 k_extent: int = 0, cache_slice_window: int = 0,
+                 seq_shard=None):
+    """One layer under tensor parallelism: ``x`` is the residual in
+    ``split``'s layout, ``lp`` the blocks ``split.layer`` gathered. Each
+    sub-block runs on the rank's whole rows (``enter``): attention on its
+    heads and the MLP on its ``d_ff`` columns, leaving as partial sums
+    (``exit_partial``); the leaves gathered over ``"model"`` (the SSM
+    mixer, attention whose heads ``"model"`` does not divide) compute
+    alike on every rank (``exit_replicated``). In the hybrid block a
+    split attention's output is summed (``split.reduce``) before its
+    branch norm. Returns (x, aux, new_cache), as ``_layer``.
+
+    mode 'train' scores or trains; 'decode' (the mesh serve step, one
+    token a row, ``split`` without a sequence split) reads and writes the
+    layer's ``cache`` as ``_layer`` does, the attention on the rank's
+    heads (``sharding.Heads``) and a MoE block on the local dropless path
+    over the rank's experts or ``d_ff`` columns."""
+    train = mode == "train"
     aux = None
     h = rms_norm(split.enter(x), lp["ln1"], cfg.norm_eps)
+    heads = split.heads()
 
     def ssm(h):
-        return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, kernel=kernel)[0]
+        return _run_ssm(cfg, lp, h, mode, cache, None, kernel)
 
     if cfg.family == "ssm":
-        return x + split.exit_replicated(ssm(h)), aux
-    a = attn_mod.attn_forward(lp["attn"], h, cfg=cfg, window=window,
-                              positions=positions, q_chunk=q_chunk,
-                              kernel=kernel)[0]
-    attn_split = split.splits("layers/attn/wq")
+        out, (st, cs) = ssm(h)
+        return x + split.exit_replicated(out), aux, None if train else {
+            "ssm_state": st, "conv_state": cs}
+    a, new_cache = _run_attn(cfg, lp, h, window, positions, mode, cache, pos,
+                             q_chunk, k_extent, kernel, cache_slice_window,
+                             seq_shard, heads)
     if cfg.family == "hybrid":
-        if attn_split:
+        if heads:
             a = split.reduce(a)
+        s, (st, cs) = ssm(h)
         mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
-                       + rms_norm(ssm(h), lp["branch_norm_ssm"],
-                                  cfg.norm_eps))
+                       + rms_norm(s, lp["branch_norm_ssm"], cfg.norm_eps))
         x = x + split.exit_replicated(mixed.to(x.dtype))
+        if not train:
+            new_cache = {**new_cache, "ssm_state": st, "conv_state": cs}
     else:
-        x = x + (split.exit_partial(a) if attn_split
+        x = x + (split.exit_partial(a) if heads
                  else split.exit_replicated(a))
     h2 = rms_norm(split.enter(x), lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg.moe, cfg.act,
-                                     moe_ctx=moe_ctx)
+                                     moe_ctx=moe_ctx, dropless=not train,
+                                     split=split)
         partial = moe_mod.split_partial(split)
     else:
         y = mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
         partial = split.splits("layers/mlp/wi")
     return x + (split.exit_partial(y) if partial
-                else split.exit_replicated(y)), aux
+                else split.exit_replicated(y)), aux, new_cache
 
 
 def _split_embed(params, cfg: ModelConfig, tokens, prefix_embeds, dtype,
@@ -442,7 +464,7 @@ def _split_forward(params, cfg, tokens, prefix_embeds, remat, q_chunk,
 
     def body(x, flat, window):
         return _split_layer(cfg, split.layer(flat), x, window, positions,
-                            q_chunk, kernel, moe_ctx, split)
+                            q_chunk, kernel, moe_ctx, split)[:2]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
@@ -631,7 +653,7 @@ def to_ring_cache(cfg: ModelConfig, cache: dict, pos) -> dict:
 
 
 def decode_step_ring(params, cfg: ModelConfig, token, cache, pos,
-                     dtype=None, seq_shards=None):
+                     dtype=None, seq_shards=None, split=None):
     """One decode step against a ring cache (``to_ring_cache`` /
     ``init_ring_cache``): SWA layers attend against their W-slot rings,
     full-attention layers against their whole buffer. Eager attends, as
@@ -639,7 +661,7 @@ def decode_step_ring(params, cfg: ModelConfig, token, cache, pos,
     ``decode_step_grouped`` with no K-extent. Matches ``decode_step``
     numerically."""
     return decode_step_grouped(params, cfg, token, cache, pos, dtype=dtype,
-                               seq_shards=seq_shards)
+                               seq_shards=seq_shards, split=split)
 
 
 def _kind_runs(cfg: ModelConfig):
@@ -663,14 +685,39 @@ def _decode_pos(pos, batch: int, device) -> torch.Tensor:
     return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
 
 
-def _embed_token(params, cfg, token, dtype):
+def _embed_token(params, cfg, token, dtype, split=None):
+    """(B,) tokens -> (B, 1, d); under ``split`` the vocabulary-row
+    lookup on the rank's block of ``embed``, summed over ``"model"``
+    (``_split_embed``)."""
+    if split is not None:
+        return _split_embed(params, cfg, token[:, None], None, dtype, split)
     x = params["embed"][token][:, None, :]
     return x if dtype is None else x.to(dtype)
 
 
+def _decode_layer(params, i: int, split, stack: str = "layers") -> dict:
+    """Layer ``i``'s params for a decode: views into the stacks, or under
+    ``split`` the rank's blocks gathered for this layer alone."""
+    return layer_params(params, i, stack) if split is None \
+        else split.layer_at(params, i, stack)
+
+
+def _decode_logits(params, cfg, x, split=None) -> torch.Tensor:
+    """The last norm and the head on (B, 1, d): (B, V), or under
+    ``split`` the rank's vocabulary block of it where ``"model"`` splits
+    V (the norm and a head the layout leaves whole gathered)."""
+    if split is None:
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(params, cfg, x[:, 0, :])
+    x = rms_norm(x, split.gather("final_norm", params["final_norm"]),
+                 cfg.norm_eps)[:, 0, :]
+    return torch.matmul(x, _split_head(params, cfg, split).to(x.dtype))
+
+
 def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
                         k_ext: int = 0, dtype=None,
-                        decode_kernel: str = "eager", seq_shards=None):
+                        decode_kernel: str = "eager", seq_shards=None,
+                        split=None):
     """One decode step against an ``init_ring_cache`` layout.
 
     token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
@@ -683,13 +730,14 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
     ``decode_kernel="cuda"`` runs every decode attend and recurrence
     through the hand-written kernels (``kernels/ops.py``).
     ``seq_shards``: ``{"k": SeqShard}`` when the full-attention layers'
-    cache is this rank's block of a sequence-split one.
+    cache is this rank's block of a sequence-split one. ``split``: as in
+    ``decode_step``.
     """
     if cfg.family == "ssm":      # no attention: ring layout == uniform
         return decode_step(params, cfg, token, cache, pos, dtype=dtype,
-                           decode_kernel=decode_kernel)
+                           decode_kernel=decode_kernel, split=split)
     shard = (seq_shards or {}).get("k")
-    x = _embed_token(params, cfg, token, dtype)
+    x = _embed_token(params, cfg, token, dtype, split)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
     wmap = {layer: j for j, layer in enumerate(swa_layer_ids(cfg))}
@@ -706,14 +754,13 @@ def decode_step_grouped(params, cfg: ModelConfig, token, cache, pos,
             if has_ssm:
                 cl["ssm_state"] = cache["ssm_state"][i]
                 cl["conv_state"] = cache["conv_state"][i]
-            x, _, nc = _layer(cfg, layer_params(params, i), x, win,
-                              positions, "decode", cache=cl, pos=pos,
-                              q_chunk=1, k_extent=ext, kernel=decode_kernel,
-                              seq_shard=shard if kind == "full" else None)
+            x, nc = _decode_layer_step(
+                cfg, _decode_layer(params, i, split), x, win, positions, cl,
+                pos, split, k_extent=ext, kernel=decode_kernel,
+                seq_shard=shard if kind == "full" else None)
             for key, val in nc.items():
                 _store(cache, key, j if key in keys else i, val)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x[:, 0, :]), cache
+    return _decode_logits(params, cfg, x, split), cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
@@ -751,9 +798,23 @@ def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
     return _logits(params, cfg, last), cache
 
 
+def _decode_layer_step(cfg, lp, x, window, positions, cache, pos, split,
+                       **kw):
+    """One decode layer, on the rank's blocks under ``split``: (x, the
+    layer's new cache entries)."""
+    if split is None:
+        x, _, nc = _layer(cfg, lp, x, window, positions, "decode",
+                          cache=cache, pos=pos, q_chunk=1, **kw)
+    else:
+        x, _, nc = _split_layer(cfg, lp, x, window, positions, 1,
+                                kw.pop("kernel"), None, split, "decode",
+                                cache=cache, pos=pos, **kw)
+    return x, nc
+
+
 def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
                 unroll: bool = False, window_slice: bool = False,
-                decode_kernel: str = "eager", seq_shards=None):
+                decode_kernel: str = "eager", seq_shards=None, split=None):
     """One autoregressive step against a uniform cache (the oracle).
 
     token: (B,) int; pos: (B,) int32 positions (or one int for all rows).
@@ -768,20 +829,27 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, dtype=None,
     ``seq_shards``: ``{"k": SeqShard}`` when the cache is this rank's
     block of a sequence-split one (its attend then masks by the window
     instead of slicing).
+
+    ``split`` (a ``sharding.MeshSplit`` without a sequence split: the
+    mesh serve step): ``params`` are the rank's stored blocks. Each
+    layer's blocks are gathered inside the loop and dropped after it, as
+    the reference's scanned decode gathers them, and the layer computes
+    on the rank's heads, ``d_ff`` columns and experts (``_split_layer``);
+    the embedding is the vocabulary-row lookup, and the logits returned
+    are the rank's vocabulary block of them where ``"model"`` splits V.
     """
     shard = (seq_shards or {}).get("k")
-    x = _embed_token(params, cfg, token, dtype)
+    x = _embed_token(params, cfg, token, dtype, split)
     pos = _decode_pos(pos, x.shape[0], x.device)
     positions = attn_mod.positions_like(pos)
     for i in range(cfg.num_layers):
         cl = {key: val[i] for key, val in cache.items()}
         w = cfg.window_for_layer(i)
         csw = w if (unroll and window_slice and w > 0) else 0
-        x, _, nc = _layer(cfg, layer_params(params, i), x, w, positions,
-                          "decode", cache=cl, pos=pos, q_chunk=1,
-                          kernel=decode_kernel, cache_slice_window=csw,
-                          seq_shard=shard)
+        x, nc = _decode_layer_step(cfg, _decode_layer(params, i, split), x,
+                                   w, positions, cl, pos, split,
+                                   kernel=decode_kernel,
+                                   cache_slice_window=csw, seq_shard=shard)
         for key, val in nc.items():
             _store(cache, key, i, val)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x[:, 0, :]), cache
+    return _decode_logits(params, cfg, x, split), cache

@@ -36,7 +36,8 @@ buffer holds only their picks, or every expert's ``d_ff`` columns. The
 router runs on every ``"model"`` rank alike; the combine is then a
 partial sum over ``"model"`` (``split_partial``), as the shared
 expert's on its columns, and the aux loss leaves through
-``split.owned``.
+``split.owned``. The mesh serve step's decode takes the local dropless
+path (C = T) on the same blocks (``moe_forward(split=)``).
 """
 from __future__ import annotations
 
@@ -190,6 +191,22 @@ def _join(out, mesh, axes, split):
         sub, [Replicate()] * len(axes)).to_local()
 
 
+def _experts(p, xt, weights, slot, keep, C: int, moe: MoEConfig, act: str,
+             split):
+    """The routed picks of the tokens xt (T, d) through the experts of
+    ``p``: every expert, or under expert parallelism (``split``; ``p``
+    holding E / M of them) this rank's experts' picks only, the rest
+    dropped, so the output is a partial sum over ``"model"``."""
+    T, k = xt.shape[0], moe.top_k
+    E_loc = p["wg"].shape[0]
+    if E_loc != moe.num_experts:     # this rank's experts' picks
+        lo = split.m * E_loc * C
+        keep = keep & (slot >= lo) & (slot < lo + E_loc * C)
+        slot = torch.where(keep, slot - lo, E_loc * C)
+    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E_loc, C)
+    return combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+
+
 def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
     """The distributed dispatch of this rank's tokens xt (T_loc, d):
     (out (T_loc, d), frac, mean_p), the last two averaged over dp."""
@@ -199,7 +216,6 @@ def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
     if not set(data_axes(mesh)) <= set(axes) or not set(axes) <= set(names):
         raise ValueError(f"moe_ctx dp {axes}: must hold the mesh's data "
                          f"axes {data_axes(mesh)} and only axes of {names}")
-    E, k = moe.num_experts, moe.top_k
     sizes = dict(zip(names, mesh.shape))
     n = math.prod(sizes[a] for a in tok)
     if n > 1:
@@ -207,16 +223,9 @@ def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
             raise ValueError(f"{xt.shape[0]} tokens do not split over "
                              f"{tok} ({n} ranks)")
         xt = _take(xt, mesh, tok, split)
-    T = xt.shape[0]
-    C = capacity(T, moe)
+    C = capacity(xt.shape[0], moe)
     weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
-    E_loc = p["wg"].shape[0]
-    if E_loc != E:           # expert parallel: this rank's experts' picks
-        lo = split.m * E_loc * C
-        keep = keep & (slot >= lo) & (slot < lo + E_loc * C)
-        slot = torch.where(keep, slot - lo, E_loc * C)
-    eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E_loc, C)
-    out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+    out = _experts(p, xt, weights, slot, keep, C, moe, act, split)
     if n > 1:
         out = _join(out, mesh, tok, split)
     shards = math.prod(sizes[a] for a in axes)
@@ -229,7 +238,7 @@ def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
 
 
 def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
-                moe_ctx=None, dropless: bool = False):
+                moe_ctx=None, dropless: bool = False, split=None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
 
     ``dropless=True`` (prefill and decode) sizes the capacity at C = T:
@@ -238,20 +247,23 @@ def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
     router logits only, so a batched or padded prefill gives every token
     what it gets alone. Training and scoring (``dropless=False``) drop
     picks past C = ceil(T / E · capacity_factor · k).
+
+    ``split`` (without ``moe_ctx``: the mesh serve step's decode, the
+    local dropless path on the rank's rows): ``p`` holds the rank's
+    experts or each expert's ``d_ff`` columns, as under ``moe_ctx``'s.
     """
     B, S, d = x.shape
     T = B * S
-    E, k = moe.num_experts, moe.top_k
+    E = moe.num_experts
     xt = x.reshape(T, d)
     if moe_ctx is not None:
+        split = moe_ctx.get("split")
         out, frac, mean_p = _sharded(p, xt, moe, act, moe_ctx)
     else:
         C = T if dropless else capacity(T, moe)
         weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
-        eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot, E, C)
-        out = combine(expert_ffn(p, eb, act), slot, keep, weights, T, k)
+        out = _experts(p, xt, weights, slot, keep, C, moe, act, split)
     out = out.reshape(B, S, d)
-    split = None if moe_ctx is None else moe_ctx.get("split")
     if moe.shared_expert:
         dt = x.dtype
         g = torch.matmul(x, p["shared_wg"].to(dt))
@@ -266,6 +278,7 @@ def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
                 shared = split.to_partial(shared)
         out = out + shared
     aux = E * torch.sum(frac * mean_p) * moe.router_aux_weight
-    if split is not None and "model" not in _dp_axes(moe_ctx):
+    if split is not None and (moe_ctx is None
+                              or "model" not in _dp_axes(moe_ctx)):
         aux = split.owned(aux)
     return out, aux

@@ -746,6 +746,39 @@ class MeshSplit:
             node[parts[-1]] = self.gather(k, v)
         return out
 
+    def layer_at(self, params: dict, i: int, stack: str = "layers") -> dict:
+        """Layer ``i``'s blocks of the rank's stored ``params``, gathered
+        by ``layer``: the only slices of the stacks a decode holds beyond
+        the rank's storage, dropped with the layer."""
+        return self.layer({k: v[i] for k, v in params.items()
+                           if k.startswith(stack + "/")}, stack)
+
+    def whole(self, t: torch.Tensor, dim: int, key: str) -> torch.Tensor:
+        """Every ``"model"`` rank's block of ``t`` along ``dim``, blocks
+        as the layout of ``key`` splits that dim, gathered into the whole:
+        a block that several ranks read (``Split.ranks`` > 1) is taken
+        once. No gradient."""
+        s = self.layout[key]
+        g = _gather_along(t, dim, self.group("model"))
+        if s.ranks > 1:
+            n = t.shape[dim]
+            g = g.unflatten(dim, (self.M // s.ranks, s.ranks * n)).narrow(
+                dim + 1, 0, n).flatten(dim, dim + 1)
+        return g
+
+    def own(self, t: torch.Tensor, dim: int, key: str) -> torch.Tensor:
+        """The rank's block of the whole ``t`` along ``dim``, as the layout
+        of ``key`` reads it: ``whole``'s inverse, a view."""
+        s = self.layout[key]
+        n = t.shape[dim] * s.ranks // self.M
+        return t.narrow(dim, (self.m // s.ranks) * n, n)
+
+    def heads(self, stack: str = "layers") -> "Heads | None":
+        """The attention of a layer of ``stack`` on the rank's heads
+        (``Heads``), or None where the layout gathers it whole."""
+        return Heads(self, stack) if self.splits(f"{stack}/attn/wq") \
+            else None
+
     # -- the residual stream ----------------------------------------------
 
     def enter(self, x):
@@ -809,6 +842,27 @@ class MeshSplit:
         """The first vocabulary row of this rank's block of ``width``."""
         return self.m * width
 
+    def vocab_argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """``argmax`` over the last dim of the logits whose vocabulary
+        ``"model"`` splits, ``logits`` this rank's block: each rank's max
+        and first index of it, a MAX all-reduce of the maxima, and among
+        the ranks that hold the max the lowest global index (a MIN
+        all-reduce): ``argmax``'s first-index rule over the whole row.
+        int64, the same on every ``"model"`` rank."""
+        V = logits.shape[-1]
+        idx = logits.argmax(dim=-1)
+        top = logits.gather(-1, idx[..., None])[..., 0]
+        groups = [self.group("model")]
+        best = _sum_over(top, groups, "max")
+        cand = torch.where(top == best, idx + self.vocab_offset(V),
+                           V * self.M)
+        return _sum_over(cand, groups, "min")
+
+    def vocab_whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every ``"model"`` rank's vocabulary block of ``logits`` (its
+        last dim) gathered into the whole rows."""
+        return _gather_along(logits, logits.dim() - 1, self.group("model"))
+
     def take(self, x, axes):
         """This rank's block of dim 0 over ``axes`` (row-major, outermost
         first); backward: zeros elsewhere."""
@@ -824,3 +878,26 @@ class MeshSplit:
             if self.sizes[a] > 1:
                 x = _AllGather.apply(x, 0, self.group(a))
         return x
+
+
+class Heads(NamedTuple):
+    """A decode's attention on the rank's heads (``MeshSplit.heads``):
+    q (B, S, H / M, hd) and k, v (B, S, KV_rank, hd) come from the rank's
+    ``wq`` / ``wk`` / ``wv`` columns. ``whole_q`` / ``whole_kv`` gather
+    every rank's heads over ``"model"`` (a cache's row holds every kv
+    head); ``own_q`` / ``own_kv`` keep the rank's heads of whole ones (a
+    view of a cache, an attend's output)."""
+    split: MeshSplit
+    stack: str
+
+    def whole_q(self, t):
+        return self.split.whole(t, 2, f"{self.stack}/attn/wq")
+
+    def whole_kv(self, t):
+        return self.split.whole(t, 2, f"{self.stack}/attn/wk")
+
+    def own_q(self, t):
+        return self.split.own(t, 2, f"{self.stack}/attn/wq")
+
+    def own_kv(self, t):
+        return self.split.own(t, 2, f"{self.stack}/attn/wk")

@@ -25,6 +25,7 @@ from pathlib import Path
 SEQ = 32               # train: B x SEQ tokens (a VLM's SEQ holds its prefix)
 BATCH = 4
 PROMPT = 8             # serve: prompt tokens before the decode steps
+                       # (a case's "prompt" option replaces it)
 SERVE_STEPS = 4
 MAX_LEN = 24           # serve: the cache's positions after the prefix
 FED = dict(lr=0.05, prox_theta=0.01)
@@ -61,6 +62,20 @@ CASES = {
     "2x2-llama4-serve": ((2, 2), "llama4-scout-17b-a16e", "serve", {}),
     "2x2-seamless-serve": ((2, 2), "seamless-m4t-large-v2", "serve", {}),
     "2x2-paligemma-serve": ((2, 2), "paligemma-3b", "serve", {}),
+    # the serve step on the rank's heads, d_ff columns and vocabulary
+    # rows: windowed and global layers, the window (16) inside the 18
+    # prompt tokens
+    "2x2-gemma3-serve": ((2, 2), "gemma3-12b", "serve",
+                         {"config": {"sliding_window": 16, "global_every": 2},
+                          "prompt": 18}),
+    # 3 experts: each expert's d_ff columns on the decode's local path
+    "2x2-grok1-e3-serve": ((2, 2), "grok-1-314b", "serve",
+                           {"config": {"experts": 3}}),
+    # batch 1: the cache's sequence over ("data", "model")
+    "2x2-gemma3-serve-b1": ((2, 2), "gemma3-12b", "serve",
+                            {"config": {"sliding_window": 16,
+                                        "global_every": 2},
+                             "prompt": 18, "batch": 1}),
     "2x1-hymba": ((2, 1), "hymba-1.5b", "train", {}),
     "1x2-hymba": ((1, 2), "hymba-1.5b", "train", {}),
     "2x1-llama4": ((2, 1), "llama4-scout-17b-a16e", "train", {}),
@@ -108,10 +123,11 @@ def case_config(get_config, arch, opts):
 
 
 def _serve_shapes(cfg, opts):
-    B = opts.get("batch", BATCH)
+    """A serve case's (batch, prompt tokens, cache positions)."""
+    B, P = opts.get("batch", BATCH), opts.get("prompt", PROMPT)
     if cfg.is_encdec:
-        return B, PROMPT, MAX_LEN
-    return B, PROMPT, cfg.prefix_len + MAX_LEN
+        return B, P, MAX_LEN
+    return B, P, cfg.prefix_len + MAX_LEN
 
 
 def _run(name, out_dir):

@@ -9,11 +9,16 @@ its own card without a mesh:
   ``make_train_step(mesh=None)`` on the whole batch; each step's ms, the
   card's peak GB, the last step's profile (device ms, the ops with the
   most device and host time);
-- Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position cache
+- Hymba-1.5B and h2o-danube-3-4b served by ``jit_serve_step`` on the
+  rank's blocks, a layer gathered at a time: B 4, a 2048-position cache
   (its sequence dim split over ``"model"``) prefilled with 64 tokens, 16
   greedy tokens, against the whole batch decoded on one card fed the
   same tokens: the same picks but for near-ties within the two decodes'
   difference (counted, as ``chip_smoke.py``'s ``lm_families`` does);
+  each token's wall ms and the peak GB a card, h2o's beside the same
+  steps with every leaf gathered over ``"model"`` (``compute_layout``
+  patched in the ranks: on (2, 2) h2o splits every leaf, Hymba only its
+  MLP, its 25 heads and SSM mixer gathered);
 - llama4-scout's first 4 layers at dp 2 (the mesh's data axis of 2), B 2
   x S 2048: the CE with ``moe_ctx`` and ``act_pspec`` against a
   per-shard oracle, each data shard's row through the local MoE path
@@ -54,6 +59,8 @@ RUN_LIMIT_S = 900
 BF16_LOSS_RTOL = 3e-4          # tests/test_torch_steps.py's bf16 limit
 TRAIN = (2, 2048, 3)           # B, S, steps (the last profiled)
 SERVE = (4, 2048, 64, 16)      # B, cache positions, prompt, tokens
+# served beside Hymba: every leaf of its layers splits over "model"
+SERVE_DENSE = "h2o-danube-3-4b"
 MOE_LAYERS = 4
 # the split path's CE against one card's (f32): its row-parallel partial
 # sums reduce in another order
@@ -159,7 +166,28 @@ def _top_ops(prof, n: int = 12) -> dict:
             "top_host_ms": top(lambda e: e.self_cpu_time_total / 1e3)}
 
 
-def _serve(mesh, cfg) -> dict:
+@contextlib.contextmanager
+def _all_gathered():
+    """``compute_layout`` with every leaf gathered over ``"model"`` while
+    inside: the serve step's comparison layout."""
+    from repro_torch.sharding import specs as shspecs
+    layout = shspecs.compute_layout
+    shspecs.compute_layout = lambda mesh, cfg, params, moe_fullgrid=False: \
+        {k: None for k in params}
+    try:
+        yield
+    finally:
+        shspecs.compute_layout = layout
+
+
+def _serve(mesh, cfg, gathered: bool = False) -> dict:
+    """``cfg`` at full width (f32) served by ``jit_serve_step`` on
+    ``mesh`` (``SERVE``), the whole params freed before the mesh's steps:
+    each token's wall ms and the card's peak GB over them. With
+    ``gathered`` the same steps again with every leaf gathered over
+    ``"model"`` (``_all_gathered``). Then the whole batch decoded on this
+    card alone, fed the mesh's tokens: the same picks but for near-ties
+    within the two decodes' difference (counted)."""
     import numpy as np
     from repro_torch.checkpoint.convert import _shapes
     from repro_torch.launch import steps
@@ -167,33 +195,57 @@ def _serve(mesh, cfg) -> dict:
     from repro_torch.sharding import specs as shspecs
     from repro_torch.types import ShapeConfig
     B, L, P, T = SERVE
-    params = registry.init_params(
-        torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+
+    def init():
+        return registry.init_params(
+            torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    params = init()
     prompt = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
     with torch.no_grad():
         logits, cache = registry.prefill(
             params, cfg, {"tokens": prompt},
             registry.init_cache(cfg, B, L, device="cuda"))
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    plain = {k: v.clone() for k, v in cache.items()}
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
     shape = ShapeConfig("serve", seq_len=L, global_batch=B, kind="decode")
     fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, shape, _shapes(cfg),
                                           cache)
+    fns = {"split": fn}
+    if gathered:
+        with _all_gathered():
+            fns["gathered"] = steps.jit_serve_step(cfg, mesh, shape,
+                                                   _shapes(cfg), cache)[0]
     placed = shspecs.place(mesh, params, in_sh[0])
-    cache = shspecs.place(mesh, cache, in_sh[2])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ties, errs, ms = 0, [], []
+    del params, logits
+    _free()
+    out = {}
+    for name, fn in fns.items():
+        c = shspecs.place(mesh, {k: v.clone() for k, v in cache.items()},
+                          in_sh[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tok, picks, lks, ms = first, [], [], []
+        for t in range(T):
+            t0 = time.perf_counter()
+            nxt, c, lk = fn(placed, tok, c, P + t, with_logits=True)
+            tok = nxt.full_tensor()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            picks.append(tok)
+            lks.append(lk)
+        out[name] = {"split": repr(fn.split), "step_wall_ms": ms,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "picks": picks, "logits": lks}
+        del c
+    del placed
+    _free()
+    params, plain = init(), cache
+    rows = _rows(mesh, B)
+    ties, errs, tok = 0, [], first
     for t in range(T):
-        t0 = time.perf_counter()
-        nxt, cache, lk = fn(placed, tok, cache, P + t, with_logits=True)
-        picks = nxt.full_tensor()
-        ms.append((time.perf_counter() - t0) * 1e3)
         with torch.no_grad():
             le, plain = registry.decode_step(params, cfg, tok, plain, P + t)
-        rows = _rows(mesh, B)
         le = le[rows]
+        lk, picks = out["split"]["logits"][t], out["split"]["picks"][t]
         diff = (lk - le).abs().max(dim=-1).values
         gap = le.max(dim=-1).values - le.gather(
             -1, picks[rows].long()[:, None])[:, 0]
@@ -203,9 +255,18 @@ def _serve(mesh, cfg) -> dict:
         ties += int(off.sum())
         errs.append(float(((lk - le).abs() / (1 + le.abs())).max()))
         tok = picks
-    return {"ok": True, "tokens": T, "greedy_ties": ties,
-            "logits_rel_err": max(errs), "step_wall_ms": ms,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, plain
+    _free()
+    got = {"ok": True, "arch": cfg.name, "tokens": T, "greedy_ties": ties,
+           "logits_rel_err": max(errs)}
+    for name, run in out.items():
+        got[name] = {k: run[k] for k in ("split", "step_wall_ms",
+                                          "peak_gb")}
+    if gathered:
+        got["gathered"]["picks_equal_split"] = all(
+            torch.equal(a, b) for a, b in zip(out["split"]["picks"],
+                                              out["gathered"]["picks"]))
+    return got
 
 
 def _heads_seen():
@@ -373,6 +434,9 @@ def _rank_main(out_dir: str) -> int:
         t0 = time.perf_counter()
         got = {"train": _train(mesh, cfg), "serve": _serve(mesh, cfg)}
         _free()
+        got["serve_dense"] = _serve(mesh, get_config(SERVE_DENSE),
+                                    gathered=True)
+        _free()
         got["score_split"] = _score(mesh, cfg)
         _free()
         if shape[0] == 2:
@@ -415,7 +479,7 @@ def test_train_step_over_cards_matches_one_card(run):
 
 
 def test_serve_step_over_cards_picks_the_one_card_tokens(run):
-    got = _all(run, "serve")
+    got = _all(run, "serve") + _all(run, "serve_dense")
     assert got and all(r["ok"] for r in got), got
 
 

@@ -108,8 +108,7 @@ def _check(name: str, ref: Path) -> dict:
                 "params": max(_err(new[k].full_tensor(), want[k])
                               for k in want),
                 "step": state["step"],
-                "split": {k: list(v) for k, v in fn.split.layout.items()
-                          if v is not None} if fn.split else {},
+                "split": _layout(fn.split) if fn.split else {},
                 "seq_split": bool(fn.split and fn.split.seq)}
     B, _, S = _serve_shapes(cfg, opts)
     sc = ShapeConfig("s", seq_len=S, global_batch=B, kind="decode")
@@ -124,7 +123,13 @@ def _check(name: str, ref: Path) -> dict:
     return {"tokens_equal": bool(np.array_equal(np.stack(picked),
                                                 z["tokens"])),
             "cache": max(_err(cache[k].full_tensor(), want[k])
-                         for k in want)}
+                         for k in want),
+            "split": _layout(fn.split)}
+
+
+def _layout(split) -> dict:
+    """The leaves a step computes on the rank's block of, as lists."""
+    return {k: list(v) for k, v in split.layout.items() if v is not None}
 
 
 def _rank(rank: int, world: int, store: str, ref: str, names: list,
@@ -235,6 +240,31 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
 def test_serve_step_matches_the_reference(results, name):
     got = results[name]
     assert got["tokens_equal"] and got["cache"] <= TOL, got
+
+
+def test_serve_cases_decode_on_the_rank_s_blocks(results):
+    """The serve step splits the leaves the train step splits: gemma3's
+    heads, d_ff columns and vocabulary rows (uniform, and at batch 1 with
+    the cache over ("data", "model")), grok-1's 3 experts by their d_ff
+    columns, llama4's experts expert-parallel, paligemma's one kv head
+    read by both ranks; Hymba's reduced 4 heads split, its SSM mixer
+    gathered; Mamba2's SSM mixers are gathered a layer at a time beside
+    its vocabulary rows, and the encoder-decoder gathers every leaf."""
+    gemma = results["2x2-gemma3"]["split"]
+    assert results["2x2-gemma3-serve"]["split"] == gemma
+    assert results["2x2-gemma3-serve-b1"]["split"] == gemma
+    assert results["2x2-grok1-e3-serve"]["split"] == \
+        results["2x2-grok1-e3"]["split"]
+    assert results["2x2-llama4-serve"]["split"]["layers/moe/wg"] == [-3, 1]
+    assert results["2x2-paligemma-serve"]["split"]["layers/attn/wk"] == \
+        [-1, 2]
+    for name in ("2x2-hymba-serve", "2x2-hymba-serve-ring",
+                 "2x2-hymba-serve-b1"):
+        assert results[name]["split"] == results["2x2-hymba"]["split"]
+        assert results[name]["split"]["layers/attn/wq"] == [-1, 1]
+    assert results["2x2-mamba2-serve"]["split"] == \
+        results["2x2-mamba2"]["split"] == {"embed": [-2, 1]}
+    assert results["2x2-seamless-serve"]["split"] == {}
 
 
 def test_moe_follows_the_distributed_capacity(results):
