@@ -3289,6 +3289,12 @@ SPLIT_GQA = {"gemma3-12b": ((2, 4096, 1, 1, 240), 1024),
              "internlm2-20b": ((2, 4096, 3, 1, 128), 4096)}
 HYMBA_SWA = (SCORE_B * 25, SCORE_S, 64)
 HYMBA_SCAN = (SCORE_B, SCORE_S, 50, 64, 16, 128)
+# kernel 6 on one rank's SSD heads under tensor parallelism on a "model"
+# axis of 2 (sharding.compute_layout): Hymba-1.5B's 25 of 50 heads and
+# Mamba2-130M's 12 of 24, B 2 x S 2048 at each config's chunk.
+# {arch: (B, S, H, P, N, chunk)}
+SPLIT_SCAN = {"hymba-1.5b": (SCORE_B, SCORE_S, 25, 64, 16, 128),
+              "mamba2-130m": (SCORE_B, SCORE_S, 12, 64, 128, 256)}
 # the reference's sweep (tests/test_kernels.py), Hymba's and Mamba2-130m's
 # shape (N = 128 with P = 64: the kernel takes 64 rows at a time)
 SCAN_SHAPES = ((128, 2, 32, 16, 32), (256, 3, 64, 16, 64),
@@ -3533,21 +3539,20 @@ def _time_scoring_kernels(worst: dict) -> list:
     args = _scan_inputs(B, S_, H, P, N, "f32", seed=3)
     row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
                        lambda: ref.ssd_scan_ref(*args, chunk))
-    # the three passes are three distinct kernels, three launches a call
-    if row["dropped_launches"] or row["distinct_kernels"] != 3 \
-            or row["kernels_per_call"] != 3:
-        raise AssertionError(
-            f"ssd_scan launched {row['distinct_kernels']} distinct kernels, "
-            f"{row['kernels_per_call']} a call ({row['dropped_launches']} "
-            "launches lost by the trace), not its three passes")
+    _three_passes("ssd_scan", row)
+    bound = _scan_bound(args[0], N)
+    del args
+    # the rank-head shapes first: their errors count in the row's
+    split_scan = _time_split_scan(worst)
     out.append({"name": "ssd_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:100",
                 "shape": {"B_S_H_P_N": HYMBA_SCAN[:5], "chunk": chunk,
                           "dtype": "float32",
                           "block_chunk": tscan.BLOCK_CHUNK},
-                "max_abs_err": worst["scan"], **row,
-                **_scan_bound(args[0], N), "library_ms": None})
+                "max_abs_err": worst["scan"], **row, **bound,
+                "library_ms": None,
+                "rank_heads_on_model_2": split_scan})
     for k_ in out:
         print(json.dumps({"phase": "scoring_kernel_time", **k_}))
     return out
@@ -3579,6 +3584,75 @@ def _time_split_scoring(worst: dict) -> dict:
                           "name": "swa_attention", "arch": arch,
                           "rank_heads_on_model_16": out[arch]}))
         del q, k, v, folded
+    return out
+
+
+def _three_passes(name: str, row: dict) -> None:
+    """Fails unless a whole trace of the 50 calls saw the scan's three
+    passes, three distinct kernels, three launches a call."""
+    if row["dropped_launches"] or row["distinct_kernels"] != 3 \
+            or row["kernels_per_call"] != 3:
+        raise AssertionError(
+            f"{name} launched {row['distinct_kernels']} distinct kernels, "
+            f"{row['kernels_per_call']} a call ({row['dropped_launches']} "
+            "launches lost by the trace), not its three passes")
+
+
+def _scan_f64(x, dt, A, Bm, Cm):
+    """The O(S) SSD recurrence (``ref.ssd_sequential_ref``'s) in f64:
+    (y, final state), the truth the f32 scans' groupings are measured
+    against."""
+    import torch
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1],
+                    dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(dt[:, t] * A)[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _time_split_scan(worst: dict) -> dict:
+    """Kernel 6 at each ``SPLIT_SCAN`` shape (a rank's SSD heads on a
+    "model" axis of 2), f32: held against its plain version at the
+    kernels' own 64-row chunk, the grouping of sums the kernels compute
+    (at Mamba2's 256-row chunk the plain version's f32 cumsum of dt·A
+    alone is ~1e-4 (1 + |y|) off the f64 recurrence: ``vs_f64`` gives the
+    kernel's, the plain version's at the model's chunk and at 64 rows),
+    timed beside the plain version at the model's chunk (the eager
+    path's), its bounds. {arch: row}."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as tscan
+    out = {}
+    for arch, (B, S, H, P, N, chunk) in SPLIT_SCAN.items():
+        args = _scan_inputs(B, S, H, P, N, "f32", seed=17)
+        y, h = ops.ssd_scan(*args, chunk=chunk)
+        y_ref, h_ref = ref.ssd_scan_ref(*args, tscan.BLOCK_CHUNK)
+        what = f"scan rank heads {arch} {(B, S, H, P, N, chunk)}"
+        err = max(_check_close(what + " y", y, y_ref, SCORE_TOL["f32"]),
+                  _check_close(what + " state", h, h_ref, SCORE_TOL["f32"]))
+        worst["scan"] = max(worst["scan"], err)
+        truth = dict(zip(("y", "state"), _scan_f64(*args)))
+        runs = {"kernel": (y, h),
+                "plain_model_chunk": ref.ssd_scan_ref(*args, chunk),
+                "plain_kernel_chunk": (y_ref, h_ref)}
+        vs_f64 = {name: {k: _rel_err({k: t.double()}, {k: truth[k]})
+                         for k, t in zip(("y", "state"), run)}
+                  for name, run in runs.items()}
+        del y, h, y_ref, h_ref, truth, runs
+        row = _time_kernel(lambda: ops.ssd_scan(*args, chunk=chunk),
+                           lambda: ref.ssd_scan_ref(*args, chunk))
+        _three_passes(f"ssd_scan {arch} rank heads {(B, S, H, P, N)}", row)
+        out[arch] = {"B_S_H_P_N": (B, S, H, P, N), "chunk": chunk,
+                     "dtype": "float32", "max_abs_err": err,
+                     "plain_chunk_held_against": tscan.BLOCK_CHUNK,
+                     "vs_f64": vs_f64, **row, **_scan_bound(args[0], N),
+                     "library_ms": None}
+        print(json.dumps({"phase": "scoring_kernel_time", "name": "ssd_scan",
+                          "arch": arch, "rank_heads_on_model_2": out[arch]}))
+        del args
     return out
 
 

@@ -20,13 +20,15 @@ The train step computes on each rank's stored blocks, laid out by
 sequence parallelism at the reference's ``act_pspec``): the data axes
 split the batch, each rank running its rows, and ``"model"`` splits the
 layers' compute, each rank running its query heads (and the kv heads
-they read), its ``d_ff`` columns, its experts and its vocabulary rows,
-the residual split over ``"model"`` on its sequence between layers. Each
-layer gathers its leaves over the data axes inside its checkpointed body
-(and over ``"model"`` where the layout keeps a leaf whole: the SSM
-mixers, attention whose heads ``"model"`` does not divide). The
-gathers' backward sums the gradients over the ranks, so they come back
-as the rank's blocks and the proximal term and ``sgd`` act on blocks.
+they read), its SSD heads, its ``d_ff`` columns, its experts and its
+vocabulary rows, the residual split over ``"model"`` on its sequence
+between layers. Each layer gathers its leaves over the data axes inside
+its checkpointed body (and over ``"model"`` where the layout keeps a
+leaf whole, as attention whose heads ``"model"`` does not divide, or
+reads the rank's SSD heads' columns of it, as the SSM mixer's
+``in_proj``). The gathers' backward sums the gradients over the ranks,
+so they come back as the rank's blocks and the proximal term and
+``sgd`` act on blocks.
 The encoder-decoder, which the layout leaves whole, gathers the whole
 params for the step and sums its gradients (``reduce_grads``). The serve
 step decodes the rank's rows on the same layout, one layer's leaves
@@ -479,8 +481,9 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     position a row). Each layer gathers its leaves over the data axes
     (and over ``"model"`` where the layout keeps a leaf whole) inside the
     layer loop, as the reference's scanned decode does: no whole param
-    is held. The layer computes on the rank's query heads, ``d_ff``
-    columns and experts, its partial sums all-reduced over ``"model"``;
+    is held. The layer computes on the rank's query heads, SSD heads,
+    ``d_ff`` columns and experts, its partial sums all-reduced over
+    ``"model"``;
     where ``"model"`` splits the vocabulary the embedding looks up the
     rank's rows and the greedy pick is vocabulary-parallel
     (``MeshSplit.vocab_argmax``: ``argmax``'s first index over the whole
@@ -490,10 +493,14 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     owning a row's position writes every kv head of it (the new k / v
     gathered over ``"model"``), and the attend combines every head
     across the ranks (``SeqShard``), the rank keeping its heads of the
-    output. An entry split on another dim (an SSM state's heads, a conv
-    state's channels) is gathered to the rank's rows for the step and
-    split back. ``donate``: the cache is written in place, and the
-    DTensors passed in come back. ``fn(..., with_logits=True)`` also
+    output. The SSM state, split over ``"model"`` by its heads, is
+    decoded in place on the rank's heads where the layout splits the
+    mixer (``MeshSplit.ssm_heads``); the conv state is whole on every
+    rank, each reading its channels and writing the new row's whole. An
+    entry split on another dim (a conv state's channels at batch 1, an
+    SSM state the layout gathers) is gathered to the rank's rows for the
+    step and split back. ``donate``: the cache is written in place, and
+    the DTensors passed in come back. ``fn(..., with_logits=True)`` also
     returns the rank's rows' logits (plain; gathered over ``"model"``
     on that call where it splits the vocabulary), for checks.
     """
@@ -507,6 +514,9 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     split = shspecs.MeshSplit(
         mesh, pspec, shspecs.compute_layout(mesh, cfg, params_shape),
         seq=False)
+    # the SSM state decoded in place on the rank's heads, which the cache
+    # stores (both under the guard that "model" divides the heads)
+    own_state = split.ssm_heads() is not None
     in_sh = (pspec, tspec, cspec, P())
     out_sh = (tspec, cspec)
     pl, cpl = shspecs.named(mesh, pspec), shspecs.named(mesh, cspec)
@@ -538,7 +548,7 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                 if sh is not None:
                     shards[seq] = sh
                 work[k] = v.to_local()
-            elif cpl[k] != rpl[k]:
+            elif cpl[k] != rpl[k] and not (k == "ssm_state" and own_state):
                 work[k] = v.redistribute(mesh, rpl[k]).to_local()
                 regather.append(k)
             else:

@@ -32,8 +32,9 @@ rank's own tensors. The train step's and the mesh forward's ``split`` (a
 ``sharding.MeshSplit``) hands ``forward_hidden`` and ``loss_fn`` the
 rank's stored blocks of the params: each layer gathers its leaves over
 the data axes inside its checkpointed body and computes on the rank's
-heads, ``d_ff`` columns, experts and vocabulary rows, the residual split
-over ``"model"`` on its sequence between layers (``_split_layer``).
+heads, SSD heads, ``d_ff`` columns, experts and vocabulary rows, the
+residual split over ``"model"`` on its sequence between layers
+(``_split_layer``).
 The serve step's ``split`` does the same for the decode steps, a layer's
 blocks gathered inside the layer loop, on the rank's rows and its block
 of the decode cache. Without ``split`` they take whole params and the
@@ -182,14 +183,19 @@ def lm_head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 # Layer body — one code path for train / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _run_ssm(cfg: ModelConfig, lp, h, mode: str, cache, seq_lens, kernel):
-    """The layer's SSM mixer: (out, (state, conv state))."""
+def _run_ssm(cfg: ModelConfig, lp, h, mode: str, cache, seq_lens, kernel,
+             heads=None):
+    """The layer's SSM mixer: (out, (state, conv state)); under ``heads``
+    (a ``sharding.SSMHeads``) on the rank's SSD heads, ``out`` a partial
+    sum."""
     if mode == "decode":
         return ssm_mod.ssm_decode_step(lp["ssm"], h, cfg.ssm,
                                        cache["ssm_state"],
-                                       cache["conv_state"], kernel=kernel)
+                                       cache["conv_state"], kernel=kernel,
+                                       heads=heads)
     return ssm_mod.ssm_forward(lp["ssm"], h, cfg.ssm, seq_lens=seq_lens,
-                               kernel=kernel if mode == "train" else "eager")
+                               kernel=kernel if mode == "train" else "eager",
+                               heads=heads)
 
 
 def _run_attn(cfg: ModelConfig, lp, h, window: int, positions, mode: str,
@@ -287,30 +293,35 @@ def _split_layer(cfg: ModelConfig, lp, x, window: int, positions,
     """One layer under tensor parallelism: ``x`` is the residual in
     ``split``'s layout, ``lp`` the blocks ``split.layer`` gathered. Each
     sub-block runs on the rank's whole rows (``enter``): attention on its
-    heads and the MLP on its ``d_ff`` columns, leaving as partial sums
-    (``exit_partial``); the leaves gathered over ``"model"`` (the SSM
-    mixer, attention whose heads ``"model"`` does not divide) compute
-    alike on every rank (``exit_replicated``). In the hybrid block a
-    split attention's output is summed (``split.reduce``) before its
-    branch norm. Returns (x, aux, new_cache), as ``_layer``.
+    heads, the SSM mixer on its SSD heads (``sharding.SSMHeads``) and the
+    MLP on its ``d_ff`` columns, leaving as partial sums
+    (``exit_partial``); the leaves gathered over ``"model"`` (a mixer or
+    attention whose heads ``"model"`` does not divide) compute alike on
+    every rank (``exit_replicated``). In the hybrid block a split
+    branch's output is summed (``split.reduce``) before its branch norm.
+    Returns (x, aux, new_cache), as ``_layer``.
 
     mode 'train' scores or trains; 'decode' (the mesh serve step, one
     token a row, ``split`` without a sequence split) reads and writes the
     layer's ``cache`` as ``_layer`` does, the attention on the rank's
-    heads (``sharding.Heads``) and a MoE block on the local dropless path
-    over the rank's experts or ``d_ff`` columns."""
+    heads (``sharding.Heads``), the SSM mixer on its block of the SSM
+    state (the conv state whole on every rank), and a MoE block on the
+    local dropless path over the rank's experts or ``d_ff`` columns."""
     train = mode == "train"
     aux = None
     h = rms_norm(split.enter(x), lp["ln1"], cfg.norm_eps)
     heads = split.heads()
+    ssm_heads = split.ssm_heads()
 
     def ssm(h):
-        return _run_ssm(cfg, lp, h, mode, cache, None, kernel)
+        return _run_ssm(cfg, lp, h, mode, cache, None, kernel, ssm_heads)
 
     if cfg.family == "ssm":
         out, (st, cs) = ssm(h)
-        return x + split.exit_replicated(out), aux, None if train else {
-            "ssm_state": st, "conv_state": cs}
+        out = split.exit_partial(out) if ssm_heads \
+            else split.exit_replicated(out)
+        return x + out, aux, None if train else {"ssm_state": st,
+                                                 "conv_state": cs}
     a, new_cache = _run_attn(cfg, lp, h, window, positions, mode, cache, pos,
                              q_chunk, k_extent, kernel, cache_slice_window,
                              seq_shard, heads)
@@ -318,6 +329,8 @@ def _split_layer(cfg: ModelConfig, lp, x, window: int, positions,
         if heads:
             a = split.reduce(a)
         s, (st, cs) = ssm(h)
+        if ssm_heads:
+            s = split.reduce(s)
         mixed = 0.5 * (rms_norm(a, lp["branch_norm_attn"], cfg.norm_eps)
                        + rms_norm(s, lp["branch_norm_ssm"], cfg.norm_eps))
         x = x + split.exit_replicated(mixed.to(x.dtype))

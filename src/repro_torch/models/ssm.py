@@ -5,6 +5,14 @@ heads), as in Mamba2-130m.
 Kernels: ``ssm_forward(kernel="cuda")`` runs the SSD core through the
 chunk-scan kernel and ``ssm_decode_step(kernel="cuda")`` through the fused
 SSD step (``kernels/ops.py``); ``"eager"`` is the torch oracle.
+
+Both take their widths from the leaves they are given, so they run on the
+whole mixer or, under tensor parallelism (``heads``, a
+``sharding.SSMHeads``), on a rank's block of SSD heads: the rank's z, x
+and dt columns of ``in_proj``, its x channels of the conv beside every B
+and C channel, its heads of ``A_log`` / ``D`` / ``dt_bias``, its columns
+of the gated norm and its rows of ``out_proj``. The output is then the
+rank's partial sum of the block's output over ``"model"``.
 """
 from __future__ import annotations
 
@@ -22,6 +30,27 @@ def dims(d_model: int, ssm: SSMConfig):
     n_heads = d_inner // ssm.head_dim
     conv_dim = d_inner + 2 * ssm.d_state     # x, B, C go through the conv
     return d_inner, n_heads, conv_dim
+
+
+def block_dims(p: dict):
+    """(d_inner, n_heads, conv_dim) of the mixer leaves ``p``: the whole
+    mixer's, or a rank's block of heads (``sharding.Pick``)."""
+    return p["norm"].shape[-1], p["A_log"].shape[-1], p["conv_b"].shape[-1]
+
+
+def gated_norm(y, z, scale, heads=None):
+    """``rms_norm(y · silu(z), scale)`` over d_inner. Under ``heads`` y, z
+    and ``scale`` are the rank's columns: each rank sums the squares of
+    its own in f32, one all-reduce over ``"model"`` sums them
+    (``heads.sum``), and the mean divides by the whole d_inner."""
+    g = y * F.silu(z)
+    if heads is None:
+        return rms_norm(g, scale)
+    dtype = g.dtype
+    g = g.float()
+    var = heads.sum(torch.sum(g * g, dim=-1, keepdim=True)) \
+        / (g.shape[-1] * heads.M)
+    return (g * torch.rsqrt(var + 1e-6) * (1.0 + scale.float())).to(dtype)
 
 
 def init_ssm_params(gen: torch.Generator, d_model: int, ssm: SSMConfig,
@@ -121,7 +150,7 @@ def _softplus_dt(dt, p):
 
 
 def ssm_forward(p, x, ssm: SSMConfig, state=None, conv_state=None,
-                seq_lens=None, kernel: str = "eager"):
+                seq_lens=None, kernel: str = "eager", heads=None):
     """Full Mamba2 block (minus residual). x: (B, S, d).
 
     Training/prefill path. Returns (out, (ssm_state, conv_state)).
@@ -139,13 +168,16 @@ def ssm_forward(p, x, ssm: SSMConfig, state=None, conv_state=None,
     not chunked prefill). The sequence is padded to the chunk with dt = 0
     rows, exact no-ops on the state, as the reference's
     ``kernel="pallas"`` does.
+
+    ``heads`` (a ``sharding.SSMHeads``): ``p`` holds the rank's block of
+    heads (module docstring) and ``out`` is its partial sum.
     """
     check_kernel(kernel)
     if kernel == "cuda" and state is not None:
         raise ValueError("kernel='cuda' does not take an initial state; use "
                          "kernel='eager' for chunked prefill")
     B, S, d = x.shape
-    di, nh, conv_dim = dims(d, ssm)
+    di, nh, conv_dim = block_dims(p)
     N = ssm.d_state
 
     zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
@@ -194,13 +226,13 @@ def ssm_forward(p, x, ssm: SSMConfig, state=None, conv_state=None,
         y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk, h0=state)
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = gated_norm(y, z, p["norm"], heads)
     out = torch.matmul(y, p["out_proj"].to(y.dtype))
     return out.to(x.dtype), (h_final, new_conv_state)
 
 
 def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
-                    kernel: str = "eager"):
+                    kernel: str = "eager", heads=None):
     """One-token recurrent step. x: (B, 1, d). state: (B, H, P, N),
     conv_state: (B, d_conv-1, conv_dim). Returns (out, (state,
     conv_state)); the caller stores them.
@@ -210,17 +242,33 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
     of the state, the update tensor never materialised. It reads x, B and
     C as the views of the conv output they are, and updates ``state`` in
     place, as the decode attends write the KV cache: the state it returns
-    is the caller's own tensor. The eager path returns a new state."""
+    is the caller's own tensor. The eager path returns a new state.
+
+    ``heads`` (a ``sharding.SSMHeads``; eager only): ``p`` and ``state``
+    hold the rank's block of heads, ``out`` is its partial sum, and
+    ``conv_state`` holds every channel: the rank convolves its own, and
+    the new row's x channels are gathered over ``"model"`` into the
+    conv state returned, alike on every rank."""
     check_kernel(kernel)
-    B, _, d = x.shape
-    di, nh, conv_dim = dims(d, ssm)
+    if heads is not None and kernel != "eager":
+        raise ValueError("the decode on a rank's SSD heads (tensor "
+                         "parallel) is eager, as the reference's mesh "
+                         "serve step")
+    B = x.shape[0]
+    di, nh, conv_dim = block_dims(p)
     N = ssm.d_state
 
     zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))[:, 0]
     z, xbc, dt = torch.split(zxbcdt, [di, conv_dim, nh], dim=-1)
 
-    window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
-    new_conv_state = window[:, 1:, :]
+    prev = conv_state.to(xbc.dtype)
+    if heads is None:
+        window = torch.cat([prev, xbc[:, None, :]], dim=1)
+        new_conv_state = window[:, 1:, :]
+    else:
+        window = torch.cat([heads.own_conv(prev), xbc[:, None, :]], dim=1)
+        new_conv_state = torch.cat(
+            [prev[:, 1:, :], heads.whole_conv(xbc)[:, None, :]], dim=1)
     conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xbc.dtype))
     # einsum may leave (B, conv_dim) column-major; the sum is written
     # row-major, so x, B and C below are views with unit inner strides, as
@@ -246,6 +294,6 @@ def ssm_decode_step(p, x, ssm: SSMConfig, state, conv_state,
         y = torch.einsum("bhpn,bn->bhp", state.to(yt), Cm.to(yt))
     y = y + xh * p["D"][None, :, None].to(y.dtype)
     y = y.reshape(B, di)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = gated_norm(y, z, p["norm"], heads)
     out = torch.matmul(y, p["out_proj"].to(y.dtype))[:, None, :]
     return out.to(x.dtype), (state, new_conv_state)

@@ -39,7 +39,9 @@ gradient).
 Tensor-parallel compute (the last section): ``compute_layout`` says, for
 each param leaf, whether a layer computes on the rank's ``"model"`` block
 of it (a ``Split``: the query heads and the kv heads they read, the
-``d_ff`` columns, the experts, the vocabulary rows) or gathers it over
+``d_ff`` columns, the experts, the vocabulary rows, the SSM mixer's
+``out_proj`` rows), reads the rank's SSD heads' columns of a leaf it
+gathers (a ``Pick``: the rest of the SSM mixer) or gathers it over
 ``"model"``; ``MeshSplit`` runs a step by it on the rank's stored blocks,
 with the autograd collectives of Megatron-LM's tensor and sequence
 parallelism (all-gather / reduce-scatter pairs over ``"model"``, the
@@ -482,8 +484,20 @@ class Split(NamedTuple):
     ranks: int = 1
 
 
+class Pick(NamedTuple):
+    """How an SSM mixer's leaf meets ``"model"`` when the layer computes
+    on the rank's block of SSD heads: the leaf is gathered over
+    ``"model"`` (or replicated there) and the layer reads, of each
+    segment ``(width, split)`` along tensor dim ``dim``, the rank's
+    ``width / M`` block where ``split``, the whole segment otherwise (the
+    B and C columns every head reads). Its gradient is zero outside what
+    the rank read; the gather's backward sums the ranks' parts."""
+    dim: int
+    parts: tuple
+
+
 def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
-    """``{key: Split or None}`` over a flat param dict (tensors or
+    """``{key: Split, Pick or None}`` over a flat param dict (tensors or
     shapes): how each leaf meets ``"model"`` in the LM's train and
     scoring forward (``MeshSplit``). None: gathered over ``"model"``, its
     compute replicated there. The splits are ``param_pspecs``'
@@ -500,11 +514,18 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
       branches); ``moe_fullgrid`` keeps them gathered, its dispatch
       splitting the tokens over ``"model"`` instead;
     - ``embed`` / ``lm_head`` by vocabulary rows when ``"model"``
-      divides V.
+      divides V;
+    - the SSM mixer by blocks of whole SSD heads when ``"model"`` divides
+      ``n_heads = expand · d_model / head_dim`` (the guard of the decode
+      state's split, ``cache_pspecs``): ``out_proj`` by its rows, the
+      rank's stored block (``Split(-2)``); ``in_proj`` (gathered: its
+      stored column blocks do not align with the heads), the conv and
+      the per-head and per-channel vectors a ``Pick`` of the rank's z, x
+      and dt columns, x channels, heads and norm columns beside every B
+      and C column (``MeshSplit.ssm_heads``).
 
-    Every other leaf (norms, the router, the SSM mixers, the
-    encoder-decoder's, any leaf of a mesh whose ``"model"`` has one rank)
-    is None.
+    Every other leaf (norms, the router, the encoder-decoder's, any leaf
+    of a mesh whose ``"model"`` has one rank) is None.
     """
     out = {k: None for k in params}
     M = _axis_size(mesh, "model")
@@ -535,12 +556,27 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
     if cfg.vocab_size % M == 0:
         put(("embed",), -2)
         put(("lm_head",), -1)
+    ssm = cfg.ssm if cfg.family in ("ssm", "hybrid") else None
+    di = ssm.expand * cfg.d_model if ssm else 0
+    nh = di // ssm.head_dim if ssm else 0
+    if nh and nh % M == 0:
+        put(("layers/ssm/out_proj",), -2)
     specs = param_pspecs(mesh, cfg, params)
     for k, s in out.items():
         if s is not None and s.ranks == 1 and specs[k][s.dim] != "model":
             raise ValueError(f"{k}: the layout computes on the model block "
                              f"of dim {s.dim}, which {specs[k]} does not "
                              "store")
+    if nh and nh % M == 0:
+        BC = (2 * ssm.d_state, False)
+        for keys, parts in (
+                (("in_proj",), ((di, True), (di, True), BC, (nh, True))),
+                (("conv_w", "conv_b"), ((di, True), BC)),
+                (("A_log", "D", "dt_bias"), ((nh, True),)),
+                (("norm",), ((di, True),))):
+            for k in keys:
+                if f"layers/ssm/{k}" in out:
+                    out[f"layers/ssm/{k}"] = Pick(-1, parts)
     return out
 
 
@@ -709,9 +745,14 @@ class MeshSplit:
     def gather(self, key: str, x: torch.Tensor) -> torch.Tensor:
         """The block of leaf ``key`` (or of its layer's slice) that the
         layer computes on, from the rank's stored block ``x``."""
+        split = self.layout.get(key)
+        if isinstance(split, Pick):
+            return self.pick(self._gather(key, x, None), split)
+        return self._gather(key, x, split)
+
+    def _gather(self, key: str, x: torch.Tensor, split) -> torch.Tensor:
         spec = self.specs[key]
         spec = spec[len(spec) - x.dim():]      # a layer's slice drops L
-        split = self.layout.get(key)
         tp = None if split is None else split.dim % x.dim()
         own = split is not None and split.ranks == 1
         steps = []
@@ -733,6 +774,36 @@ class MeshSplit:
             n = x.shape[tp] * split.ranks // self.M
             x = x.narrow(tp, (self.m // split.ranks) * n, n)
         return x
+
+    def pick(self, x: torch.Tensor, pick: Pick) -> torch.Tensor:
+        """The rank's part of the whole ``x`` by ``pick``: of each
+        segment the rank's block where it splits, else all of it,
+        concatenated (a view where one segment is read)."""
+        d = pick.dim % x.dim()
+        if sum(w for w, _ in pick.parts) != x.shape[d] or any(
+                s and w % self.M for w, s in pick.parts):
+            raise ValueError(f"{pick} does not fit dim {d} of {x.shape} on "
+                             f"{self.M} ranks")
+        out, start = [], 0
+        for width, split in pick.parts:
+            n = width // self.M if split else width
+            out.append(x.narrow(d, start + (self.m * n if split else 0), n))
+            start += width
+        return out[0] if len(out) == 1 else torch.cat(out, d)
+
+    def unpick(self, t: torch.Tensor, pick: Pick) -> torch.Tensor:
+        """``pick``'s inverse on the rank's part ``t``: its split segments
+        gathered over ``"model"``, the others as they are (alike on every
+        rank). No gradient."""
+        d = pick.dim % t.dim()
+        out, start = [], 0
+        for width, split in pick.parts:
+            n = width // self.M if split else width
+            part = t.narrow(d, start, n)
+            out.append(_gather_along(part, d, self.group("model")) if split
+                       else part)
+            start += n
+        return torch.cat(out, d)
 
     def layer(self, flat: dict, stack: str = "layers") -> dict:
         """A layer's slices ``{"<stack>/...": block}`` gathered by
@@ -778,6 +849,12 @@ class MeshSplit:
         (``Heads``), or None where the layout gathers it whole."""
         return Heads(self, stack) if self.splits(f"{stack}/attn/wq") \
             else None
+
+    def ssm_heads(self, stack: str = "layers") -> "SSMHeads | None":
+        """The SSM mixer of a layer of ``stack`` on the rank's block of
+        SSD heads (``SSMHeads``), or None where the layout gathers it."""
+        return SSMHeads(self, stack) if isinstance(
+            self.layout.get(f"{stack}/ssm/in_proj"), Pick) else None
 
     # -- the residual stream ----------------------------------------------
 
@@ -901,3 +978,31 @@ class Heads(NamedTuple):
 
     def own_kv(self, t):
         return self.split.own(t, 2, f"{self.stack}/attn/wk")
+
+
+class SSMHeads(NamedTuple):
+    """An SSM mixer on the rank's block of SSD heads
+    (``MeshSplit.ssm_heads``): its leaves are the ``Pick``s of
+    ``compute_layout``, its ``out_proj`` the rank's rows, so its output
+    is a partial sum over ``"model"``. ``M``: the ranks that share the
+    heads; ``sum``: Σ over them of a partial sum every rank goes on with
+    (the gated norm's sum of squares). A decode's conv state keeps every
+    channel on every rank: ``own_conv`` reads the rank's channels of it,
+    ``whole_conv`` gathers a new row's x channels over ``"model"``."""
+    split: MeshSplit
+    stack: str
+
+    @property
+    def M(self) -> int:
+        return self.split.M
+
+    def sum(self, t):
+        return self.split.reduce(t)
+
+    def own_conv(self, t):
+        return self.split.pick(t, self.split.layout[
+            f"{self.stack}/ssm/conv_b"])
+
+    def whole_conv(self, t):
+        return self.split.unpick(t, self.split.layout[
+            f"{self.stack}/ssm/conv_b"])

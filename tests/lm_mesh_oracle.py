@@ -82,6 +82,9 @@ CASES = {
     "1x2-llama4-fullgrid": ((1, 2), "llama4-scout-17b-a16e", "train",
                             {"moe_fullgrid": True}),
     "1x2-hymba-serve": ((1, 2), "hymba-1.5b", "serve", {}),
+    # "model" 4 divides the reduced Mamba2's 8 SSD heads: 2 heads a rank
+    "1x4-mamba2": ((1, 4), "mamba2-130m", "train", {}),
+    "1x4-mamba2-serve": ((1, 4), "mamba2-130m", "serve", {}),
     "2x1-capacity": ((2, 1), None, "capacity", {}),
 }
 

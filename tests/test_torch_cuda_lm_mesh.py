@@ -17,8 +17,9 @@ its own card without a mesh:
   difference (counted, as ``chip_smoke.py``'s ``lm_families`` does);
   each token's wall ms and the peak GB a card, h2o's beside the same
   steps with every leaf gathered over ``"model"`` (``compute_layout``
-  patched in the ranks: on (2, 2) h2o splits every leaf, Hymba only its
-  MLP, its 25 heads and SSM mixer gathered);
+  patched in the ranks: on (2, 2) h2o splits every leaf, Hymba its MLP
+  and its SSM mixer, 25 of 50 SSD heads a rank, its 25 attention heads
+  gathered);
 - llama4-scout's first 4 layers at dp 2 (the mesh's data axis of 2), B 2
   x S 2048: the CE with ``moe_ctx`` and ``act_pspec`` against a
   per-shard oracle, each data shard's row through the local MoE path
@@ -27,9 +28,10 @@ its own card without a mesh:
   layout, ``steps.mesh_split``) from each rank's blocks, through kernel
   5 and eagerly: on (2, 2) 20 query heads and 4 kv heads a launch, 8
   experts a rank, the CE within ``SPLIT_CE_RTOL`` of the oracle's;
-- Hymba-1.5B's mesh scoring forward on the split path (its MLP split,
-  attention and SSM gathered), B 2 x S 2048, against the whole batch
-  scored on one card.
+- Hymba-1.5B's mesh scoring forward on the split path (its MLP and SSM
+  mixer split, attention gathered), B 2 x S 2048, against the whole
+  batch scored on one card: kernel 6 once a layer on the rank's SSD
+  heads (25 of 50 where "model" is 2).
 
 With fewer than two cards every test skips. Imports no JAX:
 
@@ -282,13 +284,27 @@ def _heads_seen():
     return seen, lambda: setattr(ops, "swa_attention_gqa", entry)
 
 
+def _scan_heads_seen():
+    """Wrap the SSD scan's kernel entry to record each launch's head
+    count; returns (the list, an undo)."""
+    from repro_torch.kernels import ops
+    seen, entry = [], ops.ssd_scan
+
+    def record(x, dt, A, Bm, Cm, chunk=128):
+        seen.append(x.shape[2])
+        return entry(x, dt, A, Bm, Cm, chunk)
+    ops.ssd_scan = record
+    return seen, lambda: setattr(ops, "ssd_scan", entry)
+
+
 def _split_scores(mesh, cfg, whole, batch) -> dict:
     """The mesh scoring forward on the split path (``steps.mesh_split``,
     the train step's layout) from the rank's blocks of ``whole`` and its
     rows of ``batch``: the CE through the kernels and eagerly, kernel 5's
-    launches and the heads each launch saw, the rank's block shapes."""
+    and kernel 6's launches and the heads each launch saw, the rank's
+    block shapes."""
     from repro_torch.checkpoint.convert import _shapes
-    from repro_torch.kernels import swa_attention
+    from repro_torch.kernels import ssd_scan, swa_attention
     from repro_torch.launch import steps
     from repro_torch.models import registry
     from repro_torch.sharding import specs as shspecs
@@ -300,16 +316,21 @@ def _split_scores(mesh, cfg, whole, batch) -> dict:
     out = {"split": repr(split)}
     with torch.no_grad():
         seen, undo = _heads_seen()
+        scan_seen, undo_scan = _scan_heads_seen()
         before = swa_attention.swa_attention.launches
+        before6 = ssd_scan.ssd_scan.launches
         try:
             out["ce"] = float(registry.loss_fn(blocks, cfg, rows,
                                                kernel="cuda", split=split,
                                                moe_ctx=ctx)[1]["ce"])
         finally:
             undo()
+            undo_scan()
         out["kernel5_launches"] = swa_attention.swa_attention.launches \
             - before
         out["kernel5_heads"] = [list(h) for h in sorted(set(seen))]
+        out["kernel6_launches"] = ssd_scan.ssd_scan.launches - before6
+        out["kernel6_heads"] = sorted(set(scan_seen))
         out["ce_eager"] = float(registry.loss_fn(blocks, cfg, rows,
                                                  split=split,
                                                  moe_ctx=ctx)[1]["ce"])
@@ -330,10 +351,11 @@ def _rows(mesh, B: int):
 
 def _score(mesh, cfg) -> dict:
     """Hymba-1.5B's mesh scoring forward on the split path, B 2 x S 2048
-    (its MLP split over "model"; 25 heads and the SSM mixer gathered):
-    the CE through the kernels within ``SPLIT_CE_RTOL`` of the whole
-    batch scored on one card without a mesh, and of the split path's
-    eager CE within ``KERNEL_CE_RTOL``."""
+    (its MLP and SSM mixer split over "model", each rank's scans on its
+    SSD heads; 25 attention heads gathered): the CE through the kernels
+    within ``SPLIT_CE_RTOL`` of the whole batch scored on one card
+    without a mesh, and of the split path's eager CE within
+    ``KERNEL_CE_RTOL``."""
     import numpy as np
     from repro_torch.models import registry
     from repro_torch.types import ShapeConfig
@@ -354,9 +376,12 @@ def _score(mesh, cfg) -> dict:
     got["ce_rel_err"] = abs(got["ce"] - want) / abs(want)
     got["kernel_vs_eager_rel_err"] = abs(got["ce"] - got["ce_eager"]) \
         / abs(got["ce_eager"])
+    M, nh = mesh.size(1), cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
     got["ok"] = got["ce_rel_err"] <= SPLIT_CE_RTOL and \
         got["kernel_vs_eager_rel_err"] <= KERNEL_CE_RTOL and \
-        got["kernel5_launches"] == cfg.num_layers
+        got["kernel5_launches"] == cfg.num_layers and \
+        got["kernel6_launches"] == cfg.num_layers and \
+        got["kernel6_heads"] == [nh // M if nh % M == 0 else nh]
     return got
 
 

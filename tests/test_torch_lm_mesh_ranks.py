@@ -13,9 +13,10 @@ llama4-scout (the MoE dispatch over the data axes, and with
 ``moe_fullgrid``, and a batch of 3 the data axes do not divide),
 seamless (the encoder-decoder), paligemma (its patch prefix and one kv
 head), gemma3 (windowed and global layers) and grok-1 with 3 experts
-(each expert's ``d_ff`` split); the decoder-only families compute on
-each rank's heads, ``d_ff`` columns, experts and vocabulary rows
-(``sharding.compute_layout``). Train: loss within 1e-5 relative, params within
+(each expert's ``d_ff`` split), and Mamba2 on (1, 4); the decoder-only
+families compute on each rank's heads, SSD heads, ``d_ff`` columns,
+experts and vocabulary rows (``sharding.compute_layout``). Train: loss
+within 1e-5 relative, params within
 1e-5 (1 + |ref|). Serve: tokens equal, cache within 1e-5 (1 + |ref|).
 The capacity case shows the port follows the reference's distributed
 dispatch, whose per-shard capacity drops a pick that the local path
@@ -44,6 +45,17 @@ ROOT = Path(__file__).resolve().parents[1]
 ORACLE_LIMIT_S = 300
 SPAWN_LIMIT_S = 240
 TOL = 1e-5
+# the reduced Hymba's and Mamba2's SSM mixer (d_inner 256, 8 SSD heads,
+# B and C 2 x 16) on the rank's block of heads, as the cases record it
+SSM_SPLIT = {
+    "layers/ssm/in_proj": [-1, [[256, True], [256, True], [32, False],
+                                [8, True]]],
+    "layers/ssm/conv_w": [-1, [[256, True], [32, False]]],
+    "layers/ssm/conv_b": [-1, [[256, True], [32, False]]],
+    "layers/ssm/A_log": [-1, [[8, True]]], "layers/ssm/D": [-1, [[8, True]]],
+    "layers/ssm/dt_bias": [-1, [[8, True]]],
+    "layers/ssm/norm": [-1, [[256, True]]],
+    "layers/ssm/out_proj": [-2, 1]}
 
 
 def _names(kind=None, world=None):
@@ -215,7 +227,8 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
     """The dense and the 3-expert MoE cases run the split path: heads,
     d_ff columns and vocabulary rows on the rank's block, the 3 experts
     split by their d_ff columns (2 does not divide 3), and llama4's 4
-    experts expert-parallel; Hymba's SSM mixer stays gathered."""
+    experts expert-parallel; Hymba's and Mamba2's SSM mixers on the
+    rank's SSD heads, 4 of 8 on (2, 2) and (1, 2), 2 on (1, 4)."""
     gemma = results["2x2-gemma3"]["split"]
     assert gemma == {"layers/attn/wq": [-1, 1], "layers/attn/wk": [-1, 1],
                      "layers/attn/wv": [-1, 1], "layers/attn/wo": [-2, 1],
@@ -228,7 +241,11 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
         assert results[name]["split"]["layers/moe/wg"] == [-3, 1]
     # paligemma's one kv head: both ranks read it, gathered and sliced
     assert results["2x2-paligemma"]["split"]["layers/attn/wk"] == [-1, 2]
-    assert "layers/ssm/in_proj" not in results["2x2-hymba"]["split"]
+    for name in ("2x2-hymba", "1x2-hymba", "2x2-mamba2", "1x4-mamba2"):
+        got = results[name]["split"]
+        assert {k: v for k, v in got.items() if "/ssm/" in k} == \
+            SSM_SPLIT, (name, got)
+    assert results["2x1-hymba"]["split"] == {}
     # between layers the residual is split over "model" on its sequence,
     # but for the case without act_pspec, whose partial sums all-reduce
     assert results["2x2-gemma3"]["seq_split"]
@@ -247,9 +264,10 @@ def test_serve_cases_decode_on_the_rank_s_blocks(results):
     heads, d_ff columns and vocabulary rows (uniform, and at batch 1 with
     the cache over ("data", "model")), grok-1's 3 experts by their d_ff
     columns, llama4's experts expert-parallel, paligemma's one kv head
-    read by both ranks; Hymba's reduced 4 heads split, its SSM mixer
-    gathered; Mamba2's SSM mixers are gathered a layer at a time beside
-    its vocabulary rows, and the encoder-decoder gathers every leaf."""
+    read by both ranks; Hymba's reduced 4 heads and 8 SSD heads split;
+    Mamba2's SSM mixers on the rank's SSD heads beside its vocabulary
+    rows, on (2, 2) and (1, 4), and the encoder-decoder gathers every
+    leaf."""
     gemma = results["2x2-gemma3"]["split"]
     assert results["2x2-gemma3-serve"]["split"] == gemma
     assert results["2x2-gemma3-serve-b1"]["split"] == gemma
@@ -263,7 +281,11 @@ def test_serve_cases_decode_on_the_rank_s_blocks(results):
         assert results[name]["split"] == results["2x2-hymba"]["split"]
         assert results[name]["split"]["layers/attn/wq"] == [-1, 1]
     assert results["2x2-mamba2-serve"]["split"] == \
-        results["2x2-mamba2"]["split"] == {"embed": [-2, 1]}
+        results["2x2-mamba2"]["split"] == {"embed": [-2, 1], **SSM_SPLIT}
+    assert results["1x4-mamba2-serve"]["split"] == \
+        results["1x4-mamba2"]["split"] == results["2x2-mamba2"]["split"]
+    assert results["1x2-hymba-serve"]["split"] == \
+        results["1x2-hymba"]["split"]
     assert results["2x2-seamless-serve"]["split"] == {}
 
 

@@ -439,3 +439,257 @@ def test_pod_dry_run_splits_the_work_over_the_model_axis(monkeypatch):
     assert decode["peak_memory_bytes"] < \
         gathered_decode["peak_memory_bytes"], \
         (decode["peak_memory_bytes"], gathered_decode["peak_memory_bytes"])
+
+
+def test_ssm_mixers_split_by_head_block_where_model_divides_heads():
+    """At "model" 2 Hymba's 50 SSD heads and Mamba2-130M's 24 split: the
+    rank's rows of ``out_proj`` (its stored block), and of the gathered
+    ``in_proj`` its z, x and dt columns beside every B and C column, of
+    the conv its x channels beside B and C, its heads and norm columns;
+    Mamba2 at 4 and 8 too. Hymba at 4 (50 heads) stays gathered."""
+    from repro_torch.sharding.specs import Pick
+    two = MeshShape((2, 2), ("data", "model"))
+    hymba = _layout("hymba-1.5b", two)
+    di, nh = 3200, 50
+    assert hymba["layers/ssm/in_proj"] == Pick(
+        -1, ((di, True), (di, True), (32, False), (nh, True)))
+    assert hymba["layers/ssm/conv_w"] == hymba["layers/ssm/conv_b"] == \
+        Pick(-1, ((di, True), (32, False)))
+    for k in ("A_log", "D", "dt_bias"):
+        assert hymba[f"layers/ssm/{k}"] == Pick(-1, ((nh, True),))
+    assert hymba["layers/ssm/norm"] == Pick(-1, ((di, True),))
+    assert hymba["layers/ssm/out_proj"] == Split(-2)
+    assert hymba["layers/attn/wq"] is None                 # 25 heads
+    for M in (2, 4, 8):
+        mamba = _layout("mamba2-130m", MeshShape((1, M), ("data", "model")))
+        assert mamba["layers/ssm/in_proj"] == Pick(
+            -1, ((1536, True), (1536, True), (256, False), (24, True)))
+        assert mamba["layers/ssm/out_proj"] == Split(-2), M
+    four = _layout("hymba-1.5b", MeshShape((1, 4), ("data", "model")))
+    assert all(v is None for k, v in four.items() if "/ssm/" in k)
+
+
+def _ssm_rank(rank: int, store: str, out_dir: str):
+    """Reduced Mamba2's mixer on 2 gloo ranks, each on its 4 of 8 SSD
+    heads, against the whole mixer: the gated norm, the forward with its
+    gradients, and a decode step."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.common import rms_norm
+    cfg = get_config("mamba2-130m").reduced(d_model=128)
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device="cpu")
+    shapes = _shapes(cfg)
+    split = shspecs.MeshSplit(mesh, shspecs.param_pspecs(mesh, cfg, shapes),
+                              shspecs.compute_layout(mesh, cfg, shapes),
+                              seq=False)
+    heads = split.ssm_heads()
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    rng = np.random.default_rng(1)
+    whole = {k.split("/")[-1]: (v[0] + 0.1 * torch.tensor(
+        rng.standard_normal(v[0].shape), dtype=torch.float32))
+        .requires_grad_() for k, v in params.items() if "/ssm/" in k}
+
+    def block(p):
+        out = {}
+        for k, v in p.items():
+            s = split.layout[f"layers/ssm/{k}"]
+            out[k] = split.own(v, -2, "layers/ssm/out_proj") \
+                if k == "out_proj" else split.pick(v, s)
+        return out
+
+    def err(a, b):                 # max |a - b| / (1 + max |b|)
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max() / (1 + b.abs().max()))
+
+    def parts(t):                  # the ranks' parts of a gradient, summed
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    got = {}
+    # the gated norm: the rank's columns of the whole one's
+    y = torch.tensor(rng.standard_normal((2, 5, 256)), dtype=torch.float32)
+    z = torch.tensor(rng.standard_normal((2, 5, 256)), dtype=torch.float32)
+    scale = whole["norm"].detach()
+    own = slice(rank * 128, (rank + 1) * 128)
+    got["norm"] = err(ssm_mod.gated_norm(y[..., own], z[..., own],
+                                         scale[own], heads),
+                      rms_norm(y * torch.nn.functional.silu(z),
+                               scale)[..., own])
+    # the forward: partial sums summed, the gradients' parts summed
+    x = torch.tensor(rng.standard_normal((2, 40, 128)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((2, 40, 128)), dtype=torch.float32)
+    xs = x.clone().requires_grad_()
+    out, (st, _) = ssm_mod.ssm_forward(block(whole), xs, cfg.ssm,
+                                       heads=heads)
+    (out * w).sum().backward()
+    grads = {k: parts(v.grad) for k, v in whole.items()}
+    out, xg = parts(out.detach()), parts(xs.grad)
+    ref = {k: v.detach().clone().requires_grad_() for k, v in whole.items()}
+    xr = x.clone().requires_grad_()
+    want, (st_want, _) = ssm_mod.ssm_forward(ref, xr, cfg.ssm)
+    (want * w).sum().backward()
+    got["out"] = err(out, want)
+    got["state"] = err(st, st_want[:, rank * 4:(rank + 1) * 4])
+    got["x_grad"] = err(xg, xr.grad)
+    got["grads"] = {k: err(grads[k], ref[k].grad) for k in ref}
+    # a decode step: the rank's heads of the state, the whole conv state
+    state = torch.tensor(rng.standard_normal((2, 8, 32, 16)),
+                         dtype=torch.float32)
+    conv = torch.tensor(rng.standard_normal((2, 3, 288)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        o, (s1, c1) = ssm_mod.ssm_decode_step(
+            block(whole), x[:, :1], cfg.ssm, state[:, rank * 4:rank * 4 + 4],
+            conv, heads=heads)
+        o_w, (s_w, c_w) = ssm_mod.ssm_decode_step(whole, x[:, :1], cfg.ssm,
+                                                  state, conv)
+    got["decode"] = {"out": err(parts(o), o_w),
+                     "state": err(s1, s_w[:, rank * 4:rank * 4 + 4]),
+                     "conv": err(c1, c_w)}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def test_ssm_mixer_on_rank_heads_matches_the_whole(tmp_path):
+    """The gated norm's split sum of squares (one all-reduce over
+    "model") against ``rms_norm`` over all of d_inner; the mixer's
+    forward on each rank's heads, its partial sums and its gradients'
+    parts summed over the ranks, against the whole mixer's; a decode
+    step's partial sums, the rank's state heads and the whole conv state
+    it writes: all within 1e-5 (1 + max |whole|), the sums' f32 order
+    apart."""
+    ctx = mp.spawn(_ssm_rank, args=(str(tmp_path / "store"), str(tmp_path)),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + SPAWN_LIMIT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"2 ranks did not finish in {SPAWN_LIMIT_S} s")
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        flat = [got["norm"], got["out"], got["state"], got["x_grad"],
+                *got["grads"].values(), *got["decode"].values()]
+        assert max(flat) <= 1e-5, got
+
+
+def _without_ssm_split(mesh, cfg, params, moe_fullgrid=False):
+    """``compute_layout`` with the SSM mixer gathered over ``"model"``,
+    as before it split by heads."""
+    lay = _COMPUTE_LAYOUT(mesh, cfg, params, moe_fullgrid)
+    return {k: None if "/ssm/" in k else v for k, v in lay.items()}
+
+
+_COMPUTE_LAYOUT = shspecs.compute_layout
+
+
+def _serve_collectives(cfg):
+    """One serve step of ``cfg`` (B 2, 16 cache positions) on a fake
+    (1, 2) world: its collectives as (kind, output shape), and the shapes
+    ``MeshSplit.gather`` gave each ``layers/ssm/`` leaf."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.roofline.counter import COLLECTIVES
+    dryrun.fake_world(2)
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device="cpu")
+    sc = ShapeConfig("s", seq_len=16, global_batch=2, kind="decode")
+    mode = FakeTensorMode()
+    with mode:
+        pstruct = dryrun.params_struct(cfg)
+        tok, cspec, pos = registry.decode_spec(cfg, sc, torch.float32)
+        fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, sc, pstruct, cspec)
+        args = (shspecs.place(mesh, pstruct, in_sh[0]),
+                shspecs.place(mesh, dryrun._fake(tok), in_sh[1]),
+                shspecs.place(mesh, dryrun._fake(cspec), in_sh[2]),
+                dryrun._fake(pos))
+    seen, blocks = [], {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            kind = COLLECTIVES.get(func.overloadpacket.__name__)
+            if kind is not None:
+                seen.extend((kind, tuple(t.shape)) for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor))
+            return out
+    gather = shspecs.MeshSplit.gather
+
+    def record(self, key, x):
+        out = gather(self, key, x)
+        if "/ssm/" in key:
+            blocks.setdefault(key, set()).add(tuple(out.shape))
+        return out
+    shspecs.MeshSplit.gather = record
+    try:
+        with mode, Record():
+            fn(*args)
+    finally:
+        shspecs.MeshSplit.gather = gather
+    return seen, blocks
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_split_serve_step_moves_no_ssm_state(arch, monkeypatch):
+    """The reduced config's serve step on a fake (1, 2) world, its 16 SSD
+    heads split: no collective carries the SSM state (its (P, N) rows),
+    which the step decodes in place on the rank's 8 heads; ``out_proj``
+    is the rank's (d_inner / 2, d) rows, never gathered over "model".
+    With the mixer gathered (the layout before the split) the state is
+    gathered to the rank's rows. The count: the split adds two
+    all-reduces a layer (the gated norm's sum of squares, the partial
+    sum's exit) and gathers the conv's new x channels where the gathered
+    mixer gathers ``out_proj``, less the state's all-gather."""
+    cfg = get_config(arch).reduced()
+    di, L = cfg.ssm.expand * cfg.d_model, cfg.num_layers
+    nh = di // cfg.ssm.head_dim
+    P, N = cfg.ssm.head_dim, cfg.ssm.d_state
+    seen, blocks = _serve_collectives(cfg)
+    moved = [c for c in seen if c[1][-2:] == (P, N)]
+    assert moved == [], moved
+    assert blocks["layers/ssm/out_proj"] == {(di // 2, cfg.d_model)}
+    assert blocks["layers/ssm/in_proj"] == {
+        (cfg.d_model, di + 2 * N + nh // 2)}
+    assert blocks["layers/ssm/conv_w"] == {(cfg.ssm.d_conv, di // 2 + 2 * N)}
+    monkeypatch.setattr(shspecs, "compute_layout", _without_ssm_split)
+    was, was_blocks = _serve_collectives(cfg)
+    assert [c for c in was if c[1][-2:] == (P, N)], was
+    assert was_blocks["layers/ssm/out_proj"] == {(di, cfg.d_model)}
+    count = {k: sum(c[0] == k for c in seen) for k in ("all-gather",
+                                                       "all-reduce")}
+    was_count = {k: sum(c[0] == k for c in was) for k in count}
+    assert count == {"all-gather": was_count["all-gather"] - 1,
+                     "all-reduce": was_count["all-reduce"] + 2 * L}, \
+        (count, was_count)
+
+
+def test_split_train_step_runs_the_mixer_on_rank_heads(monkeypatch):
+    """Reduced Mamba2's train step on a fake (2, 2) world: each layer
+    gathers ``out_proj`` over the data axis only, to the rank's
+    (d_inner / 2, d) rows, and computes on the rank's 8 of 16 SSD heads'
+    columns of the gathered ``in_proj`` and conv."""
+    cfg = get_config("mamba2-130m").reduced()
+    di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    nh = di // cfg.ssm.head_dim
+    mode, fn, args, mesh = _fake_train_step(cfg)
+    seen = {}
+    gather = shspecs.MeshSplit.gather
+
+    def record(self, key, x):
+        out = gather(self, key, x)
+        seen.setdefault(key, set()).add(tuple(out.shape))
+        return out
+    monkeypatch.setattr(shspecs.MeshSplit, "gather", record)
+    with mode:
+        fn(*args)
+    assert fn.split.ssm_heads() is not None
+    assert seen["layers/ssm/out_proj"] == {(di // 2, cfg.d_model)}
+    assert seen["layers/ssm/in_proj"] == {(cfg.d_model, di + 2 * N
+                                           + nh // 2)}
+    assert seen["layers/ssm/conv_b"] == {(di // 2 + 2 * N,)}
+    assert seen["layers/ssm/A_log"] == {(nh // 2,)}
