@@ -4965,6 +4965,134 @@ def _mesh_serve_dense(mesh) -> dict:
     return out
 
 
+LM_MESH_ENCDEC = "seamless-m4t-large-v2"
+LM_MESH_ENCDEC_TRAIN = (2, 2048, 1024)     # B, source frames, target tokens
+LM_MESH_ENCDEC_SERVE = (4, 512, 16)       # B, source frames, tokens
+
+
+def _mesh_encdec(mesh) -> dict:
+    """``LM_MESH_ENCDEC`` at full width (f32 params, bf16 compute, remat)
+    on ``mesh``, the split path of both stacks: ``LM_MESH_STEPS`` steps
+    of ``LM_MESH_ENCDEC_TRAIN`` through ``jit_train_step`` against
+    ``make_train_step(mesh=None)`` on the same batches (losses and
+    params within ``ENGINE_TOL``), ms a step of both and the card's peak
+    GB over the mesh's steps; then ``jit_serve_step`` from a prefilled
+    source (``LM_MESH_ENCDEC_SERVE``) against ``registry.decode_step`` on
+    a copy of the cache: tokens equal, logits and cache within
+    ``ENGINE_TOL``, each token's wall ms. Frees the params."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs as shspecs
+    from repro_torch.types import FedConfig, ShapeConfig
+    cfg = get_config(LM_MESH_ENCDEC)
+    B, Ss, St = LM_MESH_ENCDEC_TRAIN
+    rng = np.random.default_rng(5)
+
+    def batch():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, St + 1))
+                                .astype(np.int32)).cuda()
+        return {"src_embeds": torch.from_numpy(rng.standard_normal(
+            (B, Ss, cfg.d_model)).astype(np.float32)).cuda(),
+            "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batches = [batch() for _ in range(LM_MESH_STEPS)]
+    fed = FedConfig()
+    init = registry.init_params(
+        torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
+    fn, (in_sh, _) = steps.jit_train_step(
+        cfg, fed, mesh, ShapeConfig("train", seq_len=Ss + St,
+                                    global_batch=B, kind="train"),
+        _shapes(cfg), batches[0])
+    params = shspecs.place(mesh, {k: v.clone() for k, v in init.items()},
+                           in_sh[0])
+    anchor = shspecs.place(mesh, init, in_sh[2])
+    state = fn.opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, step_ms = [], []
+    for b in batches:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, state, loss = fn(params, state, anchor, b)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms.append(t0.elapsed_time(t1))
+        losses.append(float(loss.to_local()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    above = peak - held / 1e9
+    got = {k: v.to_local() for k, v in params.items()}
+    del state, anchor, params
+    gc.collect()
+    step, opt = steps.make_train_step(cfg, fed)
+    p = {k: v.clone() for k, v in init.items()}
+    ost, plain_losses, plain_ms = opt.init(p), [], []
+    for b in batches:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        p, ost, l = step(p, ost, init, b)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms.append(t0.elapsed_time(t1))
+        plain_losses.append(float(l))
+    p_err = _max_diff(got, p)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    if p_err > ENGINE_TOL or l_err > ENGINE_TOL or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name} jit_train_step vs "
+                             f"make_train_step: params {p_err}, losses "
+                             f"{l_err}")
+    out = {"arch": cfg.name, "batch": B, "src_len": Ss, "tgt_len": St,
+           "compute": "bf16", "remat": True, "split": repr(fn.split),
+           "step_ms": step_ms, "losses": losses, "peak_gb": peak,
+           "peak_above_held_gb": above, "unsharded_step_ms": plain_ms,
+           "param_max_abs_err_vs_unsharded": p_err,
+           "loss_rel_err_vs_unsharded": l_err}
+    del batches
+    _free(p, ost, got)
+
+    SB, SS, ST = LM_MESH_ENCDEC_SERVE
+    src = torch.from_numpy(rng.standard_normal(
+        (SB, SS, cfg.d_model)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        filled = registry.prefill(init, cfg, {"src_embeds": src},
+                                  registry.init_cache(cfg, SB, SS,
+                                                      device="cuda"))
+    plain = {k: v.clone() for k, v in filled.items()}
+    sfn, (s_in, _) = steps.jit_serve_step(
+        cfg, mesh, ShapeConfig("serve", seq_len=SS, global_batch=SB,
+                               kind="decode"), _shapes(cfg), filled)
+    placed = shspecs.place(mesh, init, s_in[0])
+    cache = shspecs.place(mesh, filled, s_in[2])
+    tok = ref = torch.zeros(SB, dtype=torch.int32, device="cuda")   # BOS
+    errs, ms = [], []
+    for t in range(ST):
+        t0 = time.perf_counter()
+        tok, cache, lg = sfn(placed, tok, cache, t, with_logits=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            want, plain = registry.decode_step(init, cfg, ref, plain, t)
+        ref = torch.argmax(want, dim=-1).to(torch.int32)
+        if not torch.equal(tok.to_local(), ref):
+            raise AssertionError(f"{cfg.name} jit_serve_step step {t}: "
+                                 "tokens differ")
+        errs.append(float(((lg - want).abs() / (1 + want.abs())).max()))
+    c_err = _max_diff({k: v.to_local() for k, v in cache.items()}, plain)
+    if max(errs) > ENGINE_TOL or c_err > ENGINE_TOL:
+        raise AssertionError(f"{cfg.name} jit_serve_step: logits "
+                             f"{max(errs)}, cache {c_err}")
+    out["serve"] = {"batch": SB, "src_len": SS, "tokens": ST,
+                    "tokens_equal": True, "logits_rel_err": max(errs),
+                    "cache_max_abs_err": c_err, "step_wall_ms": ms}
+    _free(init, placed, cache, plain, filled)
+    return out
+
+
 def _mesh_scoring_on_card(events) -> dict:
     """Kernels 5 and 6 among the profiler's device events: the attention
     kernel once a launch, the SSD scan's state pass once a launch (its
@@ -5006,6 +5134,13 @@ def phase_lm_mesh(rows: list = ()) -> None:
     (d) llama4-scout's first 4 layers (43.5 GB of f32 weights), B 1 x S
         2048, the loss with ``moe_ctx`` on the split path through kernel
         5: at one dp shard equal to the local path;
+    (f) seamless-m4t-large-v2 at full width (f32 params, bf16 compute,
+        remat) through ``jit_train_step`` on both stacks' split path, B 2
+        x 2048 source frames x 1024 target tokens, ``LM_MESH_STEPS``
+        steps against ``make_train_step(mesh=None)`` within
+        ``ENGINE_TOL``, ms a step and the peak GB; its ``jit_serve_step``
+        for 16 tokens from a 512-frame source, tokens equal to
+        ``registry.decode_step``'s (``_mesh_encdec``);
     (e) the sharded train step on the reduced Hymba, Mamba2, llama4-scout,
         seamless and paligemma, f32 compute, the card against the CPU's
         (1, 1) gloo mesh: losses within 1e-5 relative.
@@ -5219,6 +5354,10 @@ def phase_lm_mesh(rows: list = ()) -> None:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         line("moe_scoring")
         _free(lparams)
+
+        # (f) the encoder-decoder at full width on the split path
+        report["encdec"] = _mesh_encdec(mesh)
+        line("encdec")
 
     # (e) reduced configs, the sharded train step, card vs CPU
     cpu_mesh = make_host_mesh(device="cpu")

@@ -41,7 +41,6 @@ from repro_torch.configs import (ASSIGNED_ARCHS, SHAPES, get_config,
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import lm as lm_mod
 from repro_torch.models import registry
 from repro_torch.roofline.counter import Counter
 from repro_torch.sharding import specs as shspecs
@@ -190,29 +189,23 @@ def _prefill_program(cfg, shape, mesh, pdtype, constrain_acts, opts):
     (``registry.loss_fn``) on the rank's placed blocks, laid out as the
     train step lays them out (``sharding.MeshSplit`` by
     ``compute_layout``, the residual split over ``"model"`` on its
-    sequence under ``act_pspec``). The encoder-decoder, whose layout
-    splits nothing, scores on the whole params."""
+    sequence under ``act_pspec``)."""
     pstruct = params_struct(cfg, pdtype)
     bstruct = registry.batch_spec(cfg, shape, ACT_DTYPE)
     pspec = shspecs.param_pspecs(mesh, cfg, pstruct)
     bspec = shspecs.batch_pspecs(mesh, cfg, bstruct)
     use_act = opts.get("prefill_act", True) and constrain_acts
-    if cfg.family in lm_mod.FAMILIES:
-        split, moe_ctx = steps_mod.mesh_split(
-            cfg, mesh, shape.seq_len, pstruct,
-            rows=steps_mod._spec_axes(next(iter(bspec.values()))[0]),
-            seq=use_act,
-            moe_fullgrid=bool(opts.get("moe_fullgrid_dispatch")))
-        kw = {"split": split, "moe_ctx": moe_ctx}
-        view = lambda v: v.to_local()                 # noqa: E731
-    else:
-        kw = {"act_pspec": steps_mod.act_pspec(mesh, cfg, shape.seq_len)
-              if use_act else None}
-        view = lambda v: v.full_tensor()              # noqa: E731
+    split, moe_ctx = steps_mod.mesh_split(
+        cfg, mesh, shape.seq_len, pstruct,
+        rows=steps_mod._spec_axes(next(iter(bspec.values()))[0]),
+        seq=use_act, moe_fullgrid=bool(opts.get("moe_fullgrid_dispatch")))
+    kw = {"split": split}
+    if moe_ctx is not None:
+        kw["moe_ctx"] = moe_ctx
 
     @torch.no_grad()
     def fwd(params, batch):
-        local = {k: view(v) for k, v in params.items()}
+        local = {k: v.to_local() for k, v in params.items()}
         rows = {k: v.to_local() for k, v in batch.items()}
         return registry.loss_fn(local, cfg, rows, remat=False,
                                 dtype=ACT_DTYPE, **kw)[0]

@@ -28,13 +28,12 @@ leaf whole, as attention whose heads ``"model"`` does not divide, or
 reads the rank's SSD heads' columns of it, as the SSM mixer's
 ``in_proj``). The gathers' backward sums the gradients over the ranks,
 so they come back as the rank's blocks and the proximal term and
-``sgd`` act on blocks.
-The encoder-decoder, which the layout leaves whole, gathers the whole
-params for the step and sums its gradients (``reduce_grads``). The serve
-step decodes the rank's rows on the same layout, one layer's leaves
-gathered at a time, as the reference's scanned decode gathers them; the
-decode cache's sequence dim stays split over ``"model"`` and its attend
-combines across the ranks (``attention.sharded_attend``).
+``sgd`` act on blocks. The encoder-decoder runs the same way on each of
+its stacks, the decoder's cross-attention on the rank's heads too. The
+serve step decodes the rank's rows on the same layout, one layer's
+leaves gathered at a time, as the reference's scanned decode gathers
+them; the decode cache's sequence dim stays split over ``"model"`` and
+its attend combines across the ranks (``attention.sharded_attend``).
 """
 from __future__ import annotations
 
@@ -71,10 +70,7 @@ def _mesh_loss_kwargs(cfg: ModelConfig, mesh, seq_len: int,
     port's loss always knows its mesh there (its rows are a block of the
     batch, so its CE sums over the data axes): without ``constrain_acts``
     or ``seq_len`` the residual keeps the rows' layout, unsplit."""
-    if cfg.family == "resnet3d":
-        raise ValueError("the mesh steps take the LM families; resnet3d "
-                         "runs multi-device as the sharded sync round "
-                         "(core/fed_engine.py::ShardedSyncRound)")
+    _check_lm(cfg)
     dp = shspecs._flat(shspecs.data_axes(mesh))
     if constrain_acts and seq_len:
         loss_kwargs.setdefault("act_pspec", act_pspec(mesh, cfg, seq_len))
@@ -87,6 +83,13 @@ def _mesh_loss_kwargs(cfg: ModelConfig, mesh, seq_len: int,
                          "batch routes with moe_ctx (constrain_acts and "
                          "seq_len)")
     return loss_kwargs
+
+
+def _check_lm(cfg: ModelConfig) -> None:
+    if cfg.family == "resnet3d":
+        raise ValueError("the mesh steps take the LM families; resnet3d "
+                         "runs multi-device as the sharded sync round "
+                         "(core/fed_engine.py::ShardedSyncRound)")
 
 
 def _data_size(mesh) -> int:
@@ -171,10 +174,9 @@ def make_train_step(cfg: ModelConfig, fed: FedConfig, mesh=None,
     ``constrain_acts`` lays the residual out by ``act_pspec`` and gives a
     MoE config the distributed dispatch (``moe_ctx`` over the data axes).
     The loss is the whole batch's and the gradients are summed over the
-    ranks (``reduce_grads``), so every rank takes the same step.
-    ``jit_train_step`` wraps this step for the encoder-decoder's params
-    and state placed on the mesh (the decoder-only families compute on
-    the rank's blocks there)."""
+    ranks (``reduce_grads``), so every rank takes the same step: the
+    whole-params twin of ``jit_train_step``, which computes on the
+    rank's blocks."""
     opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
     grads_of = _grad_fn(cfg, fed, mesh, seq_len, proximal, loss_kwargs,
                         constrain_acts)
@@ -251,13 +253,6 @@ def _dtensor(x, mesh, placements):
                              src_data_rank=None)
 
 
-def _whole(x) -> torch.Tensor:
-    """A DTensor's whole value on this rank, plain (its local tensor when
-    nothing is split)."""
-    loc = x.to_local()
-    return loc if loc.shape == x.shape else x.full_tensor()
-
-
 def _block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's block of the whole value ``x`` under ``placements``: a
     local slice, no communication."""
@@ -303,45 +298,36 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
     reference). ``moe_fullgrid``: the MoE dispatch splits the tokens over
     the data axes and ``"model"``.
 
-    The decoder-only families compute on the rank's blocks (``fn.split``,
-    a ``sharding.MeshSplit`` by ``compute_layout``): the loss's
-    gradients come back as the rank's blocks, summed over the ranks, and
-    the proximal term and ``sgd`` act on the blocks; the residual is
-    split over ``"model"`` on its sequence between layers when
-    ``constrain_acts`` (the reference's ``act_pspec``) and its batch dim
-    keeps the batch's own layout. A MoE batch the data axes do not
-    divide has its flat tokens split evenly over them in the dispatch.
-    The encoder-decoder, whose layout splits nothing, gathers the whole
-    params and anchor, runs ``make_train_step(mesh=)``'s gradients on the
-    rank's rows and updates each rank's own blocks.
+    Every LM family computes on the rank's blocks (``fn.split``, a
+    ``sharding.MeshSplit`` by ``compute_layout``): the loss's gradients
+    come back as the rank's blocks, summed over the ranks, and the
+    proximal term and ``sgd`` act on the blocks; the residual is split
+    over ``"model"`` on its sequence between layers when
+    ``constrain_acts`` (the reference's ``act_pspec``; each of the
+    encoder-decoder's stacks where ``"model"`` divides its own length)
+    and its batch dim keeps the batch's own layout. A MoE batch the data
+    axes do not divide has its flat tokens split evenly over them in the
+    dispatch.
     """
     from torch.distributed.tensor import DTensor, Replicate
+    _check_lm(cfg)
     lk = dict(train_kwargs or {})
     bspec = shspecs.batch_pspecs(mesh, cfg, batch_shape)
     lead = next(iter(bspec.values()))[0]
     pspec = shspecs.param_pspecs(mesh, cfg, params_shape)
     ospec = {"mom": pspec if fed.momentum else None, "step": P()}
-    split = None
-    if cfg.family in lm.FAMILIES:
-        if cfg.moe is not None and not (constrain_acts and shape.seq_len) \
-                and _data_size(mesh) > 1:
-            raise ValueError("a MoE config on a mesh whose data axes split "
-                             "the batch routes with moe_ctx (constrain_acts "
-                             "and seq_len)")
-        split, moe_ctx = mesh_split(cfg, mesh, shape.seq_len, params_shape,
-                                    rows=_spec_axes(lead),
-                                    seq=constrain_acts,
-                                    moe_fullgrid=moe_fullgrid)
-        if moe_ctx is not None:
-            lk["moe_ctx"] = moe_ctx
-        lk.setdefault("dtype", torch.bfloat16)      # bf16 compute
-        grads_of = _split_grad_fn(cfg, fed, split, proximal, lk)
-    else:
-        if constrain_acts and shape.seq_len and cfg.family != "resnet3d":
-            lk.setdefault("act_pspec", NamedSpec(mesh, P(
-                lead, shspecs._maybe(mesh, "model", shape.seq_len), None)))
-        grads_of = _grad_fn(cfg, fed, mesh, shape.seq_len, proximal, lk,
-                            constrain_acts)
+    if cfg.moe is not None and not (constrain_acts and shape.seq_len) \
+            and _data_size(mesh) > 1:
+        raise ValueError("a MoE config on a mesh whose data axes split "
+                         "the batch routes with moe_ctx (constrain_acts "
+                         "and seq_len)")
+    split, moe_ctx = mesh_split(cfg, mesh, shape.seq_len, params_shape,
+                                rows=_spec_axes(lead), seq=constrain_acts,
+                                moe_fullgrid=moe_fullgrid)
+    if moe_ctx is not None:
+        lk["moe_ctx"] = moe_ctx
+    lk.setdefault("dtype", torch.bfloat16)          # bf16 compute
+    grads_of = _split_grad_fn(cfg, fed, split, proximal, lk)
     opt = sgd(fed.lr, fed.momentum, fed.weight_decay)
     in_sh = (pspec, ospec, pspec, bspec)
     out_sh = (pspec, ospec, P())
@@ -362,15 +348,8 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
         rows = {k: _dtensor(v, mesh, bpl[k]).to_local()
                 for k, v in batch.items()}
         local = {k: v.to_local() for k, v in params.items()}
-        if split is not None:
-            loss, grads = grads_of(local, {k: v.to_local() for k, v in
-                                           anchor.items()}, rows)
-        else:
-            whole = {k: _whole(v) for k, v in params.items()}
-            loss, grads = grads_of(whole, {k: _whole(v) for k, v in
-                                           anchor.items()}, rows)
-            del whole
-            grads = {k: _block(g, mesh, pl[k]) for k, g in grads.items()}
+        loss, grads = grads_of(local, {k: v.to_local() for k, v in
+                                       anchor.items()}, rows)
         state = {"mom": None if mom is None else
                  {k: v.to_local() for k, v in mom.items()},
                  "step": opt_state["step"]}
@@ -395,8 +374,8 @@ def _spec_axes(entry) -> tuple:
 
 def mesh_split(cfg: ModelConfig, mesh, seq_len: int, params_shape,
                rows=None, seq: bool = True, moe_fullgrid: bool = False):
-    """The decoder-only LM's compute on ``mesh``, as the train step lays it
-    out: ``(split, moe_ctx)``. ``split`` is the ``sharding.MeshSplit`` of
+    """The LM's compute on ``mesh``, as the train step lays it out:
+    ``(split, moe_ctx)``. ``split`` is the ``sharding.MeshSplit`` of
     ``compute_layout`` over ``params_shape``'s ``param_pspecs``, the
     residual split over ``"model"`` on its sequence when ``seq`` and
     ``"model"`` divides ``seq_len`` (the reference's ``act_pspec``);

@@ -535,20 +535,29 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
         head = lm_head_weight(params, cfg).to(hidden.dtype)
         nll, cnt = chunked_lm_nll(hidden, head, batch["labels"],
                                   chunk=loss_chunk)
-        mesh = mesh_of(act_pspec, moe_ctx)
-        ce = batch_ce(nll, cnt, mesh)
-        return ce + aux, {"ce": ce, "aux": aux}
+        ce = batch_ce(nll, cnt, mesh_of(act_pspec, moe_ctx))
     else:
-        head = _split_head(params, cfg, split).to(hidden.dtype)
-        nll, cnt = chunked_lm_nll(hidden, head, batch["labels"],
-                                  chunk=loss_chunk,
-                                  split=split if split.vocab else None)
-        if not split.vocab:
-            nll = split.owned(nll)
-        axes = data_axes(split.mesh)
-        ce = split.psum(nll, axes) / torch.clamp(
-            split.psum(cnt.detach(), axes), min=1.0)
-        return ce + aux, {"ce": ce, "aux": aux}
+        ce = split_ce(params, cfg, hidden, batch["labels"], loss_chunk,
+                      split)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def split_ce(params, cfg: ModelConfig, hidden, labels, loss_chunk: int,
+             split) -> torch.Tensor:
+    """The whole batch's CE from the rank's rows' hidden (alike on every
+    ``"model"`` rank) and the rank's block of the head, under ``split``:
+    vocabulary-parallel where ``"model"`` splits V
+    (``chunked_lm_nll(split=)``), else computed alike on every
+    ``"model"`` rank (``split.owned``); the NLL and the label count
+    summed over the data axes."""
+    head = _split_head(params, cfg, split).to(hidden.dtype)
+    nll, cnt = chunked_lm_nll(hidden, head, labels, chunk=loss_chunk,
+                              split=split if split.vocab else None)
+    if not split.vocab:
+        nll = split.owned(nll)
+    axes = data_axes(split.mesh)
+    return split.psum(nll, axes) / torch.clamp(
+        split.psum(cnt.detach(), axes), min=1.0)
 
 
 def logits_fn(params, cfg: ModelConfig, tokens, prefix_embeds=None,

@@ -469,9 +469,6 @@ def psum_axes(x, mesh, axes):
 # Tensor-parallel compute over "model"
 # ---------------------------------------------------------------------------
 
-SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-
-
 class Split(NamedTuple):
     """How a leaf meets ``"model"`` in a layer's compute: the layer reads
     block ``coord // ranks`` of the ``M // ranks`` equal blocks of tensor
@@ -506,9 +503,11 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
     - attention by whole query heads when ``"model"`` divides
       ``num_heads`` and either divides ``num_kv_heads`` (each rank its
       kv heads) or is a multiple of it (each rank reads the kv head of
-      its query group: ``Split(-1, M // KV)``);
+      its query group: ``Split(-1, M // KV)``), in every stack
+      (``layers``, the encoder-decoder's ``enc_layers`` and
+      ``dec_layers``), the decoder's cross-attention (``xattn``) too;
     - the MLP and the shared expert by ``d_ff`` columns when ``"model"``
-      divides ``d_ff``;
+      divides ``d_ff``, in every stack;
     - the MoE experts over ``"model"`` when it divides E (expert
       parallel), else by each expert's ``d_ff`` columns (the rule's two
       branches); ``moe_fullgrid`` keeps them gathered, its dispatch
@@ -524,12 +523,12 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
       and dt columns, x channels, heads and norm columns beside every B
       and C column (``MeshSplit.ssm_heads``).
 
-    Every other leaf (norms, the router, the encoder-decoder's, any leaf
-    of a mesh whose ``"model"`` has one rank) is None.
+    Every other leaf (norms, the router, any leaf of a mesh whose
+    ``"model"`` has one rank) is None.
     """
     out = {k: None for k in params}
     M = _axis_size(mesh, "model")
-    if M <= 1 or cfg.family not in SPLIT_FAMILIES:
+    if M <= 1:
         return out
 
     def put(keys, dim, ranks=1):
@@ -538,15 +537,17 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
                 out[k] = Split(dim, ranks)
 
     H, KV, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-    if H and H % M == 0 and (KV % M == 0 or M % KV == 0):
-        put(("layers/attn/wq",), -1)
-        put(("layers/attn/wo",), -2)
-        put(("layers/attn/wk", "layers/attn/wv"), -1,
-            1 if KV % M == 0 else M // KV)
-    if f % M == 0:
-        put(("layers/mlp/wg", "layers/mlp/wi", "layers/moe/shared_wg",
-             "layers/moe/shared_wi"), -1)
-        put(("layers/mlp/wo", "layers/moe/shared_wo"), -2)
+    for st in ("layers", "enc_layers", "dec_layers"):
+        if H and H % M == 0 and (KV % M == 0 or M % KV == 0):
+            for blk in ("attn", "xattn"):
+                put((f"{st}/{blk}/wq",), -1)
+                put((f"{st}/{blk}/wo",), -2)
+                put((f"{st}/{blk}/wk", f"{st}/{blk}/wv"), -1,
+                    1 if KV % M == 0 else M // KV)
+        if f % M == 0:
+            put((f"{st}/mlp/wg", f"{st}/mlp/wi", f"{st}/moe/shared_wg",
+                 f"{st}/moe/shared_wi"), -1)
+            put((f"{st}/mlp/wo", f"{st}/moe/shared_wo"), -2)
     if cfg.moe is not None and not moe_fullgrid:
         if cfg.moe.num_experts % M == 0:
             put(("layers/moe/wg", "layers/moe/wi", "layers/moe/wo"), -3)
@@ -844,11 +845,13 @@ class MeshSplit:
         n = t.shape[dim] * s.ranks // self.M
         return t.narrow(dim, (self.m // s.ranks) * n, n)
 
-    def heads(self, stack: str = "layers") -> "Heads | None":
-        """The attention of a layer of ``stack`` on the rank's heads
-        (``Heads``), or None where the layout gathers it whole."""
-        return Heads(self, stack) if self.splits(f"{stack}/attn/wq") \
-            else None
+    def heads(self, stack: str = "layers",
+              block: str = "attn") -> "Heads | None":
+        """The attention ``block`` (``attn``, or the decoder's ``xattn``)
+        of a layer of ``stack`` on the rank's heads (``Heads``), or None
+        where the layout gathers it whole."""
+        return Heads(self, stack, block) \
+            if self.splits(f"{stack}/{block}/wq") else None
 
     def ssm_heads(self, stack: str = "layers") -> "SSMHeads | None":
         """The SSM mixer of a layer of ``stack`` on the rank's block of
@@ -963,21 +966,23 @@ class Heads(NamedTuple):
     ``wq`` / ``wk`` / ``wv`` columns. ``whole_q`` / ``whole_kv`` gather
     every rank's heads over ``"model"`` (a cache's row holds every kv
     head); ``own_q`` / ``own_kv`` keep the rank's heads of whole ones (a
-    view of a cache, an attend's output)."""
+    view of a cache, an attend's output). ``block``: the attention's
+    leaves under the stack (``attn``, or the decoder's ``xattn``)."""
     split: MeshSplit
     stack: str
+    block: str = "attn"
 
     def whole_q(self, t):
-        return self.split.whole(t, 2, f"{self.stack}/attn/wq")
+        return self.split.whole(t, 2, f"{self.stack}/{self.block}/wq")
 
     def whole_kv(self, t):
-        return self.split.whole(t, 2, f"{self.stack}/attn/wk")
+        return self.split.whole(t, 2, f"{self.stack}/{self.block}/wk")
 
     def own_q(self, t):
-        return self.split.own(t, 2, f"{self.stack}/attn/wq")
+        return self.split.own(t, 2, f"{self.stack}/{self.block}/wq")
 
     def own_kv(self, t):
-        return self.split.own(t, 2, f"{self.stack}/attn/wk")
+        return self.split.own(t, 2, f"{self.stack}/{self.block}/wk")
 
 
 class SSMHeads(NamedTuple):

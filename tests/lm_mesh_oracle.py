@@ -40,6 +40,11 @@ CASES = {
     "2x2-llama4-fullgrid": ((2, 2), "llama4-scout-17b-a16e", "train",
                             {"moe_fullgrid": True}),
     "2x2-seamless": ((2, 2), "seamless-m4t-large-v2", "train", {}),
+    # a batch of 15 target tokens beside 16 source frames (the train
+    # shape's SEQ 32 splits the residual): "model" splits the encoder's
+    # sequence but not the decoder's
+    "2x2-seamless-odd-tgt": ((2, 2), "seamless-m4t-large-v2", "train",
+                             {"batch_seq": 31}),
     "2x2-paligemma": ((2, 2), "paligemma-3b", "train", {}),
     # 4 / 4 heads, layer 0 windowed (16 < SEQ), layer 1 global
     "2x2-gemma3": ((2, 2), "gemma3-12b", "train",
@@ -85,6 +90,9 @@ CASES = {
     # "model" 4 divides the reduced Mamba2's 8 SSD heads: 2 heads a rank
     "1x4-mamba2": ((1, 4), "mamba2-130m", "train", {}),
     "1x4-mamba2-serve": ((1, 4), "mamba2-130m", "serve", {}),
+    # 4 / 4 heads on "model" 4: one query and one kv head a rank, in the
+    # encoder, the decoder and its cross-attention
+    "1x4-seamless": ((1, 4), "seamless-m4t-large-v2", "train", {}),
     "2x1-capacity": ((2, 1), None, "capacity", {}),
 }
 
@@ -134,6 +142,8 @@ def _serve_shapes(cfg, opts):
 
 
 def _run(name, out_dir):
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -176,7 +186,8 @@ def _run(name, out_dir):
             lambda v: v * np.float32(ANCHOR_SCALE), params)
         sc = ShapeConfig("t", seq_len=SEQ,
                          global_batch=opts.get("batch", BATCH), kind="train")
-        batch = registry.synth_batch(rng, cfg, sc)
+        batch = registry.synth_batch(rng, cfg, dataclasses.replace(
+            sc, seq_len=opts.get("batch_seq", SEQ)))
         bshape = jax.eval_shape(lambda: batch)
         fed = FedConfig(**FED)
         fn, _ = steps.jit_train_step(

@@ -31,7 +31,14 @@ its own card without a mesh:
 - Hymba-1.5B's mesh scoring forward on the split path (its MLP and SSM
   mixer split, attention gathered), B 2 x S 2048, against the whole
   batch scored on one card: kernel 6 once a layer on the rank's SSD
-  heads (25 of 50 where "model" is 2).
+  heads (25 of 50 where "model" is 2);
+- on (2, 2): Hymba-1.5B served again with f32 caches, its logits
+  against one card's; seamless-m4t-large-v2 at full width, three train
+  steps of B 2 x 2048 source frames x 1024 target tokens (the losses
+  within the bf16 limit of one card's) and 16 tokens served from a
+  512-frame source (the picks one card's but for near-ties), each on
+  the split path and with every leaf gathered over "model": ms, peak GB
+  a card, the last train step's collectives.
 
 With fewer than two cards every test skips. Imports no JAX:
 
@@ -64,6 +71,11 @@ SERVE = (4, 2048, 64, 16)      # B, cache positions, prompt, tokens
 # served beside Hymba: every leaf of its layers splits over "model"
 SERVE_DENSE = "h2o-danube-3-4b"
 MOE_LAYERS = 4
+# the encoder-decoder on (2, 2): B, source frames, target tokens, steps;
+# and served: B, source frames, tokens from BOS
+ENCDEC = "seamless-m4t-large-v2"
+ENCDEC_TRAIN = (2, 2048, 1024, 3)
+ENCDEC_SERVE = (4, 512, 16)
 # the split path's CE against one card's (f32): its row-parallel partial
 # sums reduce in another order
 SPLIT_CE_RTOL = 1e-5
@@ -86,51 +98,89 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _train(mesh, cfg) -> dict:
+def _encdec_batches(cfg) -> list:
+    """``ENCDEC_TRAIN``'s batches: random source frames, target tokens
+    and their next tokens as labels."""
+    import numpy as np
+    B, Ss, St, n = ENCDEC_TRAIN
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(n):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, St + 1))
+                                .astype(np.int32)).cuda()
+        out.append({"src_embeds": torch.from_numpy(rng.standard_normal(
+            (B, Ss, cfg.d_model)).astype(np.float32)).cuda(),
+            "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def _train(mesh, cfg, gathered: bool = False) -> dict:
+    """``cfg`` at full width (f32 params, bf16 compute, remat) through
+    ``jit_train_step`` on ``mesh``, ``TRAIN``'s batches
+    (``ENCDEC_TRAIN``'s for the encoder-decoder): each step's ms, the
+    card's peak GB, the last step's profile and collectives (read times
+    from the other steps); with ``gathered`` the same steps again with
+    every leaf gathered over ``"model"`` (``_all_gathered``). The losses
+    against ``make_train_step(mesh=None)`` on the whole batches on this
+    card alone."""
     import numpy as np
     from repro_torch.checkpoint.convert import _shapes
     from repro_torch.launch import steps
     from repro_torch.models import registry
     from repro_torch.sharding import specs as shspecs
     from repro_torch.types import FedConfig, ShapeConfig
-    B, S, n = TRAIN
-    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
-    rng = np.random.default_rng(0)
-    batches = [registry.synth_batch(rng, cfg, shape, device="cuda")
-               for _ in range(n)]
+    if cfg.is_encdec:
+        batches = _encdec_batches(cfg)
+        B, Ss, St, _ = ENCDEC_TRAIN
+        shape = ShapeConfig("train", seq_len=Ss + St, global_batch=B,
+                            kind="train")
+    else:
+        B, S, n = TRAIN
+        shape = ShapeConfig("train", seq_len=S, global_batch=B,
+                            kind="train")
+        rng = np.random.default_rng(0)
+        batches = [registry.synth_batch(rng, cfg, shape, device="cuda")
+                   for _ in range(n)]
     fed = FedConfig()
 
     def init():
         return registry.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
-    fn, (in_sh, _) = steps.jit_train_step(cfg, fed, mesh, shape,
-                                          _shapes(cfg),
-                                          registry.batch_spec(cfg, shape))
-    whole = init()
-    params = shspecs.place(mesh, {k: v.clone() for k, v in whole.items()},
-                           in_sh[0])
-    anchor = shspecs.place(mesh, whole, in_sh[2])
-    del whole
-    _free()
-    state = fn.opt.init(params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, ms = [], []
-    for i, b in enumerate(batches):
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        last = i == len(batches) - 1
-        prof = _profiler() if last else contextlib.nullcontext()
-        with prof:
-            t0.record()
-            params, state, loss = fn(params, state, anchor, b)
-            t1.record()
-            torch.cuda.synchronize()
-        ms.append(t0.elapsed_time(t1))
-        losses.append(float(loss.to_local()))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    profile = _top_ops(prof)
-    del params, state, anchor
-    _free()
+    runs = {}
+    for name in ("split", "gathered") if gathered else ("split",):
+        with _all_gathered() if name == "gathered" else \
+                contextlib.nullcontext():
+            fn, (in_sh, _) = steps.jit_train_step(cfg, fed, mesh, shape,
+                                                  _shapes(cfg), batches[0])
+        whole = init()
+        params = shspecs.place(mesh, {k: v.clone() for k, v in
+                                      whole.items()}, in_sh[0])
+        anchor = shspecs.place(mesh, whole, in_sh[2])
+        del whole
+        _free()
+        state = fn.opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i, b in enumerate(batches):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            last = i == len(batches) - 1
+            prof = _profiler() if last else contextlib.nullcontext()
+            with prof, _Collectives() if last else \
+                    contextlib.nullcontext() as coll:
+                t0.record()
+                params, state, loss = fn(params, state, anchor, b)
+                t1.record()
+                torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+            losses.append(float(loss.to_local()))
+        runs[name] = {"split": repr(fn.split), "losses": losses,
+                      "step_ms": ms,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "last_step_profile": _top_ops(prof),
+                      "last_step_collectives": coll.count}
+        del params, state, anchor
+        _free()
     step, opt = steps.make_train_step(cfg, fed)
     p = init()
     anchor, ost, want = dict(p), opt.init(p), []
@@ -139,11 +189,38 @@ def _train(mesh, cfg) -> dict:
         want.append(float(l))
     del p, ost, anchor
     _free()
-    err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
-    return {"losses": losses, "one_card_losses": want,
-            "loss_rel_err": err, "ok": err <= BF16_LOSS_RTOL
-            and all(math.isfinite(x) for x in losses),
-            "step_ms": ms, "peak_gb": peak, "last_step_profile": profile}
+    for run in runs.values():
+        run["loss_rel_err"] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(run["losses"], want))
+    got = {**runs.pop("split"), "one_card_losses": want}
+    got["ok"] = got["loss_rel_err"] <= BF16_LOSS_RTOL and all(
+        math.isfinite(x) for x in got["losses"]) and all(
+        r["loss_rel_err"] <= BF16_LOSS_RTOL for r in runs.values())
+    return {**got, **runs}
+
+
+class _Collectives(contextlib.AbstractContextManager):
+    """The collectives dispatched inside, counted by kind (``count``)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from repro_torch.roofline.counter import COLLECTIVES
+        box = self.count = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kind = COLLECTIVES.get(func.overloadpacket.__name__)
+                if kind is not None:
+                    box[kind] = box.get(kind, 0) + 1
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
 
 
 def _profiler():
@@ -182,33 +259,48 @@ def _all_gathered():
         shspecs.compute_layout = layout
 
 
-def _serve(mesh, cfg, gathered: bool = False) -> dict:
+def _serve(mesh, cfg, gathered: bool = False,
+           cache_dtype=torch.bfloat16) -> dict:
     """``cfg`` at full width (f32) served by ``jit_serve_step`` on
-    ``mesh`` (``SERVE``), the whole params freed before the mesh's steps:
-    each token's wall ms and the card's peak GB over them. With
+    ``mesh`` (``SERVE``; the encoder-decoder ``ENCDEC_SERVE`` from BOS
+    after a prefilled source), the whole params freed before the mesh's
+    steps: each token's wall ms and the card's peak GB over them. With
     ``gathered`` the same steps again with every leaf gathered over
     ``"model"`` (``_all_gathered``). Then the whole batch decoded on this
     card alone, fed the mesh's tokens: the same picks but for near-ties
-    within the two decodes' difference (counted)."""
+    within the two decodes' difference (counted). ``cache_dtype``: both
+    decodes' cache."""
     import numpy as np
     from repro_torch.checkpoint.convert import _shapes
     from repro_torch.launch import steps
     from repro_torch.models import registry
     from repro_torch.sharding import specs as shspecs
     from repro_torch.types import ShapeConfig
-    B, L, P, T = SERVE
 
     def init():
         return registry.init_params(
             torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
     params = init()
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
-    with torch.no_grad():
-        logits, cache = registry.prefill(
-            params, cfg, {"tokens": prompt},
-            registry.init_cache(cfg, B, L, device="cuda"))
-    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    rng = np.random.default_rng(1)
+    if cfg.is_encdec:
+        (B, L, T), P = ENCDEC_SERVE, 0
+        src = torch.from_numpy(rng.standard_normal(
+            (B, L, cfg.d_model)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            cache = registry.prefill(
+                params, cfg, {"src_embeds": src},
+                registry.init_cache(cfg, B, L, cache_dtype, "cuda"))
+        first = torch.zeros(B, dtype=torch.int32, device="cuda")   # BOS
+    else:
+        B, L, P, T = SERVE
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
+        with torch.no_grad():
+            logits, cache = registry.prefill(
+                params, cfg, {"tokens": prompt},
+                registry.init_cache(cfg, B, L, cache_dtype, "cuda"))
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        del logits
     shape = ShapeConfig("serve", seq_len=L, global_batch=B, kind="decode")
     fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, shape, _shapes(cfg),
                                           cache)
@@ -218,7 +310,7 @@ def _serve(mesh, cfg, gathered: bool = False) -> dict:
             fns["gathered"] = steps.jit_serve_step(cfg, mesh, shape,
                                                    _shapes(cfg), cache)[0]
     placed = shspecs.place(mesh, params, in_sh[0])
-    del params, logits
+    del params
     _free()
     out = {}
     for name, fn in fns.items():
@@ -260,7 +352,7 @@ def _serve(mesh, cfg, gathered: bool = False) -> dict:
     del params, plain
     _free()
     got = {"ok": True, "arch": cfg.name, "tokens": T, "greedy_ties": ties,
-           "logits_rel_err": max(errs)}
+           "logits_rel_err": max(errs), "cache_dtype": str(cache_dtype)}
     for name, run in out.items():
         got[name] = {k: run[k] for k in ("split", "step_wall_ms",
                                           "peak_gb")}
@@ -466,6 +558,15 @@ def _rank_main(out_dir: str) -> int:
         _free()
         if shape[0] == 2:
             got["moe_dp2"] = _moe(mesh)
+        if shape == (2, 2):
+            got["serve_f32_cache"] = _serve(mesh, cfg,
+                                            cache_dtype=torch.float32)
+            _free()
+            ecfg = get_config(ENCDEC)
+            got["encdec_train"] = _train(mesh, ecfg, gathered=True)
+            _free()
+            got["encdec_serve"] = _serve(mesh, ecfg, gathered=True)
+            _free()
         got["seconds"] = time.perf_counter() - t0
         per_rank = [None] * world
         dist.all_gather_object(per_rank, got)
@@ -504,8 +605,18 @@ def test_train_step_over_cards_matches_one_card(run):
 
 
 def test_serve_step_over_cards_picks_the_one_card_tokens(run):
-    got = _all(run, "serve") + _all(run, "serve_dense")
+    got = _all(run, "serve") + _all(run, "serve_dense") + \
+        _all(run, "serve_f32_cache")
     assert got and all(r["ok"] for r in got), got
+
+
+def test_encoder_decoder_over_cards_matches_one_card(run):
+    """seamless at full width on (2, 2): the train step's losses within
+    the bf16 limit of one card's, split and all-gathered; the serve
+    step's picks one card's but for near-ties."""
+    got = _all(run, "encdec_train") + _all(run, "encdec_serve")
+    if run["world"] == 4:
+        assert got and all(r["ok"] for r in got), got
 
 
 def test_moe_loss_at_dp2_matches_the_per_shard_oracle(run):

@@ -11,11 +11,12 @@ limit, on the same inputs converted (``params_from_jax``): the port's
 ``jit_train_step`` / ``jit_serve_step`` with reduced Hymba, Mamba2,
 llama4-scout (the MoE dispatch over the data axes, and with
 ``moe_fullgrid``, and a batch of 3 the data axes do not divide),
-seamless (the encoder-decoder), paligemma (its patch prefix and one kv
+seamless (the encoder-decoder; also with 15 target tokens beside 16
+source frames, and on (1, 4)), paligemma (its patch prefix and one kv
 head), gemma3 (windowed and global layers) and grok-1 with 3 experts
-(each expert's ``d_ff`` split), and Mamba2 on (1, 4); the decoder-only
-families compute on each rank's heads, SSD heads, ``d_ff`` columns,
-experts and vocabulary rows (``sharding.compute_layout``). Train: loss
+(each expert's ``d_ff`` split), and Mamba2 on (1, 4); every family
+computes on each rank's heads, SSD heads, ``d_ff`` columns, experts and
+vocabulary rows (``sharding.compute_layout``). Train: loss
 within 1e-5 relative, params within
 1e-5 (1 + |ref|). Serve: tokens equal, cache within 1e-5 (1 + |ref|).
 The capacity case shows the port follows the reference's distributed
@@ -56,6 +57,18 @@ SSM_SPLIT = {
     "layers/ssm/dt_bias": [-1, [[8, True]]],
     "layers/ssm/norm": [-1, [[256, True]]],
     "layers/ssm/out_proj": [-2, 1]}
+# the reduced seamless (4 / 4 heads, d_ff 256, V 256) on "model" 2 or 4:
+# both stacks' attention, the decoder's cross-attention and both MLPs on
+# the rank's heads and d_ff columns, the embedding and the head by
+# vocabulary rows
+SEAMLESS_SPLIT = {
+    **{f"{st}/{blk}/{k}": [-2 if k == "wo" else -1, 1]
+       for st, blocks in (("enc_layers", ("attn",)),
+                          ("dec_layers", ("attn", "xattn")))
+       for blk in blocks for k in ("wq", "wk", "wv", "wo")},
+    **{f"{st}/mlp/{k}": [-2 if k == "wo" else -1, 1]
+       for st in ("enc_layers", "dec_layers") for k in ("wg", "wi", "wo")},
+    "embed": [-2, 1], "lm_head": [-1, 1]}
 
 
 def _names(kind=None, world=None):
@@ -228,7 +241,9 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
     d_ff columns and vocabulary rows on the rank's block, the 3 experts
     split by their d_ff columns (2 does not divide 3), and llama4's 4
     experts expert-parallel; Hymba's and Mamba2's SSM mixers on the
-    rank's SSD heads, 4 of 8 on (2, 2) and (1, 2), 2 on (1, 4)."""
+    rank's SSD heads, 4 of 8 on (2, 2) and (1, 2), 2 on (1, 4); the
+    encoder-decoder's two stacks and cross-attention on the rank's
+    heads and d_ff columns, its vocabulary rows split."""
     gemma = results["2x2-gemma3"]["split"]
     assert gemma == {"layers/attn/wq": [-1, 1], "layers/attn/wk": [-1, 1],
                      "layers/attn/wv": [-1, 1], "layers/attn/wo": [-2, 1],
@@ -246,6 +261,13 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
         assert {k: v for k, v in got.items() if "/ssm/" in k} == \
             SSM_SPLIT, (name, got)
     assert results["2x1-hymba"]["split"] == {}
+    # the encoder-decoder: 2 of 4 heads a rank on (2, 2), 1 on (1, 4);
+    # with 15 target tokens beside 16 source frames only the encoder's
+    # residual splits its sequence
+    for name in ("2x2-seamless", "2x2-seamless-odd-tgt", "1x4-seamless"):
+        assert results[name]["split"] == SEAMLESS_SPLIT, \
+            (name, results[name]["split"])
+        assert results[name]["seq_split"], name
     # between layers the residual is split over "model" on its sequence,
     # but for the case without act_pspec, whose partial sums all-reduce
     assert results["2x2-gemma3"]["seq_split"]
@@ -266,8 +288,9 @@ def test_serve_cases_decode_on_the_rank_s_blocks(results):
     columns, llama4's experts expert-parallel, paligemma's one kv head
     read by both ranks; Hymba's reduced 4 heads and 8 SSD heads split;
     Mamba2's SSM mixers on the rank's SSD heads beside its vocabulary
-    rows, on (2, 2) and (1, 4), and the encoder-decoder gathers every
-    leaf."""
+    rows, on (2, 2) and (1, 4); the encoder-decoder's decoder on the
+    rank's heads (self- and cross-attention against caches split on
+    their sequence), d_ff columns and vocabulary rows."""
     gemma = results["2x2-gemma3"]["split"]
     assert results["2x2-gemma3-serve"]["split"] == gemma
     assert results["2x2-gemma3-serve-b1"]["split"] == gemma
@@ -286,7 +309,7 @@ def test_serve_cases_decode_on_the_rank_s_blocks(results):
         results["1x4-mamba2"]["split"] == results["2x2-mamba2"]["split"]
     assert results["1x2-hymba-serve"]["split"] == \
         results["1x2-hymba"]["split"]
-    assert results["2x2-seamless-serve"]["split"] == {}
+    assert results["2x2-seamless-serve"]["split"] == SEAMLESS_SPLIT
 
 
 def test_moe_follows_the_distributed_capacity(results):

@@ -7,8 +7,8 @@ reference: the reference's own split is held against the port by
   gemma3's heads split, the kv heads read by query group; Hymba's and
   paligemma's attention gathered (25 and 8 heads on 16), Hymba's MLP
   split; llama4's experts expert-parallel; grok-1's experts split by
-  ``d_ff``; the SSM mixers, the encoder-decoder and a one-rank
-  ``"model"`` gathered;
+  ``d_ff``; seamless's two stacks and cross-attention split, its
+  vocabulary on (2, 2) only; a one-rank ``"model"`` gathered;
 - the vocabulary-parallel CE over 2 gloo ranks against ``cross_entropy``
   on the whole logits, values and gradients;
 - the train step on a fake (2, 2) world: no whole leaf of a split param
@@ -19,6 +19,10 @@ reference: the reference's own split is held against the port by
   each layer's leaves are gathered inside its own layer, to the rank's
   blocks; on 4 gloo ranks against a cache "model" does not split
   (uniform, ring, window-sliced) equal to one process's decode;
+- the encoder-decoder's train and serve steps on a fake (2, 2) world on
+  the rank's blocks, no param gathered whole; its decode on 4 gloo
+  ranks against whole self-attention and source caches equal to one
+  process's;
 - the pod dry run of gemma3-12b's widths cut to 2 layers: its
   ``useful_flop_ratio`` at least 8x that of the same step with every leaf
   gathered over ``"model"``; its decode's flops a device at most a
@@ -52,6 +56,16 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 POD = MeshShape((16, 16), ("data", "model"))
 MULTIPOD = MeshShape((2, 16, 16), ("pod", "data", "model"))
 SPAWN_LIMIT_S = 120
+
+
+# every attention, cross-attention and MLP leaf of the encoder-decoder
+_SEAMLESS_SPLIT = {f"{st}/{blk}/{k}"
+                   for st, blocks in (("enc_layers", ("attn", "mlp")),
+                                      ("dec_layers", ("attn", "xattn",
+                                                      "mlp")))
+                   for blk in blocks
+                   for k in (("wg", "wi", "wo") if blk == "mlp"
+                             else ("wq", "wk", "wv", "wo"))}
 
 
 def _gathered(mesh, cfg, params, moe_fullgrid=False):
@@ -98,7 +112,20 @@ def test_heads_the_axis_does_not_divide_stay_gathered():
     assert pali["layers/attn/wq"] is None and \
         pali["layers/mlp/wi"] == Split(-1)
     assert all(v is None for v in _layout("mamba2-130m").values())
-    assert all(v is None for v in _layout("seamless-m4t-large-v2").values())
+    # seamless: 16 / 16 heads and d_ff 8192 split on 16 in both stacks
+    # and the cross-attention; V 256206 does not, on (2, 2) it does
+    seamless = _layout("seamless-m4t-large-v2")
+    assert {k for k, v in seamless.items() if v is not None} == \
+        _SEAMLESS_SPLIT
+    assert seamless["dec_layers/xattn/wk"] == Split(-1) and \
+        seamless["enc_layers/mlp/wo"] == Split(-2)
+    assert seamless["embed"] is None and seamless["lm_head"] is None
+    assert seamless["dec_layers/lnx"] is None and seamless["enc_norm"] is None
+    two = _layout("seamless-m4t-large-v2", MeshShape((2, 2),
+                                                     ("data", "model")))
+    assert {k for k, v in two.items() if v is not None} == \
+        _SEAMLESS_SPLIT | {"embed", "lm_head"}
+    assert two["embed"] == Split(-2) and two["lm_head"] == Split(-1)
     one = MeshShape((256, 1), ("data", "model"))
     assert all(v is None for v in _layout("gemma3-12b", one).values())
 
@@ -196,6 +223,26 @@ def _fake_train_step(cfg, world=4, shape=(2, 2), seq=64):
     return mode, fn, (params, state, anchor, batch), mesh
 
 
+def _fake_serve_step(cfg, seq=16):
+    """``jit_serve_step`` of ``cfg`` (B 4, ``seq`` cache positions, a
+    source of ``seq`` frames for the encoder-decoder) on a fake (2, 2)
+    world: (mode, fn, its placed arguments)."""
+    from repro_torch.launch import steps
+    dryrun.fake_world(4)
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), device="cpu")
+    sc = ShapeConfig("s", seq_len=seq, global_batch=4, kind="decode")
+    mode = FakeTensorMode()
+    with mode:
+        pstruct = dryrun.params_struct(cfg)
+        tok, cspec, pos = registry.decode_spec(cfg, sc, torch.float32)
+        fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, sc, pstruct, cspec)
+        args = (shspecs.place(mesh, pstruct, in_sh[0]),
+                shspecs.place(mesh, dryrun._fake(tok), in_sh[1]),
+                shspecs.place(mesh, dryrun._fake(cspec), in_sh[2]),
+                dryrun._fake(pos))
+    return mode, fn, args
+
+
 def test_no_rank_holds_a_whole_split_leaf(monkeypatch):
     """Reduced gemma3 (4 / 4 heads, d_ff 512, V 512) on a fake (2, 2)
     world: every leaf the layout splits is gathered over the data axes
@@ -243,21 +290,10 @@ def test_serve_step_gathers_a_layer_of_the_rank_s_blocks(monkeypatch):
     norm and the head are gathered where they are used, ``embed`` to its
     vocabulary block."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.launch import steps
     from repro_torch.models import lm
     cfg = get_config("gemma3-12b").reduced()
-    dryrun.fake_world(4)
-    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), device="cpu")
-    sc = ShapeConfig("s", seq_len=64, global_batch=4, kind="decode")
-    mode = FakeTensorMode()
-    with mode:
-        pstruct = dryrun.params_struct(cfg)
-        tok, cspec, pos = registry.decode_spec(cfg, sc, torch.float32)
-        fn, (in_sh, _) = steps.jit_serve_step(cfg, mesh, sc, pstruct, cspec)
-        params = shspecs.place(mesh, pstruct, in_sh[0])
-        args = (params, shspecs.place(mesh, dryrun._fake(tok), in_sh[1]),
-                shspecs.place(mesh, dryrun._fake(cspec), in_sh[2]),
-                dryrun._fake(pos))
+    mode, fn, args = _fake_serve_step(cfg, seq=64)
+    params = args[0]
     events, whole = [], []
     gather, layer = shspecs.MeshSplit.gather, lm._split_layer
     full, redist = DTensor.full_tensor, DTensor.redistribute
@@ -384,6 +420,147 @@ def test_serve_step_on_rank_heads_against_a_whole_cache(tmp_path):
             assert g["split"] and g["cache_spec"][2] is None, (mode, g)
             assert g["tokens_equal"] and g["logits"] <= 1e-5 and \
                 g["cache"] <= 1e-5, (mode, g)
+
+
+@pytest.mark.parametrize("kind", ["train", "serve"])
+def test_encoder_decoder_steps_hold_no_whole_leaf(kind, monkeypatch):
+    """Reduced seamless (4 / 4 heads, d_ff 512, V 512) on a fake (2, 2)
+    world, its train and its serve step: no param DTensor is gathered
+    whole or redistributed; every attention, cross-attention and MLP
+    leaf of both stacks is gathered to the rank's (., n / 2) block of
+    the layer's slice, and the embedding to its vocabulary rows."""
+    from torch.distributed.tensor import DTensor
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    if kind == "train":
+        mode, fn, args, _ = _fake_train_step(cfg)
+    else:
+        mode, fn, args = _fake_serve_step(cfg)
+    seen, whole = {}, []
+    gather = shspecs.MeshSplit.gather
+
+    def record(self, key, x):
+        out = gather(self, key, x)
+        seen.setdefault(key, set()).add(tuple(out.shape))
+        return out
+
+    def watch(orig):
+        def f(self, *a, **k):
+            if any(self is v for v in args[0].values()):
+                whole.append(tuple(self.shape))
+            return orig(self, *a, **k)
+        return f
+    monkeypatch.setattr(shspecs.MeshSplit, "gather", record)
+    monkeypatch.setattr(DTensor, "full_tensor", watch(DTensor.full_tensor))
+    monkeypatch.setattr(DTensor, "redistribute",
+                        watch(DTensor.redistribute))
+    with mode:
+        fn(*args)
+    assert whole == [], whole
+    split = {k for k, v in fn.split.layout.items() if v is not None}
+    assert split == _SEAMLESS_SPLIT | {"embed", "lm_head"}
+    shapes = _shapes(cfg)
+    # the serve step reads the decoder alone; the head and the last norm
+    # where they are used
+    for k in (split if kind == "train" else
+              {k for k in split if not k.startswith("enc_layers/")}):
+        want = list(shapes[k][1:] if "layers/" in k else shapes[k])
+        want[fn.split.layout[k].dim] //= 2
+        assert seen[k] == {tuple(want)}, (k, seen[k])
+    assert seen["dec_layers/lnx"] == {shapes["dec_layers/lnx"][1:]}
+
+
+def _encdec_whole_cache_rank(rank: int, store: str, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=60))
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    cfg = get_config("seamless-m4t-large-v2").reduced(d_model=128,
+                                                      vocab=256)
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), device="cpu")
+    B, Ss, St, T = 4, 7, 25, 4         # "model" divides neither length
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    src = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, Ss, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        cache = registry.prefill(
+            params, cfg, {"src_embeds": src},
+            encdec.init_cache(cfg, B, Ss, St, torch.float32, "cpu"))
+    plain = {k: v.clone() for k, v in cache.items()}
+    fn, (in_sh, _) = steps.jit_serve_step(
+        cfg, mesh, ShapeConfig("s", seq_len=Ss, global_batch=B,
+                               kind="decode"), _shapes(cfg), cache)
+    placed = shspecs.place(mesh, params, in_sh[0])
+    c = shspecs.place(mesh, cache, in_sh[2])
+    rows = slice(2 * mesh.get_coordinate()[0], 2 * mesh.get_coordinate()[0]
+                 + 2)
+    tok = torch.zeros(B, dtype=torch.int32)
+    err, equal = 0.0, True
+    for t in range(T):
+        nxt, c, lk = fn(placed, tok, c, t, with_logits=True)
+        with torch.no_grad():
+            le, plain = registry.decode_step(params, cfg, tok, plain, t)
+        tok = nxt.full_tensor()
+        err = max(err, float((lk - le[rows]).abs().max()))
+        equal = equal and torch.equal(tok, torch.argmax(le, dim=-1)
+                                      .to(torch.int32))
+    # the scoring forward on the rank's blocks and rows: its vocabulary
+    # block of every position's logits, both stacks' sequences split
+    gen = np.random.default_rng(1)
+    batch = {"src_embeds": torch.from_numpy(gen.standard_normal(
+        (B, 8, cfg.d_model)).astype(np.float32)),
+        "tokens": torch.from_numpy(gen.integers(0, cfg.vocab_size, (B, 6))
+                                   .astype(np.int32))}
+    split, _ = steps.mesh_split(cfg, mesh, 14, _shapes(cfg))
+    V = cfg.vocab_size // 2
+    cols = slice(mesh.get_coordinate()[1] * V,
+                 (mesh.get_coordinate()[1] + 1) * V)
+    with torch.no_grad():
+        lg = registry.logits_fn({k: v.to_local() for k, v in
+                                 placed.items()}, cfg,
+                                {k: v[rows] for k, v in batch.items()},
+                                split=split)
+        want = registry.logits_fn(params, cfg, batch)[rows][..., cols]
+    got = {"logits": err, "tokens_equal": equal,
+           "cache": max(float((c[k].full_tensor() - plain[k]).abs().max())
+                        for k in plain),
+           "split": fn.split.splits("dec_layers/xattn/wq"),
+           "cache_spec": {k: list(in_sh[2][k]) for k in ("k", "enc_k")},
+           "scoring_seq_split": split.seq,
+           "scoring_logits": float((lg - want).abs().max())}
+    Path(out, f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def test_encoder_decoder_decode_against_whole_caches(tmp_path):
+    """Reduced seamless on 4 gloo ranks, (2, 2), a 7-frame source and a
+    25-position target cache that "model" does not split: each rank
+    writes every kv head of its rows' new position, attends its query
+    heads against its kv heads' block of the whole self-attention and
+    source caches, and sums the partial sums; tokens equal one process's
+    decode, logits and cache within 1e-5. The scoring forward
+    (``logits_fn(split=)``) on the rank's blocks and rows: its vocabulary
+    block of the logits within 1e-5 of the whole forward's."""
+    ctx = mp.spawn(_encdec_whole_cache_rank,
+                   args=(str(tmp_path / "store"), str(tmp_path)),
+                   nprocs=4, join=False)
+    deadline = time.monotonic() + SPAWN_LIMIT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"4 ranks did not finish in {SPAWN_LIMIT_S} s")
+    for r in range(4):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got["split"] and got["cache_spec"] == {
+            "k": [None, "data", None, None, None],
+            "enc_k": [None, "data", None, None, None]}, got
+        assert got["tokens_equal"] and got["logits"] <= 1e-5 and \
+            got["cache"] <= 1e-5, got
+        assert got["scoring_seq_split"] and \
+            got["scoring_logits"] <= 1e-5, got
 
 
 def test_autograd_collectives_count_under_their_classes():
