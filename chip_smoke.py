@@ -5409,17 +5409,27 @@ def phase_lm_mesh(rows: list = ()) -> None:
 # The roofline of three paths: counted (roofline.counter) and timed
 # ---------------------------------------------------------------------------
 
-# the pod dry runs of Hymba-1.5B's and gemma3-12b's train_4k (~40 and ~60
-# s of host time)
+# the pod dry runs of train_4k, path -> (archs, flags), run side by side:
+# Hymba-1.5B's and gemma3-12b's (~40 and ~60 s of host time), and
+# llama4-scout's under --moe-fullgrid (~45 s)
 DRYRUN_TIMEOUT_S = 300
-DRYRUN_ARCHS = ("hymba-1.5b", "gemma3-12b")
-# gemma3-12b's train_4k pod row before tensor-parallel compute, every
-# layer's compute replicated over "model" (PERF.md: python -m
-# repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k --mesh pod
-# on the parent tree, torch 2.13 on the CPU)
-DRYRUN_PARENT = {"gemma3-12b": {"flops_per_device": 6522199914559976.0,
-                                "useful_flop_ratio": 0.043799244529092715,
-                                "peak_memory_bytes": 199592486920.0}}
+DRYRUN_RUNS = {"dryrun_pod": (("hymba-1.5b", "gemma3-12b"), []),
+               "dryrun_pod_moe_fullgrid": (("llama4-scout-17b-a16e",),
+                                           ["--moe-fullgrid"])}
+# parents' rows (PERF.md: python -m repro_torch.launch.dryrun --arch A
+# --shape train_4k --mesh pod [--moe-fullgrid] on the parent tree, torch
+# 2.13 on the CPU): gemma3-12b's before tensor-parallel compute, every
+# layer's compute replicated over "model"; llama4-scout's under
+# --moe-fullgrid with the experts gathered over "model"
+DRYRUN_PARENT = {
+    ("dryrun_pod", "gemma3-12b"): {
+        "flops_per_device": 6522199914559976.0,
+        "useful_flop_ratio": 0.043799244529092715,
+        "peak_memory_bytes": 199592486920.0},
+    ("dryrun_pod_moe_fullgrid", "llama4-scout-17b-a16e"): {
+        "flops_per_device": 3131129658823298.0,
+        "collective_s": 2.4716794311466668,
+        "peak_memory_bytes": 139809721356.0}}
 
 
 def _roofline_line(path: str, rep, wall_ms: float, prof: dict, want: dict,
@@ -5610,43 +5620,70 @@ def _roofline_tick(card: str, seed: int) -> None:
     _free(params)
 
 
+def _dryrun_procs(out: str, env: dict) -> dict:
+    """Each ``DRYRUN_RUNS`` dry run started in a process of its own (a
+    process keeps one default group), all at once: {path: Popen}."""
+    procs = {}
+    for path, (archs, flags) in DRYRUN_RUNS.items():
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        for arch in archs:
+            argv += ["--arch", arch]
+        os.makedirs(os.path.join(out, path))
+        procs[path] = subprocess.Popen(
+            argv + ["--shape", "train_4k", "--mesh", "pod", "--out",
+                    os.path.join(out, path)] + flags,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+    return procs
+
+
 def _roofline_dryrun(card: str) -> None:
-    """(d) ``python -m repro_torch.launch.dryrun --arch hymba-1.5b --arch
-    gemma3-12b --shape train_4k --mesh pod`` in a process of its own (a
-    process keeps one default group), under ``DRYRUN_TIMEOUT_S``: the
-    fake world and fake tensors under this machine's torch. Prints each
-    row, gemma3-12b's beside its parent's (``DRYRUN_PARENT``)."""
+    """(d) the pod dry runs of ``DRYRUN_RUNS`` (``python -m
+    repro_torch.launch.dryrun --arch ... --shape train_4k --mesh pod``),
+    each in a process of its own, side by side, under
+    ``DRYRUN_TIMEOUT_S``: the fake world and fake tensors under this
+    machine's torch. Prints each row, gemma3-12b's and llama4-scout's
+    under ``--moe-fullgrid`` beside their parents' (``DRYRUN_PARENT``)."""
     import tempfile
     import torch
     with tempfile.TemporaryDirectory() as out:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         t0 = time.perf_counter()
-        argv = [sys.executable, "-m", "repro_torch.launch.dryrun"]
-        for arch in DRYRUN_ARCHS:
-            argv += ["--arch", arch]
-        res = subprocess.run(
-            argv + ["--shape", "train_4k", "--mesh", "pod", "--out", out],
-            capture_output=True, text=True, env=env, cwd=ROOT,
-            timeout=DRYRUN_TIMEOUT_S)
+        procs = _dryrun_procs(out, env)
+        try:
+            for path, proc in procs.items():
+                try:
+                    res = proc.communicate(timeout=max(
+                        1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"the {path} dry run took over "
+                                         f"{DRYRUN_TIMEOUT_S} s")
+                if proc.returncode:
+                    raise AssertionError(
+                        f"the {path} dry run failed ({proc.returncode}):\n"
+                        f"{res[0][-3000:]}\n{res[1][-3000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         seconds = time.perf_counter() - t0
-        if res.returncode:
-            raise AssertionError(f"the pod dry run failed ({res.returncode})"
-                                 f":\n{res.stdout[-3000:]}\n"
-                                 f"{res.stderr[-3000:]}")
         rows = {}
-        for arch in DRYRUN_ARCHS:
-            with open(os.path.join(out, f"baseline_{arch}_train_4k_pod.json"),
-                      encoding="utf-8") as f:
-                rows[arch] = json.load(f)
+        for path, (archs, _) in DRYRUN_RUNS.items():
+            for arch in archs:
+                with open(os.path.join(
+                        out, path, f"baseline_{arch}_train_4k_pod.json"),
+                        encoding="utf-8") as f:
+                    rows[path, arch] = json.load(f)
     keep = ("arch", "shape", "mesh", "chips", "status", "flops_per_device",
             "bytes_per_device", "collectives", "collective_bytes",
             "peak_memory_bytes", "model_flops_global", "compute_s",
             "memory_s", "collective_s", "dominant", "step_time_s",
             "useful_flop_ratio", "mfu", "count_s")
-    for arch, row in rows.items():
-        extra = {"parent": DRYRUN_PARENT[arch]} if arch in DRYRUN_PARENT \
-            else {}
-        print(json.dumps({"phase": "roofline", "path": "dryrun_pod",
+    for (path, arch), row in rows.items():
+        parent = DRYRUN_PARENT.get((path, arch))
+        extra = {"parent": parent} if parent else {}
+        print(json.dumps({"phase": "roofline", "path": path,
                           "card": card, "torch": torch.__version__,
                           "seconds": seconds,
                           "flops_by_class": {p: v["flops"] for p, v in

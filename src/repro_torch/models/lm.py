@@ -344,7 +344,7 @@ def _split_layer(cfg: ModelConfig, lp, x, window: int, positions,
         y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg.moe, cfg.act,
                                      moe_ctx=moe_ctx, dropless=not train,
                                      split=split)
-        partial = moe_mod.split_partial(split)
+        partial = moe_mod.split_partial(split, moe_ctx)
     else:
         y = mlp_mod.mlp_forward(lp["mlp"], h2, cfg.act)
         partial = split.splits("layers/mlp/wi")

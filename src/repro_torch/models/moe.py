@@ -13,8 +13,7 @@ tuple}``, the reference's ``shard_map`` over ``dp``): each dp shard
 routes its own T_loc tokens with its own capacity C_loc = capacity(T_loc),
 dispatches into an (E, C_loc, d) block and combines locally; the blocks
 together are the reference's (E, C_loc · shards, d) buffer split over dp
-on dim 1, so the expert FFN runs on this rank's block, with the layer's
-whole expert weights (``launch/steps.py`` gathers them). ``frac`` and
+on dim 1, so the expert FFN runs on this rank's block. ``frac`` and
 ``mean_p`` are averaged over dp before the aux loss. The rank's tokens are
 its rows of the batch (split over the data axes); an axis of dp that does
 not split the batch (``"model"``, under ``moe_fullgrid``) splits them
@@ -31,12 +30,21 @@ not divide) splits the flat tokens evenly, as the reference's
 
 Under tensor parallelism (``moe_ctx["split"]``, a ``sharding.MeshSplit``:
 the train step's and the mesh forward's) the expert weights are the
-rank's blocks: its E / M experts (expert parallel), whose dispatch
-buffer holds only their picks, or every expert's ``d_ff`` columns. The
-router runs on every ``"model"`` rank alike; the combine is then a
-partial sum over ``"model"`` (``split_partial``), as the shared
-expert's on its columns, and the aux loss leaves through
-``split.owned``. The mesh serve step's decode takes the local dropless
+rank's blocks: its E / M experts (expert parallel) or every expert's
+``d_ff`` columns. The router runs on every ``"model"`` rank alike and
+the aux loss leaves through ``split.owned``. Without ``"model"`` in dp
+every ``"model"`` rank holds the same tokens: the dispatch buffer keeps
+only the picks of the rank's experts, or meets its columns, and the
+combine is a partial sum over ``"model"`` (``split_partial``), as the
+shared expert's on its columns. Under ``moe_fullgrid`` the ``"model"``
+ranks hold different tokens, and the rank's (E, C_loc, d) buffer meets
+the stored blocks as the reference's compiled step moves it: expert
+parallel, one all-to-all sends expert block m to ``"model"`` rank m,
+which runs its E / M experts over the M · C_loc rows received and sends
+them back by the inverse all-to-all; on ``d_ff`` columns, the buffer is
+all-gathered over ``"model"`` along C and the partial sums of ``wo``
+reduce-scattered back to the rank's rows. Either way each token's output
+comes back whole. The mesh serve step's decode takes the local dropless
 path (C = T) on the same blocks (``moe_forward(split=)``).
 """
 from __future__ import annotations
@@ -163,10 +171,26 @@ def split_axes(moe_ctx) -> tuple:
     return tuple(a for a in _dp_axes(moe_ctx) if a not in rows)
 
 
-def split_partial(split) -> bool:
+def _exchanged(split, moe_ctx) -> bool:
+    """Whether the dispatch buffer meets the rank's stored experts by
+    exchange over ``"model"`` (``moe_fullgrid``: ``"model"`` splits the
+    tokens, and ``split`` the experts)."""
+    return split is not None and moe_ctx is not None and \
+        "model" in split_axes(moe_ctx) and split.splits("layers/moe/wi")
+
+
+def _routed_partial(split, moe_ctx) -> bool:
+    """Whether the routed experts' combine is a partial sum over
+    ``"model"``: the experts split there and the buffer is not
+    exchanged (``_exchanged``, whose combine is whole)."""
+    return split.splits("layers/moe/wi") and not _exchanged(split, moe_ctx)
+
+
+def split_partial(split, moe_ctx=None) -> bool:
     """Whether the MoE block's output is a partial sum over ``"model"``
-    under ``split``: its experts or its shared expert split there."""
-    return any(split.splits(f"layers/moe/{k}") for k in ("wi", "shared_wi"))
+    under ``split``: its shared expert's or its routed experts'."""
+    return split.splits("layers/moe/shared_wi") or \
+        _routed_partial(split, moe_ctx)
 
 
 def _take(xt, mesh, axes, split):
@@ -191,13 +215,39 @@ def _join(out, mesh, axes, split):
         sub, [Replicate()] * len(axes)).to_local()
 
 
+def _exchange_ffn(p, eb: torch.Tensor, act: str, split) -> torch.Tensor:
+    """``expert_ffn`` of the rank's whole (E, C, d) buffer on the rank's
+    stored blocks, whose other rows every ``"model"`` rank holds: expert
+    parallel (``p`` holding E / M experts), block m of the buffer goes to
+    ``"model"`` rank m by an all-to-all, which runs its experts over the
+    (E / M, M · C, d) rows received and returns them by the inverse; on
+    ``d_ff`` columns, the buffers gathered along C meet the rank's
+    columns, and ``wo``'s partial sums are reduce-scattered back."""
+    E, C, d = eb.shape
+    M, E_loc = split.M, p["wg"].shape[0]
+    if E_loc == E:
+        return split.scatter_model(
+            expert_ffn(p, split.gather_model(eb, 1), act), 1)
+    got = split.exchange(eb.reshape(M, E_loc, C, d))   # (sender, e, C, d)
+    y = expert_ffn(p, got.transpose(0, 1).reshape(E_loc, M * C, d), act)
+    back = y.reshape(E_loc, M, C, d).transpose(0, 1)
+    return split.exchange(back).reshape(E, C, d)
+
+
 def _experts(p, xt, weights, slot, keep, C: int, moe: MoEConfig, act: str,
-             split):
+             split, exchange: bool = False):
     """The routed picks of the tokens xt (T, d) through the experts of
     ``p``: every expert, or under expert parallelism (``split``; ``p``
     holding E / M of them) this rank's experts' picks only, the rest
-    dropped, so the output is a partial sum over ``"model"``."""
+    dropped, so the output is a partial sum over ``"model"``. With
+    ``exchange`` every pick runs on the rank's stored blocks by
+    ``_exchange_ffn``, and the output is whole."""
     T, k = xt.shape[0], moe.top_k
+    if exchange:
+        eb = dispatch(torch.repeat_interleave(xt, k, dim=0), slot,
+                      moe.num_experts, C)
+        return combine(_exchange_ffn(p, eb, act, split), slot, keep,
+                       weights, T, k)
     E_loc = p["wg"].shape[0]
     if E_loc != moe.num_experts:     # this rank's experts' picks
         lo = split.m * E_loc * C
@@ -225,7 +275,8 @@ def _sharded(p, xt, moe: MoEConfig, act: str, moe_ctx):
         xt = _take(xt, mesh, tok, split)
     C = capacity(xt.shape[0], moe)
     weights, slot, keep, frac, mean_p, _ = route(p["router"], xt, moe, C)
-    out = _experts(p, xt, weights, slot, keep, C, moe, act, split)
+    out = _experts(p, xt, weights, slot, keep, C, moe, act, split,
+                   _exchanged(split, moe_ctx))
     if n > 1:
         out = _join(out, mesh, tok, split)
     shards = math.prod(sizes[a] for a in axes)
@@ -269,10 +320,10 @@ def moe_forward(p: dict, x: torch.Tensor, moe: MoEConfig, act: str = "silu",
         g = torch.matmul(x, p["shared_wg"].to(dt))
         h = torch.matmul(x, p["shared_wi"].to(dt))
         shared = torch.matmul(activation(act)(g) * h, p["shared_wo"].to(dt))
-        if split is not None and split_partial(split):
+        if split is not None and split_partial(split, moe_ctx):
             # one partial sum over "model": the part every rank holds alike
             # rides on rank 0
-            if not split.splits("layers/moe/wi"):
+            if not _routed_partial(split, moe_ctx):
                 out = split.to_partial(out)
             if not split.splits("layers/moe/shared_wi"):
                 shared = split.to_partial(shared)

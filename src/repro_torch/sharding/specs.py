@@ -510,8 +510,10 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
       divides ``d_ff``, in every stack;
     - the MoE experts over ``"model"`` when it divides E (expert
       parallel), else by each expert's ``d_ff`` columns (the rule's two
-      branches); ``moe_fullgrid`` keeps them gathered, its dispatch
-      splitting the tokens over ``"model"`` instead;
+      branches), with ``moe_fullgrid`` or without: its dispatch splits
+      the tokens over ``"model"`` too, and the rank's buffer meets the
+      stored blocks by an all-to-all or a gather along its capacity
+      (``models/moe.py``);
     - ``embed`` / ``lm_head`` by vocabulary rows when ``"model"``
       divides V;
     - the SSM mixer by blocks of whole SSD heads when ``"model"`` divides
@@ -548,7 +550,7 @@ def compute_layout(mesh, cfg, params, moe_fullgrid: bool = False) -> dict:
             put((f"{st}/mlp/wg", f"{st}/mlp/wi", f"{st}/moe/shared_wg",
                  f"{st}/moe/shared_wi"), -1)
             put((f"{st}/mlp/wo", f"{st}/moe/shared_wo"), -2)
-    if cfg.moe is not None and not moe_fullgrid:
+    if cfg.moe is not None:
         if cfg.moe.num_experts % M == 0:
             put(("layers/moe/wg", "layers/moe/wi", "layers/moe/wo"), -3)
         elif f % M == 0:
@@ -622,6 +624,32 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _scatter_along(g, ctx.dim, ctx.group), None, None
+
+
+def _all_to_all(x, group):
+    """All-to-all over ``group`` on equal blocks of dim 0: block j goes
+    to rank j, and the blocks received stand in the senders' order."""
+    n = group.size()
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
+                         f"{n} ranks")
+    sizes = [x.shape[0] // n] * n
+    return _wait(torch.ops._c10d_functional.all_to_all_single(
+        x.contiguous(), sizes, sizes, group.group_name))
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all along dim 0 (``_all_to_all``); backward the inverse
+    all-to-all, which sends each block's gradient back to its sender."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -958,6 +986,25 @@ class MeshSplit:
             if self.sizes[a] > 1:
                 x = _AllGather.apply(x, 0, self.group(a))
         return x
+
+    def exchange(self, x, axis: str = "model"):
+        """The all-to-all over ``axis``: dim 0 of ``x`` in equal blocks,
+        one a rank, block j sent to rank j; the blocks received stand in
+        the senders' order. Backward: the inverse all-to-all."""
+        return _AllToAll.apply(x, self.group(axis)) \
+            if self.sizes[axis] > 1 else x
+
+    def gather_model(self, x, dim: int):
+        """Every ``"model"`` rank's ``x`` all-gathered along ``dim``, in
+        rank order; backward reduce-scatters the gradient's parts."""
+        return _AllGather.apply(x, dim, self.group("model")) \
+            if self.M > 1 else x
+
+    def scatter_model(self, x, dim: int):
+        """A partial sum over ``"model"`` -> the rank's block of the sum
+        along ``dim`` (``gather_model``'s inverse); backward all-gathers."""
+        return _ReduceScatter.apply(x, dim, self.group("model")) \
+            if self.M > 1 else x
 
 
 class Heads(NamedTuple):

@@ -56,6 +56,11 @@ CASES = {
     # 3 experts: "model" does not divide E, so each expert's d_ff splits
     "2x2-grok1-e3": ((2, 2), "grok-1-314b", "train",
                      {"config": {"experts": 3}}),
+    # 3 experts under moe_fullgrid: the dispatch's buffers gathered over
+    # "model" along C meet each expert's d_ff columns
+    "2x2-grok1-e3-fullgrid": ((2, 2), "grok-1-314b", "train",
+                              {"config": {"experts": 3},
+                               "moe_fullgrid": True}),
     # a batch of 3 the data axes do not divide: the dispatch splits the
     # flat tokens (3 x SEQ) evenly over them
     "2x2-llama4-b3": ((2, 2), "llama4-scout-17b-a16e", "train",

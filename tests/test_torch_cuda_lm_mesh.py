@@ -27,7 +27,11 @@ its own card without a mesh:
   then the mesh scoring forward on the split path (the train step's
   layout, ``steps.mesh_split``) from each rank's blocks, through kernel
   5 and eagerly: on (2, 2) 20 query heads and 4 kv heads a launch, 8
-  experts a rank, the CE within ``SPLIT_CE_RTOL`` of the oracle's;
+  experts a rank, the CE within ``SPLIT_CE_RTOL`` of the oracle's; on
+  (2, 2) the same forward under ``moe_fullgrid`` on the rank's 8 experts
+  (two all-to-alls a MoE layer) against it with the experts gathered
+  over ``"model"``: the CE within ``SPLIT_CE_RTOL``, kernel 5 at 20 / 4
+  heads, each one's forward ms and peak GB a card;
 - Hymba-1.5B's mesh scoring forward on the split path (its MLP and SSM
   mixer split, attention gathered), B 2 x S 2048, against the whole
   batch scored on one card: kernel 6 once a layer on the rank's SSD
@@ -71,6 +75,7 @@ SERVE = (4, 2048, 64, 16)      # B, cache positions, prompt, tokens
 # served beside Hymba: every leaf of its layers splits over "model"
 SERVE_DENSE = "h2o-danube-3-4b"
 MOE_LAYERS = 4
+EXPERTS = ("layers/moe/wg", "layers/moe/wi", "layers/moe/wo")
 # the encoder-decoder on (2, 2): B, source frames, target tokens, steps;
 # and served: B, source frames, tokens from BOS
 ENCDEC = "seamless-m4t-large-v2"
@@ -246,13 +251,17 @@ def _top_ops(prof, n: int = 12) -> dict:
 
 
 @contextlib.contextmanager
-def _all_gathered():
-    """``compute_layout`` with every leaf gathered over ``"model"`` while
-    inside: the serve step's comparison layout."""
+def _all_gathered(keys=None):
+    """``compute_layout`` with every leaf (or the leaves of ``keys``)
+    gathered over ``"model"`` while inside: the serve step's comparison
+    layout."""
     from repro_torch.sharding import specs as shspecs
     layout = shspecs.compute_layout
-    shspecs.compute_layout = lambda mesh, cfg, params, moe_fullgrid=False: \
-        {k: None for k in params}
+
+    def patched(mesh, cfg, params, moe_fullgrid=False):
+        return {k: None if keys is None or k in keys else v for k, v in
+                layout(mesh, cfg, params, moe_fullgrid).items()}
+    shspecs.compute_layout = patched
     try:
         yield
     finally:
@@ -434,6 +443,77 @@ def _split_scores(mesh, cfg, whole, batch) -> dict:
     return out
 
 
+def _fullgrid(mesh, cfg, blocks, batch) -> dict:
+    """The mesh scoring forward under ``moe_fullgrid`` from the rank's
+    stored ``blocks`` and its rows of ``batch``, on the rank's experts
+    (``split``: the dispatch's buffers all-to-all over ``"model"``) and
+    with the experts gathered over ``"model"`` (``gathered``: the layout
+    ``moe_fullgrid`` computed on before it met the stored experts):
+    each one's CE through the kernels, kernel 5's launches and heads, the
+    collectives of its first forward by kind, the ms of two more (CUDA
+    events) and the card's peak GB over the three above what it held
+    before."""
+    from repro_torch.checkpoint.convert import _shapes
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    B, S = batch["tokens"].shape
+    rows = {k: v[_rows(mesh, B)] for k, v in batch.items()}
+    out = {}
+    for name in ("split", "gathered"):
+        with _all_gathered(EXPERTS) if name == "gathered" else \
+                contextlib.nullcontext():
+            split, ctx = steps.mesh_split(cfg, mesh, S, _shapes(cfg),
+                                          moe_fullgrid=True)
+
+        def fwd():
+            return float(registry.loss_fn(blocks, cfg, rows, kernel="cuda",
+                                          split=split, moe_ctx=ctx)[1]["ce"])
+        _free()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            seen, undo = _heads_seen()
+            before = swa_attention.swa_attention.launches
+            try:
+                with _Collectives() as coll:
+                    ce = fwd()
+            finally:
+                undo()
+            launches = swa_attention.swa_attention.launches - before
+            ms = []
+            for _ in range(2):
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                fwd()
+                t1.record()
+                torch.cuda.synchronize()
+                ms.append(t0.elapsed_time(t1))
+        out[name] = {"split": repr(split), "ce": ce,
+                     "kernel5_launches": launches,
+                     "kernel5_heads": [list(h) for h in sorted(set(seen))],
+                     "collectives": coll.count, "forward_ms": ms,
+                     "held_gb": held / 1e9,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "wg_block": list(split.gather(
+                         "layers/moe/wg", blocks["layers/moe/wg"][0]).shape)}
+    got = out["split"]
+    got["ce_rel_err"] = abs(got["ce"] - out["gathered"]["ce"]) \
+        / abs(out["gathered"]["ce"])
+    M = mesh.size(1)
+    got["ok"] = got["ce_rel_err"] <= SPLIT_CE_RTOL and \
+        got["kernel5_launches"] == MOE_LAYERS and \
+        got["kernel5_heads"] == [[cfg.num_heads // M,
+                                  cfg.num_kv_heads // M]] and \
+        got["wg_block"][0] == cfg.moe.num_experts // M and \
+        got["collectives"].get("all-to-all") == 2 * MOE_LAYERS and \
+        "all-to-all" not in out["gathered"]["collectives"]
+    got["gathered"] = out["gathered"]
+    return got
+
+
 def _rows(mesh, B: int):
     """This rank's rows of a batch of B split over the data axis."""
     d = mesh.size(0)
@@ -519,9 +599,24 @@ def _moe(mesh) -> dict:
     # rows (on (2, 2): 20 query and 4 kv heads, 8 experts a rank)
     split = _split_scores(mesh, cfg, params, {"tokens": toks,
                                               "labels": labels})
-    del params
-    _free()
     M = mesh.size(1)
+    if M > 1:
+        # moe_fullgrid on the same stored blocks (the layout moves no
+        # storage), the whole params freed first
+        from repro_torch.checkpoint.convert import _shapes
+        from repro_torch.sharding import specs as shspecs
+        blocks = {k: v.to_local().clone() for k, v in shspecs.place(
+            mesh, params, shspecs.param_pspecs(mesh, cfg, _shapes(cfg)))
+            .items()}
+        del params
+        _free()
+        out["fullgrid"] = _fullgrid(mesh, cfg, blocks, {"tokens": toks,
+                                                        "labels": labels})
+        out["ok"] = out["ok"] and out["fullgrid"]["ok"]
+        del blocks
+    else:
+        del params
+    _free()
     split["ce_rel_err"] = abs(split["ce"] - want) / abs(want)
     split["kernel_vs_eager_rel_err"] = abs(split["ce"] - split["ce_eager"]) \
         / abs(split["ce_eager"])

@@ -10,13 +10,16 @@ ranks the (2, 1) and (1, 2) ones, each spawn bounded by its own time
 limit, on the same inputs converted (``params_from_jax``): the port's
 ``jit_train_step`` / ``jit_serve_step`` with reduced Hymba, Mamba2,
 llama4-scout (the MoE dispatch over the data axes, and with
-``moe_fullgrid``, and a batch of 3 the data axes do not divide),
+``moe_fullgrid``: an all-to-all over ``"model"`` to the rank's experts,
+and a batch of 3 the data axes do not divide),
 seamless (the encoder-decoder; also with 15 target tokens beside 16
 source frames, and on (1, 4)), paligemma (its patch prefix and one kv
 head), gemma3 (windowed and global layers) and grok-1 with 3 experts
 (each expert's ``d_ff`` split), and Mamba2 on (1, 4); every family
 computes on each rank's heads, SSD heads, ``d_ff`` columns, experts and
-vocabulary rows (``sharding.compute_layout``). Train: loss
+vocabulary rows (``sharding.compute_layout``); grok-1's 3 experts also
+under ``moe_fullgrid``, the buffers gathered along the capacity to meet
+each expert's ``d_ff`` columns. Train: loss
 within 1e-5 relative, params within
 1e-5 (1 + |ref|). Serve: tokens equal, cache within 1e-5 (1 + |ref|).
 The capacity case shows the port follows the reference's distributed
@@ -193,9 +196,8 @@ def _spawn(world: int, names: list, ref: Path, out: Path) -> dict:
     return worst
 
 
-@pytest.fixture(scope="module")
-def oracle(tmp_path_factory) -> Path:
-    out = tmp_path_factory.mktemp("lm_mesh_oracle")
+def _oracle(out: Path) -> Path:
+    """The reference's outputs of every case, written under ``out``."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
@@ -220,13 +222,31 @@ def oracle(tmp_path_factory) -> Path:
     return out
 
 
-@pytest.fixture(scope="module")
-def results(oracle, tmp_path_factory) -> dict:
+def _results(tmp_path_factory) -> dict:
+    """Every case's errors: the oracle, then the ranks against it."""
+    oracle = _oracle(tmp_path_factory.mktemp("lm_mesh_oracle"))
     got = {}
     for world in (4, 2):
         out = tmp_path_factory.mktemp(f"ranks{world}")
         got.update(_spawn(world, _names(world=world), oracle, out))
     return got
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory) -> dict:
+    """``_results``, computed once a session: under pytest-xdist the
+    first worker to need them computes them while holding a lock in the
+    workers' shared temporary directory, and the others read its file."""
+    import fcntl
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return _results(tmp_path_factory)
+    shared = tmp_path_factory.getbasetemp().parent
+    path = shared / "lm_mesh_ranks_results.json"
+    with open(shared / "lm_mesh_ranks_results.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.is_file():
+            path.write_text(json.dumps(_results(tmp_path_factory)))
+        return json.loads(path.read_text())
 
 
 @pytest.mark.parametrize("name", _names("train"))
@@ -240,7 +260,7 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
     """The dense and the 3-expert MoE cases run the split path: heads,
     d_ff columns and vocabulary rows on the rank's block, the 3 experts
     split by their d_ff columns (2 does not divide 3), and llama4's 4
-    experts expert-parallel; Hymba's and Mamba2's SSM mixers on the
+    experts expert-parallel, under ``moe_fullgrid`` too; Hymba's and Mamba2's SSM mixers on the
     rank's SSD heads, 4 of 8 on (2, 2) and (1, 2), 2 on (1, 4); the
     encoder-decoder's two stacks and cross-attention on the rank's
     heads and d_ff columns, its vocabulary rows split."""
@@ -252,8 +272,16 @@ def test_new_cases_compute_on_the_rank_s_blocks(results):
     grok = results["2x2-grok1-e3"]["split"]
     assert grok["layers/moe/wi"] == [-1, 1] and \
         grok["layers/moe/wo"] == [-2, 1], grok
-    for name in ("2x2-llama4", "2x2-llama4-b3"):
-        assert results[name]["split"]["layers/moe/wg"] == [-3, 1]
+    for name in ("2x2-llama4", "2x2-llama4-b3", "2x2-llama4-fullgrid",
+                 "1x2-llama4-fullgrid"):
+        for k in ("wg", "wi", "wo"):
+            assert results[name]["split"][f"layers/moe/{k}"] == [-3, 1], \
+                name
+    # under moe_fullgrid the 3 experts' d_ff columns meet the buffers
+    # gathered along C; the rest of the layout is the default's
+    assert results["2x2-grok1-e3-fullgrid"]["split"] == grok
+    assert results["2x2-llama4-fullgrid"]["split"] == \
+        results["2x2-llama4"]["split"]
     # paligemma's one kv head: both ranks read it, gathered and sliced
     assert results["2x2-paligemma"]["split"]["layers/attn/wk"] == [-1, 2]
     for name in ("2x2-hymba", "1x2-hymba", "2x2-mamba2", "1x4-mamba2"):

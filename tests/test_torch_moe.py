@@ -178,3 +178,73 @@ def test_moe_ctx_raises_naming_item_13(rng):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="data axes"):
         tmoe.moe_forward(tp, x, tc, moe_ctx={"mesh": mesh, "dp": "model"})
+
+
+SPAWN_LIMIT_S = 120
+
+
+def _all_to_all_rank(rank: int, store: str, out: str):
+    import datetime
+    import json
+    from pathlib import Path
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import specs as shspecs
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    split = shspecs.MeshSplit(mesh, {}, {}, seq=False)
+    got = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rng = [np.random.default_rng(10 * r + 1) for r in range(2)]
+        xs = [torch.tensor(g.standard_normal((4, 3, 5)), dtype=dt)
+              for g in rng]                   # every rank's input
+        ws = [torch.tensor(g.standard_normal((4, 3, 5)), dtype=dt)
+              for g in rng]                   # every rank's d loss / d out
+        x = xs[rank].clone().requires_grad_()
+        y = split.exchange(x)
+        (y.float() * ws[rank].float()).sum().backward()
+        # rank r receives block r of every rank, in the senders' order;
+        # block j of its input's gradient is rank j's at block r
+        want = torch.cat([xs[s][2 * rank:2 * rank + 2] for s in range(2)])
+        grad = torch.cat([ws[j][2 * rank:2 * rank + 2] for j in range(2)])
+        got[str(dt)] = {"dtype": str(y.dtype),
+                        "fwd": float((y - want).abs().max()),
+                        "bwd": float((x.grad - grad).abs().max())}
+    try:
+        split.exchange(torch.zeros(3, 2))
+        got["odd"] = "no error"
+    except ValueError as e:
+        got["odd"] = str(e)
+    Path(out, f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def test_all_to_all_matches_a_gather_and_slice(tmp_path):
+    """``MeshSplit.exchange`` (``sharding.specs._AllToAll``) on 2 gloo
+    ranks, f32 and bf16: its forward equal to every rank's input gathered
+    and the rank's block of each sliced out, its backward to the inverse
+    exchange of the output's gradient, exactly, in the input's dtype; a
+    dim 0 the ranks do not divide raises."""
+    import json
+    import time
+
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(_all_to_all_rank,
+                   args=(str(tmp_path / "store"), str(tmp_path)),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + SPAWN_LIMIT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"2 ranks did not finish in {SPAWN_LIMIT_S} s")
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert "does not split" in got.pop("odd"), got
+        for dt, row in got.items():
+            assert row["dtype"] == dt and row["fwd"] == 0.0 and \
+                row["bwd"] == 0.0, (r, got)

@@ -142,10 +142,15 @@ def test_experts_split_by_the_rule_s_two_branches():
     assert grok["layers/moe/wo"] == Split(-2)
     assert grok["layers/attn/wq"] == Split(-1) and \
         grok["layers/attn/wk"] == Split(-1, 2)
-    # moe_fullgrid splits the tokens over "model" instead
+    # moe_fullgrid splits the tokens over "model" too, and its buffers
+    # meet the same stored blocks
     full = _layout("llama4-scout-17b-a16e", moe_fullgrid=True)
-    assert full["layers/moe/wg"] is None and \
-        full["layers/moe/shared_wi"] == Split(-1)
+    for k in ("wg", "wi", "wo"):
+        assert full[f"layers/moe/{k}"] == Split(-3)
+    assert full["layers/moe/shared_wi"] == Split(-1)
+    full = _layout("grok-1-314b", moe_fullgrid=True)
+    assert full["layers/moe/wg"] == full["layers/moe/wi"] == Split(-1)
+    assert full["layers/moe/wo"] == Split(-2)
 
 
 def _ce_rank(rank: int, store: str, out: str):
