@@ -192,19 +192,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
     launches from here;
 13e. the LM's ("data", "model") mesh (``lm_mesh``), a world of one over
     NCCL (``make_host_mesh``: the (1, 1) mesh), in ``_Exact``: Hymba-1.5B
-    at full width, 2 steps of B 2 x S 2048 (bf16 compute, remat) through
+    at full width, 3 steps of B 2 x S 2048 (bf16 compute, remat) through
     ``jit_train_step`` against ``make_train_step(mesh=None)``, losses and
     params within ``ENGINE_TOL``, each step's ms and the peak GB; 16
     tokens of ``jit_serve_step`` (B 4, a 2048-position cache, uniform and
     ring; then h2o-danube-3-4b at full width, uniform) against the
     unsharded decode: tokens equal, logits and cache within
-    ``ENGINE_TOL``; the scoring forward under ``act_pspec``
-    through kernels 5 and 6 (32 of each counted and on the card by the
-    profiler, the hidden and the loss equal to the forward without a
-    mesh; the counts go to those kernels' rows); llama4-scout's first 4
-    layers scored with ``moe_ctx`` equal to the local path; the sharded
-    train step on five reduced configs, card against the CPU's gloo mesh
-    within 1e-5 relative. The phase must take <= 90 s; it frees its
+    ``ENGINE_TOL``; every step and token of these and of seamless's
+    through the steps' CUDA graphs (the first call eager, the second
+    captured, the rest replayed), each against the eager body on a copy
+    of its inputs within ``ENGINE_TOL`` (tokens equal), one capture a
+    step shape, no wrapper launch in a replay (the ``graphs`` line: ms
+    eager and replayed, the graphs' pool); the scoring forward under
+    ``act_pspec`` through kernels 5 and 6 (32 of each counted and on the
+    card by the profiler, the hidden and the loss equal to the forward
+    without a mesh; the counts go to those kernels' rows); llama4-scout's
+    first 4 layers scored with ``moe_ctx`` equal to the local path; the
+    sharded train step on five reduced configs, card against the CPU's
+    gloo mesh within 1e-5 relative. The phase must take <= 90 s; it frees its
     memory and the process group at its end;
 13f. the roofline of three paths (``roofline``), each counted eagerly by
     ``repro_torch.roofline`` (a ``Counter`` over one call; the hand
@@ -238,6 +243,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -4886,13 +4892,189 @@ def phase_lm_families(seed: int = 0, rows: list = ()) -> None:
 # The LM half of multi-device: the ("data", "model") mesh in a world of one
 # ---------------------------------------------------------------------------
 
-LM_MESH_STEPS = 2
+# a step shape's first call is eager, its second captured, the third
+# replayed
+LM_MESH_STEPS = 3
 LM_MESH_SERVE = (4, 2048, 64, 16)     # B, cache positions, prompt, tokens
 LM_MESH_REDUCED = ("hymba-1.5b", "mamba2-130m", "llama4-scout-17b-a16e",
                    "seamless-m4t-large-v2", "paligemma-3b")
 # served at full width beside Hymba: every leaf of its layers splits on a
 # "model" axis of 2 or 4 (32 / 8 heads, d_ff 10240, V 32000)
 LM_MESH_SERVE_DENSE = "h2o-danube-3-4b"
+
+
+def _wrapper_launches() -> int:
+    """The host launches of every kernel wrapper, summed."""
+    from repro_torch.kernels import (decode_attend, kd_loss, ssd_decode,
+                                     ssd_scan, swa_attention)
+    return sum(f.launches for f in (
+        kd_loss.kd_loss_fused, kd_loss.kd_loss_fused_bwd,
+        decode_attend.ring_decode_attend, decode_attend.extent_decode_attend,
+        ssd_decode.ssd_decode_step, ssd_scan.ssd_scan,
+        swa_attention.swa_attention))
+
+
+def _dt_copy(tree):
+    """A copy of a tree of DTensors (their blocks cloned), tensors and
+    other values: a donated argument kept for the eager body."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _dt_copy(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return DTensor.from_local(tree.to_local().clone(), tree.device_mesh,
+                                  tree.placements, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _blocks(tree: dict) -> dict:
+    return {k: v.to_local() for k, v in tree.items()}
+
+
+def _nbytes(tree) -> int:
+    """The bytes of a tree's tensors (a DTensor's block)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, (dict, tuple, list)):
+        return sum(map(_nbytes, tree.values() if isinstance(tree, dict)
+                       else tree))
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+class _MeshGraphs:
+    """A mesh step's calls through its graphs (``fn``, from
+    ``jit_train_step`` / ``jit_serve_step``) and through its eager body
+    (``fn.eager``): each call's wall ms (synchronised), the kernel
+    wrappers' host launches during each graph call, the card's allocated
+    bytes before each graph call and its peak during it (``tops``,
+    without the copies kept for the eager body), and the captures under
+    ``entry`` after the last graph call (``captured``)."""
+
+    def __init__(self, fn, entry: str):
+        self.fn, self.entry, self.captured = fn, entry, 0
+        self.ms, self.eager_ms, self.launches, self.tops = [], [], [], []
+
+    def __call__(self, args: tuple, donated: tuple = (), **kw) -> tuple:
+        """``(fn's outputs, fn.eager's)`` on copies of the same inputs;
+        ``donated``: the positions of ``args`` the call writes, copied
+        for the eager body first."""
+        copies = tuple(_dt_copy(a) if i in donated else a
+                       for i, a in enumerate(args))
+        out = self.graph(args, sum(_nbytes(args[i]) for i in donated), **kw)
+        return out, self.eager(copies, **kw)
+
+    def graph(self, args: tuple, extra: int = 0, **kw):
+        """``fn(*args)``; ``extra``: bytes held for the eager body."""
+        import torch
+        n = _wrapper_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.launches.append(_wrapper_launches() - n)
+        self.tops.append((held - extra,
+                          torch.cuda.max_memory_allocated() - extra))
+        self.captured = self.fn.graphs.captures(self.entry)
+        return out
+
+    def eager(self, args: tuple, **kw):
+        """``fn.eager(*args)``."""
+        import torch
+        t0 = time.perf_counter()
+        out = self.fn.eager(*args, **kw)
+        torch.cuda.synchronize()
+        self.eager_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def report(self, err: float) -> dict:
+        """The entry's captures and signatures, the calls' ms (the first
+        eager, the second captured, the rest replays), the launches
+        during replays; fails unless one signature was captured once,
+        the replays launched nothing from the host and ``err`` (the
+        largest difference from the eager body) is within
+        ``ENGINE_TOL``."""
+        got = {"signatures": self.fn.graphs.count(self.entry),
+               "captures": self.captured, "graph_ms": self.ms,
+               "replay_ms": self.ms[2:], "eager_ms": self.eager_ms,
+               "replay_wrapper_launches": sum(self.launches[2:]),
+               "max_err_vs_eager": err}
+        if (got["signatures"], got["captures"]) != (1, 1) or \
+                got["replay_wrapper_launches"] or err > ENGINE_TOL or \
+                len(self.ms) < 3:
+            raise AssertionError(f"{self.entry} through its graphs: {got}")
+        return got
+
+
+def _mesh_train_graphs(fn, mesh, init: dict, in_sh, batches) -> tuple:
+    """A ``jit_train_step``'s steps over ``batches`` from the params
+    ``init`` (the anchor too) through its graphs, then, the graphs
+    dropped, through its eager body from the same params: ``(params,
+    losses, calls, graphs)``, ``graphs`` the report (``_MeshGraphs``) and
+    the graphs' pool (``_pool_gib``). Fails unless every step's loss and
+    the last params and momentum are the eager body's within
+    ``ENGINE_TOL`` (on one card, a pool, the copies a per-step check
+    keeps and the eager step's own memory do not fit together)."""
+    from repro_torch.sharding import specs as shspecs
+
+    def start():
+        params = shspecs.place(mesh, {k: v.clone() for k, v in init.items()},
+                               in_sh[0])
+        return params, fn.opt.init(params)
+    calls, losses = _MeshGraphs(fn, "mesh_train"), []
+    anchor = shspecs.place(mesh, init, in_sh[2])
+    params, state = start()
+    for b in batches:
+        params, state, loss = calls.graph((params, state, anchor, b))
+        losses.append(float(loss.to_local()))
+    pool = _pool_gib(fn)
+    e_p, e_s = start()
+    err = 0.0
+    for b, got in zip(batches, losses):
+        e_p, e_s, e_loss = calls.eager((e_p, e_s, anchor, b))
+        err = max(err, abs(got - float(e_loss.to_local()))
+                  / abs(float(e_loss.to_local())))
+    err = max(err, _max_diff(_blocks(params), _blocks(e_p)),
+              _max_diff(_blocks(state["mom"]), _blocks(e_s["mom"])))
+    return params, losses, calls, {**calls.report(err), **pool}
+
+
+def _mesh_token(calls, params, tok, cache, pos) -> tuple:
+    """One ``jit_serve_step`` token through its graphs (``calls``, a
+    ``_MeshGraphs``), with logits, against its eager body on a copy of
+    the cache: ``((next, cache, logits), the largest difference of the
+    logits and the cache)``; fails unless the tokens are equal."""
+    import torch
+    (nxt, cache, lg), (e_nxt, e_cache, e_lg) = calls(
+        (params, tok, cache, pos), (2,), with_logits=True)
+    if not torch.equal(nxt.to_local(), e_nxt.to_local()):
+        raise AssertionError(f"jit_serve_step at {pos}: the graph's tokens "
+                             f"{nxt.to_local().tolist()}, eager "
+                             f"{e_nxt.to_local().tolist()}")
+    return (nxt, cache, lg), max(float((lg - e_lg).abs().max()),
+                                 _max_diff(_blocks(cache),
+                                           _blocks(e_cache)))
+
+
+def _pool_gib(fn) -> dict:
+    """The card's reserved GiB with ``fn``'s graphs held (every other
+    cached block released) and after they are dropped."""
+    import gc
+    import torch
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    fn.graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved() / 2 ** 30
+    return {"reserved_with_graphs_gib": held,
+            "reserved_after_clear_gib": after, "pool_gib": held - after}
 
 
 def _mesh_serve_dense(mesh) -> dict:
@@ -4929,17 +5111,12 @@ def _mesh_serve_dense(mesh) -> dict:
                                kind="decode"), _shapes(cfg), filled)
     placed = shspecs.place(mesh, params, s_in[0])
     cache = shspecs.place(mesh, filled, s_in[2])
-    ties, errs, ms, plain_ms, peak, above = 0, [], [], [], 0.0, 0.0
+    calls = _MeshGraphs(fn, "mesh_serve")
+    ties, errs, plain_ms, g_err = 0, [], [], 0.0
     for t in range(ST):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        nxt, cache, lg = fn(placed, tok, cache, SP + t, with_logits=True)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        top = torch.cuda.max_memory_allocated()
-        peak, above = max(peak, top / 1e9), max(above, (top - held) / 1e9)
+        (nxt, cache, lg), err = _mesh_token(calls, placed, tok, cache,
+                                            SP + t)
+        g_err = max(g_err, err)
         t0 = time.perf_counter()
         with torch.no_grad():
             want, plain = registry.decode_step(params, cfg, tok, plain,
@@ -4957,10 +5134,13 @@ def _mesh_serve_dense(mesh) -> dict:
     out = {"arch": cfg.name, "batch": SB, "max_len": SL, "prompt": SP,
            "tokens": ST, "greedy_ties": ties, "logits_rel_err": max(errs),
            "cache_max_abs_err": c_err, "split": repr(fn.split),
-           "step_wall_ms": ms, "unsharded_step_wall_ms": plain_ms,
-           "peak_gb": peak, "step_peak_above_held_gb": above,
+           "step_wall_ms": calls.ms, "unsharded_step_wall_ms": plain_ms,
+           "peak_gb": max(top for _, top in calls.tops) / 1e9,
+           "step_peak_above_held_gb": max(top - held for held, top
+                                          in calls.tops) / 1e9,
            "params_gb": sum(v.numel() * v.element_size()
-                            for v in params.values()) / 1e9}
+                            for v in params.values()) / 1e9,
+           "graphs": {**calls.report(g_err), **_pool_gib(fn)}}
     _free(params, placed, cache, plain, filled)
     return out
 
@@ -5007,26 +5187,10 @@ def _mesh_encdec(mesh) -> dict:
         cfg, fed, mesh, ShapeConfig("train", seq_len=Ss + St,
                                     global_batch=B, kind="train"),
         _shapes(cfg), batches[0])
-    params = shspecs.place(mesh, {k: v.clone() for k, v in init.items()},
-                           in_sh[0])
-    anchor = shspecs.place(mesh, init, in_sh[2])
-    state = fn.opt.init(params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    losses, step_ms = [], []
-    for b in batches:
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        params, state, loss = fn(params, state, anchor, b)
-        t1.record()
-        torch.cuda.synchronize()
-        step_ms.append(t0.elapsed_time(t1))
-        losses.append(float(loss.to_local()))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    above = peak - held / 1e9
+    params, losses, calls, graphs = _mesh_train_graphs(fn, mesh, init,
+                                                       in_sh, batches)
     got = {k: v.to_local() for k, v in params.items()}
-    del state, anchor, params
+    del params
     gc.collect()
     step, opt = steps.make_train_step(cfg, fed)
     p = {k: v.clone() for k, v in init.items()}
@@ -5048,10 +5212,13 @@ def _mesh_encdec(mesh) -> dict:
                              f"{l_err}")
     out = {"arch": cfg.name, "batch": B, "src_len": Ss, "tgt_len": St,
            "compute": "bf16", "remat": True, "split": repr(fn.split),
-           "step_ms": step_ms, "losses": losses, "peak_gb": peak,
-           "peak_above_held_gb": above, "unsharded_step_ms": plain_ms,
+           "step_ms": calls.ms, "losses": losses,
+           "peak_gb": max(top for _, top in calls.tops) / 1e9,
+           "peak_above_held_gb": max(top - held for held, top
+                                     in calls.tops) / 1e9,
+           "unsharded_step_ms": plain_ms,
            "param_max_abs_err_vs_unsharded": p_err,
-           "loss_rel_err_vs_unsharded": l_err}
+           "loss_rel_err_vs_unsharded": l_err, "graphs": graphs}
     del batches
     _free(p, ost, got)
 
@@ -5069,12 +5236,10 @@ def _mesh_encdec(mesh) -> dict:
     placed = shspecs.place(mesh, init, s_in[0])
     cache = shspecs.place(mesh, filled, s_in[2])
     tok = ref = torch.zeros(SB, dtype=torch.int32, device="cuda")   # BOS
-    errs, ms = [], []
+    scalls, errs, g_err = _MeshGraphs(sfn, "mesh_serve"), [], 0.0
     for t in range(ST):
-        t0 = time.perf_counter()
-        tok, cache, lg = sfn(placed, tok, cache, t, with_logits=True)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        (tok, cache, lg), err = _mesh_token(scalls, placed, tok, cache, t)
+        g_err = max(g_err, err)
         with torch.no_grad():
             want, plain = registry.decode_step(init, cfg, ref, plain, t)
         ref = torch.argmax(want, dim=-1).to(torch.int32)
@@ -5088,7 +5253,8 @@ def _mesh_encdec(mesh) -> dict:
                              f"{max(errs)}, cache {c_err}")
     out["serve"] = {"batch": SB, "src_len": SS, "tokens": ST,
                     "tokens_equal": True, "logits_rel_err": max(errs),
-                    "cache_max_abs_err": c_err, "step_wall_ms": ms}
+                    "cache_max_abs_err": c_err, "step_wall_ms": scalls.ms,
+                    "graphs": {**scalls.report(g_err), **_pool_gib(sfn)}}
     _free(init, placed, cache, plain, filled)
     return out
 
@@ -5117,7 +5283,15 @@ def phase_lm_mesh(rows: list = ()) -> None:
         (params, momentum, batch placed by the rules), each step's ms and
         the peak GB; losses and params against ``make_train_step(mesh=
         None)`` on the same batches within ``ENGINE_TOL`` (both run the
-        same local ops: 0.0 expected), its steps timed too;
+        same local ops: 0.0 expected), its steps timed too. Every step of
+        (a), (b) and (f) runs through the step's graphs (``fn.graphs``:
+        the first call eager, the second captured, the rest replays) and
+        is held against its eager body (``fn.eager``) on a copy of the
+        same inputs within ``ENGINE_TOL``, tokens equal: one capture a
+        step shape, no kernel wrapper launching in a replay; the
+        ``graphs`` line has each path's ms, eager and replayed, and the
+        card's reserved GiB with its graphs held and after they are
+        dropped;
     (b) Hymba-1.5B served by ``jit_serve_step``: B 4, a 2048-position
         cache prefilled with 64 tokens, 16 greedy tokens, uniform and
         ring, against ``make_serve_step`` on a copy: tokens equal, logits
@@ -5184,25 +5358,10 @@ def phase_lm_mesh(rows: list = ()) -> None:
         fn, (in_sh, _) = steps.jit_train_step(
             cfg, fed, mesh, shape, _shapes(cfg),
             registry.batch_spec(cfg, shape))
-        params = shspecs.place(mesh, {k: v.clone() for k, v in init.items()},
-                               in_sh[0])
-        anchor = shspecs.place(mesh, init, in_sh[2])
-        state = fn.opt.init(params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held_a = torch.cuda.memory_allocated()
-        mesh_losses, step_ms = [], []
-        for b in batches:
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            params, state, loss = fn(params, state, anchor, b)
-            t1.record()
-            torch.cuda.synchronize()
-            step_ms.append(t0.elapsed_time(t1))
-            mesh_losses.append(float(loss.to_local()))
-        peak_a = (torch.cuda.max_memory_allocated() - held_a) / 2 ** 30
+        params, mesh_losses, calls, graphs = _mesh_train_graphs(
+            fn, mesh, init, in_sh, batches)
+        report["graphs"] = {"train": graphs}
         got = {k: v.to_local() for k, v in params.items()}
-        del state, anchor
         gc.collect()
         step, opt = steps.make_train_step(cfg, fed)
         p = {k: v.clone() for k, v in init.items()}
@@ -5224,8 +5383,9 @@ def phase_lm_mesh(rows: list = ()) -> None:
                                  f"params {p_err}, losses {l_err}")
         report["train_full_width"] = {
             "arch": cfg.name, "batch": B, "seq_len": S, "compute": "bf16",
-            "remat": True, "step_ms": step_ms, "losses": mesh_losses,
-            "peak_gib": peak_a, "param_max_abs_err_vs_unsharded": p_err,
+            "remat": True, "step_ms": calls.ms, "losses": mesh_losses,
+            "peak_gib": max(top - held for held, top in calls.tops)
+            / 2 ** 30, "param_max_abs_err_vs_unsharded": p_err,
             "loss_rel_err_vs_unsharded": l_err,
             "unsharded_step_ms": plain_ms}
         line("train_full_width")
@@ -5253,13 +5413,11 @@ def phase_lm_mesh(rows: list = ()) -> None:
             cache = shspecs.place(mesh, {k: v.clone()
                                          for k, v in base.items()}, s_in[2])
             tok = ref_tok = first
-            errs, ms = [], []
+            calls, errs, g_err = _MeshGraphs(sfn, "mesh_serve"), [], 0.0
             for t in range(ST):
-                t0 = time.perf_counter()
-                tok, cache, lg = sfn(sparams, tok, cache, SP + t,
-                                     with_logits=True)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
+                (tok, cache, lg), err = _mesh_token(calls, sparams, tok,
+                                                    cache, SP + t)
+                g_err = max(g_err, err)
                 with torch.no_grad():
                     if ring:
                         want, plain = lm.decode_step_ring(init, cfg, ref_tok,
@@ -5281,7 +5439,9 @@ def phase_lm_mesh(rows: list = ()) -> None:
                                      f"{max(errs)}, cache {c_err}")
             serve_rep["ring" if ring else "uniform"] = {
                 "tokens": ST, "logits_rel_err": max(errs),
-                "cache_max_abs_err": c_err, "step_wall_ms": ms}
+                "cache_max_abs_err": c_err, "step_wall_ms": calls.ms}
+            report["graphs"]["serve_ring" if ring else "serve"] = {
+                **calls.report(g_err), **_pool_gib(sfn)}
             del sparams, cache, plain
         report["serve"] = {"arch": cfg.name, "batch": SB, "max_len": SL,
                            "prompt": SP, **serve_rep}
@@ -5358,6 +5518,18 @@ def phase_lm_mesh(rows: list = ()) -> None:
         # (f) the encoder-decoder at full width on the split path
         report["encdec"] = _mesh_encdec(mesh)
         line("encdec")
+        # the steps through their graphs, beside their eager bodies
+        g = report["graphs"]
+        g.update(serve_dense=report["serve_dense"]["graphs"],
+                 encdec_train=report["encdec"]["graphs"],
+                 encdec_serve=report["encdec"]["serve"]["graphs"])
+        g["summary"] = {name: {
+            "captures": v["captures"],
+            "eager_ms_median": statistics.median(v["eager_ms"]),
+            "replay_ms_median": statistics.median(v["replay_ms"]),
+            "reserved_with_graphs_gib": v["reserved_with_graphs_gib"],
+            "pool_gib": v["pool_gib"]} for name, v in list(g.items())}
+        line("graphs")
 
     # (e) reduced configs, the sharded train step, card vs CPU
     cpu_mesh = make_host_mesh(device="cpu")

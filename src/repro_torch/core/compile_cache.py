@@ -12,10 +12,10 @@ records each call's argument signature for when jax's private cache size
 is gone).
 
 ``GraphCache`` is the port's ``JitCache`` for the federated engines, the
-KD epoch and serving's decode: on CUDA tensors each (entry point, argument
-signature) runs eagerly the first time, is captured into a
-``torch.cuda.CUDAGraph`` the second time and replayed from then on; on
-CPU tensors the function runs eagerly. ``num_compiled`` and
+KD epoch, serving's decode and the LM mesh steps: on CUDA tensors each
+(entry point, argument signature) runs eagerly the first time, is
+captured into a ``torch.cuda.CUDAGraph`` the second time and replayed
+from then on; on CPU tensors the function runs eagerly. ``num_compiled`` and
 ``count(name)`` count the signatures either way. Arguments named
 ``inplace`` are the counterpart of ``JitCache``'s donated argnums: the
 graph reads and writes them where they live (the decode's params and
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.roofline import counter
 
@@ -147,7 +148,8 @@ def _cuda_device(leaves):
 def _leaf_key(x, own: bool, device) -> tuple:
     """A leaf's part of the signature: shape and dtype; an in-place leaf's
     address, strides and device too, so that another tensor there is
-    another graph and never a read of memory the graph no longer owns."""
+    another graph and never a read of memory the graph no longer owns (a
+    fake tensor, a dry run's, has no address: it runs eagerly)."""
     if not own:
         return tuple(x.shape), str(x.dtype)
     if not isinstance(x, torch.Tensor):
@@ -156,8 +158,8 @@ def _leaf_key(x, own: bool, device) -> tuple:
     if device is not None and x.device != device:
         raise ValueError(f"in-place leaf on {x.device}, the call runs on "
                          f"{device}")
-    return (tuple(x.shape), str(x.dtype), x.data_ptr(), x.stride(),
-            str(x.device))
+    return (tuple(x.shape), str(x.dtype),
+            None if is_fake(x) else x.data_ptr(), x.stride(), str(x.device))
 
 
 class _Graph:

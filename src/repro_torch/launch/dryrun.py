@@ -162,8 +162,8 @@ def lower_combo(arch: str, shape_name: str, mesh, mesh_name: str,
 
 
 def _train_program(cfg, shape, mesh, fed, pdtype, constrain_acts, opts):
-    """``jit_train_step`` and its placed arguments (params, momentum,
-    anchor, batch)."""
+    """``jit_train_step``'s eager body (a counter counts no graph) and its
+    placed arguments (params, momentum, anchor, batch)."""
     pstruct = params_struct(cfg, pdtype)
     bstruct = registry.batch_spec(cfg, shape, ACT_DTYPE)
     tkw = {k: int(opts[k]) for k in ("q_chunk", "loss_chunk")
@@ -181,7 +181,7 @@ def _train_program(cfg, shape, mesh, fed, pdtype, constrain_acts, opts):
     anchor = shspecs.place(mesh, {k: v.clone() for k, v in pstruct.items()},
                            pspec)
     batch = shspecs.place(mesh, _fake(bstruct), bspec)
-    return fn, (params, state, anchor, batch)
+    return fn.eager, (params, state, anchor, batch)
 
 
 def _prefill_program(cfg, shape, mesh, pdtype, constrain_acts, opts):
@@ -215,8 +215,8 @@ def _prefill_program(cfg, shape, mesh, pdtype, constrain_acts, opts):
 
 
 def _serve_program(cfg, shape, mesh, opts):
-    """``jit_serve_step`` (bf16 weights and cache) and its placed
-    arguments (params, token, cache, pos)."""
+    """``jit_serve_step``'s eager body (bf16 weights and cache) and its
+    placed arguments (params, token, cache, pos)."""
     pstruct = params_struct(cfg, ACT_DTYPE)      # serving: bf16 weights
     ring = opts.get("ring_cache", False) and \
         cfg.family in ("dense", "moe", "hybrid", "vlm", "ssm") and \
@@ -231,7 +231,7 @@ def _serve_program(cfg, shape, mesh, opts):
         unroll=opts.get("serve_unroll", False),
         window_slice=opts.get("window_slice", False), ring=ring)
     pspec, tspec, cache_spec, _ = in_specs
-    return fn, (shspecs.place(mesh, pstruct, pspec),
+    return fn.eager, (shspecs.place(mesh, pstruct, pspec),
                 shspecs.place(mesh, _fake(tok), tspec),
                 shspecs.place(mesh, _fake(cspec), cache_spec),
                 _fake(pos))

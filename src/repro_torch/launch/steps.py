@@ -13,7 +13,13 @@ On a ``("data", "model")`` (or ``("pod", "data", "model")``) mesh
 return the reference's trees as DTensors placed by the rules of
 ``sharding/specs.py``: params by ``param_pspecs``, momentum like its
 param, the batch by ``batch_pspecs``, the cache by ``cache_pspecs``, the
-tokens by ``token_pspec``. They run eagerly.
+tokens by ``token_pspec``. Each is a wrapper, which places the arguments
+and wraps the results on the host, around a body that sees only the
+rank's blocks and runs through the step's ``GraphCache`` (``fn.graphs``):
+on the card one CUDA graph a signature with its collectives inside, its
+first call eager and its second captured, as the reference's ``jax.jit``
+compiles one program a shape; on the CPU eagerly. ``fn.eager`` runs the
+same body without the cache (a roofline counter counts it).
 
 The train step computes on each rank's stored blocks, laid out by
 ``sharding.compute_layout`` (Megatron-LM's tensor parallelism, with its
@@ -43,6 +49,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.compile_cache import GraphCache
 from repro_torch.device import batch_to, params_device, same_memory
 from repro_torch.models import lm, moe as moe_mod, registry
 from repro_torch.models.attention import SeqShard
@@ -270,15 +277,27 @@ def _wrap(local: torch.Tensor, like):
                               stride=like.stride())
 
 
-def _store_blocks(out: dict, new: dict, inplace: bool) -> dict:
-    """The DTensors of ``out`` with their blocks replaced by ``new``'s:
-    written into their storage when ``inplace`` (donated), else new
-    DTensors."""
-    if inplace:
+def _write(dst: Optional[dict], new: Optional[dict]) -> Optional[dict]:
+    """``new``'s tensors written into ``dst``'s (a donated argument);
+    returns ``dst``."""
+    if dst is not None:
         for k, v in new.items():
-            out[k].to_local().copy_(v)
-        return out
-    return {k: _wrap(new[k], out[k]) for k in out}
+            dst[k].copy_(v)
+    return dst
+
+
+def _local(tree: Optional[dict]) -> Optional[dict]:
+    return None if tree is None else {k: v.to_local()
+                                      for k, v in tree.items()}
+
+
+def _run(graphs, name: str, body, args: tuple, inplace: tuple):
+    """A mesh step's ``body(*args)``: through ``graphs`` under ``name``
+    (on the card a CUDA graph a signature, eager on the CPU), or eagerly
+    where ``graphs`` is None (``fn.eager``)."""
+    if graphs is None:
+        return body(*args)
+    return graphs.call(name, body, args, inplace=inplace)
 
 
 def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
@@ -308,6 +327,13 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
     and its batch dim keeps the batch's own layout. A MoE batch the data
     axes do not divide has its flat tokens split evenly over them in the
     dispatch.
+
+    The body runs through ``fn.graphs`` under ``"mesh_train"``: the
+    anchor's blocks in place (read only: pass the same anchor through a
+    client's steps), and so the params' and momentum's when ``donate``;
+    otherwise they, the batch's rows and a schedule's step tensor are
+    copied in. A constant rate's host-int step never enters the graph:
+    the wrapper counts it.
     """
     from torch.distributed.tensor import DTensor, Replicate
     _check_lm(cfg)
@@ -335,33 +361,53 @@ def jit_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
     bpl = shspecs.named(mesh, bspec)
     rep = (Replicate(),) * len(mesh.mesh_dim_names)
 
-    def fn(params, opt_state, anchor, batch):
-        params = {k: _dtensor(v, mesh, pl[k]) for k, v in params.items()}
-        anchor = {k: _dtensor(v, mesh, pl[k]) for k, v in anchor.items()}
-        mom = opt_state["mom"]
-        if mom is not None:
-            mom = {k: _dtensor(v, mesh, pl[k]) for k, v in mom.items()}
-        if donate and any(same_memory(anchor[k].to_local(),
-                                      params[k].to_local())
-                          for k in params):
-            raise ValueError("donated params share storage with the anchor")
-        rows = {k: _dtensor(v, mesh, bpl[k]).to_local()
-                for k, v in batch.items()}
-        local = {k: v.to_local() for k, v in params.items()}
-        loss, grads = grads_of(local, {k: v.to_local() for k, v in
-                                       anchor.items()}, rows)
-        state = {"mom": None if mom is None else
-                 {k: v.to_local() for k, v in mom.items()},
-                 "step": opt_state["step"]}
+    def body(local, mom, anchor, rows, step):
+        """The step on the rank's blocks and rows (plain tensors): its new
+        blocks, momentum, loss and step, the blocks and momentum written
+        into ``local`` / ``mom`` when ``donate``."""
+        loss, grads = grads_of(local, anchor, rows)
         with torch.no_grad():
-            new_p, new_s = opt.update(grads, state, local)
-        out_p = _store_blocks(params, new_p, donate)
-        out_m = None if mom is None else _store_blocks(mom, new_s["mom"],
-                                                       donate)
-        loss = DTensor.from_local(loss, mesh, rep, run_check=False)
-        return out_p, {"mom": out_m, "step": new_s["step"]}, loss
+            new_p, new_s = opt.update(grads, {"mom": mom, "step": step},
+                                      local)
+            new_m = new_s["mom"]
+            if donate:
+                new_p, new_m = _write(local, new_p), _write(mom, new_m)
+        return new_p, new_m, loss, new_s["step"]
 
-    fn.opt, fn.split = opt, split
+    def make(graphs):
+        def fn(params, opt_state, anchor, batch):
+            params = {k: _dtensor(v, mesh, pl[k]) for k, v in params.items()}
+            anchor = {k: _dtensor(v, mesh, pl[k]) for k, v in anchor.items()}
+            mom = opt_state["mom"]
+            if mom is not None:
+                mom = {k: _dtensor(v, mesh, pl[k]) for k, v in mom.items()}
+            if donate and any(same_memory(anchor[k].to_local(),
+                                          params[k].to_local())
+                              for k in params):
+                raise ValueError("donated params share storage with the "
+                                 "anchor")
+            rows = {k: _dtensor(v, mesh, bpl[k]).to_local()
+                    for k, v in batch.items()}
+            # a constant rate's step is a host int no graph reads (its
+            # value would key a graph a step); a schedule's is an input
+            step = opt_state["step"]
+            traced = isinstance(step, torch.Tensor)
+            new_p, new_m, loss, new_step = _run(
+                graphs, "mesh_train", body,
+                (_local(params), _local(mom), _local(anchor), rows,
+                 step if traced else 0), (0, 1, 2) if donate else (2,))
+            if not donate:
+                params = {k: _wrap(new_p[k], params[k]) for k in params}
+                mom = None if mom is None else {k: _wrap(new_m[k], mom[k])
+                                                for k in mom}
+            loss = DTensor.from_local(loss, mesh, rep, run_check=False)
+            return params, {"mom": mom, "step": new_step if traced
+                            else step + 1}, loss
+        fn.graphs = graphs
+        return fn
+
+    fn = make(GraphCache())
+    fn.eager, fn.opt, fn.split = make(None), opt, split
     return fn, (in_sh, out_sh)
 
 
@@ -481,7 +527,14 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     step and split back. ``donate``: the cache is written in place, and
     the DTensors passed in come back. ``fn(..., with_logits=True)`` also
     returns the rank's rows' logits (plain; gathered over ``"model"``
-    on that call where it splits the vocabulary), for checks.
+    on that call where it splits the vocabulary), for checks: a signature
+    of its own.
+
+    The body runs through ``fn.graphs`` under ``"mesh_serve"``: the
+    params' blocks in place (read only), and so the cache's when
+    ``donate`` (otherwise a copy of it is copied in); the token and the
+    positions are copied in, an int ``pos`` made the rows' (B,)
+    positions first, so every position replays one graph.
     """
     from torch.distributed.tensor import DTensor
     step_kw = {}
@@ -505,33 +558,26 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
            for k, s in cspec.items()}
 
     @torch.no_grad()
-    def fn(params, token, cache, pos, with_logits: bool = False):
-        local = {k: _dtensor(v, mesh, pl[k]).to_local()
-                 for k, v in params.items()}
-        token = _dtensor(token, mesh, tpl)
-        tok = token.to_local()
-        if isinstance(pos, torch.Tensor):      # every row's, or one for all
-            pos = pos.to(tok.device)
-            pos = _block(pos, mesh, tpl) if pos.dim() else \
-                pos.reshape(1).expand(tok.shape[0])
-        cache = {k: _dtensor(v, mesh, cpl[k]) for k, v in cache.items()}
-        if not donate:
-            cache = {k: _wrap(v.to_local().clone(), v)
-                     for k, v in cache.items()}
+    def body(local, tok, cache, pos, with_logits):
+        """The step on the rank's blocks, rows and (B,) positions (plain
+        tensors): the next tokens (and logits), ``cache`` written in
+        place and returned."""
         shards, work, regather = {}, {}, []
         for k, v in cache.items():
             seq = _SEQ_SPLIT.get(k)
             if seq is not None:
-                sh = _seq_shard(mesh, cspec[seq], cache[seq].to_local()
-                                .shape[2])
+                sh = _seq_shard(mesh, cspec[seq], cache[seq].shape[2])
                 if sh is not None:
                     shards[seq] = sh
-                work[k] = v.to_local()
+                work[k] = v
             elif cpl[k] != rpl[k] and not (k == "ssm_state" and own_state):
-                work[k] = v.redistribute(mesh, rpl[k]).to_local()
+                # every split of the cache is even (cache_pspecs)
+                work[k] = DTensor.from_local(
+                    v, mesh, cpl[k], run_check=False).redistribute(
+                        mesh, rpl[k]).to_local()
                 regather.append(k)
             else:
-                work[k] = v.to_local()
+                work[k] = v
         if ring and cfg.family in lm.FAMILIES:
             logits, work = lm.decode_step_ring(local, cfg, tok, work, pos,
                                                seq_shards=shards,
@@ -541,7 +587,7 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                                                 seq_shards=shards,
                                                 split=split, **step_kw)
         for k in regather:
-            cache[k].to_local().copy_(DTensor.from_local(
+            cache[k].copy_(DTensor.from_local(
                 work[k], mesh, rpl[k], run_check=False).redistribute(
                     mesh, cpl[k]).to_local())
         if split.vocab:
@@ -550,9 +596,37 @@ def jit_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                 logits = split.vocab_whole(logits)
         else:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = DTensor.from_local(nxt, mesh, tpl, run_check=False,
-                                 shape=token.shape, stride=token.stride())
         return (nxt, cache, logits) if with_logits else (nxt, cache)
 
-    fn.split = split
+    def make(graphs):
+        @torch.no_grad()
+        def fn(params, token, cache, pos, with_logits: bool = False):
+            local = {k: _dtensor(v, mesh, pl[k]).to_local()
+                     for k, v in params.items()}
+            token = _dtensor(token, mesh, tpl)
+            tok = token.to_local()
+            # the rank's rows' (B,) int32 positions, from every row's or
+            # one for all: an int would key a graph a position
+            if isinstance(pos, torch.Tensor):
+                pos = pos.to(tok.device, torch.int32)
+                pos = _block(pos, mesh, tpl) if pos.dim() else \
+                    pos.reshape(1).expand(tok.shape[0])
+            else:
+                pos = lm._decode_pos(pos, tok.shape[0], tok.device)
+            cache = {k: _dtensor(v, mesh, cpl[k]) for k, v in cache.items()}
+            out = _run(graphs, "mesh_serve", body,
+                       (local, tok, _local(cache) if donate else
+                        {k: v.to_local().clone() for k, v in cache.items()},
+                        pos, with_logits), (0, 2) if donate else (0,))
+            nxt = DTensor.from_local(out[0], mesh, tpl, run_check=False,
+                                     shape=token.shape,
+                                     stride=token.stride())
+            if not donate:
+                cache = {k: _wrap(out[1][k], cache[k]) for k in cache}
+            return (nxt, cache, *out[2:])
+        fn.graphs = graphs
+        return fn
+
+    fn = make(GraphCache())
+    fn.eager, fn.split = make(None), split
     return fn, (in_sh, out_sh)

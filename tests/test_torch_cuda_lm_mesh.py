@@ -9,6 +9,12 @@ its own card without a mesh:
   ``make_train_step(mesh=None)`` on the whole batch; each step's ms, the
   card's peak GB, the last step's profile (device ms, the ops with the
   most device and host time);
+- every mesh train step and token below through the step's CUDA graphs
+  (``fn.graphs``: one capture a shape, the third step and the tokens
+  after the second replays), each against the rank's eager body on a
+  copy of the same inputs within ``ENGINE_TOL`` (tokens equal), TF32
+  off and cuDNN deterministic; a replayed step's and token's NCCL
+  kernels, their device ms and the host's kernel launches (profiler);
 - Hymba-1.5B and h2o-danube-3-4b served by ``jit_serve_step`` on the
   rank's blocks, a layer gathered at a time: B 4, a 2048-position cache
   (its sequence dim split over ``"model"``) prefilled with 64 tokens, 16
@@ -85,6 +91,7 @@ ENCDEC_SERVE = (4, 512, 16)
 # sums reduce in another order
 SPLIT_CE_RTOL = 1e-5
 KERNEL_CE_RTOL = 1e-4          # kernel 5 against the eager attend (f32)
+ENGINE_TOL = 1e-6              # a replay against its eager body
 
 
 def _card() -> str:
@@ -122,10 +129,16 @@ def _encdec_batches(cfg) -> list:
 def _train(mesh, cfg, gathered: bool = False) -> dict:
     """``cfg`` at full width (f32 params, bf16 compute, remat) through
     ``jit_train_step`` on ``mesh``, ``TRAIN``'s batches
-    (``ENCDEC_TRAIN``'s for the encoder-decoder): each step's ms, the
-    card's peak GB, the last step's profile and collectives (read times
-    from the other steps); with ``gathered`` the same steps again with
-    every leaf gathered over ``"model"`` (``_all_gathered``). The losses
+    (``ENCDEC_TRAIN``'s for the encoder-decoder), through the step's
+    CUDA graphs (the first step eager, the second captured, the third
+    replayed), then, the graphs dropped, through its eager body
+    (``fn.eager``) from the same params: every loss and the last params
+    and momentum within ``ENGINE_TOL``; each step's ms and the eager
+    body's, the card's peak GB over the graph calls and with the graphs
+    held, the last step's profile and what it ran on the card (NCCL
+    kernels by kind, host launches) beside the eager body's last step
+    (its profile and the collectives it dispatched); with ``gathered`` the same steps again with every
+    leaf gathered over ``"model"`` (``_all_gathered``). The losses
     against ``make_train_step(mesh=None)`` on the whole batches on this
     card alone."""
     import numpy as np
@@ -158,32 +171,59 @@ def _train(mesh, cfg, gathered: bool = False) -> dict:
             fn, (in_sh, _) = steps.jit_train_step(cfg, fed, mesh, shape,
                                                   _shapes(cfg), batches[0])
         whole = init()
-        params = shspecs.place(mesh, {k: v.clone() for k, v in
-                                      whole.items()}, in_sh[0])
         anchor = shspecs.place(mesh, whole, in_sh[2])
-        del whole
-        _free()
-        state = fn.opt.init(params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, ms = [], []
+
+        def start():
+            params = shspecs.place(mesh, {k: v.clone() for k, v in
+                                          whole.items()}, in_sh[0])
+            return params, fn.opt.init(params)
+        params, state = start()
+        losses, ms, peak = [], [], 0.0
         for i, b in enumerate(batches):
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            last = i == len(batches) - 1
-            prof = _profiler() if last else contextlib.nullcontext()
-            with prof, _Collectives() if last else \
-                    contextlib.nullcontext() as coll:
+            prof = _profiler() if i == len(batches) - 1 else \
+                contextlib.nullcontext()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with prof:
                 t0.record()
                 params, state, loss = fn(params, state, anchor, b)
                 t1.record()
                 torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
             ms.append(t0.elapsed_time(t1))
             losses.append(float(loss.to_local()))
+        graphs = _graphs(fn, "mesh_train")
+        # the eager body from the same params, the graphs dropped
+        e_p, e_s = start()
+        del whole
+        _free()
+        eager_ms, err = [], 0.0
+        for i, (b, got) in enumerate(zip(batches, losses)):
+            last = i == len(batches) - 1
+            eprof = _profiler() if last else contextlib.nullcontext()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with eprof, _Collectives() if last else \
+                    contextlib.nullcontext() as coll:
+                t0.record()
+                e_p, e_s, e_loss = fn.eager(e_p, e_s, anchor, b)
+                t1.record()
+                torch.cuda.synchronize()
+            eager_ms.append(t0.elapsed_time(t1))
+            e_loss = float(e_loss.to_local())
+            err = max(err, abs(got - e_loss) / abs(e_loss))
+        err = max(err, _blocks_diff(params, e_p),
+                  _blocks_diff(state["mom"], e_s["mom"]))
+        graphs.update(graph_vs_eager_err=err, graphs_ok=graphs["captures"]
+                      == graphs["signatures"] == 1 and err <= ENGINE_TOL)
         runs[name] = {"split": repr(fn.split), "losses": losses,
-                      "step_ms": ms,
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "step_ms": ms, "eager_step_ms": eager_ms,
+                      "peak_gb": peak, **graphs,
                       "last_step_profile": _top_ops(prof),
-                      "last_step_collectives": coll.count}
+                      "last_step_on_card": _on_card(prof),
+                      "eager_last_step_on_card": _on_card(eprof),
+                      "eager_step_collectives": coll.count}
+        del e_p, e_s
         del params, state, anchor
         _free()
     step, opt = steps.make_train_step(cfg, fed)
@@ -200,8 +240,77 @@ def _train(mesh, cfg, gathered: bool = False) -> dict:
     got = {**runs.pop("split"), "one_card_losses": want}
     got["ok"] = got["loss_rel_err"] <= BF16_LOSS_RTOL and all(
         math.isfinite(x) for x in got["losses"]) and all(
-        r["loss_rel_err"] <= BF16_LOSS_RTOL for r in runs.values())
+        r["loss_rel_err"] <= BF16_LOSS_RTOL for r in runs.values()) and \
+        all(r["graphs_ok"] for r in (got, *runs.values()))
     return {**got, **runs}
+
+
+def _copy(tree):
+    """A copy of a tree of DTensors (their blocks cloned), tensors and
+    other values: a donated argument kept for the eager body."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return DTensor.from_local(tree.to_local().clone(), tree.device_mesh,
+                                  tree.placements, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _nbytes(tree) -> int:
+    """The bytes of a tree's tensors (a DTensor's block)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return sum(map(_nbytes, tree.values()))
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def _blocks_diff(got: dict, want: dict) -> float:
+    """The largest absolute difference of two dicts of DTensors' blocks."""
+    return max(float((got[k].to_local().float() - want[k].to_local()
+                      .float()).abs().max()) for k in got)
+
+
+def _graphs(fn, entry: str) -> dict:
+    """A mesh step's graphs after its calls, then dropped: captures and
+    signatures under ``entry``, the card's reserved GB with the graphs
+    held (every other cached block released) and the graphs' pool."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 1e9
+    got = {"captures": fn.graphs.captures(entry),
+           "signatures": fn.graphs.count(entry),
+           "reserved_with_graphs_gb": held}
+    fn.graphs.clear()
+    _free()
+    got["pool_gb"] = held - torch.cuda.memory_reserved() / 1e9
+    return got
+
+
+_NCCL_KINDS = ("AllReduce", "AllGather", "ReduceScatter", "SendRecv",
+               "AllToAll", "Broadcast")
+
+
+def _on_card(prof) -> dict:
+    """What a profiled replay ran: its NCCL kernels by kind (count and
+    device ms), the kernels launched from the host and the graphs
+    launched."""
+    out = {"host_kernel_launches": 0, "graph_launches": 0, "nccl": {}}
+    for e in prof.key_averages():
+        if e.key.startswith("cudaLaunchKernel"):
+            out["host_kernel_launches"] += e.count
+        elif e.key.startswith("cudaGraphLaunch"):
+            out["graph_launches"] += e.count
+        elif "nccl" in e.key.lower() and "kernel" in e.key.lower():
+            kind = next((k for k in _NCCL_KINDS if k in e.key), "other")
+            d = out["nccl"].setdefault(kind, {"count": 0, "device_ms": 0.0})
+            d["count"] += e.count
+            d["device_ms"] += getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0)) / 1e3
+    return out
 
 
 class _Collectives(contextlib.AbstractContextManager):
@@ -273,7 +382,12 @@ def _serve(mesh, cfg, gathered: bool = False,
     """``cfg`` at full width (f32) served by ``jit_serve_step`` on
     ``mesh`` (``SERVE``; the encoder-decoder ``ENCDEC_SERVE`` from BOS
     after a prefilled source), the whole params freed before the mesh's
-    steps: each token's wall ms and the card's peak GB over them. With
+    steps: each token through the step's CUDA graphs (the first eager,
+    the second captured, the rest replayed) and through its eager body
+    (``fn.eager``) on a copy of the cache, the tokens equal and the
+    logits and cache within ``ENGINE_TOL``; each token's wall ms, the
+    eager body's, the card's peak GB over the graph calls and with the
+    graphs held, what the last token ran on the card. With
     ``gathered`` the same steps again with every leaf gathered over
     ``"model"`` (``_all_gathered``). Then the whole batch decoded on this
     card alone, fed the mesh's tokens: the same picks but for near-ties
@@ -325,18 +439,40 @@ def _serve(mesh, cfg, gathered: bool = False,
     for name, fn in fns.items():
         c = shspecs.place(mesh, {k: v.clone() for k, v in cache.items()},
                           in_sh[2])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tok, picks, lks, ms = first, [], [], []
+        tok, picks, lks, ms, eager_ms = first, [], [], [], []
+        peak, err, same = 0.0, 0.0, True
         for t in range(T):
+            before = _copy(c)
+            prof = _profiler() if t == T - 1 else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with prof:
+                t0 = time.perf_counter()
+                nxt, c, lk = fn(placed, tok, c, P + t, with_logits=True)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, (torch.cuda.max_memory_allocated()
+                              - _nbytes(before)) / 1e9)
             t0 = time.perf_counter()
-            nxt, c, lk = fn(placed, tok, c, P + t, with_logits=True)
+            e_nxt, e_c, e_lk = fn.eager(placed, tok, before, P + t,
+                                        with_logits=True)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            same = same and torch.equal(nxt.to_local(), e_nxt.to_local())
+            err = max(err, float((lk - e_lk).abs().max()),
+                      _blocks_diff(c, e_c))
+            del before, e_c
             tok = nxt.full_tensor()
-            ms.append((time.perf_counter() - t0) * 1e3)
             picks.append(tok)
             lks.append(lk)
+        graphs = _graphs(fn, "mesh_serve")
         out[name] = {"split": repr(fn.split), "step_wall_ms": ms,
-                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "eager_step_wall_ms": eager_ms, "peak_gb": peak,
+                     "tokens_equal_eager": same, **graphs,
+                     "graph_vs_eager_err": err, "graphs_ok":
+                     graphs["captures"] == graphs["signatures"] == 1
+                     and err <= ENGINE_TOL,
+                     "last_token_on_card": _on_card(prof),
                      "picks": picks, "logits": lks}
         del c
     del placed
@@ -360,11 +496,13 @@ def _serve(mesh, cfg, gathered: bool = False,
         tok = picks
     del params, plain
     _free()
-    got = {"ok": True, "arch": cfg.name, "tokens": T, "greedy_ties": ties,
+    got = {"ok": all(r["graphs_ok"] and r["tokens_equal_eager"]
+                     for r in out.values()),
+           "arch": cfg.name, "tokens": T, "greedy_ties": ties,
            "logits_rel_err": max(errs), "cache_dtype": str(cache_dtype)}
     for name, run in out.items():
-        got[name] = {k: run[k] for k in ("split", "step_wall_ms",
-                                          "peak_gb")}
+        got[name] = {k: v for k, v in run.items()
+                     if k not in ("picks", "logits")}
     if gathered:
         got["gathered"]["picks_equal_split"] = all(
             torch.equal(a, b) for a, b in zip(out["split"]["picks"],
@@ -636,7 +774,11 @@ def _rank_main(out_dir: str) -> int:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import destroy_world, init_world, make_mesh
     init_world()
+    # TF32 off and cuDNN deterministic (chip_smoke's _Exact): a replay
+    # equals its eager body bit for bit
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     world = dist.get_world_size()
     shapes = [(2, 2)] if world == 4 else [(1, world), (world, 1)]
     cfg = get_config("hymba-1.5b")

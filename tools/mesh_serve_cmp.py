@@ -5,7 +5,12 @@ Loads a checkout's ``tests/test_torch_cuda_lm_mesh.py`` and runs its
 ``_train`` and ``_serve`` on the (2, 2) ``("data", "model")`` mesh:
 Hymba-1.5B's train step (its last, profiled step also counting the
 collectives it dispatches) and its serve step (the last token counting
-its collectives). Rank 0 writes every rank's report to OUT as JSON.
+its collectives). Where the checkout's steps run as CUDA graphs, those
+steps and tokens are replays, which dispatch nothing: the counts are
+then the eager body's last step and token (``fn.eager``), and the
+report has what the replays ran on the card (``last_step_on_card``,
+``last_token_on_card``). Rank 0 writes every rank's report to OUT as
+JSON.
 Run under ``torchrun`` on four cards with that checkout's ``src`` first
 on ``PYTHONPATH``; ``tools/mesh_serve_cmp.sh`` runs two checkouts in
 turns.
@@ -56,23 +61,33 @@ class _CountedProfile:
         return self.prof.key_averages()
 
 
+def _counting(call, n: int, box: list):
+    """``call`` counting the collectives of its ``n``-th call into
+    ``box``."""
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        if calls[0] != n:
+            return call(*a, **k)
+        with _Collectives() as c:
+            out = call(*a, **k)
+        box.append(c.count)
+        return out
+    vars(counted).update(vars(call))
+    return counted
+
+
 def _count_call(make, n: int, box: list):
-    """``jit_serve_step`` whose ``fn`` counts the collectives of its
-    ``n``-th call into ``box``."""
+    """``jit_serve_step`` whose eager body (``fn.eager``; ``fn`` where it
+    has none) counts the collectives of its ``n``-th call into
+    ``box``."""
     def wrapped(*a, **k):
         fn, specs = make(*a, **k)
-        calls = [0]
-
-        def counted(*fa, **fk):
-            calls[0] += 1
-            if calls[0] != n:
-                return fn(*fa, **fk)
-            with _Collectives() as c:
-                out = fn(*fa, **fk)
-            box.append(c.count)
-            return out
-        counted.split = fn.split
-        return counted, specs
+        if hasattr(fn, "eager"):
+            fn.eager = _counting(fn.eager, n, box)
+            return fn, specs
+        return _counting(fn, n, box), specs
     return wrapped
 
 
@@ -93,7 +108,7 @@ def main(test_file: str, out: str) -> int:
     mod._profiler = lambda: _CountedProfile(profiler(), train_box)
     res = {"hymba_train": mod._train(mesh, cfg)}
     mod._profiler = profiler
-    res["hymba_train"]["last_step_collectives"] = train_box[0]
+    res["hymba_train"]["last_step_collectives"] = train_box[-1]
     mod._free()
     make = steps.jit_serve_step
     steps.jit_serve_step = _count_call(make, mod.SERVE[3], serve_box)

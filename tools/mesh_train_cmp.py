@@ -5,8 +5,10 @@ Runs ``jit_train_step`` of seamless-m4t-large-v2 on the (2, 2)
 ``("data", "model")`` mesh, one rank a card, from random seeded f32
 weights (bf16 compute, remat): ``STEPS`` steps of B 2 x 2048 source
 frames x 1024 target tokens, each step's ms (CUDA events), the card's
-peak GB over the steps and the collectives the last step dispatches
-(counted under a dispatch mode: read times from the other steps). Uses
+peak GB over the steps and the collectives the first step dispatches
+(counted under a dispatch mode: read times from the other steps; the
+first call of a shape runs eagerly on either tree, where the later ones
+may replay a CUDA graph, which dispatches nothing). Uses
 only the entry points both trees share, so the checkout whose ``src``
 is first on ``PYTHONPATH`` is the one measured. Rank 0 writes every
 rank's report to ``--out`` as JSON:
@@ -78,20 +80,19 @@ def main(argv=None) -> int:
     losses, ms, counted = [], [], {}
     for i, b in enumerate(batches):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        last = i == len(batches) - 1
-        with _Collectives() if last else contextlib.nullcontext() as mode:
+        with _Collectives() if i == 0 else contextlib.nullcontext() as mode:
             t0.record()
             params, state, loss = fn(params, state, anchor, b)
             t1.record()
             torch.cuda.synchronize()
-        if last:
+        if i == 0:
             counted = mode.count
         ms.append(t0.elapsed_time(t1))
         losses.append(float(loss.to_local()))
     rep = {"arch": cfg.name, "batch": B, "src": src, "tgt": tgt,
            "losses": losses, "step_ms": ms, "held_gb": held,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "last_step_collectives": counted,
+           "first_step_collectives": counted,
            "split": repr(getattr(fn, "split", None))}
     per = [None] * dist.get_world_size()
     dist.all_gather_object(per, rep)
